@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels.
+
+Each `flash_attn_tpu_torch/csrc/<name>.cu` exposes a plain C interface and is
+compiled by `nvcc` into `build/kernels/<name>-<hash>.so` at the repository
+root the first time a wrapper needs it; the hash covers the source and the
+flags, so an edited source builds anew. The library is then loaded with
+`ctypes`. Nothing here runs when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Iterable
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO_ROOT = os.path.dirname(_PKG_DIR)
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def library_path(name: str) -> str:
+    """Where the built library of `csrc/<name>.cu` lives."""
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build_libraries(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that is not built yet, all `nvcc`
+    processes at once. Returns {name: compiler output} for the sources
+    built by this call; raises with the compiler's output on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: no concurrent build sees half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if needed and load it."""
+    build_libraries([name])
+    return ctypes.CDLL(library_path(name))

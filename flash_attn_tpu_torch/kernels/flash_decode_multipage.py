@@ -1,0 +1,231 @@
+"""Paged decode over small pages (counterpart of
+flash_attn_tpu/kernels/flash_decode_multipage.py).
+
+`flash_attention_decode_multipage` attends new query tokens to a paged KV
+pool: decode steps (sq = 1) and chunked-prefill steps alike. On CUDA tensors
+it launches the hand-written kernel in `csrc/paged_decode.cu`; on CPU
+tensors it computes `flash_attention_decode_multipage_ref`, the plain
+version of the same function, which is also what the kernel is checked
+against on the card.
+
+Pools are (npages, hk, page, d), or one fused pool (npages, hk, page,
+Kpad + Vpad) with K at [:d] and V at [Kpad:Kpad + dv] (Kpad = d rounded up
+to 128, as `runtime.kv_cache.allocate_fused_paged_kv_cache` lays it out).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from flash_attn_tpu_torch.kernels.common import round_up
+
+_LANES = 128  # section padding of the fused K|V pool (runtime/kv_cache.py)
+
+
+def _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v):
+    """(K view, V view, dv) of a fused K|V pool."""
+    kpad = round_up(fused_kv_dim, _LANES)
+    dv = fused_kv_dim_v if fused_kv_dim_v else k_pages.shape[3] - kpad
+    if k_pages.shape[3] != kpad + round_up(dv, _LANES):
+        raise ValueError(
+            f"fused pool width {k_pages.shape[3]} does not hold K ({fused_kv_dim}) "
+            f"and V ({dv}) padded to {_LANES}"
+        )
+    return k_pages[..., :fused_kv_dim], k_pages[..., kpad : kpad + dv], dv
+
+
+def _check_unported(qv, k_scale, v_scale, k_pages):
+    if qv is not None:
+        raise NotImplementedError(
+            "qv (MLA absorbed decode) is not ported yet: ROADMAP queue 2, "
+            "kernel 4 (qv path)"
+        )
+    if k_scale is not None or v_scale is not None or k_pages.element_size() == 1:
+        raise NotImplementedError(
+            "1-byte (int8/fp8) pools with descales are not ported yet: "
+            "ROADMAP queue 2, kernel 4 (quantized pools)"
+        )
+
+
+def flash_attention_decode_multipage_ref(
+    q: torch.Tensor,          # (b, sq, h, d)
+    k_pages: torch.Tensor,    # (npages, hk, page, d), or fused (.., Kpad+Vpad)
+    v_pages: Optional[torch.Tensor],
+    cache_seqlens: torch.Tensor,  # (b,) total lengths, new tokens included
+    block_table: torch.Tensor,    # (b, max_pages) int32
+    *,
+    fused_kv_dim: int = 0,
+    fused_kv_dim_v: int = 0,
+    softmax_scale: Optional[float] = None,
+    window_left: int = -1,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, step by step in fp32: gather the
+    pages through the block table, scores, mask, softmax. Returns
+    (out (b, sq, h, dv) in q's dtype, lse (b, h, sq) fp32)."""
+    b, sq, h, d = q.shape
+    npages, hk, page, _ = k_pages.shape
+    group = h // hk
+    if fused_kv_dim > 0:
+        k_pool, v_pool, dv = _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v)
+    else:
+        k_pool, v_pool, dv = k_pages, v_pages, v_pages.shape[3]
+    if softmax_scale is None:
+        softmax_scale = d**-0.5
+    table = block_table.long()
+    # Page ids outside the pool read as zeros, as in the kernel.
+    valid = (table >= 0) & (table < npages)
+    ids = table.clamp(0, npages - 1)
+
+    def gather(pool, width):
+        x = pool[ids].float() * valid[:, :, None, None, None]
+        # (b, max_pages, hk, page, w) -> (b, hk, max_pages * page, w)
+        return x.permute(0, 2, 1, 3, 4).reshape(b, hk, -1, width)
+
+    k = gather(k_pool, d)
+    v = gather(v_pool, dv)
+    ncols = k.shape[2]
+    qf = q.float().reshape(b, sq, hk, group, d)
+    s = torch.einsum("btkgd,bkcd->bktgc", qf, k) * softmax_scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    seqlen = cache_seqlens.long().reshape(b, 1, 1)
+    pos = seqlen - sq + torch.arange(sq, device=q.device).reshape(1, sq, 1)
+    cols = torch.arange(ncols, device=q.device).reshape(1, 1, ncols)
+    visible = (cols < seqlen) & (cols <= pos)
+    if window_left >= 0:
+        visible &= cols >= pos - window_left
+    visible = visible[:, None, :, None, :]  # (b, 1, sq, 1, ncols)
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)  # exp(-inf) = 0 on masked columns
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bktgc,bkcd->btkgd", p, v)
+    out = out / l.permute(0, 2, 1, 3, 4).clamp_min(1e-37)
+    out = torch.where(
+        l.permute(0, 2, 1, 3, 4) > 0, out, torch.zeros_like(out)
+    ).reshape(b, sq, h, dv)
+    lse = torch.where(
+        l > 0, m + torch.log(l.clamp_min(1e-37)),
+        torch.full_like(l, float("-inf")),
+    )  # (b, hk, sq, group, 1)
+    lse = lse[..., 0].permute(0, 1, 3, 2).reshape(b, h, sq)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_decode_multipage(
+    q: torch.Tensor,          # (b, sq, h, d)
+    k_pages: torch.Tensor,    # (npages, hk, page, d), or fused (.., Kpad+Vpad)
+    v_pages: Optional[torch.Tensor],
+    cache_seqlens: torch.Tensor,  # (b,) int32 total lengths
+    block_table: torch.Tensor,    # (b, max_pages) int32
+    *,
+    qv: Optional[torch.Tensor] = None,
+    fused_kv_dim: int = 0,
+    fused_kv_dim_v: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    window_left: int = -1,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged decode. Returns (out (b, sq, h, dv), lse (b, h, sq) fp32).
+
+    CUDA tensors launch `csrc/paged_decode.cu` (and count the launch in
+    `flash_attention_decode_multipage.launches`); CPU tensors take
+    `flash_attention_decode_multipage_ref`."""
+    _check_unported(qv, k_scale, v_scale, k_pages)
+    kw = dict(fused_kv_dim=fused_kv_dim, fused_kv_dim_v=fused_kv_dim_v,
+              softmax_scale=softmax_scale, window_left=window_left,
+              softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_attention_decode_multipage_ref(
+            q, k_pages, v_pages, cache_seqlens, block_table, **kw
+        )
+    return _launch(q, k_pages, v_pages, cache_seqlens, block_table, **kw)
+
+
+flash_attention_decode_multipage.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    fn = load_library("paged_decode").paged_decode_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
+            fused_kv_dim, fused_kv_dim_v, softmax_scale, window_left, softcap):
+    b, sq, h, d = q.shape
+    npages, hk, page, width = k_pages.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode runs on cuda or cpu, not {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"the CUDA kernel takes bf16/fp16 q, got {q.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"the CUDA kernel takes head dim 64 or 128, got {d}")
+    if h % hk != 0:
+        raise ValueError(f"{h} query heads do not group over {hk} kv heads")
+    if fused_kv_dim > 0:
+        if v_pages is not None or fused_kv_dim != d:
+            raise ValueError("a fused pool takes v_pages=None and "
+                             "fused_kv_dim == head dim")
+        _, _, dv = _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v)
+        v_base, k_row, v_row = k_pages, width, width
+        v_offset = round_up(d, _LANES)
+    else:
+        if v_pages is None or v_pages.shape != k_pages.shape or width != d:
+            raise ValueError(
+                f"split pools must both be (npages, hk, page, {d}); got "
+                f"{tuple(k_pages.shape)} and "
+                f"{None if v_pages is None else tuple(v_pages.shape)}"
+            )
+        dv = d
+        v_base, k_row, v_row, v_offset = v_pages, d, d, 0
+    if dv != d:
+        raise ValueError(f"the CUDA kernel takes dv == d, got {dv} and {d}")
+    tensors = dict(q=q, k_pages=k_pages, v_pool=v_base,
+                   cache_seqlens=cache_seqlens, block_table=block_table)
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if k_pages.dtype != q.dtype or v_base.dtype != q.dtype:
+        raise ValueError("q and the pools must share one dtype")
+    if cache_seqlens.dtype != torch.int32 or block_table.dtype != torch.int32:
+        raise ValueError("cache_seqlens and block_table must be int32")
+    if cache_seqlens.shape != (b,) or block_table.shape[0] != b:
+        raise ValueError("cache_seqlens is (b,) and block_table (b, max_pages)")
+    if softmax_scale is None:
+        softmax_scale = d**-0.5
+
+    fn = _kernel()
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    elem = k_pages.element_size()
+    rc = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_base.data_ptr() + v_offset * elem,
+        out.data_ptr(), lse.data_ptr(), cache_seqlens.data_ptr(),
+        block_table.data_ptr(),
+        b, sq, h, hk, d, page, block_table.shape[1], npages,
+        k_row, v_row, float(softmax_scale), int(window_left), float(softcap),
+        int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
+    flash_attention_decode_multipage.launches += 1
+    return out, lse

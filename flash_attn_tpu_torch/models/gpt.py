@@ -1,0 +1,219 @@
+"""Config-driven GPT model family (counterpart of
+flash_attn_tpu/models/gpt.py): one `GPTConfig` covers GPT-2-style and
+Llama/Mistral-style models. The forward needs a paged KV cache
+(`InferenceParams` with a block table), which is how `LLMEngine` calls it;
+see `utils.testing.gpt_forward_ref` for a plain full-sequence forward."""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flash_attn_tpu_torch.modules.block import Block, LayerNorm, RMSNorm, make_norm
+from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
+from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
+from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
+from flash_attn_tpu_torch.utils.device import resolve_device
+
+GATED_ACTIVATIONS = ("swiglu", "silu", "glu", "swiglu_gelu")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """The JAX package's GPTConfig fields, with a torch dtype."""
+
+    vocab_size: int = 50257
+    n_positions: int = 2048  # 0 => no learned positions (rotary models)
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_head_kv: Optional[int] = None
+    head_dim: Optional[int] = None
+    n_inner: Optional[int] = None
+    activation_function: str = "gelu_approx"  # "swiglu"/"silu" => GatedMlp
+    embd_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
+    attn_pdrop: float = 0.0
+    layer_norm_epsilon: float = 1e-5
+    rms_norm: bool = False
+    prenorm: bool = True
+    parallel_block: bool = False
+    parallel_block_tied_norm: bool = False
+    rotary_emb_fraction: float = 0.0
+    rotary_emb_base: float = 10000.0
+    rotary_emb_interleaved: bool = False
+    use_alibi: bool = False
+    window_size: Tuple[int, int] = (-1, -1)
+    softcap: float = 0.0
+    qkv_proj_bias: bool = True
+    out_proj_bias: bool = True
+    mlp_fc1_bias: bool = True
+    mlp_fc2_bias: bool = True
+    tie_word_embeddings: bool = True
+    residual_in_fp32: bool = True
+    pad_vocab_size_multiple: int = 1
+    position_offset: int = 0
+    embed_scale: Optional[float] = None
+    attn_type: str = "mha"
+    dtype: Any = torch.bfloat16
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.pad_vocab_size_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.n_embd // self.n_head
+
+    @property
+    def resolved_n_head_kv(self) -> int:
+        return self.n_head_kv if self.n_head_kv is not None else self.n_head
+
+
+def _mixer_factory(config: GPTConfig, layer_idx: int, device):
+    if config.attn_type != "mha":
+        raise NotImplementedError(
+            f"attn_type={config.attn_type!r} is not ported yet: ROADMAP "
+            "queue 1, item 10 (MLA)"
+        )
+    return functools.partial(
+        MHA,
+        embed_dim=config.n_embd,
+        num_heads=config.n_head,
+        num_heads_kv=config.n_head_kv,
+        head_dim=config.head_dim,
+        qkv_proj_bias=config.qkv_proj_bias,
+        out_proj_bias=config.out_proj_bias,
+        window_size=config.window_size,
+        softcap=config.softcap,
+        use_alibi=config.use_alibi,
+        rotary_emb_dim=int(config.rotary_emb_fraction * config.resolved_head_dim),
+        rotary_emb_base=config.rotary_emb_base,
+        rotary_emb_interleaved=config.rotary_emb_interleaved,
+        layer_idx=layer_idx,
+        device=device,
+        dtype=config.dtype,
+    )
+
+
+def _mlp_factory(config: GPTConfig, device):
+    kw = dict(in_features=config.n_embd, bias1=config.mlp_fc1_bias,
+              bias2=config.mlp_fc2_bias, device=device, dtype=config.dtype)
+    act = config.activation_function
+    if act in GATED_ACTIVATIONS:
+        return functools.partial(GatedMlp, hidden_features=config.n_inner,
+                                 activation=act, **kw)
+    return functools.partial(
+        Mlp, hidden_features=config.n_inner or 4 * config.n_embd,
+        activation=act, **kw,
+    )
+
+
+class GPTModel(nn.Module):
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        self.embeddings = GPT2Embeddings(c.n_embd, c.padded_vocab_size,
+                                         c.n_positions, device=device,
+                                         dtype=c.dtype)
+        self.layers = nn.ModuleList(
+            Block(
+                c.n_embd, _mixer_factory(c, i, device), _mlp_factory(c, device),
+                norm_eps=c.layer_norm_epsilon, prenorm=c.prenorm,
+                residual_in_fp32=c.residual_in_fp32, rms_norm=c.rms_norm,
+                parallel_block=c.parallel_block,
+                parallel_block_tied_norm=c.parallel_block_tied_norm,
+                device=device, dtype=c.dtype,
+            )
+            for i in range(c.n_layer)
+        )
+        self.ln_f = make_norm(c.n_embd, c.layer_norm_epsilon, c.rms_norm, device)
+
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                inference_params: Optional[InferenceParams] = None):
+        c = self.config
+        if position_ids is None and c.n_positions > 0:
+            offset = 0 if inference_params is None else inference_params.seqlen_offset
+            steps = torch.arange(input_ids.shape[1], device=input_ids.device)
+            if isinstance(offset, int):
+                position_ids = (c.position_offset + offset + steps)[None]
+            else:
+                position_ids = (c.position_offset
+                                + offset.to(input_ids.device).long()[:, None]
+                                + steps[None])
+        hidden = self.embeddings(input_ids, position_ids)
+        if c.embed_scale is not None:
+            hidden = hidden * torch.tensor(c.embed_scale, dtype=c.dtype)
+        if not c.prenorm:
+            for layer in self.layers:
+                hidden = layer(hidden, inference_params=inference_params)
+            return hidden
+        residual = None
+        for layer in self.layers:
+            hidden, residual = layer(hidden, residual,
+                                     inference_params=inference_params)
+        residual = residual + hidden.to(residual.dtype)
+        return self.ln_f(residual).to(c.dtype)
+
+
+class GPTLMHeadModel(nn.Module):
+    """LM-head model. Built on `device` (CUDA unless named; the CPU only on
+    request) with random weights drawn from `generator` (a torch.Generator
+    on that device; seed 0 when None) at flax's default scales:
+    normal(0, 1/sqrt(fan_in)) kernels, unit-normal embeddings, zero biases,
+    unit norm weights. Load real weights with `load_state_dict`."""
+
+    def __init__(self, config: GPTConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.transformer = GPTModel(config, device=device)
+        self.lm_head = (
+            None if config.tie_word_embeddings
+            else nn.Linear(config.n_embd, config.padded_vocab_size, bias=False,
+                           device=device, dtype=config.dtype)
+        )
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                module.weight.normal_(0.0, 1.0 / math.sqrt(module.in_features),
+                                      generator=generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.Embedding):
+                module.weight.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(module, (LayerNorm, RMSNorm)):
+                module.weight.fill_(1.0)
+                if getattr(module, "bias", None) is not None:
+                    module.bias.zero_()
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.ln_f.weight.device
+
+    def forward(self, input_ids, position_ids=None,
+                inference_params: Optional[InferenceParams] = None,
+                num_last_tokens: int = 0):
+        """Returns logits (b, s or num_last_tokens, padded_vocab)."""
+        hidden = self.transformer(input_ids, position_ids, inference_params)
+        if num_last_tokens > 0:
+            hidden = hidden[:, -num_last_tokens:]
+        if self.lm_head is None:
+            return F.linear(hidden,
+                            self.transformer.embeddings.word_embeddings.weight)
+        return self.lm_head(hidden)

@@ -1,0 +1,159 @@
+"""Multi-head attention with a paged KV-cache decode path (counterpart of
+flash_attn_tpu/modules/mha.py).
+
+Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window and softcap.
+Only the cached path is ported: `_decode_step` appends the new K/V to the
+layer's paged pool in place and runs the paged decode kernel. The no-cache
+path (dense flash attention), ALiBi, dwconv and quantized pools raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+from torch import nn
+
+from flash_attn_tpu_torch.kernels.flash_decode import flash_attention_decode
+from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
+from flash_attn_tpu_torch.runtime.kv_cache import (
+    update_fused_paged_kv_cache,
+    update_paged_kv_cache,
+)
+
+
+@dataclasses.dataclass
+class InferenceParams:
+    """KV-cache state for a forward with a cache. `key_value_memory_dict`
+    maps layer_idx to a fused K|V page pool (a tensor) or to a (k_pages,
+    v_pages) tuple; `block_table` (b, max_pages) int32 maps positions to
+    pages; `seqlen_offset` is an int or a (b,) int32 tensor of cache lengths
+    before this call's tokens."""
+
+    max_seqlen: int
+    max_batch_size: int
+    seqlen_offset: Any = 0
+    key_value_memory_dict: dict = dataclasses.field(default_factory=dict)
+    block_table: Optional[torch.Tensor] = None
+
+
+class MHA(nn.Module):
+    """Causal self-attention with separate q/k/v projections, rotary,
+    GQA/MQA, sliding window, softcap, and a paged KV-cache decode path.
+    Inference only: the JAX module's dropout is not kept."""
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        num_heads_kv: Optional[int] = None,
+        head_dim: Optional[int] = None,
+        qkv_proj_bias: bool = True,
+        out_proj_bias: bool = True,
+        softmax_scale: Optional[float] = None,
+        window_size: Tuple[int, int] = (-1, -1),
+        softcap: float = 0.0,
+        use_alibi: bool = False,
+        dwconv: bool = False,
+        rotary_emb_dim: int = 0,
+        rotary_emb_base: float = 10000.0,
+        rotary_emb_interleaved: bool = False,
+        layer_idx: Optional[int] = None,
+        device=None,
+        dtype=torch.bfloat16,
+    ):
+        super().__init__()
+        if use_alibi:
+            raise NotImplementedError(
+                "ALiBi decode needs the general decode kernel: ROADMAP queue 2, "
+                "kernel 5"
+            )
+        if dwconv:
+            raise NotImplementedError(
+                "dwconv is not ported yet: ROADMAP queue 1, item 4 (mha.py)"
+            )
+        h = num_heads
+        hk = num_heads_kv if num_heads_kv is not None else h
+        if h % hk != 0:
+            raise ValueError(f"{h} heads do not group over {hk} kv heads")
+        d = head_dim if head_dim is not None else embed_dim // num_heads
+        self.num_heads, self.num_heads_kv, self.head_dim = h, hk, d
+        self.softmax_scale = softmax_scale
+        self.window_size = tuple(window_size)
+        self.softcap = softcap
+        self.rotary_emb_dim = rotary_emb_dim
+        self.rotary_emb_interleaved = rotary_emb_interleaved
+        self.layer_idx = layer_idx
+        kw = dict(device=device, dtype=dtype)
+        self.Wq = nn.Linear(embed_dim, h * d, bias=qkv_proj_bias, **kw)
+        self.Wk = nn.Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
+        self.Wv = nn.Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
+        self.out_proj = nn.Linear(h * d, embed_dim, bias=out_proj_bias, **kw)
+        self.rotary = (
+            RotaryEmbedding(rotary_emb_dim, base=rotary_emb_base,
+                            interleaved=rotary_emb_interleaved)
+            if rotary_emb_dim > 0 else None
+        )
+
+    def forward(self, x: torch.Tensor,
+                inference_params: Optional[InferenceParams] = None):
+        """x: (b, s, embed_dim). Needs `inference_params` (a paged cache)."""
+        if inference_params is None:
+            raise NotImplementedError(
+                "attention without a KV cache runs the dense flash-attention "
+                "kernels, not ported yet: ROADMAP queue 1, item 2 (kernels 1-3)"
+            )
+        b, s, _ = x.shape
+        h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
+        q = self.Wq(x).reshape(b, s, h, d)
+        k = self.Wk(x).reshape(b, s, hk, d)
+        v = self.Wv(x).reshape(b, s, hk, d)
+        context = self._decode_step(q, k, v, inference_params)
+        return self.out_proj(context.reshape(b, s, h * d))
+
+    def _decode_step(self, q, k, v, inference_params: InferenceParams):
+        """Append this call's K/V to the layer's paged pool (in place) and
+        attend the new queries to the cache, prefill chunks and decode
+        steps alike."""
+        b, s = q.shape[0], q.shape[1]
+        layer = self.layer_idx if self.layer_idx is not None else 0
+        entry = inference_params.key_value_memory_dict[layer]
+        table = inference_params.block_table
+        if table is None:
+            raise NotImplementedError(
+                "contiguous KV caches need the general decode kernel: "
+                "ROADMAP queue 2, kernel 5"
+            )
+        offset = inference_params.seqlen_offset
+        if isinstance(offset, int):
+            offsets = torch.full((b,), offset, dtype=torch.int32,
+                                 device=q.device)
+        else:
+            offsets = offset.to(device=q.device, dtype=torch.int32)
+        if self.rotary is not None:
+            cos, sin = self.rotary.cos_sin(inference_params.max_seqlen,
+                                           device=q.device)
+            rot = dict(interleaved=self.rotary_emb_interleaved,
+                       seqlen_offsets=offsets)
+            q = apply_rotary_emb(q, cos, sin, **rot)
+            k = apply_rotary_emb(k, cos, sin, **rot)
+        attn = dict(block_table=table, softmax_scale=self.softmax_scale,
+                    causal=True, window_left=self.window_size[0],
+                    softcap=self.softcap)
+        if isinstance(entry, tuple):
+            k_pages, v_pages = update_paged_kv_cache(
+                entry[0], entry[1], k, v, offsets, table
+            )
+            out, _ = flash_attention_decode(
+                q, k_pages, v_pages, offsets + s, **attn
+            )
+            return out
+        update_fused_paged_kv_cache(entry, k, v, offsets, table)
+        out, _ = flash_attention_decode(
+            q, entry, None, offsets + s, fused_kv_dim=k.shape[-1],
+            fused_kv_dim_v=v.shape[-1], **attn
+        )
+        return out

@@ -1,0 +1,163 @@
+"""Plain reference computations for checking the port: the attention oracle
+(counterpart of flash_attn_tpu/utils/testing.py `attention_ref`, causal,
+window and GQA) and a full-sequence GPT forward with no cache."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+from flash_attn_tpu_torch.models.gpt import GATED_ACTIVATIONS
+from flash_attn_tpu_torch.modules.mlp import ACT2FN
+from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
+
+
+def construct_local_mask(seqlen_q: int, seqlen_k: int,
+                         window_size: Tuple[Optional[int], Optional[int]],
+                         device=None) -> torch.Tensor:
+    """(sq, sk) boolean mask of entries to DROP: a bottom-right aligned
+    window, (None, wr) for causal-style masks without a left edge."""
+    row = torch.arange(seqlen_q, device=device)[:, None]
+    col = torch.arange(seqlen_k, device=device)[None]
+    diag = row + seqlen_k - seqlen_q
+    if window_size[0] is None:
+        return col > diag + window_size[1]
+    return (col > torch.clamp(diag + window_size[1], max=seqlen_k)) | (
+        col < diag - window_size[0]
+    )
+
+
+def attention_ref(
+    q: torch.Tensor,  # (b, sq, h, d)
+    k: torch.Tensor,  # (b, sk, hk, d)
+    v: torch.Tensor,  # (b, sk, hk, dv)
+    *,
+    causal: bool = False,
+    window_size: Tuple[Optional[int], Optional[int]] = (None, None),
+    softcap: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    upcast: bool = True,
+):
+    """Exact attention; returns (output (b, sq, h, dv), probs (b, h, sq,
+    sk)), both in q's dtype. upcast=False keeps the products in the input
+    dtype (the "eager low-precision" run of the tolerance contract); the
+    softmax is computed in fp32 either way."""
+    if causal:
+        window_size = (window_size[0], 0)
+    dtype_og = q.dtype
+    if upcast:
+        q, k, v = q.float(), k.float(), v.float()
+    b, seqlen_q, h, d = q.shape
+    seqlen_k, hk = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // hk, dim=2)
+    v = v.repeat_interleave(h // hk, dim=2)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bthd,bshd->bhts", q * scale, k).float()
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    wl = window_size[0] if window_size[0] is not None and window_size[0] >= 0 else None
+    wr = window_size[1] if window_size[1] is not None and window_size[1] >= 0 else None
+    if wl is not None or wr is not None:
+        mask = construct_local_mask(
+            seqlen_q, seqlen_k, (wl, seqlen_k if wr is None else wr),
+            device=q.device,
+        )
+        scores = scores.masked_fill(mask, float("-inf"))
+    row_max = scores.amax(dim=-1, keepdim=True)
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros_like(row_max))
+    unnorm = torch.exp(scores - row_max)
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    attention = torch.where(denom > 0, unnorm / denom.clamp_min(1e-37),
+                            torch.zeros_like(unnorm))
+    output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)
+    return output.to(dtype_og), attention.to(dtype_og)
+
+
+@torch.no_grad()
+def gpt_forward_ref(model_or_state_dict, input_ids: torch.Tensor,
+                    config=None, dtype=torch.float32) -> torch.Tensor:
+    """Logits (b, s, vocab) of a plain full-sequence forward with no cache.
+
+    Takes a `GPTLMHeadModel` or its state_dict (then `config` too). Weights
+    are cast to `dtype` one at a time as they are used, so an fp32
+    reference of a bf16 model needs little more memory than the model.
+    Norms, softmax and the residual stream follow the model's own precision
+    rules; `dtype` sets that of the products and activations."""
+    if isinstance(model_or_state_dict, nn.Module):
+        sd = model_or_state_dict.state_dict()
+        config = model_or_state_dict.config
+    else:
+        sd = model_or_state_dict
+    c = config
+    if not c.prenorm or c.parallel_block or c.use_alibi or c.attn_type != "mha":
+        raise NotImplementedError("gpt_forward_ref covers the pre-norm, "
+                                  "sequential-block MHA models")
+    h, hk, d = c.n_head, c.resolved_n_head_kv, c.resolved_head_dim
+    b, s = input_ids.shape
+
+    def w(name):
+        t = sd.get(name)
+        return None if t is None else t.to(dtype)
+
+    def linear(x, name):
+        return F.linear(x, w(name + ".weight"), w(name + ".bias"))
+
+    def norm(x, name):
+        x = x.float()
+        if c.rms_norm:
+            y = x * torch.rsqrt(x.square().mean(-1, keepdim=True)
+                                + c.layer_norm_epsilon)
+            return (y * sd[name + ".weight"].float()).to(dtype)
+        return F.layer_norm(x, (x.shape[-1],), sd[name + ".weight"].float(),
+                            sd[name + ".bias"].float(),
+                            c.layer_norm_epsilon).to(dtype)
+
+    ids = input_ids.to(sd["transformer.embeddings.word_embeddings.weight"].device)
+    x = F.embedding(ids, w("transformer.embeddings.word_embeddings.weight"))
+    if c.n_positions > 0:
+        pos = c.position_offset + torch.arange(s, device=ids.device)
+        x = x + F.embedding(pos, w("transformer.embeddings.position_embeddings.weight"))[None]
+    if c.embed_scale is not None:
+        x = x * torch.tensor(c.embed_scale, dtype=dtype)
+    rot_dim = int(c.rotary_emb_fraction * d)
+    if rot_dim > 0:
+        cos, sin = RotaryEmbedding(rot_dim, base=c.rotary_emb_base).cos_sin(
+            s, device=ids.device)
+    acc = torch.float32 if c.residual_in_fp32 else dtype
+    residual = None
+    gated = c.activation_function in GATED_ACTIVATIONS
+    act = ACT2FN[c.activation_function]
+    upcast = dtype == torch.float32
+    for i in range(c.n_layer):
+        p = f"transformer.layers.{i}."
+        residual = x.to(acc) if residual is None else residual + x.to(acc)
+        y = norm(residual, p + "norm1")
+        q = linear(y, p + "mixer.Wq").reshape(b, s, h, d)
+        k = linear(y, p + "mixer.Wk").reshape(b, s, hk, d)
+        v = linear(y, p + "mixer.Wv").reshape(b, s, hk, d)
+        if rot_dim > 0:
+            rot = dict(interleaved=c.rotary_emb_interleaved)
+            q = apply_rotary_emb(q, cos, sin, **rot)
+            k = apply_rotary_emb(k, cos, sin, **rot)
+        o, _ = attention_ref(q, k, v, causal=True,
+                             window_size=(c.window_size[0], None),
+                             softcap=c.softcap, upcast=upcast)
+        residual = residual + linear(o.reshape(b, s, h * d),
+                                     p + "mixer.out_proj").to(acc)
+        y = norm(residual, p + "norm2")
+        if gated:
+            y = act(linear(y, p + "mlp.fc1_gate")) * linear(y, p + "mlp.fc1_up")
+        else:
+            y = act(linear(y, p + "mlp.fc1"))
+        x = linear(y, p + "mlp.fc2")
+    residual = residual + x.to(acc)
+    hidden = norm(residual, "transformer.ln_f")
+    head = ("transformer.embeddings.word_embeddings.weight"
+            if c.tie_word_embeddings else "lm_head.weight")
+    return F.linear(hidden, w(head))
