@@ -5,18 +5,32 @@
 Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
 
   1. env      torch/CUDA versions, the card's name and power limit, build time;
-  2. kernels  each kernel against its plain PyTorch version at the serving
-              path's shapes (Mistral-7B widths), with CUDA-event times of the
-              kernel, the plain version, a PyTorch library yardstick, and the
-              card's bound for the same work;
-  3. logits   a Mistral-7B-v0.1-width model (random seeded weights, bf16, all
+  2. kernel   the paged-decode kernel against its plain PyTorch version at the
+              serving path's shapes (Mistral-7B widths), with CUDA-event times
+              of the kernel, the plain version, a PyTorch library yardstick,
+              and the card's bound for the same work;
+  3. attn_kernels  the flash forward, dK/dV and dQ kernels likewise, at the
+              GPT-2-medium training shape, the Mistral-7B shape (GQA, window
+              4095), a short window (127), a softcap, and rows that see
+              nothing; the backward twice for equal bits; then attn_fault:
+              the window cases with the kernels handed a window one column
+              wider, which every kernel's check must catch;
+  4. logits   a Mistral-7B-v0.1-width model (random seeded weights, bf16, all
               32 layers): chunked prefill of a ~4500-token prompt and 8 decode
               steps through the engine's own forward, logits held against a
               plain fp32 forward under the 2x-bf16-eager contract;
-  4. serve    LLMEngine.generate on 8 requests, tokens/s, peak memory, and
+  5. serve    LLMEngine.generate on 8 requests, tokens/s, peak memory, and
               proof that every attention call went through the kernel;
-  5. profile  torch.profiler device time by kernel over the prefill and the
-              decode steps of 8 more requests, beside the host wall time.
+  6. profile  torch.profiler device time by kernel over the prefill and the
+              decode steps of 8 more requests, beside the host wall time;
+  7. train_grad  one loss and gradient of GPT-2-medium (configs/gpt2m-synth.yaml,
+              full depth, fp32 weights, bf16 compute) through the kernels,
+              held against the plain model in fp32 under the 2x-bf16-eager
+              contract;
+  8. train    training.run.main on configs/gpt2m-synth.yaml for 20 steps:
+              falling loss, tokens/s, MFU, peak memory, and the kernels'
+              launches = layers x steps (x 2 for the forward under remat);
+  9. profile  device time by kernel over one training step.
 
 One JSON line per phase; then the {"kernels": [...]} line, the card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any
@@ -26,6 +40,7 @@ It needs a CUDA device and the rest of this repository beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -39,9 +54,23 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from flash_attn_tpu_torch.kernels import _build  # noqa: E402
+from flash_attn_tpu_torch.kernels.common import normalize_window  # noqa: E402
+from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
+    _bwd_dkv_ref,
+    _bwd_dq_ref,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+)
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import (  # noqa: E402
     flash_attention_decode_multipage,
     flash_attention_decode_multipage_ref,
+)
+from flash_attn_tpu_torch.kernels.flash_fwd import (  # noqa: E402
+    flash_attention_fwd,
+    flash_attention_fwd_ref,
+)
+from flash_attn_tpu_torch.losses.cross_entropy import (  # noqa: E402
+    cross_entropy_loss,
 )
 from flash_attn_tpu_torch.models.adapters import (  # noqa: E402
     llama_config_to_gpt_config,
@@ -55,7 +84,13 @@ from flash_attn_tpu_torch.runtime.kv_cache import (  # noqa: E402
     allocate_fused_paged_kv_cache,
     allocate_paged_kv_cache,
 )
-from flash_attn_tpu_torch.utils.testing import gpt_forward_ref  # noqa: E402
+from flash_attn_tpu_torch.training import run as train_run  # noqa: E402
+from flash_attn_tpu_torch.training.run import load_config  # noqa: E402
+from flash_attn_tpu_torch.training.trainer import Trainer  # noqa: E402
+from flash_attn_tpu_torch.utils.testing import (  # noqa: E402
+    gpt_forward_ref,
+    gpt_loss_ref,
+)
 
 # Mistral-7B-v0.1, https://huggingface.co/mistralai/Mistral-7B-v0.1 config.json
 MISTRAL_7B = dict(
@@ -216,6 +251,212 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, seed):
     emit(result)
     check(ok, f"paged_decode case {name} disagrees with its plain version")
     return result
+
+
+# -- phase: attn_kernels (flash fwd, dK/dV and dQ vs plain) ----------------
+
+# (name, b, h, hk, sq, sk, d, causal, window_size, softcap, dtype)
+ATTN_CASES = [
+    ("gpt2m", 8, 16, 16, 2048, 2048, 64, True, (-1, -1), 0.0, torch.bfloat16),
+    ("mistral-window", 1, 32, 8, 8192, 8192, 128, True, (WINDOW, -1), 0.0,
+     torch.bfloat16),
+    # A short window, so the edge columns carry weight (P ~ 1/128).
+    ("window127-gqa", 2, 16, 4, 2048, 2048, 64, True, (127, -1), 0.0,
+     torch.bfloat16),
+    ("softcap30-fp16", 2, 8, 2, 1000, 1000, 64, True, (-1, -1), 30.0,
+     torch.float16),
+    ("noncausal-sq1000-sk3000", 2, 8, 8, 1000, 3000, 128, False, (-1, -1),
+     0.0, torch.bfloat16),
+    ("causal-sq3000-sk1000", 1, 4, 2, 3000, 1000, 64, True, (-1, -1), 0.0,
+     torch.bfloat16),
+]
+# Kernel vs plain fp32 on the same bf16/fp16 inputs, element by element:
+#   |x - ref| <= RTOL |ref| + ROW_ATOL rms(ref's row) + FLOOR max|ref|,
+# a row being the d values of one query row (out, dQ) or one key row (dK,
+# dV); for delta (b, h, sq), one head's sequence. RTOL covers the 16-bit
+# rounding of the result itself (at most 2^-8 for bf16). ROW_ATOL covers
+# the 16-bit rounding of P (forward) and of P and dS (backward) before
+# their products: a sum of such terms is off by about 2^-9 x the root sum of
+# squares of its terms, i.e. a few thousandths of the row's rms, and about
+# 5 sigma of that at the largest of 16 M elements. FLOOR lets a row whose
+# exact value is 0 (a row that sees nothing, the first causal row's dQ)
+# pass rounding noise. The LSE stays fp32: |lse - ref| <= LSE_TOL.
+ATTN_RTOL, ATTN_ROW_ATOL, ATTN_FLOOR, ATTN_LSE_TOL = 1e-2, 3e-2, 1e-5, 1e-3
+ATTN_TOLERANCE = (f"|x-ref| <= {ATTN_RTOL}|ref| + {ATTN_ROW_ATOL} rms(ref "
+                  f"row over d) + {ATTN_FLOOR} max|ref|; |lse-ref| <= "
+                  f"{ATTN_LSE_TOL}")
+
+
+def visible_pairs(sq, sk, causal, window_size):
+    """Visible (query row, key column) pairs of one head."""
+    left, right = normalize_window(window_size, causal)
+    diag = np.arange(sq) + sk - sq
+    lo = np.maximum(diag - left, 0) if left >= 0 else np.zeros(sq, np.int64)
+    hi = np.minimum(diag + right, sk - 1) if right >= 0 else np.full(sq, sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attn_bound(flops_per_pair_per_d, nbytes, b, h, d, pairs):
+    flops = flops_per_pair_per_d * d * b * h * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def held(got, ref):
+    """How `got` stands against `ref` under the tolerance above: the worst
+    ratio of error to limit (<= 1 passes), the max abs error, and the
+    median |ref| beside the median limit."""
+    got, ref = got.float(), ref.float()
+    mag = ref.abs()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    limit = (ATTN_RTOL * mag + ATTN_ROW_ATOL * rms
+             + ATTN_FLOOR * mag.max()).clamp_min(1e-30)
+    err = (got - ref).abs()
+    return dict(err_over_limit=float((err / limit).max()),
+                max_abs_err=float(err.max()), median_abs_ref=float(mag.median()),
+                median_limit=float(limit.median()))
+
+
+def attn_compare(b, h, hk, sq, sk, d, causal, window, softcap, dtype, seed,
+                 kernel_window=None):
+    """Runs the three kernels and their plain versions on the same seeded
+    inputs; returns (result, kernel kwargs, the inputs). `kernel_window`
+    hands the kernels another window than the plain versions (a planted
+    fault)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window_size=window, softcap=softcap)
+    kkw = dict(kw, window_size=kernel_window or window)
+
+    out, lse = flash_attention_fwd(q, k, v, **kkw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                               **kw)
+    finite = torch.isfinite(ref_lse)
+    empty_rows = int((~finite).sum())
+    lse_err = float((lse - ref_lse)[finite].abs().max()) if finite.any() else 0.0
+    result = dict(empty_rows=empty_rows, out=held(out, ref_out),
+                  lse_max_abs_err=lse_err)
+    fwd_ok = bool(result["out"]["err_over_limit"] <= 1
+                  and torch.equal(finite, torch.isfinite(lse))
+                  and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all()
+                  and (out.float()[~finite] == 0).all())
+    del ref_out
+    # The backward kernels and their plain versions on the same inputs: the
+    # plain forward's LSE and, for dK/dV, the plain dQ's delta.
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, ref_lse, **kkw)
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, do, ref_lse, **kkw)
+    up = tuple(x.float() for x in (q, k, v, do)) + (ref_lse,)
+    ref_dq, ref_delta = _bwd_dq_ref(*up, **kw)
+    args = (q, k, v, do, ref_lse, ref_delta)
+    dk, dv = flash_attention_bwd_dkv(*args, **kkw)
+    dk2, dv2 = flash_attention_bwd_dkv(*args, **kkw)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y) for x, y in
+                        ((dk, dk2), (dv, dv2), (dq, dq2), (delta, delta2)))
+    del dk2, dv2, dq2, delta2
+    result.update(dq=held(dq, ref_dq), delta=held(delta, ref_delta))
+    del ref_dq
+    ref_dk, ref_dv = _bwd_dkv_ref(*up, ref_delta, **kw)
+    result.update(dk=held(dk, ref_dk), dv=held(dv, ref_dv))
+    del ref_dk, ref_dv, up
+    grads_finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    result.update(
+        fwd_ok=fwd_ok,
+        dq_ok=result["dq"]["err_over_limit"] <= 1
+        and result["delta"]["err_over_limit"] <= 1,
+        dkv_ok=max(result["dk"]["err_over_limit"],
+                   result["dv"]["err_over_limit"]) <= 1,
+        bwd_bitwise_deterministic=deterministic, grads_finite=grads_finite)
+    return result, kw, args
+
+
+def attn_case(name, b, h, hk, sq, sk, d, causal, window, softcap, dtype,
+              seed):
+    checked, kw, args = attn_compare(b, h, hk, sq, sk, d, causal, window,
+                                     softcap, dtype, seed)
+    q, k, v = args[:3]
+    result = dict(
+        phase="attn_kernels", case=name, b=b, h=h, hk=hk, sq=sq, sk=sk, d=d,
+        causal=causal, window_size=list(window), softcap=softcap,
+        dtype=str(dtype).split(".")[-1], **checked, tolerance=ATTN_TOLERANCE,
+        ok=(checked["fwd_ok"] and checked["dq_ok"] and checked["dkv_ok"]
+            and checked["bwd_bitwise_deterministic"]
+            and checked["grads_finite"]),
+    )
+    pairs = visible_pairs(sq, sk, causal, window)
+    el = q.element_size()
+    qb, kvb, stats = b * h * sq * d * el, b * hk * sk * d * el, b * h * sq * 4
+    result.update(
+        fwd_ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+        dkv_ms=cuda_ms(lambda: flash_attention_bwd_dkv(*args, **kw)),
+        dq_ms=cuda_ms(lambda: flash_attention_bwd_dq(*args[:5], **kw)),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_fwd_ref(q, k, v, **kw),
+                             reps=20, warmup=1),
+        dkv_plain_ms=cuda_ms(lambda: _bwd_dkv_ref(*args, **kw), reps=20,
+                             warmup=1),
+        dq_plain_ms=cuda_ms(lambda: _bwd_dq_ref(*args[:5], **kw), reps=20,
+                            warmup=1),
+        visible_pairs_per_head=pairs,
+    )
+    # Least time: fwd 4d flops per visible pair (S, PV); dK/dV 8d (S, dP,
+    # dV, dK); dQ 6d (S, dP, dQ; delta rides on P and dP); each input
+    # read once, each output written once.
+    for key, per_d, nbytes in (
+            ("fwd", 4, 2 * qb + 2 * kvb + stats),
+            ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+            ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, b, h, d, pairs)
+    if name == "gpt2m":
+        # Yardstick only: SDPA has no sliding window, and the port never
+        # calls it.
+        qt, kt, vt = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        result["library_fwd_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(o, (qt, kt, vt), args[3])
+
+        result["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
+        result["library"] = ("scaled_dot_product_attention(is_causal=True):"
+                             " a yardstick only; it has no sliding window "
+                             "and the port never calls it")
+        del qt, kt, vt
+    emit(result)
+    check(result["ok"], f"attn_kernels case {name} disagrees with its plain "
+                        "version or is not deterministic")
+    return result
+
+
+def attn_fault_phase():
+    """The tolerance's power, shown: each window case again with the kernels
+    handed a window one column wider on the left than the plain versions
+    (an off-by-one at the window edge). Every kernel must fail its check."""
+    for i, case in enumerate(ATTN_CASES):
+        name, b, h, hk, sq, sk, d, causal, window, softcap, dtype = case
+        if window[0] < 0:
+            continue
+        planted = (window[0] + 1, window[1])
+        checked, _, _ = attn_compare(b, h, hk, sq, sk, d, causal, window,
+                                     softcap, dtype, seed=20 + i,
+                                     kernel_window=planted)
+        caught = {key: not checked[f"{key}_ok"] for key in ("fwd", "dq", "dkv")}
+        emit(dict(phase="attn_fault", case=name, window_size=list(window),
+                  kernel_window_size=list(planted),
+                  err_over_limit={key: checked[key]["err_over_limit"]
+                                  for key in ("out", "dq", "delta", "dk",
+                                              "dv")},
+                  lse_max_abs_err=checked["lse_max_abs_err"], caught=caught,
+                  ok=all(caught.values())))
+        check(all(caught.values()), f"attn_fault: a window off by one in "
+                                    f"case {name} passes the tolerance")
 
 
 # -- phases 3 and 4: the model and the engine ---------------------------------
@@ -398,6 +639,184 @@ def profile_phase(engine, model, n_requests=8, prompt_len=2048, max_new=8,
     return result
 
 
+# -- phases: train_grad, train, train profile (GPT-2-medium) -----------------
+
+GPT2M_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "gpt2m-synth.yaml")
+TRAIN_STEPS, TRAIN_WARMUP = 20, 5
+# Training gradient contract: for the loss and for the worst per-tensor
+# relative gradient error (max |g - g32| / max |g32|), the port's error
+# against the fp32 plain model is at most 2x that of the same plain model
+# run in bf16 eager, plus a floor for the bf16 rounding both pay: 1e-3 of
+# the loss, 1e-2 relative for a gradient (bf16 keeps 8 bits: 2^-8 = 0.4%).
+# The k-projection biases are left out: their exact gradient is 0 (they
+# shift a softmax row uniformly), so their relative error is of noise.
+LOSS_FLOOR_FRACTION, GRAD_FLOOR = 1e-3, 1e-2
+
+
+def _max_rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def _attn_counts():
+    return dict(flash_fwd=flash_attention_fwd.launches,
+                flash_bwd_dkv=flash_attention_bwd_dkv.launches,
+                flash_bwd_dq=flash_attention_bwd_dq.launches)
+
+
+def _zero_attn_counts():
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd_dkv.launches = 0
+    flash_attention_bwd_dq.launches = 0
+
+
+def _expected_counts(config, steps):
+    """Launches of a training run: per layer and step one forward, and a
+    second one when remat recomputes it in the backward; one dK/dV and one
+    dQ."""
+    fwd = 2 if config.remat != "none" else 1
+    return dict(flash_fwd=fwd * config.n_layer * steps,
+                flash_bwd_dkv=config.n_layer * steps,
+                flash_bwd_dq=config.n_layer * steps)
+
+
+def train_grad_phase(batch=1, seed=4):
+    """One loss and gradient of the full-depth GPT-2-medium model through
+    the port (kernels, bf16 compute, fp32 params) against the plain model
+    in fp32 and in bf16 eager."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config, _, dcfg = load_config(GPT2M_CONFIG)
+    model = GPTLMHeadModel(
+        config, device="cuda", param_dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    rng = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rng.randint(
+        0, config.vocab_size, (batch, dcfg["seqlen"] + 1))).cuda()
+    ids, labels = tokens[:, :-1], tokens[:, 1:]
+    _zero_attn_counts()
+    loss = cross_entropy_loss(model(ids).float(), labels)
+    grads = torch.autograd.grad(loss, params)
+    counts = _attn_counts()
+    loss32 = gpt_loss_ref(model, ids, labels, dtype=torch.float32)
+    grads32 = torch.autograd.grad(loss32, params)
+    loss16 = gpt_loss_ref(model, ids, labels, dtype=torch.bfloat16)
+    grads16 = torch.autograd.grad(loss16, params)
+
+    def worst(gs):
+        errs = {n: _max_rel(g, g32) for n, g, g32 in zip(names, gs, grads32)
+                if not n.endswith("mixer.Wk.bias")}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    port_grad, port_at = worst(grads)
+    bf16_grad, bf16_at = worst(grads16)
+    loss_err = abs(loss.item() - loss32.item())
+    loss_err16 = abs(loss16.item() - loss32.item())
+    loss_floor = LOSS_FLOOR_FRACTION * abs(loss32.item())
+    ok = (all(bool(torch.isfinite(g).all()) for g in grads)
+          and loss_err <= 2 * loss_err16 + loss_floor
+          and port_grad <= 2 * bf16_grad + GRAD_FLOOR
+          and counts == _expected_counts(config, 1))
+    result = dict(
+        phase="train_grad", model="gpt2m (configs/gpt2m-synth.yaml), random "
+        f"fp32 weights (seed {seed})", layers=config.n_layer,
+        params_m=sum(p.numel() for p in params) / 1e6, batch=batch,
+        seqlen=dcfg["seqlen"], compute_dtype="bfloat16", remat=config.remat,
+        loss_port=loss.item(), loss_fp32=loss32.item(),
+        loss_bf16_eager=loss16.item(), loss_err_port=loss_err,
+        loss_err_bf16_eager=loss_err16, loss_limit=2 * loss_err16 + loss_floor,
+        grad_rel_err_port=port_grad, grad_worst_tensor_port=port_at,
+        grad_rel_err_bf16_eager=bf16_grad, grad_worst_tensor_bf16=bf16_at,
+        grad_limit=2 * bf16_grad + GRAD_FLOOR, launches=counts,
+        contract="err <= 2 x bf16-eager err + floor (loss: 1e-3 |loss|, "
+                 "gradients: 1e-2 relative)", ok=ok)
+    emit(result)
+    check(ok, "train_grad outside the 2x bf16-eager contract or launches "
+              "off the count")
+    return result
+
+
+def train_phase():
+    """`training.run.main` on configs/gpt2m-synth.yaml as it is, cut to
+    TRAIN_STEPS steps with a short warmup; launches of the three attention
+    kernels counted over this phase only."""
+    argv = ["--config", GPT2M_CONFIG,
+            "--set", f"train.total_steps={TRAIN_STEPS}",
+            "--set", f"train.warmup_steps={TRAIN_WARMUP}"]
+    config, train_config, dcfg = load_config(GPT2M_CONFIG, argv[3::2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_attn_counts()
+    t0 = time.perf_counter()
+    report = train_run.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _attn_counts()
+    steps = report["steps"]
+    losses = [s["loss"] for s in steps]
+    n = len(steps)
+    want = _expected_counts(config, n)
+    ok = (n == TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and counts == want)
+    result = dict(
+        phase="train", config="configs/gpt2m-synth.yaml",
+        overrides=argv[2:], layers=config.n_layer, n_embd=config.n_embd,
+        heads=config.n_head, vocab=config.vocab_size, remat=config.remat,
+        batch=dcfg["batch_size"], seqlen=dcfg["seqlen"],
+        steps=steps, tokens_per_s=report["tokens_per_s"], mfu=report["mfu"],
+        mfu_peak="989 TFLOP/s (H100 SXM bf16 dense, data sheet)",
+        wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, launches_expected=want, ok=ok)
+    emit(result)
+    check(ok, "train: non-finite or non-falling loss, or launches off "
+              "the count")
+    return result
+
+
+def train_profile_phase(seed=5):
+    """Where one training step's time goes: torch.profiler (device activity
+    only) over one step of the gpt2m trainer after a warm-up step, device
+    time by kernel beside the host-clock wall time. Reports, checks
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    config, train_config, dcfg = load_config(GPT2M_CONFIG)
+    model = GPTLMHeadModel(
+        config, device="cuda", param_dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    trainer = Trainer(model, train_config)
+    rng = np.random.RandomState(seed)
+    shape = (dcfg["batch_size"], dcfg["seqlen"] + 1)
+    batches = [rng.randint(0, config.vocab_size, shape) for _ in range(2)]
+    trainer.train_step(batches[0][:, :-1], batches[0][:, 1:])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batches[1][:, :-1], batches[1][:, 1:])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    attn = {name: sum(v for k, v in by_kernel.items() if name in k)
+            for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                         "flash_bwd_dq_kernel")}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    result = dict(
+        phase="profile", path="train step", config="configs/gpt2m-synth.yaml",
+        batch=dcfg["batch_size"], seqlen=dcfg["seqlen"], wall_ms=wall_ms,
+        device_busy_ms=busy if busy > 0 else None,
+        idle_share=1 - busy / wall_ms if busy > 0 else None,
+        attention_ms=attn, attention_share=(sum(attn.values()) / busy
+                                            if busy > 0 else None),
+        top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+    emit(result)
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -416,6 +835,8 @@ def main():
                      or "spill" in ln]))
 
     cases = [kernel_case(*case, seed=10 + i) for i, case in enumerate(CASES)]
+    attn = {c[0]: attn_case(*c, seed=20 + i) for i, c in enumerate(ATTN_CASES)}
+    attn_fault_phase()
 
     config = llama_config_to_gpt_config(MISTRAL_7B)
     t0 = time.perf_counter()
@@ -430,10 +851,21 @@ def main():
     logits_phase(engine, model)
     serve = serve_phase(engine, model)
     profile_phase(engine, model)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_grad_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_profile_phase()
 
     decode, prefill = cases[0], cases[4]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [dict(
+    kernels = [dict(
         name="paged_decode", route="cuda",
         source="flash_attn_tpu_torch/csrc/paged_decode.cu",
         replaces="flash_attn_tpu/kernels/flash_decode_multipage.py:65",
@@ -445,7 +877,34 @@ def main():
         shape="decode: b=8 sq=1 h=32 hk=8 d=128 page=16 fused, window 4095",
         prefill=dict({k: prefill[k] for k in keys},
                      shape="prefill chunk: b=8 sq=256, otherwise as decode"),
-    )]})
+    )]
+    gpt2m, mistral = attn["gpt2m"], attn["mistral-window"]
+    for name, key, source, replaces, tensors in (
+            ("flash_fwd", "fwd", "flash_fwd.cu", "flash_fwd.py:95", ("out",)),
+            ("flash_bwd_dkv", "dkv", "flash_bwd.cu", "flash_bwd.py:233",
+             ("dk", "dv")),
+            ("flash_bwd_dq", "dq", "flash_bwd.cu", "flash_bwd.py:449",
+             ("dq", "delta"))):
+        err = max(c[t]["max_abs_err"] for c in attn.values() for t in tensors)
+        library = gpt2m["library_fwd_ms"] if key == "fwd" else None
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"flash_attn_tpu_torch/csrc/{source}",
+            replaces=f"flash_attn_tpu/kernels/{replaces}",
+            launches=train["launches"][name], max_abs_err=err, max_err=err,
+            ms=gpt2m[f"{key}_ms"], kernel_ms=gpt2m[f"{key}_ms"],
+            plain_ms=gpt2m[f"{key}_plain_ms"],
+            bound_ms=gpt2m[f"{key}_bound_ms"],
+            bound_by=gpt2m[f"{key}_bound_by"], library_ms=library,
+            shape="gpt2m: b=8 h=hk=16 s=2048 d=64 causal bf16",
+            mistral=dict(ms=mistral[f"{key}_ms"],
+                         plain_ms=mistral[f"{key}_plain_ms"],
+                         bound_ms=mistral[f"{key}_bound_ms"],
+                         bound_by=mistral[f"{key}_bound_by"],
+                         shape="b=1 h=32 hk=8 s=8192 d=128 causal window "
+                               "4095 bf16"),
+        ))
+    emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

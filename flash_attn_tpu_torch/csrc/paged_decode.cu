@@ -39,20 +39,16 @@
 // decode runs well under the bandwidth bound. Splitting the KV range over
 // more blocks (split-KV with a combine pass) is the fix, for a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_utils.cuh"
 
 namespace {
+
+using namespace fa;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = kWarps * 16;
 constexpr int kTileN = 64;  // kv tokens per shared-memory tile
-constexpr float kMask = -0.7f * 3.402823466e38f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;      // (b, sq, h, d)
@@ -70,72 +66,6 @@ struct Params {
   bool has_softcap;
   int window_left;
 };
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // src_bytes = 0 reads nothing and fills the 16 bytes with zeros.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ uint32_t pack_u16(const void* lo, const void* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)

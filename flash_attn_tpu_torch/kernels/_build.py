@@ -2,8 +2,8 @@
 
 Each `flash_attn_tpu_torch/csrc/<name>.cu` exposes a plain C interface and is
 compiled by `nvcc` into `build/kernels/<name>-<hash>.so` at the repository
-root the first time a wrapper needs it; the hash covers the source and the
-flags, so an edited source builds anew. The library is then loaded with
+root the first time a wrapper needs it; the hash covers the source, the
+shared headers and the flags, so an edited source builds anew. The library is then loaded with
 `ctypes`. Nothing here runs when a module is imported.
 """
 
@@ -42,9 +42,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the built library of `csrc/<name>.cu` lives."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the built library of `csrc/<name>.cu` lives. The hash covers
+    the source, the shared headers (`csrc/*.cuh`) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,10 +1,13 @@
 """Helpers shared by the port's kernel wrappers (counterpart of
-flash_attn_tpu/kernels/common.py, of which only the pieces the paged-decode
-path needs are kept here)."""
+flash_attn_tpu/kernels/common.py, of which only the pieces the ported
+kernels need are kept here)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
+
+import torch
 
 # Large-but-finite mask value, so exp(m - m) never sees inf - inf (NaN).
 DEFAULT_MASK_VALUE = -0.7 * 3.4028234663852886e38  # -0.7 * float32 max
@@ -18,3 +21,60 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def normalize_window(
+    window_size: Tuple[Optional[int], Optional[int]], causal: bool,
+) -> Tuple[int, int]:
+    """Map the (-1 = infinite) window convention onto concrete ints, as the
+    JAX package does: causal sets the right edge to 0. Returns (left,
+    right); a negative value means unbounded on that side."""
+    left, right = window_size
+    if causal:
+        right = 0
+    if left is None:
+        left = -1
+    if right is None:
+        right = -1
+    return int(left), int(right)
+
+
+def visible_mask(seqlen_q: int, seqlen_k: int, window: Tuple[int, int],
+                 device=None) -> torch.Tensor:
+    """(seqlen_q, seqlen_k) bool, True where query row i sees key column j
+    under a normalised window (left, right), bottom-right aligned: with
+    diag = i + seqlen_k - seqlen_q, j >= diag - left (left >= 0) and
+    j <= diag + right (right >= 0). The CUDA kernels apply the same rule
+    per element (`fa::in_window` in csrc/mma_utils.cuh)."""
+    left, right = window
+    diag = (torch.arange(seqlen_q, device=device)[:, None]
+            + (seqlen_k - seqlen_q))
+    col = torch.arange(seqlen_k, device=device)[None]
+    mask = torch.ones(seqlen_q, seqlen_k, dtype=torch.bool, device=device)
+    if left >= 0:
+        mask &= col >= diag - left
+    if right >= 0:
+        mask &= col <= diag + right
+    return mask
+
+
+def _rows_readable(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def check_rows_dense(name: str, t: torch.Tensor) -> None:
+    """Raise unless `t` can be read by the kernels' 16-byte row copies:
+    last dim dense, every other stride a multiple of 8 elements, and the
+    base 16-byte aligned."""
+    if not _rows_readable(t):
+        raise ValueError(
+            f"{name} must have a dense last dim, strides that are multiples "
+            f"of 8 and a 16-byte aligned base; got strides {t.stride()}"
+        )
+
+
+def rows_dense(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when `check_rows_dense` accepts it, else a contiguous
+    copy."""
+    return t if _rows_readable(t) else t.contiguous()

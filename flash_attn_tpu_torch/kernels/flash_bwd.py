@@ -1,0 +1,237 @@
+"""Dense flash-attention backward (counterpart of
+flash_attn_tpu/kernels/flash_bwd.py).
+
+`flash_attention_bwd` returns (dq, dk, dv) from q, k, v, the forward's lse
+and dout through two kernel wrappers, each with its own launch count:
+
+  * `flash_attention_bwd_dq` (Q-stationary, `csrc/flash_bwd.cu`
+    flash_bwd_dq; plain version `_bwd_dq_ref`), which returns dq and
+    delta = sum_j P dP per query row;
+  * `flash_attention_bwd_dkv` (KV-stationary, flash_bwd_dkv; plain version
+    `_bwd_dkv_ref`), which takes that delta; its dK/dV already sum the
+    query heads of each GQA group.
+
+Both plain versions recompute P from Q, K and the LSE exactly as the JAX
+kernels' `_recompute_p_and_ds` does, not by autograd. The JAX package takes
+delta = rowsum(dO * O) instead; the two are equal in exact arithmetic, but
+with a bf16 O the rowsum no longer matches the recomputed P and dP, and the
+error it leaves in dS reaches the k-projection gradients magnified (see
+csrc/flash_bwd.cu). CUDA tensors launch the kernels; CPU tensors take the
+plain versions. The features are those of `kernels.flash_fwd`; the rest
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from flash_attn_tpu_torch.kernels.common import normalize_window, visible_mask
+from flash_attn_tpu_torch.kernels.flash_fwd import (
+    _scale,
+    check_kernel_inputs,
+    check_shapes,
+    check_unported,
+    scores,
+    strides_arg,
+)
+
+
+def _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible):
+    """P, dP and the softcap's tanh term (or None) of kv head g's query
+    heads, fp32 (b, group, sq, sk): P recomputed from the scores and the
+    LSE, 0 where masked and on rows with lse = -inf."""
+    heads = slice(g * group, (g + 1) * group)
+    s, t = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
+    lse_g = lse[:, heads, :, None]
+    keep = visible & torch.isfinite(lse_g)
+    p = torch.where(keep, torch.exp(s - lse_g), torch.zeros_like(s))
+    dp = torch.matmul(do[:, heads].float(),
+                      v[:, g:g + 1].float().transpose(-1, -2))
+    return p, dp, t
+
+
+def _ds(p, dp, delta, scale, t):
+    """dS = P * (dP - delta) * scale, times 1 - tanh^2 under a softcap."""
+    ds = p * (dp - delta[..., None]) * scale
+    return ds if t is None else ds * (1.0 - t * t)
+
+
+def _setup(q, k, softmax_scale, causal, window_size):
+    h, sq, d = q.shape[1:]
+    hk, sk = k.shape[1], k.shape[2]
+    window = normalize_window(window_size, causal)
+    return (h // hk, _scale(d, softmax_scale),
+            visible_mask(sq, sk, window, q.device))
+
+
+def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
+                 window_size=(-1, -1), softcap=0.0):
+    """Plain version of the dK/dV kernel: (dk, dv) in k's and v's dtypes,
+    each kv head's group of query heads summed, in fp32."""
+    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for g in range(k.shape[1]):
+        heads = slice(g * group, (g + 1) * group)
+        p, dp, t = _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible)
+        ds = _ds(p, dp, delta[:, heads], scale, t)
+        dv[:, g] = torch.matmul(p.transpose(-1, -2),
+                                do[:, heads].float()).sum(1).to(v.dtype)
+        dk[:, g] = torch.matmul(ds.transpose(-1, -2),
+                                q[:, heads].float()).sum(1).to(k.dtype)
+    return dk, dv
+
+
+def _bwd_dq_ref(q, k, v, do, lse, *, softmax_scale=None, causal=False,
+                window_size=(-1, -1), softcap=0.0):
+    """Plain version of the dQ kernel: (dq in q's dtype, delta (b, h, sq)
+    fp32 = sum_j P dP), in fp32."""
+    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size)
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    for g in range(k.shape[1]):
+        heads = slice(g * group, (g + 1) * group)
+        p, dp, t = _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible)
+        delta[:, heads] = (p * dp).sum(-1)
+        ds = _ds(p, dp, delta[:, heads], scale, t)
+        dq[:, heads] = torch.matmul(ds, k[:, g:g + 1].float()).to(q.dtype)
+    return dq, delta
+
+
+def _check_stats(q, **stats):
+    b, h, sq = q.shape[:3]
+    for name, t in stats.items():
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 (b, h, sq) on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)}")
+
+
+def _prepare(q, k, v, do, stats, softmax_scale, causal, window_size,
+             softcap):
+    check_shapes(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"dout {tuple(do.shape)} must match q {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    check_kernel_inputs(d, h, k.shape[1], q=q, k=k, v=v, dout=do)
+    _check_stats(q, **stats)
+    left, right = normalize_window(window_size, causal)
+    return (b, h, k.shape[1], sq, k.shape[2], d, _scale(d, softmax_scale),
+            left, right, float(softcap))
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
+                            causal=False, window_size=(-1, -1), softcap=0.0):
+    """(dk, dv), each (b, hk, sk, d) in k's dtype, GQA groups summed. CUDA
+    tensors launch flash_bwd_dkv (counted in
+    `flash_attention_bwd_dkv.launches`); CPU tensors take `_bwd_dkv_ref`."""
+    kw = dict(softmax_scale=softmax_scale, causal=causal,
+              window_size=window_size, softcap=softcap)
+    if q.device.type == "cpu":
+        return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+    dims = _prepare(q, k, v, do, dict(lse=lse, delta=delta), **kw)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = _kernels().flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        strides_arg(q, k, v, do, dk, dv), *dims,
+        int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, *, softmax_scale=None,
+                           causal=False, window_size=(-1, -1), softcap=0.0):
+    """(dq (b, h, sq, d) in q's dtype, delta (b, h, sq) fp32). CUDA tensors
+    launch flash_bwd_dq (counted in `flash_attention_bwd_dq.launches`); CPU
+    tensors take `_bwd_dq_ref`."""
+    kw = dict(softmax_scale=softmax_scale, causal=causal,
+              window_size=window_size, softcap=softcap)
+    if q.device.type == "cpu":
+        return _bwd_dq_ref(q, k, v, do, lse, **kw)
+    dims = _prepare(q, k, v, do, dict(lse=lse), **kw)
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    rc = _kernels().flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        strides_arg(q, k, v, do, dq), *dims,
+        int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels() -> ctypes.CDLL:
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    lib = load_library("flash_bwd")
+    dims = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + [strides] + dims
+    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + [strides] + dims
+    lib.flash_bwd_dkv.restype = lib.flash_bwd_dq.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,    # (b, h, sq, d)
+    k: torch.Tensor,    # (b, hk, sk, d)
+    v: torch.Tensor,    # (b, hk, sk, d)
+    lse: torch.Tensor,  # (b, h, sq) fp32 natural log
+    do: torch.Tensor,   # (b, h, sq, d)
+    *,
+    qv: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    attention_chunk: int = 0,
+    sink_token_length: int = 0,
+    softcap: float = 0.0,
+    dropout_p: float = 0.0,
+    score_mod=None,
+    mask_mod=None,
+    aux_tensors=(),
+    aux_scalars=(),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward. Returns (dq, dk, dv); dk/dv come back per
+    kv head (GQA groups summed), each in its input's dtype. Unlike the JAX
+    function it takes no `out`: delta = sum_j P dP comes from the dQ
+    kernel, not from rowsum(dO * O)."""
+    check_unported(
+        qv=qv, bias=bias, alibi_slopes=alibi_slopes,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        attention_chunk=attention_chunk, sink_token_length=sink_token_length,
+        dropout_p=dropout_p, score_mod=score_mod, mask_mod=mask_mod,
+        aux_tensors=tuple(aux_tensors or ()),
+        aux_scalars=tuple(aux_scalars or ()),
+    )
+    kw = dict(softmax_scale=softmax_scale, causal=causal,
+              window_size=window_size, softcap=softcap)
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv

@@ -1,8 +1,10 @@
 """Config-driven GPT model family (counterpart of
 flash_attn_tpu/models/gpt.py): one `GPTConfig` covers GPT-2-style and
-Llama/Mistral-style models. The forward needs a paged KV cache
-(`InferenceParams` with a block table), which is how `LLMEngine` calls it;
-see `utils.testing.gpt_forward_ref` for a plain full-sequence forward."""
+Llama/Mistral-style models. Without a cache the forward runs the whole
+sequence through the flash-attention kernels (training; `remat` sets the
+activation checkpointing); with a paged KV cache (`InferenceParams` with a
+block table) it is `LLMEngine`'s step. `utils.testing.gpt_forward_ref` is a
+plain full-sequence forward to check it against."""
 
 from __future__ import annotations
 
@@ -14,9 +16,15 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from flash_attn_tpu_torch.modules.block import Block, LayerNorm, RMSNorm, make_norm
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
+from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
 from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
 from flash_attn_tpu_torch.utils.device import resolve_device
@@ -61,6 +69,12 @@ class GPTConfig:
     position_offset: int = 0
     embed_scale: Optional[float] = None
     attn_type: str = "mha"
+    # Activation checkpointing per block while training ("none" | "dots" |
+    # "full"): "dots" keeps the outputs of the (non-batched) matrix
+    # products and recomputes the rest, attention included, in the
+    # backward, as jax.checkpoint's dots_with_no_batch_dims_saveable does;
+    # "full" keeps nothing.
+    remat: str = "none"
     dtype: Any = torch.bfloat16
 
     @property
@@ -77,7 +91,7 @@ class GPTConfig:
         return self.n_head_kv if self.n_head_kv is not None else self.n_head
 
 
-def _mixer_factory(config: GPTConfig, layer_idx: int, device):
+def _mixer_factory(config: GPTConfig, layer_idx: int, device, param_dtype):
     if config.attn_type != "mha":
         raise NotImplementedError(
             f"attn_type={config.attn_type!r} is not ported yet: ROADMAP "
@@ -91,6 +105,7 @@ def _mixer_factory(config: GPTConfig, layer_idx: int, device):
         head_dim=config.head_dim,
         qkv_proj_bias=config.qkv_proj_bias,
         out_proj_bias=config.out_proj_bias,
+        dropout=config.attn_pdrop,
         window_size=config.window_size,
         softcap=config.softcap,
         use_alibi=config.use_alibi,
@@ -100,12 +115,14 @@ def _mixer_factory(config: GPTConfig, layer_idx: int, device):
         layer_idx=layer_idx,
         device=device,
         dtype=config.dtype,
+        param_dtype=param_dtype,
     )
 
 
-def _mlp_factory(config: GPTConfig, device):
+def _mlp_factory(config: GPTConfig, device, param_dtype):
     kw = dict(in_features=config.n_embd, bias1=config.mlp_fc1_bias,
-              bias2=config.mlp_fc2_bias, device=device, dtype=config.dtype)
+              bias2=config.mlp_fc2_bias, device=device, dtype=config.dtype,
+              param_dtype=param_dtype)
     act = config.activation_function
     if act in GATED_ACTIVATIONS:
         return functools.partial(GatedMlp, hidden_features=config.n_inner,
@@ -116,17 +133,35 @@ def _mlp_factory(config: GPTConfig, device):
     )
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep the outputs of the
+    dense layers' matrix products, recompute everything else."""
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, param_dtype=None):
         super().__init__()
         c = config
+        if c.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat must be none, dots or full, not {c.remat!r}")
         self.config = c
         self.embeddings = GPT2Embeddings(c.n_embd, c.padded_vocab_size,
                                          c.n_positions, device=device,
-                                         dtype=c.dtype)
+                                         dtype=c.dtype, param_dtype=param_dtype)
         self.layers = nn.ModuleList(
             Block(
-                c.n_embd, _mixer_factory(c, i, device), _mlp_factory(c, device),
+                c.n_embd, _mixer_factory(c, i, device, param_dtype),
+                _mlp_factory(c, device, param_dtype),
                 norm_eps=c.layer_norm_epsilon, prenorm=c.prenorm,
                 residual_in_fp32=c.residual_in_fp32, rms_norm=c.rms_norm,
                 parallel_block=c.parallel_block,
@@ -150,17 +185,30 @@ class GPTModel(nn.Module):
                 position_ids = (c.position_offset
                                 + offset.to(input_ids.device).long()[:, None]
                                 + steps[None])
+        training = self.training and torch.is_grad_enabled()
+        if training and (c.embd_pdrop > 0 or c.resid_pdrop > 0):
+            raise NotImplementedError(
+                "embedding and residual dropout are not ported yet: ROADMAP "
+                "queue 1, item 13 (trainer leftovers: embd/resid dropout)"
+            )
         hidden = self.embeddings(input_ids, position_ids)
         if c.embed_scale is not None:
             hidden = hidden * torch.tensor(c.embed_scale, dtype=c.dtype)
+        remat = c.remat != "none" and inference_params is None and training
+
+        def run(layer, *args):
+            if not remat:
+                return layer(*args, inference_params=inference_params)
+            kw = dict(context_fn=_remat_context) if c.remat == "dots" else {}
+            return checkpoint(layer, *args, use_reentrant=False, **kw)
+
         if not c.prenorm:
             for layer in self.layers:
-                hidden = layer(hidden, inference_params=inference_params)
+                hidden = run(layer, hidden)
             return hidden
         residual = None
         for layer in self.layers:
-            hidden, residual = layer(hidden, residual,
-                                     inference_params=inference_params)
+            hidden, residual = run(layer, hidden, residual)
         residual = residual + hidden.to(residual.dtype)
         return self.ln_f(residual).to(c.dtype)
 
@@ -169,19 +217,27 @@ class GPTLMHeadModel(nn.Module):
     """LM-head model. Built on `device` (CUDA unless named; the CPU only on
     request) with random weights drawn from `generator` (a torch.Generator
     on that device; seed 0 when None) at flax's default scales:
-    normal(0, 1/sqrt(fan_in)) kernels, unit-normal embeddings, zero biases,
-    unit norm weights. Load real weights with `load_state_dict`."""
+    normal(0, 1/sqrt(fan_in)) kernels and embedding rows
+    (normal(0, 1/sqrt(n_embd))), zero biases, unit norm weights. Load real
+    weights with `load_state_dict`.
+
+    Weights are stored in `param_dtype` (default: `config.dtype`, as
+    serving keeps them) and computed in `config.dtype`; training passes
+    `torch.float32`, as flax keeps its parameters. Norms are fp32 always."""
 
     def __init__(self, config: GPTConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype=None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.transformer = GPTModel(config, device=device)
+        self.transformer = GPTModel(config, device=device,
+                                    param_dtype=param_dtype)
         self.lm_head = (
             None if config.tie_word_embeddings
-            else nn.Linear(config.n_embd, config.padded_vocab_size, bias=False,
-                           device=device, dtype=config.dtype)
+            else Linear(config.n_embd, config.padded_vocab_size, bias=False,
+                        device=device, dtype=config.dtype,
+                        param_dtype=param_dtype)
         )
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -196,7 +252,8 @@ class GPTLMHeadModel(nn.Module):
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, nn.Embedding):
-                module.weight.normal_(0.0, 1.0, generator=generator)
+                module.weight.normal_(0.0, 1.0 / math.sqrt(module.embedding_dim),
+                                      generator=generator)
             elif isinstance(module, (LayerNorm, RMSNorm)):
                 module.weight.fill_(1.0)
                 if getattr(module, "bias", None) is not None:
@@ -214,6 +271,6 @@ class GPTLMHeadModel(nn.Module):
         if num_last_tokens > 0:
             hidden = hidden[:, -num_last_tokens:]
         if self.lm_head is None:
-            return F.linear(hidden,
-                            self.transformer.embeddings.word_embeddings.weight)
+            wte = self.transformer.embeddings.word_embeddings.weight
+            return F.linear(hidden, wte.to(self.config.dtype))
         return self.lm_head(hidden)

@@ -2,8 +2,8 @@
 pre-norm with an fp32 residual stream, post-norm, and the parallel block.
 Norms compute in fp32 and their outputs are cast to the block's dtype, as
 the JAX package's `nn.RMSNorm/LayerNorm(dtype=float32)` then `.astype` do.
-This port runs inference only, so the dropout and drop-path options of the
-JAX block are not kept."""
+The JAX block's residual dropout and drop-path options are not kept: the
+model raises when its config asks for residual dropout while training."""
 
 from __future__ import annotations
 

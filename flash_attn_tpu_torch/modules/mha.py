@@ -1,11 +1,11 @@
-"""Multi-head attention with a paged KV-cache decode path (counterpart of
-flash_attn_tpu/modules/mha.py).
+"""Multi-head attention (counterpart of flash_attn_tpu/modules/mha.py).
 
 Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window and softcap.
-Only the cached path is ported: `_decode_step` appends the new K/V to the
-layer's paged pool in place and runs the paged decode kernel. The no-cache
-path (dense flash attention), ALiBi, dwconv and quantized pools raise
-NotImplementedError.
+Without a cache (training, full-sequence forwards) it runs dense causal
+flash attention (`flash_attn_func`: the flash forward and backward
+kernels). With a paged cache, `_decode_step` appends the new K/V to the
+layer's paged pool in place and runs the paged decode kernel. ALiBi,
+dwconv, attention dropout and quantized pools raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,8 +16,10 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
+from flash_attn_tpu_torch.flash_attn_interface import flash_attn_func
 from flash_attn_tpu_torch.kernels.flash_decode import flash_attention_decode
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
 from flash_attn_tpu_torch.runtime.kv_cache import (
     update_fused_paged_kv_cache,
@@ -43,7 +45,9 @@ class InferenceParams:
 class MHA(nn.Module):
     """Causal self-attention with separate q/k/v projections, rotary,
     GQA/MQA, sliding window, softcap, and a paged KV-cache decode path.
-    Inference only: the JAX module's dropout is not kept."""
+    Projection weights are stored in `param_dtype` (default: `dtype`) and
+    computed in `dtype`. Attention dropout (`dropout` > 0) raises while
+    training."""
 
     def __init__(
         self,
@@ -53,6 +57,7 @@ class MHA(nn.Module):
         head_dim: Optional[int] = None,
         qkv_proj_bias: bool = True,
         out_proj_bias: bool = True,
+        dropout: float = 0.0,
         softmax_scale: Optional[float] = None,
         window_size: Tuple[int, int] = (-1, -1),
         softcap: float = 0.0,
@@ -64,6 +69,7 @@ class MHA(nn.Module):
         layer_idx: Optional[int] = None,
         device=None,
         dtype=torch.bfloat16,
+        param_dtype=None,
     ):
         super().__init__()
         if use_alibi:
@@ -81,17 +87,18 @@ class MHA(nn.Module):
             raise ValueError(f"{h} heads do not group over {hk} kv heads")
         d = head_dim if head_dim is not None else embed_dim // num_heads
         self.num_heads, self.num_heads_kv, self.head_dim = h, hk, d
+        self.dropout = dropout
         self.softmax_scale = softmax_scale
         self.window_size = tuple(window_size)
         self.softcap = softcap
         self.rotary_emb_dim = rotary_emb_dim
         self.rotary_emb_interleaved = rotary_emb_interleaved
         self.layer_idx = layer_idx
-        kw = dict(device=device, dtype=dtype)
-        self.Wq = nn.Linear(embed_dim, h * d, bias=qkv_proj_bias, **kw)
-        self.Wk = nn.Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
-        self.Wv = nn.Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
-        self.out_proj = nn.Linear(h * d, embed_dim, bias=out_proj_bias, **kw)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.Wq = Linear(embed_dim, h * d, bias=qkv_proj_bias, **kw)
+        self.Wk = Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
+        self.Wv = Linear(embed_dim, hk * d, bias=qkv_proj_bias, **kw)
+        self.out_proj = Linear(h * d, embed_dim, bias=out_proj_bias, **kw)
         self.rotary = (
             RotaryEmbedding(rotary_emb_dim, base=rotary_emb_base,
                             interleaved=rotary_emb_interleaved)
@@ -100,19 +107,35 @@ class MHA(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 inference_params: Optional[InferenceParams] = None):
-        """x: (b, s, embed_dim). Needs `inference_params` (a paged cache)."""
-        if inference_params is None:
-            raise NotImplementedError(
-                "attention without a KV cache runs the dense flash-attention "
-                "kernels, not ported yet: ROADMAP queue 1, item 2 (kernels 1-3)"
-            )
+        """x: (b, s, embed_dim). Without `inference_params`: causal attention
+        over the whole sequence; with one (a paged cache): `_decode_step`."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         q = self.Wq(x).reshape(b, s, h, d)
         k = self.Wk(x).reshape(b, s, hk, d)
         v = self.Wv(x).reshape(b, s, hk, d)
-        context = self._decode_step(q, k, v, inference_params)
+        if inference_params is None:
+            context = self._full_sequence(q, k, v)
+        else:
+            context = self._decode_step(q, k, v, inference_params)
         return self.out_proj(context.reshape(b, s, h * d))
+
+    def _full_sequence(self, q, k, v):
+        """Rotary over positions 0..s-1, then causal flash attention."""
+        if self.dropout > 0.0 and self.training and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "attention dropout needs the murmur3 keep-mask in the flash "
+                "kernels: ROADMAP queue 2, kernels 1-3 (murmur3 dropout)"
+            )
+        if self.rotary is not None:
+            cos, sin = self.rotary.cos_sin(q.shape[1], device=q.device)
+            q = apply_rotary_emb(q, cos, sin,
+                                 interleaved=self.rotary_emb_interleaved)
+            k = apply_rotary_emb(k, cos, sin,
+                                 interleaved=self.rotary_emb_interleaved)
+        return flash_attn_func(q, k, v, softmax_scale=self.softmax_scale,
+                               causal=True, window_size=self.window_size,
+                               softcap=self.softcap)
 
     def _decode_step(self, q, k, v, inference_params: InferenceParams):
         """Append this call's K/V to the layer's paged pool (in place) and

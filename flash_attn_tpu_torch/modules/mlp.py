@@ -1,5 +1,7 @@
 """MLP modules (counterpart of flash_attn_tpu/modules/mlp.py). The matrix
-products are plain `nn.Linear`s, as the JAX package leaves them to XLA."""
+products are plain dense layers (`modules.linear.Linear`, weights stored in
+`param_dtype` and computed in `dtype`), as the JAX package leaves them to
+XLA."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from flash_attn_tpu_torch.modules.linear import Linear
 
 
 def _gelu_tanh(x):
@@ -35,14 +39,15 @@ class Mlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: Optional[int] = None,
                  out_features: Optional[int] = None,
                  activation: str = "gelu_approx", bias1: bool = True,
-                 bias2: bool = True, device=None, dtype=torch.bfloat16):
+                 bias2: bool = True, device=None, dtype=torch.bfloat16,
+                 param_dtype=None):
         super().__init__()
         hidden = hidden_features or 4 * in_features
         out = out_features or in_features
         self.activation = activation
-        self.fc1 = nn.Linear(in_features, hidden, bias=bias1, device=device,
-                             dtype=dtype)
-        self.fc2 = nn.Linear(hidden, out, bias=bias2, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.fc1 = Linear(in_features, hidden, bias=bias1, **kw)
+        self.fc2 = Linear(hidden, out, bias=bias2, **kw)
 
     def forward(self, x):
         return self.fc2(ACT2FN[self.activation](self.fc1(x)))
@@ -55,7 +60,8 @@ class GatedMlp(nn.Module):
     def __init__(self, in_features: int, hidden_features: Optional[int] = None,
                  out_features: Optional[int] = None, activation: str = "silu",
                  bias1: bool = False, bias2: bool = False,
-                 multiple_of: int = 128, device=None, dtype=torch.bfloat16):
+                 multiple_of: int = 128, device=None, dtype=torch.bfloat16,
+                 param_dtype=None):
         super().__init__()
         out = out_features or in_features
         if hidden_features is not None:
@@ -64,10 +70,10 @@ class GatedMlp(nn.Module):
             hidden = int(8 * in_features / 3)
             hidden = (hidden + multiple_of - 1) // multiple_of * multiple_of
         self.activation = activation
-        kw = dict(device=device, dtype=dtype)
-        self.fc1_gate = nn.Linear(in_features, hidden, bias=bias1, **kw)
-        self.fc1_up = nn.Linear(in_features, hidden, bias=bias1, **kw)
-        self.fc2 = nn.Linear(hidden, out, bias=bias2, **kw)
+        kw = dict(device=device, dtype=dtype, param_dtype=param_dtype)
+        self.fc1_gate = Linear(in_features, hidden, bias=bias1, **kw)
+        self.fc1_up = Linear(in_features, hidden, bias=bias1, **kw)
+        self.fc2 = Linear(hidden, out, bias=bias2, **kw)
 
     def forward(self, x):
         y = ACT2FN[self.activation](self.fc1_gate(x)) * self.fc1_up(x)

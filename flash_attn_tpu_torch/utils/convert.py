@@ -1,8 +1,10 @@
 """Carry the JAX package's GPT parameters over to this port.
 
 `state_dict_from_flax` takes the params of flash_attn_tpu's GPTLMHeadModel
-(a nested dict of arrays; numpy or anything `np.asarray` reads) and returns
-a state_dict for this package's GPTLMHeadModel. It imports no JAX."""
+(a nested dict of arrays; numpy or anything `np.asarray` reads), or any
+tree shaped like them such as a JAX gradient tree, and returns a
+state_dict-shaped dict of fp32 tensors for this package's GPTLMHeadModel.
+It imports no JAX."""
 
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Plain reference computations for checking the port: the attention oracle
-(counterpart of flash_attn_tpu/utils/testing.py `attention_ref`, causal,
-window and GQA) and a full-sequence GPT forward with no cache."""
+(counterpart of flash_attn_tpu/utils/testing.py `attention_ref`: causal
+and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap), a
+full-sequence GPT forward with no cache, and its loss as a gradient
+oracle."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+from flash_attn_tpu_torch.losses.cross_entropy import cross_entropy_loss
 from flash_attn_tpu_torch.models.gpt import GATED_ACTIVATIONS
 from flash_attn_tpu_torch.modules.mlp import ACT2FN
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
@@ -90,10 +93,22 @@ def gpt_forward_ref(model_or_state_dict, input_ids: torch.Tensor,
     Norms, softmax and the residual stream follow the model's own precision
     rules; `dtype` sets that of the products and activations."""
     if isinstance(model_or_state_dict, nn.Module):
-        sd = model_or_state_dict.state_dict()
-        config = model_or_state_dict.config
-    else:
-        sd = model_or_state_dict
+        return _gpt_logits(model_or_state_dict.state_dict(),
+                           model_or_state_dict.config, input_ids, dtype)
+    return _gpt_logits(model_or_state_dict, config, input_ids, dtype)
+
+
+def gpt_loss_ref(model: nn.Module, input_ids: torch.Tensor,
+                 labels: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Mean cross-entropy of the plain forward's logits (cast to fp32),
+    differentiable in the model's parameters: the gradient oracle of a
+    training step. Attention is `attention_ref` (plain, no kernel)."""
+    params = dict(model.named_parameters())
+    logits = _gpt_logits(params, model.config, input_ids, dtype)
+    return cross_entropy_loss(logits.float(), labels)
+
+
+def _gpt_logits(sd, config, input_ids, dtype):
     c = config
     if not c.prenorm or c.parallel_block or c.use_alibi or c.attn_type != "mha":
         raise NotImplementedError("gpt_forward_ref covers the pre-norm, "
