@@ -40,6 +40,7 @@ It needs a CUDA device and the rest of this repository beside it.
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import os
@@ -53,6 +54,9 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from flash_attn_tpu_torch.flash_attn_interface import (  # noqa: E402
+    flash_attn_varlen_func,
+)
 from flash_attn_tpu_torch.kernels import _build  # noqa: E402
 from flash_attn_tpu_torch.kernels.common import normalize_window  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
@@ -68,6 +72,16 @@ from flash_attn_tpu_torch.kernels.flash_decode_multipage import (  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_fwd import (  # noqa: E402
     flash_attention_fwd,
     flash_attention_fwd_ref,
+)
+from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
+    _varlen_dkv_ref,
+    _varlen_dq_ref,
+    flash_attention_varlen_bwd_dkv,
+    flash_attention_varlen_bwd_dq,
+    flash_attention_varlen_fwd,
+    flash_attention_varlen_fwd_ref,
+    plan_mismatch,
+    varlen_window,
 )
 from flash_attn_tpu_torch.losses.cross_entropy import (  # noqa: E402
     cross_entropy_loss,
@@ -87,9 +101,16 @@ from flash_attn_tpu_torch.runtime.kv_cache import (  # noqa: E402
 from flash_attn_tpu_torch.training import run as train_run  # noqa: E402
 from flash_attn_tpu_torch.training.run import load_config  # noqa: E402
 from flash_attn_tpu_torch.training.trainer import Trainer  # noqa: E402
+from flash_attn_tpu_torch.utils.fa_logging import dispatch_counts  # noqa: E402
 from flash_attn_tpu_torch.utils.testing import (  # noqa: E402
     gpt_forward_ref,
     gpt_loss_ref,
+)
+from flash_attn_tpu_torch.vllm_compat import (  # noqa: E402
+    flash_attn_varlen_func as vllm_flash_attn_varlen_func,
+)
+from flash_attn_tpu_torch.vllm_compat import (  # noqa: E402
+    get_scheduler_metadata,
 )
 
 # Mistral-7B-v0.1, https://huggingface.co/mistralai/Mistral-7B-v0.1 config.json
@@ -149,14 +170,17 @@ def smi() -> str:
 
 # -- phase 2: kernel vs plain ------------------------------------------------
 
-# (name, sq, fused, page, window_left, softcap, permuted table)
+# (name, sq, fused, page, window_left, softcap, permuted table, phd): phd
+# pools are vLLM's (npages, page, hk, d), handed to the kernel as head-major
+# views (the vllm_compat decode route), not copied.
 CASES = [
-    ("decode", 1, True, 16, WINDOW, 0.0, True),          # the engine's decode
-    ("decode-split", 1, False, 16, -1, 0.0, True),
-    ("decode-page128-contiguous", 1, True, 128, -1, 0.0, False),
-    ("decode-softcap30", 1, True, 16, -1, 30.0, True),
-    ("prefill", 256, True, 16, WINDOW, 0.0, True),       # an engine prefill chunk
-    ("prefill-split-page128", 256, False, 128, -1, 0.0, True),
+    ("decode", 1, True, 16, WINDOW, 0.0, True, False),    # the engine's decode
+    ("decode-split", 1, False, 16, -1, 0.0, True, False),
+    ("decode-page128-contiguous", 1, True, 128, -1, 0.0, False, False),
+    ("decode-softcap30", 1, True, 16, -1, 30.0, True, False),
+    ("prefill", 256, True, 16, WINDOW, 0.0, True, False),  # an engine prefill chunk
+    ("prefill-split-page128", 256, False, 128, -1, 0.0, True, False),
+    ("decode-phd-view", 1, False, 16, WINDOW, 0.0, True, True),
 ]
 B, H, HK, D = 8, 32, 8, 128
 MAX_CTX = 6000
@@ -179,7 +203,7 @@ def bound(seqlens, sq, window, table_shape):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_case(name, sq, fused, page, window, softcap, permuted, seed):
+def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
     rng = np.random.RandomState(seed)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -194,6 +218,11 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, seed):
     if fused:
         k_pages = allocate_fused_paged_kv_cache(npages, page, HK, D, device=dev)
         v_pages = None
+    elif phd:
+        k_pages, v_pages = (
+            torch.empty(npages, page, HK, D, device=dev, dtype=torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+        v_pages.normal_(generator=gen)
     else:
         k_pages, v_pages = allocate_paged_kv_cache(npages, page, HK, D, device=dev)
         v_pages.normal_(generator=gen)
@@ -241,7 +270,7 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, seed):
     bound_ms, bound_by = bound(seqlens.tolist(), sq, window, tuple(table.shape))
     result = dict(
         phase="kernel", kernel="paged_decode", case=name, b=B, sq=sq, h=H,
-        hk=HK, d=D, page=page, fused=fused, window_left=window,
+        hk=HK, d=D, page=page, fused=fused, phd_view=phd, window_left=window,
         softcap=softcap, permuted=permuted, max_ctx=int(seqlens.max()),
         max_abs_err=float(err.max()), lse_max_abs_err=lse_err,
         tolerance=f"|out-ref| <= {OUT_ATOL} + {OUT_RTOL}|ref|, |lse-ref| <= {LSE_ATOL}",
@@ -459,6 +488,639 @@ def attn_fault_phase():
                                     f"case {name} passes the tolerance")
 
 
+# -- phases: varlen_kernels, varlen_fault (kernels 6-8 vs plain) --------------
+
+def doc_lengths(total, max_len, seed):
+    """Seeded document lengths in [1, max_len] that pack `total` tokens."""
+    rng = np.random.RandomState(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.randint(1, max_len + 1)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+GPT2M_DOCS = doc_lengths(8 * 2048, 2048, 30)
+# Packed cases: (lens_q, lens_k, seqused_q, seqused_k, h, hk, d, causal,
+# window_size, layout, the cu_seqlens_k boundary the fault moves).
+VARLEN_CASES = {
+    # GPT-2-medium attention over 8 x 2048 tokens packed as documents.
+    "gpt2m-packed": (GPT2M_DOCS, GPT2M_DOCS, None, None, 16, 16, 64, True,
+                     (-1, -1), "thd", 1),
+    # Lengths 0 and 1, seqused_q > seqused_k, seqused_k 0, head-major
+    # layout, d 128, a window.
+    "edge-hsd-d128": ((12, 0, 1, 20, 9, 700), (15, 4, 1, 6, 9, 700),
+                      (12, 0, 1, 14, 9, 700), (15, 4, 1, 5, 0, 700), 8, 2,
+                      128, True, (63, -1), "hsd", 5),
+}
+# Paged (Mistral-7B widths, vLLM "phd" pools): a chunked-prefill step of
+# four 512-token chunks at contexts past the 4096 window.
+PAGED_QLENS, PAGED_CONTEXTS = (512, 512, 512, 512), (2831, 3862, 4144, 6000)
+
+
+def varlen_pairs(rows, keys, off, left, right):
+    """Visible (row, key) pairs of one sequence and how many of its keys
+    any row sees, under the varlen rule (csrc/flash_fwd.cu)."""
+    if rows <= 0 or keys <= 0:
+        return 0, 0
+    diag = np.arange(rows) + off
+    lo = np.maximum(diag - left, 0) if left >= 0 else np.zeros(rows, np.int64)
+    hi = np.minimum(diag + right, keys - 1) if right >= 0 else np.full(rows, keys - 1)
+    span = np.maximum(hi - lo + 1, 0)
+    seen = span > 0
+    needed = int(hi[seen].max() - lo[seen].min() + 1) if seen.any() else 0
+    return int(span.sum()), needed
+
+
+def varlen_work(lens_q, lens_k, used_q, used_k, causal, window):
+    """(visible pairs per head, keys that must be read) of a packed call."""
+    left, right = varlen_window(window, causal)
+    pairs = needed = 0
+    for j, (lq, lk) in enumerate(zip(lens_q, lens_k)):
+        uq = lq if used_q is None else used_q[j]
+        uk = lk if used_k is None else used_k[j]
+        p, n = varlen_pairs(min(uq, lq), min(uk, lk), uk - uq, left, right)
+        pairs, needed = pairs + p, needed + n
+    return pairs, needed
+
+
+def _dev_int(x, dev="cuda"):
+    return None if x is None else torch.tensor(np.asarray(x), dtype=torch.int32,
+                                               device=dev)
+
+
+def _cu_of(lens):
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+def library_packed(q, k, v, cu, causal):
+    """The yardstick of a packed call: SDPA on jagged torch.nested tensors
+    (the port never calls it). Returns (ms, what ran) or (None, why not)."""
+    try:
+        offs = cu.long()
+        qn, kn, vn = (torch.nested.nested_tensor_from_jagged(x, offs)
+                      .transpose(1, 2) for x in (q, k, v))
+        ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qn, kn, vn, is_causal=causal))
+        return ms, f"SDPA on jagged torch.nested tensors, is_causal={causal}"
+    except Exception as exc:  # a yardstick: report why it did not run
+        return None, f"not run: {type(exc).__name__}: {str(exc)[:160]}"
+
+
+def varlen_compare(name, seed, fault=False):
+    """Kernels 6-8 and their plain versions on one packed case's seeded
+    inputs (the plain forward's LSE and the plain dQ's delta feed the
+    backward kernels). With fault=True the kernels get cu_seqlens_k with
+    one boundary moved by a token. Returns (result, tensors)."""
+    (lens_q, lens_k, used_q, used_k, h, hk, d, causal, window, layout,
+     boundary) = VARLEN_CASES[name]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tq, tk = sum(lens_q), sum(lens_k)
+
+    def rand(total, heads):
+        shape = (total, heads, d) if layout == "thd" else (heads, total, d)
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    q, do = rand(tq, h), rand(tq, h)
+    k, v = rand(tk, hk), rand(tk, hk)
+    cu_q, cu_k = _dev_int(_cu_of(lens_q)), _dev_int(_cu_of(lens_k))
+    kcu_k = cu_k.clone()
+    if fault:
+        kcu_k[boundary] += 1
+    kw = dict(seqused_q=_dev_int(used_q), seqused_k=_dev_int(used_k),
+              causal=causal, window_size=window, layout=layout)
+    maxes = dict(max_seqlen_q=max(lens_q))
+    out, lse = flash_attention_varlen_fwd(q, k, v, cu_q, kcu_k, **kw, **maxes)
+    torch.cuda.synchronize()
+    up = tuple(x.float() for x in (q, k, v, do))
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(*up[:3], cu_q, cu_k, **kw)
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max()) if finite.any() else 0.0
+    out_rows = out.float() if layout == "thd" else out.float().transpose(0, 1)
+    result = dict(empty_rows=int((~finite).sum()),
+                  out=held(out_rows, ref_out if layout == "thd"
+                           else ref_out.transpose(0, 1)),
+                  lse_max_abs_err=lse_err)
+    fwd_ok = bool(result["out"]["err_over_limit"] <= 1
+                  and torch.equal(finite, torch.isfinite(lse))
+                  and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all())
+    del ref_out
+    args = (q, k, v, do, ref_lse)
+    dq, delta = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **maxes)
+    dq2, delta2 = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **maxes)
+    ref_dq, ref_delta = _varlen_dq_ref(*up, ref_lse, cu_q, cu_k, **kw)
+    kmax = dict(max_seqlen_k=max(lens_k))
+    dk, dv = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k, **kw,
+                                            **kmax)
+    dk2, dv2 = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k,
+                                              **kw, **kmax)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y) for x, y in
+                        ((dk, dk2), (dv, dv2), (dq, dq2), (delta, delta2)))
+    ref_dk, ref_dv = _varlen_dkv_ref(*up, ref_lse, ref_delta, cu_q, cu_k, **kw)
+
+    def rows(x):  # the d values of one token and head last, for `held`
+        return x.float() if layout == "thd" else x.float().transpose(0, 1)
+
+    result.update(dq=held(rows(dq), rows(ref_dq)), delta=held(delta, ref_delta),
+                  dk=held(rows(dk), rows(ref_dk)), dv=held(rows(dv), rows(ref_dv)))
+    grads_finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    # A grid sized for 64-row sequences loops over the longer ones' tiles:
+    # the same tiles, the same bits.
+    short = dict(max_seqlen_q=64)
+    out_s, _ = flash_attention_varlen_fwd(q, k, v, cu_q, kcu_k, **kw, **short)
+    dq_s, _ = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **short)
+    dk_s, dv_s = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k,
+                                                **kw, max_seqlen_k=64)
+    short_grid_equal = all(torch.equal(x, y) for x, y in (
+        (out_s, out), (dq_s, dq), (dk_s, dk), (dv_s, dv)))
+    result.update(
+        short_grid_equal=short_grid_equal,
+        fwd_ok=fwd_ok,
+        dq_ok=result["dq"]["err_over_limit"] <= 1
+        and result["delta"]["err_over_limit"] <= 1,
+        dkv_ok=max(result["dk"]["err_over_limit"],
+                   result["dv"]["err_over_limit"]) <= 1,
+        bwd_bitwise_deterministic=deterministic, grads_finite=grads_finite)
+    tensors = dict(args=args, delta=ref_delta, cu=(cu_q, cu_k), kw=kw,
+                   maxes=dict(maxes, **kmax))
+    return result, tensors
+
+
+def varlen_case(name, seed):
+    checked, t = varlen_compare(name, seed)
+    (lens_q, lens_k, used_q, used_k, h, hk, d, causal, window, layout,
+     _) = VARLEN_CASES[name]
+    q, k, v, do, lse = t["args"]
+    cu_q, cu_k = t["cu"]
+    kw, maxes = t["kw"], t["maxes"]
+    fwd_kw = dict(kw, max_seqlen_q=maxes["max_seqlen_q"])
+    dq_kw = dict(kw, max_seqlen_q=maxes["max_seqlen_q"])
+    dkv_kw = dict(kw, max_seqlen_k=maxes["max_seqlen_k"])
+    result = dict(
+        phase="varlen_kernels", case=name, nseq=len(lens_q), total_q=sum(lens_q),
+        total_k=sum(lens_k), max_seqlen_q=max(lens_q), h=h, hk=hk, d=d,
+        causal=causal, window_size=list(window), layout=layout,
+        seqused=used_q is not None, dtype="bfloat16", **checked,
+        tolerance=ATTN_TOLERANCE,
+        ok=(checked["fwd_ok"] and checked["dq_ok"] and checked["dkv_ok"]
+            and checked["bwd_bitwise_deterministic"] and checked["grads_finite"]
+            and checked["short_grid_equal"]))
+    pairs, needed = varlen_work(lens_q, lens_k, used_q, used_k, causal, window)
+    el = 2
+    qb, kvb, stats = sum(lens_q) * h * d * el, needed * hk * d * el, sum(lens_q) * h * 4
+    result.update(
+        fwd_ms=cuda_ms(lambda: flash_attention_varlen_fwd(q, k, v, cu_q, cu_k,
+                                                          **fwd_kw)),
+        dq_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dq(
+            q, k, v, do, lse, cu_q, cu_k, **dq_kw)),
+        dkv_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dkv(
+            q, k, v, do, lse, t["delta"], cu_q, cu_k, **dkv_kw)),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
+            q, k, v, cu_q, cu_k, **kw), reps=5, warmup=1),
+        dq_plain_ms=cuda_ms(lambda: _varlen_dq_ref(
+            q, k, v, do, lse, cu_q, cu_k, **kw), reps=5, warmup=1),
+        dkv_plain_ms=cuda_ms(lambda: _varlen_dkv_ref(
+            q, k, v, do, lse, t["delta"], cu_q, cu_k, **kw), reps=5, warmup=1),
+        visible_pairs_per_head=pairs)
+    for key, per_d, nbytes in (
+            ("fwd", 4, 2 * qb + 2 * kvb + stats),
+            ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+            ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, 1, h, d, pairs)
+    if layout == "thd" and used_q is None and used_k is None:
+        result["library_fwd_ms"], result["library"] = library_packed(
+            q, k, v, cu_q, causal)
+    emit(result)
+    check(result["ok"], f"varlen_kernels case {name} disagrees with its plain "
+                        "version or is not deterministic")
+    return result
+
+
+def paged_step(qlens, contexts, page, seed):
+    """A chunked-prefill step at Mistral-7B widths over vLLM "phd" pools:
+    q, the pools, their head-major views, the block table, cu_seqlens_q and
+    seqused_k."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    pages = [-(-c // page) for c in contexts]
+    width = max(pages)
+    npages = sum(pages) + 1
+    ids = rng.permutation(npages)
+    table = np.zeros((len(contexts), width), np.int32)
+    start = 0
+    for j, n in enumerate(pages):
+        table[j, :n] = ids[start:start + n]
+        start += n
+    k_phd, v_phd = (torch.randn(npages, page, HK, D, generator=gen, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+    return dict(
+        q=torch.randn(sum(qlens), H, D, generator=gen, device=dev,
+                      dtype=torch.bfloat16),
+        k_phd=k_phd, v_phd=v_phd,
+        pools=(k_phd.transpose(1, 2), v_phd.transpose(1, 2)),
+        table=_dev_int(table), cu_q=_dev_int(_cu_of(qlens)),
+        used=_dev_int(contexts), max_q=max(qlens), page=page,
+        pages_in_order=torch.from_numpy(np.concatenate(
+            [table[j, :n] for j, n in enumerate(pages)]).astype(np.int64)).to(dev),
+        cu_k_pad=_dev_int(_cu_of([n * page for n in pages])))
+
+
+PAGED_KW = dict(causal=True, window_size=(WINDOW, -1))
+
+
+def paged_fwd(st, used=None):
+    return flash_attention_varlen_fwd(
+        st["q"], None, None, st["cu_q"], None,
+        seqused_k=st["used"] if used is None else used, kv_pools=st["pools"],
+        block_table=st["table"], max_seqlen_q=st["max_q"], **PAGED_KW)
+
+
+def gather_then_packed(st):
+    """The reference's gather route: copy every sequence's used pages into
+    packed K/V (vllm_compat.py:339-402), then the packed kernel."""
+    kp = st["k_phd"][st["pages_in_order"]].reshape(-1, HK, D)
+    vp = st["v_phd"][st["pages_in_order"]].reshape(-1, HK, D)
+    return flash_attention_varlen_fwd(
+        st["q"], kp, vp, st["cu_q"], st["cu_k_pad"], seqused_k=st["used"],
+        max_seqlen_q=st["max_q"], **PAGED_KW)
+
+
+def paged_compare(st, fault=False):
+    """Kernel 6 reading pages against its plain version (which gathers the
+    pages first); with fault=True the kernel gets the first sequence's
+    seqused_k one token longer."""
+    used = st["used"].clone()
+    if fault:
+        used[0] += 1
+    out, lse = paged_fwd(st, used)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(
+        st["q"].float(), None, None, st["cu_q"], None, seqused_k=st["used"],
+        kv_pools=st["pools"], block_table=st["table"], **PAGED_KW)
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max())
+    res = dict(out=held(out, ref_out), lse_max_abs_err=lse_err)
+    res["fwd_ok"] = bool(res["out"]["err_over_limit"] <= 1
+                         and torch.equal(finite, torch.isfinite(lse))
+                         and lse_err <= ATTN_LSE_TOL)
+    return res
+
+
+def paged_cases(seed=40):
+    """Kernel 6 on vLLM pools: held against its plain version at page 16
+    and 512, timed against its bound, and against the gather route; then
+    the cost of a step that mixes a 2041-token chunk with seven 1-token
+    decode rows, whose grid (cdiv(2041, 64) x h x 8 blocks) is mostly
+    empty."""
+    results = {}
+    pairs, needed = varlen_work(PAGED_QLENS, PAGED_CONTEXTS, None, None, True,
+                                (WINDOW, -1))
+    tq = sum(PAGED_QLENS)
+    nbytes = 2 * tq * H * D * 2 + 2 * needed * HK * D * 2 + tq * H * 4
+    for page in (16, 512):
+        st = paged_step(PAGED_QLENS, PAGED_CONTEXTS, page, seed)
+        checked = paged_compare(st)
+        bound_ms, bound_by = attn_bound(4, nbytes, 1, H, D, pairs)
+        r = dict(phase="varlen_kernels", case=f"mistral-paged-prefill-page{page}",
+                 qlens=list(PAGED_QLENS), contexts=list(PAGED_CONTEXTS), h=H,
+                 hk=HK, d=D, page=page, pools="phd (views)",
+                 window_size=[WINDOW, -1], **checked, tolerance=ATTN_TOLERANCE,
+                 ok=checked["fwd_ok"])
+        torch.cuda.synchronize()
+        # Route measurement, in turns (in-kernel, gather, gather, in-kernel)
+        # three times: times vary between calls, so only these pairs count.
+        inkernel, gather = [], []
+        for _ in range(3):
+            inkernel.append(cuda_ms(lambda: paged_fwd(st)))
+            gather.append(cuda_ms(lambda: gather_then_packed(st)))
+            gather.append(cuda_ms(lambda: gather_then_packed(st)))
+            inkernel.append(cuda_ms(lambda: paged_fwd(st)))
+        r.update(fwd_ms=float(np.median(inkernel)), inkernel_ms=inkernel,
+                 gather_route_ms=gather,
+                 gather_over_inkernel=float(np.median(gather) / np.median(inkernel)),
+                 fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
+                     st["q"], None, None, st["cu_q"], None, seqused_k=st["used"],
+                     kv_pools=st["pools"], block_table=st["table"], **PAGED_KW),
+                     reps=5, warmup=1),
+                 fwd_bound_ms=bound_ms, fwd_bound_by=bound_by,
+                 visible_pairs_per_head=pairs,
+                 library_fwd_ms=None,
+                 library="none: no PyTorch call attends over a page table with "
+                         "a per-sequence sliding window")
+        emit(r)
+        check(r["ok"], f"varlen_kernels paged case page {page} disagrees with "
+                       "its plain version")
+        results[page] = r
+        del st
+    # A mixed step: one long chunk and seven decode rows, against each part
+    # alone; the difference is what the empty blocks of the mixed grid cost.
+    ctx = (4144, 2831, 3862, 2770, 1355, 3591, 689, 2891)
+    parts = {"mixed": ((2041,) + (1,) * 7, ctx), "chunk": ((2041,), ctx[:1]),
+             "decode_rows": ((1,) * 7, ctx[1:])}
+    ms = {}
+    for key, (ql, cx) in parts.items():
+        st = paged_step(ql, cx, 16, seed + 1)
+        ms[key] = cuda_ms(lambda: paged_fwd(st))
+        if key == "mixed":  # the gather route on a step of the vLLM loop
+            ms["mixed_gather_route"] = cuda_ms(lambda: gather_then_packed(st))
+            ms["mixed_again"] = cuda_ms(lambda: paged_fwd(st))
+        del st
+    grid = -(-2041 // 64) * 8
+    emit(dict(phase="varlen_kernels", case="mixed-step-grid", qlens=[2041] + [1] * 7,
+              contexts=list(ctx), ms=ms,
+              empty_blocks_share=1 - (-(-2041 // 64) + 7) / grid,
+              # What the seven decode rows and the empty blocks add to the
+              # chunk's launch, together: an upper bound on the empty
+              # blocks' cost (the rows alone, in a launch of their own,
+              # pay that launch's fixed cost too).
+              mixed_minus_chunk_ms=ms["mixed"] - ms["chunk"]))
+    return results
+
+
+def varlen_fault_phase():
+    """The tolerance's power on varlen inputs: each packed case with one
+    cu_seqlens_k boundary moved by a token, and the paged case with one
+    seqused_k a token longer, handed to the kernels only. Every kernel's
+    check must fail."""
+    for i, name in enumerate(VARLEN_CASES):
+        checked, _ = varlen_compare(name, seed=60 + i, fault=True)
+        caught = {key: not checked[f"{key}_ok"] for key in ("fwd", "dq", "dkv")}
+        emit(dict(phase="varlen_fault", case=name,
+                  moved=f"cu_seqlens_k[{VARLEN_CASES[name][-1]}] + 1",
+                  err_over_limit={key: checked[key]["err_over_limit"]
+                                  for key in ("out", "dq", "delta", "dk", "dv")},
+                  caught=caught, ok=all(caught.values())))
+        check(all(caught.values()), f"varlen_fault: a moved boundary in case "
+                                    f"{name} passes the tolerance")
+    st = paged_step(PAGED_QLENS, PAGED_CONTEXTS, 16, 70)
+    checked = paged_compare(st, fault=True)
+    emit(dict(phase="varlen_fault", case="mistral-paged-prefill-page16",
+              moved="seqused_k[0] + 1",
+              err_over_limit={"out": checked["out"]["err_over_limit"]},
+              caught={"fwd": not checked["fwd_ok"]}, ok=not checked["fwd_ok"]))
+    check(not checked["fwd_ok"], "varlen_fault: a seqused_k one token longer "
+                                 "passes the tolerance")
+
+
+# -- phase: varlen_train (packed training attention through autograd) --------
+
+def varlen_train_phase(layers=24, seed=50):
+    """GPT-2-medium's 24 attention layers over 8 x 2048 tokens packed as
+    documents, forward and backward through `flash_attn_varlen_func` and
+    autograd, as a training step runs them; launches counted over this
+    phase only."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cu = _dev_int(_cu_of(GPT2M_DOCS))
+    tq, h, d = sum(GPT2M_DOCS), 16, 64
+    qkv = [torch.randn(3, tq, h, d, generator=gen, device=dev,
+                       dtype=torch.bfloat16).requires_grad_()
+           for _ in range(layers)]
+    do = torch.randn(tq, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    maxlen = max(GPT2M_DOCS)
+
+    def step():
+        outs = [flash_attn_varlen_func(x[0], x[1], x[2], cu, cu, maxlen, maxlen,
+                                       causal=True) for x in qkv]
+        torch.autograd.backward(outs, [do] * layers)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    _zero_varlen_counts()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _varlen_counts()
+    want = dict(flash_varlen_fwd=layers, flash_varlen_bwd_dkv=layers,
+                flash_varlen_bwd_dq=layers)
+    grads_finite = all(bool(torch.isfinite(x.grad).all()) for x in qkv)
+    ok = counts == want and grads_finite
+    result = dict(phase="varlen_train", layers=layers, docs=len(GPT2M_DOCS),
+                  tokens=tq, h=h, d=d, causal=True, step_wall_ms=wall_ms,
+                  step_ms_by_events=cuda_ms(step, reps=5, warmup=1),
+                  launches=counts, launches_expected=want,
+                  grads_finite=grads_finite, ok=ok)
+    emit(result)
+    check(ok, "varlen_train: launches off the count or non-finite gradients")
+    return result
+
+
+def _varlen_counts():
+    return dict(flash_varlen_fwd=flash_attention_varlen_fwd.launches,
+                flash_varlen_bwd_dkv=flash_attention_varlen_bwd_dkv.launches,
+                flash_varlen_bwd_dq=flash_attention_varlen_bwd_dq.launches)
+
+
+def _zero_varlen_counts():
+    flash_attention_varlen_fwd.launches = 0
+    flash_attention_varlen_bwd_dkv.launches = 0
+    flash_attention_varlen_bwd_dq.launches = 0
+
+
+# -- phase: vllm (vLLM's per-layer calls, Mistral-7B widths) ------------------
+
+VLLM_BUDGET, VLLM_DECODE_STEPS, VLLM_PAGE = 2048, 32, 16
+
+
+def vllm_schedule(lens, budget, decode_steps):
+    """A chunked-prefill schedule in vLLM's manner: each step first gives
+    every request past its prompt one decode row (until it has
+    `decode_steps`), then fills the rest of the query-token budget with
+    prompt chunks in arrival order. Returns per step [(request, query
+    tokens, context after the step)]."""
+    n = len(lens)
+    done, dec = [0] * n, [0] * n
+    steps = []
+    while True:
+        rows, left = [], budget
+        for i in range(n):
+            if done[i] == lens[i] and dec[i] < decode_steps:
+                dec[i] += 1
+                left -= 1
+                rows.append((i, 1, lens[i] + dec[i]))
+        for i in range(n):
+            if done[i] < lens[i] and left > 0:
+                c = min(lens[i] - done[i], left)
+                done[i] += c
+                left -= c
+                rows.append((i, c, done[i]))
+        if not rows:
+            return steps
+        steps.append(rows)
+
+
+class _SyncsRaise:
+    """torch.cuda.set_sync_debug_mode("error") inside the block: any host
+    sync raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def vllm_phase(seed=2, layers=32):
+    """One scheduler loop in vLLM's calling convention at Mistral-7B
+    widths: 32 layers, each with its own (num_blocks, 16, 8, 128) bf16 K
+    and V pools; the 8 prompts of the serve phase under a 2048-token budget,
+    32 decode steps each. Per step: new K/V rows written into every layer's
+    pools by plain indexing (vLLM's reshape_and_cache), one
+    get_scheduler_metadata, then one vllm_compat.flash_attn_varlen_func per
+    layer with host syncs made errors."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    lens = serve_prompt_lens(np.random.RandomState(seed)).tolist()
+    steps = vllm_schedule(lens, VLLM_BUDGET, VLLM_DECODE_STEPS)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pages = [-(-(n + VLLM_DECODE_STEPS) // VLLM_PAGE) for n in lens]
+    num_blocks = sum(pages) + 1
+    ids = rng.permutation(num_blocks)
+    req_table = np.zeros((len(lens), max(pages)), np.int32)
+    start = 0
+    for i, n in enumerate(pages):
+        req_table[i, :n] = ids[start:start + n]
+        start += n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pools = [(torch.zeros(num_blocks, VLLM_PAGE, HK, D, device=dev,
+                          dtype=torch.bfloat16),
+              torch.zeros(num_blocks, VLLM_PAGE, HK, D, device=dev,
+                          dtype=torch.bfloat16)) for _ in range(layers)]
+    pool_gb = 2 * layers * pools[0][0].numel() * 2 / 1e9
+    _zero_varlen_counts()
+    flash_attention_decode_multipage.launches = 0
+    dispatch_counts.clear()
+    kinds, attn_ms, checks = [], [], []
+    q_tokens = plan_reused = 0
+    profiles = {}
+    for si, rows in enumerate(steps):
+        reqs = [r[0] for r in rows]
+        qlens = [r[1] for r in rows]
+        ctx = [r[2] for r in rows]
+        tq = sum(qlens)
+        pos = np.concatenate([np.arange(c - n, c) for _, n, c in rows])
+        owner = np.repeat(reqs, qlens)
+        page_ids = torch.from_numpy(req_table[owner, pos // VLLM_PAGE].astype(
+            np.int64)).to(dev)
+        slots = torch.from_numpy((pos % VLLM_PAGE).astype(np.int64)).to(dev)
+        new_kv = torch.randn(layers, 2, tq, HK, D, generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+        for layer, (kp, vp) in enumerate(pools):  # vLLM's reshape_and_cache
+            kp[page_ids, slots] = new_kv[layer, 0]
+            vp[page_ids, slots] = new_kv[layer, 1]
+        q = torch.randn(layers, tq, H, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        cu_q = _dev_int(_cu_of(qlens))
+        used = _dev_int(ctx)
+        table = _dev_int(req_table[reqs])
+        max_q, max_k = max(qlens), max(ctx)
+        kind = "mixed" if max_q > 4 else "decode"
+        meta = get_scheduler_metadata(
+            len(rows), max_q, max_k, H, HK, D, cache_seqlens=used,
+            cu_seqlens_q=cu_q, causal=True, window_size=(WINDOW, -1),
+            page_size=VLLM_PAGE)
+        # The layers' calls reuse the step's plan without a host read.
+        plan_reused += plan_mismatch(
+            meta.plan, cu_seqlens_q=cu_q, seqused_k=used, causal=True,
+            window_size=(WINDOW, -1), host_read=False) is None
+
+        def calls(keep=()):
+            kept = {}
+            for layer, (kp, vp) in enumerate(pools):
+                o = vllm_flash_attn_varlen_func(
+                    q[layer], kp, vp, max_q, cu_q, max_k, seqused_k=used,
+                    causal=True, window_size=(WINDOW, -1), block_table=table,
+                    scheduler_metadata=meta)
+                if layer in keep:
+                    kept[layer] = o
+            return kept
+
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with _SyncsRaise():
+            kept = calls(keep=(0, layers - 1) if si % 8 == 0 else ())
+        end.record()
+        end.synchronize()
+        kinds.append(kind)
+        attn_ms.append(start.elapsed_time(end))
+        q_tokens += tq
+        for layer, o in kept.items():
+            kp, vp = pools[layer]
+            ref, _ = flash_attention_varlen_fwd_ref(
+                q[layer].float(), None, None, cu_q, None, seqused_k=used,
+                kv_pools=(kp.transpose(1, 2), vp.transpose(1, 2)),
+                block_table=table, causal=True, window_size=(WINDOW, -1))
+            checks.append(dict(step=si, layer=layer, kind=kind, **held(o, ref)))
+        if kind not in profiles and (kind == "decode" or si >= 2):
+            counts_before = (flash_attention_varlen_fwd.launches,
+                             flash_attention_decode_multipage.launches,
+                             dict(dispatch_counts))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # The profiled replay is not part of the scheduler loop's count.
+            flash_attention_varlen_fwd.launches = counts_before[0]
+            flash_attention_decode_multipage.launches = counts_before[1]
+            dispatch_counts.clear()
+            dispatch_counts.update(counts_before[2])
+            by_kernel = _device_ms_by_kernel(prof)
+            busy = sum(by_kernel.values())
+            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+            profiles[kind] = dict(step=si, wall_ms=wall,
+                                  device_busy_ms=busy if busy > 0 else None,
+                                  idle_share=1 - busy / wall if busy > 0 else None,
+                                  top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+        del q, new_kv
+    n_mixed, n_decode = kinds.count("mixed"), kinds.count("decode")
+    launches = dict(flash_varlen_fwd=flash_attention_varlen_fwd.launches,
+                    paged_decode=flash_attention_decode_multipage.launches,
+                    flash_varlen_bwd_dkv=flash_attention_varlen_bwd_dkv.launches,
+                    flash_varlen_bwd_dq=flash_attention_varlen_bwd_dq.launches)
+    want = dict(flash_varlen_fwd=layers * n_mixed, paged_decode=layers * n_decode,
+                flash_varlen_bwd_dkv=0, flash_varlen_bwd_dq=0)
+    routes = {f"{k}/{r}": n for (k, r), n in dispatch_counts.items()}
+    want_routes = {"varlen/paged-prefill-inkernel": layers * n_mixed,
+                   "varlen/paged-decode": layers * n_decode}
+    worst = max(c["err_over_limit"] for c in checks)
+    mixed_ms = [t for t, k in zip(attn_ms, kinds) if k == "mixed"]
+    decode_ms = [t for t, k in zip(attn_ms, kinds) if k == "decode"]
+    ok = (launches == want and routes == want_routes and worst <= 1
+          and n_mixed > 0 and n_decode > 0 and plan_reused == len(steps))
+    result = dict(
+        phase="vllm", model="Mistral-7B-v0.1 attention widths", layers=layers,
+        pool_layout="phd (num_blocks, 16, 8, 128) bf16 per layer, K and V",
+        num_blocks=num_blocks, pools_gb=pool_gb, prompt_lens=lens,
+        budget=VLLM_BUDGET, decode_steps_per_request=VLLM_DECODE_STEPS,
+        steps=len(steps), mixed_steps=n_mixed, decode_steps=n_decode,
+        query_tokens=q_tokens,
+        attention_ms_per_mixed_step=float(np.mean(mixed_ms)),
+        attention_ms_per_decode_step=float(np.mean(decode_ms)),
+        query_tokens_per_s=q_tokens / (sum(attn_ms) / 1e3),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
+        steps_reusing_plan=plan_reused,
+        launches=launches, launches_expected=want, routes=routes,
+        checked=len(checks), worst_err_over_limit=worst,
+        tolerance=ATTN_TOLERANCE, profile=profiles, ok=ok)
+    emit(result)
+    check(ok, "vllm: launches or routes off the count, or a layer's output "
+              "outside the tolerance")
+    del pools
+    return result
+
+
 # -- phases 3 and 4: the model and the engine ---------------------------------
 
 class TimedEngine(LLMEngine):
@@ -540,11 +1202,18 @@ def logits_phase(engine, model, prompt_len=4500, decode_steps=8, seed=1):
     return result
 
 
+def serve_prompt_lens(rng):
+    """The 8 prompt lengths of the serve phase (2831, 3862, 2770, 1355,
+    3591, 689, 2891, 4144 from seed 2), one of them past the window."""
+    lens = rng.randint(256, 5001, 8)
+    lens[int(rng.randint(8))] = int(rng.randint(4097, 5001))
+    return lens
+
+
 def serve_phase(engine, model, seed=2):
     c = model.config
     rng = np.random.RandomState(seed)
-    lens = rng.randint(256, 5001, 8)
-    lens[int(rng.randint(8))] = int(rng.randint(4097, 5001))  # past the window
+    lens = serve_prompt_lens(rng)
     prompts = [rng.randint(0, c.vocab_size, int(n)).tolist() for n in lens]
     max_new = 32
     torch.cuda.synchronize()
@@ -817,7 +1486,14 @@ def train_profile_phase(seed=5):
     return result
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", nargs="+", choices=("kernel", "attn", "varlen", "vllm"),
+        help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
+             "varlen_kernels + varlen_fault + varlen_train, vllm) and stop, "
+             "with no result line: for iterating on one kernel")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -832,11 +1508,38 @@ def main():
               nvidia_smi=card, build_s=build_s, sources=sources,
               ptxas=[ln.strip() for log in logs.values()
                      for ln in log.splitlines() if "registers" in ln
-                     or "spill" in ln]))
+                     or "spill" in ln or "Function properties" in ln]))
+
+    if only:
+        if "kernel" in only:
+            for i, case in enumerate(CASES):
+                kernel_case(*case, seed=10 + i)
+        if "attn" in only:
+            for i, c in enumerate(ATTN_CASES):
+                attn_case(*c, seed=20 + i)
+            attn_fault_phase()
+        if "varlen" in only:
+            for i, name in enumerate(VARLEN_CASES):
+                varlen_case(name, seed=30 + i)
+            paged_cases()
+            varlen_fault_phase()
+            varlen_train_phase()
+        if "vllm" in only:
+            vllm_phase()
+        print(smi(), flush=True)
+        return 0
 
     cases = [kernel_case(*case, seed=10 + i) for i, case in enumerate(CASES)]
     attn = {c[0]: attn_case(*c, seed=20 + i) for i, c in enumerate(ATTN_CASES)}
     attn_fault_phase()
+    varlen = {name: varlen_case(name, seed=30 + i)
+              for i, name in enumerate(VARLEN_CASES)}
+    paged = paged_cases()
+    varlen_fault_phase()
+    vtrain = varlen_train_phase()
+    vllm = vllm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     config = llama_config_to_gpt_config(MISTRAL_7B)
     t0 = time.perf_counter()
@@ -863,13 +1566,18 @@ def main():
     torch.cuda.empty_cache()
     train_profile_phase()
 
-    decode, prefill = cases[0], cases[4]
+    decode, prefill, phd = cases[0], cases[4], cases[6]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(
         name="paged_decode", route="cuda",
         source="flash_attn_tpu_torch/csrc/paged_decode.cu",
         replaces="flash_attn_tpu/kernels/flash_decode_multipage.py:65",
         launches=serve["kernel_launches"],
+        launches_by_path=dict(serve=serve["kernel_launches"],
+                              vllm=vllm["launches"]["paged_decode"]),
+        phd_view=dict({k: phd[k] for k in keys},
+                      shape="decode on vLLM phd pools as views, split, "
+                            "window 4095"),
         max_abs_err=max(c["max_abs_err"] for c in cases),
         max_err=max(c["max_abs_err"] for c in cases),
         kernel_ms=decode["ms"],
@@ -904,6 +1612,40 @@ def main():
                          shape="b=1 h=32 hk=8 s=8192 d=128 causal window "
                                "4095 bf16"),
         ))
+    gpt2m_v, p16 = varlen["gpt2m-packed"], paged[16]
+    for name, key, source, replaces, tensors in (
+            ("flash_varlen_fwd", "fwd", "flash_fwd.cu", "flash_varlen.py:542",
+             ("out",)),
+            ("flash_varlen_bwd_dkv", "dkv", "flash_bwd.cu",
+             "flash_varlen.py:883", ("dk", "dv")),
+            ("flash_varlen_bwd_dq", "dq", "flash_bwd.cu", "flash_varlen.py:1005",
+             ("dq", "delta"))):
+        err = max(c[t]["max_abs_err"] for c in varlen.values() for t in tensors)
+        by_path = dict(varlen_train=vtrain["launches"][name],
+                       vllm=vllm["launches"][name])
+        entry = dict(
+            name=name, route="cuda",
+            source=f"flash_attn_tpu_torch/csrc/{source}",
+            replaces=f"flash_attn_tpu/kernels/{replaces}",
+            launches=by_path["vllm"] if key == "fwd" else by_path["varlen_train"],
+            launches_by_path=by_path, max_abs_err=err,
+            ms=gpt2m_v[f"{key}_ms"], plain_ms=gpt2m_v[f"{key}_plain_ms"],
+            bound_ms=gpt2m_v[f"{key}_bound_ms"],
+            bound_by=gpt2m_v[f"{key}_bound_by"],
+            library_ms=gpt2m_v.get("library_fwd_ms") if key == "fwd" else None,
+            shape=f"gpt2m packed: 16384 tokens in {len(GPT2M_DOCS)} documents, "
+                  "h=hk=16 d=64 causal bf16")
+        if key == "fwd":
+            entry["max_abs_err"] = max(err, *(r["out"]["max_abs_err"]
+                                              for r in paged.values()))
+            entry["paged"] = dict(
+                ms=p16["fwd_ms"], plain_ms=p16["fwd_plain_ms"],
+                bound_ms=p16["fwd_bound_ms"], bound_by=p16["fwd_bound_by"],
+                library_ms=None,
+                shape="Mistral paged prefill: 4 x 512-token chunks at "
+                      "contexts 2831-6000, h=32 hk=8 d=128, window 4095, "
+                      "page 16, phd views")
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

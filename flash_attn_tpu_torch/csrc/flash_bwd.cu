@@ -1,14 +1,22 @@
-// Dense flash-attention backward: dQ, dK and dV from Q, K, V, dO and the
-// forward's log-sum-exp, in two kernels.
+// Flash-attention backward: dQ, dK and dV from Q, K, V, dO and the
+// forward's log-sum-exp, in two kernels, over dense batches or packed
+// variable-length sequences.
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:233
-// (_bwd_dkv_kernel, launched at :930 by flash_attention_bwd :669) and
-// flash_bwd.py:449 (_bwd_dq_kernel, launched at :1075), restricted to the
-// forward's features here: scale, bottom-right-aligned causal, sliding
-// window, GQA/MQA, softcap, head dim 64 or 128, bf16/fp16. The TPU schedule
-// (clamped index maps, _make_inverse_bounds, 128-lane LSE padding, the
-// (b, h, sk, d) per-query-head dK/dV temporary and its reshape-sum) is not
-// carried over.
+// (_bwd_dkv_kernel, launched at :930 by flash_attention_bwd :669),
+// flash_bwd.py:449 (_bwd_dq_kernel, launched at :1075),
+// flash_attn_tpu/kernels/flash_varlen.py:883 (_varlen_dkv_kernel, launched
+// at :1739 by flash_attention_varlen_bwd :1508) and flash_varlen.py:1005
+// (_varlen_dq_kernel, launched at :1821), restricted to the forward's
+// features here (csrc/flash_fwd.cu): scale, bottom-right-aligned causal,
+// sliding window, GQA/MQA, softcap, seqused_q/k, head dim 64 or 128,
+// bf16/fp16. The TPU schedule (clamped index maps, _make_inverse_bounds,
+// exact worklists, 128-lane LSE padding, the (b, h, sk, d) and (h, total_k,
+// d) per-query-head dK/dV temporaries and their reshape-sums) is not carried
+// over. A varlen sequence is what a batch row is to a dense call: the same
+// row/key/diagonal rule as the forward, with per-sequence offsets and
+// lengths; rows past a sequence's used rows and keys past its used keys are
+// not written (the varlen wrapper zero-fills dq, dk and dv beforehand).
 //
 // Function. Both kernels recompute P from Q, K and the LSE, as
 // _recompute_p_and_ds (flash_bwd.py:107-230) does: with s = q . k,
@@ -20,8 +28,8 @@
 // dK and dV sum over the query heads of each kv head's group. A row that
 // sees no column (lse = -inf) contributes nothing: P is 0, never NaN.
 //
-// delta. The JAX package takes delta = rowsum(dO * O) (flash_bwd.py:726),
-// equal in exact arithmetic. With O rounded to bf16 it no longer matches
+// delta. The JAX package takes delta = rowsum(dO * O) (flash_bwd.py:726,
+// flash_varlen.py:1586), equal in exact arithmetic. With O rounded to bf16 it no longer matches
 // the P and dP the kernels recompute, so the rows of dS stop summing to 0,
 // and a k-projection gradient (sum_j dK_j x_j^T) turns that error times the
 // tokens' common component into an error several times that of a plain
@@ -35,23 +43,28 @@
 // as a function needs 2.5x the forward's 4 * d flops per visible (query
 // head, row, column) triple (S, dP, dV, dK, dQ); the dK/dV kernel does 4
 // of those products, the dQ kernel 5 (S and dP twice, then dQ), so the pair
-// recomputes S and dP three times in all. They move q, k, v, dO, lse in
-// and dq, dk, dv, delta out once; at training shapes (s = 2048, d = 64)
-// they are bound by operations.
+// recomputes S and dP three times in all. Each kernel's bound counts what
+// its outputs need: dK/dV 8 * d flops per visible triple (S, dP, dV, dK),
+// dQ 6 * d (S, dP, dQ; delta rides on P and dP), at 989 TFLOP/s, against
+// q, k, v, dO, lse (and delta) read and its outputs written once at
+// 3.35 TB/s; the larger of the two. At training shapes (s = 2048, d = 64),
+// dense or packed, both are bound by operations.
 //
 // Design (simple first). Deterministic: no atomics anywhere; every output
-// element is summed by one thread in a fixed order.
+// element is summed by one thread in a fixed order. A varlen grid is sized
+// by the longest sequence; blocks past a sequence's end return at once, and
+// a grid too short for a sequence loops over its remaining tiles.
 //  * dK/dV, KV-stationary: one block of 4 warps per (64 key rows, kv head,
-//    batch row); each warp owns 16 key rows. The block keeps its K and V
-//    tile in shared memory and walks the group's query heads and, for each,
+//    batch row or sequence); each warp owns 16 key rows. The block keeps
+//    its K and V tile in shared memory and walks the group's query heads and, for each,
 //    the query tiles that see its keys, with Q, dO, lse and delta tiles
 //    double-buffered by cp.async. It computes S^T = K Q^T and dP^T = V dO^T
 //    on mma.sync, P^T and dS^T in registers, and accumulates dV += P^T dO
 //    and dK += dS^T Q in fp32 registers, written once at the end. Summing
 //    the group inside the block replaces the TPU's per-query-head temporary.
 //  * dQ, Q-stationary: one block of 4 warps per (64 query rows, query head,
-//    batch row). Q and dO stay in registers as A fragments; the block walks
-//    the visible key tiles twice (K and V double-buffered throughout): the
+//    batch row or sequence). Q and dO stay in registers as A fragments;
+//    the block walks the visible key tiles twice (K and V double-buffered throughout): the
 //    first pass sums delta = P . dP per row, the second accumulates
 //    dQ += dS K in fp32 registers. It runs before the dK/dV kernel, which
 //    reads its delta.
@@ -68,25 +81,36 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = kWarps * 16;  // key rows (dK/dV) or query rows (dQ)
 
+enum Mode { kDense = 0, kVarlen = 1 };
+
 template <int D>
 struct Tiles {
   static constexpr int kInner = D == 64 ? 64 : 32;  // walked tile width
 };
 
 struct BwdParams {
+  // Dense (b, h, s, d) tensors, or varlen (total, h, d) / (h, total, d).
   const void* q;     // (b, h, sq, d)
   const void* k;     // (b, hk, sk, d)
   const void* v;     // (b, hk, sk, d)
   const void* dout;  // (b, h, sq, d)
-  const float* lse;    // (b, h, sq) contiguous, natural log
-  const float* delta;  // (b, h, sq) contiguous: the dK/dV kernel's input
-  float* delta_out;    // (b, h, sq) contiguous: the dQ kernel's output
+  // lse and delta: dense (b, h, sq), varlen (h, total_q); contiguous.
+  const float* lse;    // natural log
+  const float* delta;  // the dK/dV kernel's input
+  float* delta_out;    // the dQ kernel's output
   void* dq;  // (b, h, sq, d)
   void* dk;  // (b, hk, sk, d)
   void* dv;  // (b, hk, sk, d)
+  // Element strides (batch, head, seq); varlen: batch unused.
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, do_b, do_h, do_s;
   long long dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
-  int h, group, sq, sk;
+  long long lse_h;  // lse/delta stride per head: dense sq, varlen total_q
+  int h, group, sq, sk;  // sq, sk: dense only
+  // Varlen: sequence starts (nseq + 1) and optional used lengths (nseq).
+  const int* cu_q;
+  const int* cu_k;
+  const int* used_q;
+  const int* used_k;
   int left, right;  // normalised window; negative = unbounded
   float scale;
   // Score in base 2 as in the forward: x * score_mul, or
@@ -94,6 +118,51 @@ struct BwdParams {
   float score_mul, cap_log2;
   bool has_softcap;
 };
+
+// One batch row or sequence: element offsets of its first row (head 0) in
+// each tensor, its row and key counts and its diagonal offset, as in
+// csrc/flash_fwd.cu.
+struct Seq {
+  long long q, k, v, dout, dq, dk, dv, lse;
+  int rows, keys, off;
+};
+
+template <int kMode>
+__device__ __forceinline__ Seq seq_of(const BwdParams& p, int b) {
+  Seq s;
+  if constexpr (kMode == kDense) {
+    s.q = b * p.q_b;
+    s.k = b * p.k_b;
+    s.v = b * p.v_b;
+    s.dout = b * p.do_b;
+    s.dq = b * p.dq_b;
+    s.dk = b * p.dk_b;
+    s.dv = b * p.dv_b;
+    s.lse = static_cast<long long>(b) * p.h * p.sq;
+    s.rows = p.sq;
+    s.keys = p.sk;
+    s.off = p.sk - p.sq;
+  } else {
+    const long long q0 = p.cu_q[b];
+    const long long k0 = p.cu_k[b];
+    const int len_q = p.cu_q[b + 1] - p.cu_q[b];
+    const int len_k = p.cu_k[b + 1] - p.cu_k[b];
+    const int uq = p.used_q ? p.used_q[b] : len_q;
+    const int uk = p.used_k ? p.used_k[b] : len_k;
+    s.q = q0 * p.q_s;
+    s.dout = q0 * p.do_s;
+    s.dq = q0 * p.dq_s;
+    s.k = k0 * p.k_s;
+    s.v = k0 * p.v_s;
+    s.dk = k0 * p.dk_s;
+    s.dv = k0 * p.dv_s;
+    s.lse = q0;
+    s.rows = max(min(uq, len_q), 0);
+    s.keys = max(min(uk, len_k), 0);
+    s.off = uk - uq;
+  }
+  return s;
+}
 
 // P of one score s given its row's lse (base 2), and the factor d(score)
 // / d(s) that dS carries (scale, times 1 - t^2 under a softcap). The
@@ -133,21 +202,21 @@ __device__ __forceinline__ void load_rows(T* dst, const T* base, long long row_s
     const int row = c / kChunks;
     const int part = c % kChunks;
     const int r = first + row;
-    const long long src = static_cast<long long>(min(r, limit - 1));
+    const long long src = static_cast<long long>(max(min(r, limit - 1), 0));
     cp_async_16(dst + row * (D + 8) + part * 8, base + src * row_stride + part * 8,
                 r < limit ? 16 : 0);
   }
 }
 
 template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const BwdParams p) {
+__device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
+                                         int n_block, int g,
+                                         unsigned char* smem_raw) {
   constexpr int kBQ = Tiles<D>::kInner;
   constexpr int kStride = D + 8;
   constexpr int kKSteps = D / 16;
   constexpr int kQTiles = kBQ / 8;
   constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [kTileRows][kStride]
   T* sV = sK + kTileRows * kStride;        // [kTileRows][kStride]
   T* sQ = sV + kTileRows * kStride;        // [2][kBQ][kStride]
@@ -155,22 +224,21 @@ __global__ void __launch_bounds__(kThreads)
   float* sL = reinterpret_cast<float*>(sdO + 2 * kBQ * kStride);  // [2][kBQ]
   float* sD = sL + 2 * kBQ;                                       // [2][kBQ]
 
-  const int n_block = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int off = p.sk - p.sq;
+  const int rows = sq_.rows;
+  const int keys = sq_.keys;
+  const int off = sq_.off;
   const int col0 = n_block * kTileRows;
-  const int col_last = min(col0 + kTileRows, p.sk) - 1;
+  const int col_last = min(col0 + kTileRows, keys) - 1;
 
   // Query rows that see any key of this tile.
   const int q_lo = p.right >= 0 ? max(col0 - off - p.right, 0) : 0;
   const int q_hi =
-      p.left >= 0 ? min(col_last - off + p.left, p.sq - 1) : p.sq - 1;
+      p.left >= 0 ? min(col_last - off + p.left, rows - 1) : rows - 1;
   const int qt_lo = q_lo / kBQ;
   const int n_qt = q_hi >= q_lo ? q_hi / kBQ - qt_lo + 1 : 0;
   const int n_iter = n_qt * p.group;
@@ -183,24 +251,24 @@ __global__ void __launch_bounds__(kThreads)
     const int head = g * p.group + iter / n_qt;
     const int row_base = (qt_lo + iter % n_qt) * kBQ;
     load_rows<T, D>(sQ + stage * kBQ * kStride,
-                    static_cast<const T*>(p.q) + b * p.q_b + head * p.q_h,
-                    p.q_s, row_base, kBQ, p.sq, tid);
+                    static_cast<const T*>(p.q) + sq_.q + head * p.q_h,
+                    p.q_s, row_base, kBQ, rows, tid);
     load_rows<T, D>(sdO + stage * kBQ * kStride,
-                    static_cast<const T*>(p.dout) + b * p.do_b + head * p.do_h,
-                    p.do_s, row_base, kBQ, p.sq, tid);
+                    static_cast<const T*>(p.dout) + sq_.dout + head * p.do_h,
+                    p.do_s, row_base, kBQ, rows, tid);
     if (tid < kBQ) {
       const int r = row_base + tid;
-      const long long li = (static_cast<long long>(b) * p.h + head) * p.sq + r;
-      sL[stage * kBQ + tid] = r < p.sq ? p.lse[li] * kLog2e : -INFINITY;
-      sD[stage * kBQ + tid] = r < p.sq ? p.delta[li] : 0.f;
+      const long long li = sq_.lse + head * p.lse_h + r;
+      sL[stage * kBQ + tid] = r < rows ? p.lse[li] * kLog2e : -INFINITY;
+      sD[stage * kBQ + tid] = r < rows ? p.delta[li] : 0.f;
     }
   };
 
   if (n_iter > 0) {
-    load_rows<T, D>(sK, static_cast<const T*>(p.k) + b * p.k_b + g * p.k_h,
-                    p.k_s, col0, kTileRows, p.sk, tid);
-    load_rows<T, D>(sV, static_cast<const T*>(p.v) + b * p.v_b + g * p.v_h,
-                    p.v_s, col0, kTileRows, p.sk, tid);
+    load_rows<T, D>(sK, static_cast<const T*>(p.k) + sq_.k + g * p.k_h,
+                    p.k_s, col0, kTileRows, keys, tid);
+    load_rows<T, D>(sV, static_cast<const T*>(p.v) + sq_.v + g * p.v_h,
+                    p.v_s, col0, kTileRows, keys, tid);
     load_q(0, 0);
   }
   cp_async_commit();
@@ -225,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
     const T* do_t = sdO + stage * kBQ * kStride;
     const float* lse2 = sL + stage * kBQ;
     const float* dlt = sD + stage * kBQ;
-    const bool full = row_base + kBQ <= p.sq && col0 + kTileRows <= p.sk &&
+    const bool full = row_base + kBQ <= rows && col0 + kTileRows <= keys &&
                       in_window(col0, row_base + kBQ - 1 + off, p.left, -1) &&
                       in_window(col0 + kTileRows - 1, row_base + off, -1, p.right);
 
@@ -264,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
         const int qi = nt * 8 + tig * 2 + (e & 1);
         const int r = row_base + qi;
         const int j = kv_row[e >> 1];
-        const bool ok = (full || (r < p.sq && j < p.sk &&
+        const bool ok = (full || (r < rows && j < keys &&
                                   in_window(j, r + off, p.left, p.right))) &&
                         lse2[qi] > -INFINITY;
         p_and_ds<kSoftcap>(p, st[nt][e], dpt[nt][e], lse2[qi], dlt[qi], ok,
@@ -301,10 +369,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int j = kv_row[i];
-    if (j >= p.sk) continue;
-    T* dkr = static_cast<T*>(p.dk) + b * p.dk_b + g * p.dk_h +
+    if (j >= keys) continue;
+    T* dkr = static_cast<T*>(p.dk) + sq_.dk + g * p.dk_h +
              static_cast<long long>(j) * p.dk_s;
-    T* dvr = static_cast<T*>(p.dv) + b * p.dv_b + g * p.dv_h +
+    T* dvr = static_cast<T*>(p.dv) + sq_.dv + g * p.dv_h +
              static_cast<long long>(j) * p.dv_s;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
@@ -316,34 +384,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kMode>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const BwdParams p) {
+    flash_bwd_dkv_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Seq s = seq_of<kMode>(p, blockIdx.z);
+  const int n_n = (s.keys + kTileRows - 1) / kTileRows;
+  for (int nb = blockIdx.x; nb < n_n; nb += gridDim.x) {
+    dkv_tile<T, D, kSoftcap>(p, s, nb, blockIdx.y, smem_raw);
+  }
+}
+
+template <typename T, int D, bool kSoftcap>
+__device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
+                                        int m_block, int head,
+                                        unsigned char* smem_raw) {
   constexpr int kBN = Tiles<D>::kInner;
   constexpr int kStride = D + 8;
   constexpr int kKSteps = D / 16;
   constexpr int kNTiles = kBN / 8;
   constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kBN][kStride]
   T* sV = sK + 2 * kBN * kStride;          // [2][kBN][kStride]
 
-  const int m_block = gridDim.x - 1 - blockIdx.x;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
   const int g = head / p.group;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int off = p.sk - p.sq;
+  const int rows = sq_.rows;
+  const int keys = sq_.keys;
+  const int off = sq_.off;
   const int row0 = m_block * kTileRows;
-  const int row_last = min(row0 + kTileRows, p.sq) - 1;
+  const int row_last = min(row0 + kTileRows, rows) - 1;
 
   const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
   const int col_hi =
-      p.right >= 0 ? min(row_last + off + p.right, p.sk - 1) : p.sk - 1;
+      p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
   const int tile_lo = col_lo / kBN;
   const int n_tiles = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
 
@@ -358,13 +436,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + warp * 16 + gid + 8 * i;
-    row_ok[i] = r < p.sq;
+    row_ok[i] = r < rows;
     diag[i] = r + off;
-    qrow[i] = static_cast<const T*>(p.q) + b * p.q_b + head * p.q_h +
+    qrow[i] = static_cast<const T*>(p.q) + sq_.q + head * p.q_h +
               static_cast<long long>(r) * p.q_s;
-    dorow[i] = static_cast<const T*>(p.dout) + b * p.do_b + head * p.do_h +
+    dorow[i] = static_cast<const T*>(p.dout) + sq_.dout + head * p.do_h +
                static_cast<long long>(r) * p.do_s;
-    li[i] = (static_cast<long long>(b) * p.h + head) * p.sq + r;
+    li[i] = sq_.lse + head * p.lse_h + r;
     lse2[i] = row_ok[i] ? p.lse[li[i]] * kLog2e : -INFINITY;
   }
 
@@ -386,13 +464,13 @@ __global__ void __launch_bounds__(kThreads)
     dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
   }
 
-  const T* kbase = static_cast<const T*>(p.k) + b * p.k_b + g * p.k_h;
-  const T* vbase = static_cast<const T*>(p.v) + b * p.v_b + g * p.v_h;
+  const T* kbase = static_cast<const T*>(p.k) + sq_.k + g * p.k_h;
+  const T* vbase = static_cast<const T*>(p.v) + sq_.v + g * p.v_h;
   auto load_tile = [&](int tile, int stage) {
     load_rows<T, D>(sK + stage * kBN * kStride, kbase, p.k_s, tile * kBN, kBN,
-                    p.sk, tid);
+                    keys, tid);
     load_rows<T, D>(sV + stage * kBN * kStride, vbase, p.v_s, tile * kBN, kBN,
-                    p.sk, tid);
+                    keys, tid);
   };
 
   // Two passes over the visible key tiles: iterations [0, n_tiles) sum
@@ -416,7 +494,7 @@ __global__ void __launch_bounds__(kThreads)
     const T* k_t = sK + stage * kBN * kStride;
     const T* v_t = sV + stage * kBN * kStride;
     const int col0 = (tile_lo + it % n_tiles) * kBN;
-    const bool full = row0 + kTileRows <= p.sq && col0 + kBN <= p.sk &&
+    const bool full = row0 + kTileRows <= rows && col0 + kBN <= keys &&
                       in_window(col0, row0 + kTileRows - 1 + off, p.left, -1) &&
                       in_window(col0 + kBN - 1, row0 + off, -1, p.right);
 
@@ -440,7 +518,7 @@ __global__ void __launch_bounds__(kThreads)
     auto visible = [&](int nt, int e) {
       const int i = e >> 1;
       const int col = col0 + nt * 8 + tig * 2 + (e & 1);
-      return (full || (row_ok[i] && col < p.sk &&
+      return (full || (row_ok[i] && col < keys &&
                        in_window(col, diag[i], p.left, p.right))) &&
              lse2[i] > -INFINITY;
     };
@@ -494,7 +572,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     if (!row_ok[i]) continue;
     const int r = row0 + warp * 16 + gid + 8 * i;
-    T* dqr = static_cast<T*>(p.dq) + b * p.dq_b + head * p.dq_h +
+    T* dqr = static_cast<T*>(p.dq) + sq_.dq + head * p.dq_h +
              static_cast<long long>(r) * p.dq_s;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
@@ -504,51 +582,86 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, bool kSoftcap>
-int launch_dkv_kernel(const BwdParams& p, int batch, int hk,
+template <typename T, int D, bool kSoftcap, int kMode>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Seq s = seq_of<kMode>(p, blockIdx.z);
+  const int n_m = (s.rows + kTileRows - 1) / kTileRows;
+  // Dense: one pass, m_block = gridDim.x - 1 - blockIdx.x.
+  for (int mb = blockIdx.x; mb < n_m; mb += gridDim.x) {
+    dq_tile<T, D, kSoftcap>(p, s, n_m - 1 - mb, blockIdx.y, smem_raw);
+  }
+}
+
+template <typename T, int D, bool kSoftcap, int kMode>
+int launch_dkv_kernel(const BwdParams& p, int n_blocks, int hk, int batch,
                       cudaStream_t stream) {
   constexpr int kBQ = Tiles<D>::kInner;
   const size_t smem = (2 * kTileRows + 4 * kBQ) * (D + 8) * sizeof(T) +
                       4 * kBQ * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, kSoftcap>,
+      flash_bwd_dkv_kernel<T, D, kSoftcap, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sk + kTileRows - 1) / kTileRows, hk, batch);
-  flash_bwd_dkv_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(n_blocks, hk, batch);
+  flash_bwd_dkv_kernel<T, D, kSoftcap, kMode>
+      <<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_dkv(const BwdParams& p, int batch, int hk, cudaStream_t stream) {
-  return p.has_softcap ? launch_dkv_kernel<T, D, true>(p, batch, hk, stream)
-                       : launch_dkv_kernel<T, D, false>(p, batch, hk, stream);
-}
-
-template <typename T, int D, bool kSoftcap>
-int launch_dq_kernel(const BwdParams& p, int batch, cudaStream_t stream) {
+template <typename T, int D, bool kSoftcap, int kMode>
+int launch_dq_kernel(const BwdParams& p, int n_blocks, int hk, int batch,
+                     cudaStream_t stream) {
+  (void)hk;
   constexpr int kBN = Tiles<D>::kInner;
   const size_t smem = 4 * kBN * (D + 8) * sizeof(T);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D, kSoftcap>,
+      flash_bwd_dq_kernel<T, D, kSoftcap, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + kTileRows - 1) / kTileRows, p.h, batch);
-  flash_bwd_dq_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(n_blocks, p.h, batch);
+  flash_bwd_dq_kernel<T, D, kSoftcap, kMode><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-  return p.has_softcap ? launch_dq_kernel<T, D, true>(p, batch, stream)
-                       : launch_dq_kernel<T, D, false>(p, batch, stream);
+// The softcap is a template parameter, as in the forward. kDkv picks the
+// kernel; n_blocks is the grid's first dimension (key tiles for dK/dV,
+// query tiles for dQ).
+template <bool kDkv, int kMode, typename T, int D>
+int launch(const BwdParams& p, int n_blocks, int hk, int batch,
+           cudaStream_t s) {
+  if constexpr (kDkv) {
+    return p.has_softcap
+               ? launch_dkv_kernel<T, D, true, kMode>(p, n_blocks, hk, batch, s)
+               : launch_dkv_kernel<T, D, false, kMode>(p, n_blocks, hk, batch, s);
+  } else {
+    return p.has_softcap
+               ? launch_dq_kernel<T, D, true, kMode>(p, n_blocks, hk, batch, s)
+               : launch_dq_kernel<T, D, false, kMode>(p, n_blocks, hk, batch, s);
+  }
+}
+
+template <bool kDkv, int kMode>
+int dispatch(const BwdParams& p, int n_blocks, int hk, int batch, int d,
+             int is_fp16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    if (d == 64) return launch<kDkv, kMode, __half, 64>(p, n_blocks, hk, batch, s);
+    if (d == 128) return launch<kDkv, kMode, __half, 128>(p, n_blocks, hk, batch, s);
+  } else {
+    if (d == 64)
+      return launch<kDkv, kMode, __nv_bfloat16, 64>(p, n_blocks, hk, batch, s);
+    if (d == 128)
+      return launch<kDkv, kMode, __nv_bfloat16, 128>(p, n_blocks, hk, batch, s);
+  }
+  return -1;
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      const long long* s, int h, int hk, int sq, int sk,
-                      float scale, int window_left, int window_right,
-                      float softcap) {
+                      const long long* s, int h, int hk, float scale,
+                      int window_left, int window_right, float softcap) {
   BwdParams p = {};
   p.q = q;
   p.k = k;
@@ -570,8 +683,6 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   p.do_s = s[11];
   p.h = h;
   p.group = h / hk;
-  p.sq = sq;
-  p.sk = sk;
   p.left = window_left;
   p.right = window_right;
   p.scale = scale;
@@ -579,6 +690,34 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   p.score_mul = p.has_softcap ? scale / softcap : scale * kLog2e;
   p.cap_log2 = softcap * kLog2e;
   return p;
+}
+
+void set_dkv(BwdParams& p, void* dk, void* dv, const long long* s) {
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_b = s[12];
+  p.dk_h = s[13];
+  p.dk_s = s[14];
+  p.dv_b = s[15];
+  p.dv_h = s[16];
+  p.dv_s = s[17];
+}
+
+void set_dq(BwdParams& p, float* delta, void* dq, const long long* s) {
+  p.delta_out = delta;
+  p.dq = dq;
+  p.dq_b = s[12];
+  p.dq_h = s[13];
+  p.dq_s = s[14];
+}
+
+void set_varlen(BwdParams& p, const int* cu_q, const int* cu_k,
+                const int* used_q, const int* used_k, int total_q) {
+  p.cu_q = cu_q;
+  p.cu_k = cu_k;
+  p.used_q = used_q;
+  p.used_k = used_k;
+  p.lse_h = total_q;
 }
 
 }  // namespace
@@ -593,25 +732,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int hk, int sq, int sk, int d, float scale,
                              int window_left, int window_right, float softcap,
                              int is_fp16, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, strides, h, hk, sq, sk,
-                            scale, window_left, window_right, softcap);
-  p.dk = dk;
-  p.dv = dv;
-  p.dk_b = strides[12];
-  p.dk_h = strides[13];
-  p.dk_s = strides[14];
-  p.dv_b = strides[15];
-  p.dv_h = strides[16];
-  p.dv_s = strides[17];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_fp16) {
-    if (d == 64) return launch_dkv<__half, 64>(p, batch, hk, s);
-    if (d == 128) return launch_dkv<__half, 128>(p, batch, hk, s);
-  } else {
-    if (d == 64) return launch_dkv<__nv_bfloat16, 64>(p, batch, hk, s);
-    if (d == 128) return launch_dkv<__nv_bfloat16, 128>(p, batch, hk, s);
-  }
-  return -1;
+  BwdParams p = make_params(q, k, v, dout, lse, delta, strides, h, hk, scale,
+                            window_left, window_right, softcap);
+  set_dkv(p, dk, dv, strides);
+  p.sq = sq;
+  p.sk = sk;
+  p.lse_h = sq;
+  return dispatch<true, kDense>(p, (sk + kTileRows - 1) / kTileRows, hk,
+                                batch, d, is_fp16, stream);
 }
 
 // strides: 15 element strides, (batch, head, seq) of q, k, v, dout, dq.
@@ -623,20 +751,48 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int sq, int sk, int d, float scale,
                             int window_left, int window_right, float softcap,
                             int is_fp16, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, nullptr, strides, h, hk, sq,
-                            sk, scale, window_left, window_right, softcap);
-  p.delta_out = delta;
-  p.dq = dq;
-  p.dq_b = strides[12];
-  p.dq_h = strides[13];
-  p.dq_s = strides[14];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_fp16) {
-    if (d == 64) return launch_dq<__half, 64>(p, batch, s);
-    if (d == 128) return launch_dq<__half, 128>(p, batch, s);
-  } else {
-    if (d == 64) return launch_dq<__nv_bfloat16, 64>(p, batch, s);
-    if (d == 128) return launch_dq<__nv_bfloat16, 128>(p, batch, s);
-  }
-  return -1;
+  BwdParams p = make_params(q, k, v, dout, lse, nullptr, strides, h, hk,
+                            scale, window_left, window_right, softcap);
+  set_dq(p, delta, dq, strides);
+  p.sq = sq;
+  p.sk = sk;
+  p.lse_h = sq;
+  return dispatch<false, kDense>(p, (sq + kTileRows - 1) / kTileRows, hk,
+                                 batch, d, is_fp16, stream);
+}
+
+// Varlen dK/dV over nseq packed sequences. strides: 18 element strides,
+// (unused, head, token) of q, k, v, dout, dk, dv; lse and delta are
+// (h, total_q). used_q and used_k may be null. max_seqlen_k sizes the grid
+// only.
+extern "C" int flash_varlen_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv,
+    const long long* strides, const int* cu_q, const int* cu_k,
+    const int* used_q, const int* used_k, int nseq, int max_seqlen_k,
+    int total_q, int h, int hk, int d, float scale, int window_left,
+    int window_right, float softcap, int is_fp16, void* stream) {
+  BwdParams p = make_params(q, k, v, dout, lse, delta, strides, h, hk, scale,
+                            window_left, window_right, softcap);
+  set_dkv(p, dk, dv, strides);
+  set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
+  const int n_blocks = max((max_seqlen_k + kTileRows - 1) / kTileRows, 1);
+  return dispatch<true, kVarlen>(p, n_blocks, hk, nseq, d, is_fp16, stream);
+}
+
+// Varlen dQ: strides 15, (unused, head, token) of q, k, v, dout, dq; writes
+// dq and delta (h, total_q). max_seqlen_q sizes the grid only.
+extern "C" int flash_varlen_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, float* delta, void* dq, const long long* strides,
+    const int* cu_q, const int* cu_k, const int* used_q, const int* used_k,
+    int nseq, int max_seqlen_q, int total_q, int h, int hk, int d,
+    float scale, int window_left, int window_right, float softcap,
+    int is_fp16, void* stream) {
+  BwdParams p = make_params(q, k, v, dout, lse, nullptr, strides, h, hk,
+                            scale, window_left, window_right, softcap);
+  set_dq(p, delta, dq, strides);
+  set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
+  const int n_blocks = max((max_seqlen_q + kTileRows - 1) / kTileRows, 1);
+  return dispatch<false, kVarlen>(p, n_blocks, hk, nseq, d, is_fp16, stream);
 }

@@ -33,6 +33,10 @@
 // mma.sync.m16n8k16 (bf16/fp16 in, fp32 accumulate), P is re-packed from
 // the S accumulators without touching shared memory. Columns past the
 // sequence, and pages outside the pool, are zero-filled rather than read.
+// The pools are read through their (page, head, slot) strides, so vLLM's
+// (num_blocks, page, hk, d) "phd" pools, viewed head-major as (num_blocks,
+// hk, page, d), are taken without a copy, as are the two halves of a fused
+// K|V pool.
 //
 // Known gap: a decode step (sq = 1) gives only b * hk blocks (64 at b = 8,
 // hk = 8) for 132 SMs, and only one warp of each has rows to compute, so
@@ -52,20 +56,65 @@ constexpr int kTileN = 64;  // kv tokens per shared-memory tile
 
 struct Params {
   const void* q;      // (b, sq, h, d)
-  const void* k;      // K row of (page, head, slot) at ((p*hk + g)*page + s)*k_row
-  const void* v;      // V row likewise with v_row
+  const void* k;      // K row of (page, head, slot) at page*k_page + head*k_head + slot*k_slot
+  const void* v;      // V row likewise with the v_ strides
   void* out;          // (b, sq, h, d)
   float* lse;         // (b, h, sq)
   const int* seqlens; // (b,) total lengths, new tokens included
   const int* table;   // (b, max_pages)
   int sq, h, hk, group, page, max_pages, npages;
-  long long k_row, v_row;
+  long long k_page, k_head, v_page, v_head;  // element strides
+  int k_slot32, v_slot32;  // slot strides: (page - 1) * them fits in 32 bits
   // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
   // with a softcap (score_mul = scale / softcap, cap_log2 = softcap*log2 e).
   float score_mul, cap_log2;
   bool has_softcap;
   int window_left;
 };
+
+// Copies the K and V rows of kv tile `tile` of batch row b into smem
+// stage `stage`: each thread one 16-byte column chunk of kPasses rows. The
+// tile's block-table reads are all issued before its copies, one division
+// per row gives both page and slot, and the offset within a page is 32-bit
+// (the wrapper checks it fits). Rows past the sequence, and pages outside
+// the pool, are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_tile(const Params& p, const T* kbase,
+                                             const T* vbase, T* sK, T* sV,
+                                             int b, int seqlen, int tile,
+                                             int stage, int tid) {
+  constexpr int kStride = D + 8;
+  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
+  constexpr int kRowsPerPass = kThreads / kChunksPerRow;
+  constexpr int kPasses = kTileN / kRowsPerPass;
+  const int part = tid % kChunksPerRow;
+  const int tok0 = tid / kChunksPerRow;
+  const int base = tile * kTileN;
+  int page_id[kPasses];
+  int slot[kPasses];
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int col = base + tok0 + i * kRowsPerPass;
+    const int pidx = col / p.page;
+    slot[i] = col - pidx * p.page;
+    page_id[i] = col < seqlen && pidx < p.max_pages
+                     ? __ldg(p.table + static_cast<long long>(b) * p.max_pages +
+                             pidx)
+                     : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i) {
+    const int tok = tok0 + i * kRowsPerPass;
+    const bool ok = page_id[i] >= 0 && page_id[i] < p.npages;
+    const long long pg = ok ? page_id[i] : 0;
+    T* dk = sK + (stage * kTileN + tok) * kStride + part * 8;
+    T* dv = sV + (stage * kTileN + tok) * kStride + part * 8;
+    cp_async_16(dk, kbase + pg * p.k_page + slot[i] * p.k_slot32 + part * 8,
+                ok ? 16 : 0);
+    cp_async_16(dv, vbase + pg * p.v_page + slot[i] * p.v_slot32 + part * 8,
+                ok ? 16 : 0);
+  }
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -143,31 +192,11 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kMask, kMask};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  const T* kbase = static_cast<const T*>(p.k);
-  const T* vbase = static_cast<const T*>(p.v);
+  const T* kbase = static_cast<const T*>(p.k) + g * p.k_head;
+  const T* vbase = static_cast<const T*>(p.v) + g * p.v_head;
 
   auto load_tile = [&](int tile, int stage) {
-    constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-    const int base = tile * kTileN;
-    for (int c = tid; c < kTileN * kChunksPerRow; c += kThreads) {
-      const int tok = c / kChunksPerRow;
-      const int part = c % kChunksPerRow;
-      const int col = base + tok;
-      int page_id = -1;
-      if (col < seqlen && col / p.page < p.max_pages) {
-        page_id = p.table[static_cast<long long>(b) * p.max_pages +
-                          col / p.page];
-        if (page_id >= p.npages) page_id = -1;
-      }
-      const int bytes = page_id >= 0 ? 16 : 0;
-      const long long slot =
-          (static_cast<long long>(max(page_id, 0)) * p.hk + g) * p.page +
-          col % p.page;
-      T* dk = sK + (stage * kTileN + tok) * kStride + part * 8;
-      T* dv = sV + (stage * kTileN + tok) * kStride + part * 8;
-      cp_async_16(dk, kbase + slot * p.k_row + part * 8, bytes);
-      cp_async_16(dv, vbase + slot * p.v_row + part * 8, bytes);
-    }
+    load_kv_tile<T, D>(p, kbase, vbase, sK, sV, b, seqlen, tile, stage, tid);
   };
 
   if (n_tiles > 0) load_tile(tile_lo, 0);
@@ -302,13 +331,15 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported
-// head dim / dtype. Launches on `stream`; does not synchronise.
+// pool_strides: 6 element strides, (page, head, slot) of the K pool, then
+// of the V pool; (page - 1) * slot stride + 8 * d must fit in an int.
+// Returns 0, a cudaError_t from the launch, or -1 for an unsupported head
+// dim / dtype. Launches on `stream`; does not synchronise.
 extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
                                 void* out, float* lse, const int* seqlens,
                                 const int* table, int batch, int sq, int h,
                                 int hk, int d, int page, int max_pages,
-                                int npages, long long k_row, long long v_row,
+                                int npages, const long long* pool_strides,
                                 float scale, int window_left, float softcap,
                                 int is_fp16, void* stream) {
   Params p;
@@ -326,8 +357,12 @@ extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
   p.page = page;
   p.max_pages = max_pages;
   p.npages = npages;
-  p.k_row = k_row;
-  p.v_row = v_row;
+  p.k_page = pool_strides[0];
+  p.k_head = pool_strides[1];
+  p.k_slot32 = static_cast<int>(pool_strides[2]);
+  p.v_page = pool_strides[3];
+  p.v_head = pool_strides[4];
+  p.v_slot32 = static_cast<int>(pool_strides[5]);
   p.has_softcap = softcap > 0.f;
   p.score_mul = p.has_softcap ? scale / softcap : scale * kLog2e;
   p.cap_log2 = softcap * kLog2e;

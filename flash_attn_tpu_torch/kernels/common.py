@@ -58,6 +58,22 @@ def visible_mask(seqlen_q: int, seqlen_k: int, window: Tuple[int, int],
     return mask
 
 
+def raise_unported(table, extras) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for the first
+    argument in `extras` that the caller set to something other than its
+    "not used" value; `table` maps each name to (that value, its item)."""
+    for name, value in extras.items():
+        unused, item = table[name]
+        if value is unused or (
+                not isinstance(value, torch.Tensor) and unused is not None
+                and value == unused):
+            continue
+        raise NotImplementedError(
+            f"flash attention argument {name!r} is not ported yet: ROADMAP "
+            f"{item}"
+        )
+
+
 def _rows_readable(t: torch.Tensor) -> bool:
     return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)

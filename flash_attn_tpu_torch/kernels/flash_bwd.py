@@ -60,19 +60,22 @@ def _ds(p, dp, delta, scale, t):
     return ds if t is None else ds * (1.0 - t * t)
 
 
-def _setup(q, k, softmax_scale, causal, window_size):
+def _setup(q, k, softmax_scale, causal, window_size, visible):
     h, sq, d = q.shape[1:]
     hk, sk = k.shape[1], k.shape[2]
-    window = normalize_window(window_size, causal)
-    return (h // hk, _scale(d, softmax_scale),
-            visible_mask(sq, sk, window, q.device))
+    if visible is None:
+        visible = visible_mask(sq, sk, normalize_window(window_size, causal),
+                               q.device)
+    return h // hk, _scale(d, softmax_scale), visible
 
 
 def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
-                 window_size=(-1, -1), softcap=0.0):
+                 window_size=(-1, -1), softcap=0.0, visible=None):
     """Plain version of the dK/dV kernel: (dk, dv) in k's and v's dtypes,
-    each kv head's group of query heads summed, in fp32."""
-    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size)
+    each kv head's group of query heads summed, in fp32. `visible`, a
+    (sq, sk) bool mask, replaces the causal/window rule."""
+    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
+                                   visible)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     for g in range(k.shape[1]):
@@ -87,10 +90,11 @@ def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
 
 
 def _bwd_dq_ref(q, k, v, do, lse, *, softmax_scale=None, causal=False,
-                window_size=(-1, -1), softcap=0.0):
+                window_size=(-1, -1), softcap=0.0, visible=None):
     """Plain version of the dQ kernel: (dq in q's dtype, delta (b, h, sq)
-    fp32 = sum_j P dP), in fp32."""
-    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size)
+    fp32 = sum_j P dP), in fp32. `visible` as in `_bwd_dkv_ref`."""
+    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
+                                   visible)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     for g in range(k.shape[1]):

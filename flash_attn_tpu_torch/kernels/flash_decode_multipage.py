@@ -11,6 +11,9 @@ against on the card.
 Pools are (npages, hk, page, d), or one fused pool (npages, hk, page,
 Kpad + Vpad) with K at [:d] and V at [Kpad:Kpad + dv] (Kpad = d rounded up
 to 128, as `runtime.kv_cache.allocate_fused_paged_kv_cache` lays it out).
+The kernel reads pools through their strides, so a view such as vLLM's
+(num_blocks, page, hk, d) pool transposed to (num_blocks, hk, page, d) goes
+in without a copy.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.kernels.common import round_up
+from flash_attn_tpu_torch.kernels.common import check_rows_dense, round_up
 
 _LANES = 128  # section padding of the fused K|V pool (runtime/kv_cache.py)
 
@@ -160,7 +163,7 @@ def _kernel():
     fn = load_library("paged_decode").paged_decode_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 2
+                   + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     return fn
@@ -182,9 +185,8 @@ def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
         if v_pages is not None or fused_kv_dim != d:
             raise ValueError("a fused pool takes v_pages=None and "
                              "fused_kv_dim == head dim")
-        _, _, dv = _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v)
-        v_base, k_row, v_row = k_pages, width, width
-        v_offset = round_up(d, _LANES)
+        k_view, v_view, dv = _fused_split(k_pages, fused_kv_dim,
+                                          fused_kv_dim_v)
     else:
         if v_pages is None or v_pages.shape != k_pages.shape or width != d:
             raise ValueError(
@@ -192,18 +194,20 @@ def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
                 f"{tuple(k_pages.shape)} and "
                 f"{None if v_pages is None else tuple(v_pages.shape)}"
             )
-        dv = d
-        v_base, k_row, v_row, v_offset = v_pages, d, d, 0
+        k_view, v_view, dv = k_pages, v_pages, d
     if dv != d:
         raise ValueError(f"the CUDA kernel takes dv == d, got {dv} and {d}")
-    tensors = dict(q=q, k_pages=k_pages, v_pool=v_base,
+    tensors = dict(q=q, k_pages=k_view, v_pool=v_view,
                    cache_seqlens=cache_seqlens, block_table=block_table)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
+    for name in ("q", "cache_seqlens", "block_table"):
+        if not tensors[name].is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pages.dtype != q.dtype or v_base.dtype != q.dtype:
+    check_rows_dense("k_pages", k_view)
+    check_rows_dense("v_pages", v_view)
+    if k_pages.dtype != q.dtype or v_view.dtype != q.dtype:
         raise ValueError("q and the pools must share one dtype")
     if cache_seqlens.dtype != torch.int32 or block_table.dtype != torch.int32:
         raise ValueError("cache_seqlens and block_table must be int32")
@@ -215,13 +219,18 @@ def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
     fn = _kernel()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    elem = k_pages.element_size()
+    pool_strides = [t.stride(i) for t in (k_view, v_view) for i in range(3)]
+    if (page - 1) * max(pool_strides[2], pool_strides[5]) + 8 * d >= 2**31:
+        raise ValueError("the kernel's in-page offsets are 32-bit: the pools' "
+                         f"slot strides {pool_strides[2::3]} are too large "
+                         f"for page {page}")
     rc = fn(
-        q.data_ptr(), k_pages.data_ptr(), v_base.data_ptr() + v_offset * elem,
+        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(),
         out.data_ptr(), lse.data_ptr(), cache_seqlens.data_ptr(),
         block_table.data_ptr(),
         b, sq, h, hk, d, page, block_table.shape[1], npages,
-        k_row, v_row, float(softmax_scale), int(window_left), float(softcap),
+        (ctypes.c_longlong * 6)(*pool_strides), float(softmax_scale),
+        int(window_left), float(softcap),
         int(q.dtype == torch.float16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

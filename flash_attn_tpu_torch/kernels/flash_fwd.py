@@ -22,6 +22,7 @@ import torch
 from flash_attn_tpu_torch.kernels.common import (
     check_rows_dense,
     normalize_window,
+    raise_unported,
     visible_mask,
 )
 
@@ -56,16 +57,7 @@ def check_unported(**extras) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for an argument
     of the JAX kernels' signature that the port does not take yet and that
     the caller set to something other than its "not used" value."""
-    for name, value in extras.items():
-        unused, item = _UNPORTED[name]
-        if value is unused or (
-                not isinstance(value, torch.Tensor) and unused is not None
-                and value == unused):
-            continue
-        raise NotImplementedError(
-            f"flash attention argument {name!r} is not ported yet: ROADMAP "
-            f"{item}"
-        )
+    raise_unported(_UNPORTED, extras)
 
 
 def _scale(head_dim: int, softmax_scale: Optional[float]) -> float:
@@ -92,17 +84,21 @@ def flash_attention_fwd_ref(
     causal: bool = False,
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
+    visible: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, in fp32, one kv head's group of
     query heads at a time (so the (sq, sk) scores of all heads never exist
     at once). Returns (out in q's dtype, lse fp32); a row that sees no
-    column gives out 0 and lse -inf."""
+    column gives out 0 and lse -inf. `visible`, a (sq, sk) bool mask,
+    replaces the causal/window rule (the varlen plain versions pass each
+    sequence's)."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
     scale = _scale(d, softmax_scale)
-    visible = visible_mask(sq, sk, normalize_window(window_size, causal),
-                           q.device)
+    if visible is None:
+        visible = visible_mask(sq, sk, normalize_window(window_size, causal),
+                               q.device)
     out = torch.empty(b, h, sq, v.shape[3], dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     for g in range(hk):

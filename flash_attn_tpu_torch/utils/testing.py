@@ -1,8 +1,8 @@
 """Plain reference computations for checking the port: the attention oracle
 (counterpart of flash_attn_tpu/utils/testing.py `attention_ref`: causal
-and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap), a
-full-sequence GPT forward with no cache, and its loss as a gradient
-oracle."""
+and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap),
+its packed-varlen form, random padding masks, a full-sequence GPT forward
+with no cache, and its loss as a gradient oracle."""
 
 from __future__ import annotations
 
@@ -80,6 +80,75 @@ def attention_ref(
                             torch.zeros_like(unnorm))
     output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)
     return output.to(dtype_og), attention.to(dtype_og)
+
+
+def varlen_attention_ref(
+    q: torch.Tensor,  # (total_q, h, d)
+    k: torch.Tensor,  # (total_k, hk, d)
+    v: torch.Tensor,  # (total_k, hk, dv)
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    *,
+    seqused_q: Optional[torch.Tensor] = None,
+    seqused_k: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    window_size: Tuple[Optional[int], Optional[int]] = (None, None),
+    softcap: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    upcast: bool = True,
+) -> torch.Tensor:
+    """Packed varlen attention as `attention_ref` run on each sequence alone
+    (bottom-right aligned within it), its rows cut to seqused_q and its
+    keys to seqused_k. Returns out (total_q, h, dv); rows past seqused_q
+    and rows that see nothing give 0. Differentiable."""
+    cu_q = cu_seqlens_q.tolist()
+    cu_k = cu_seqlens_k.tolist()
+    used_q = None if seqused_q is None else seqused_q.tolist()
+    used_k = None if seqused_k is None else seqused_k.tolist()
+    outs = []
+    for j in range(len(cu_q) - 1):
+        q0, q1, k0, k1 = cu_q[j], cu_q[j + 1], cu_k[j], cu_k[j + 1]
+        rows = q1 - q0 if used_q is None else min(q1 - q0, used_q[j])
+        keys = k1 - k0 if used_k is None else min(k1 - k0, used_k[j])
+        zero = q.new_zeros((q1 - q0, q.shape[1], v.shape[2]))
+        if rows <= 0 or keys <= 0:
+            outs.append(zero)
+            continue
+        o, _ = attention_ref(q[q0:q0 + rows][None], k[k0:k0 + keys][None],
+                             v[k0:k0 + keys][None], causal=causal,
+                             window_size=window_size, softcap=softcap,
+                             softmax_scale=softmax_scale, upcast=upcast)
+        outs.append(torch.cat([o[0], zero[rows:]]))
+    return torch.cat(outs)
+
+
+def generate_random_padding_mask(max_seqlen: int, batch_size: int,
+                                 device=None, mode: str = "random",
+                                 zero_lengths: bool = False,
+                                 generator: Optional[torch.Generator] = None,
+                                 ) -> torch.Tensor:
+    """(batch_size, max_seqlen) bool mask of each row's first `length`
+    tokens (counterpart of flash_attn_tpu/utils/testing.py:235): lengths
+    full, within 20 of max_seqlen ("random"), or from a third up
+    ("third"); with zero_lengths, rows 0, 5, 10, ... and the last are
+    empty."""
+    if mode == "full":
+        lengths = torch.full((batch_size, 1), max_seqlen, device=device)
+    elif mode == "random":
+        lengths = torch.randint(max(0 if zero_lengths else 1, max_seqlen - 20),
+                                max_seqlen + 1, (batch_size, 1), device=device,
+                                generator=generator)
+    elif mode == "third":
+        lengths = torch.randint(max_seqlen // 3, max_seqlen + 1,
+                                (batch_size, 1), device=device,
+                                generator=generator)
+    else:
+        raise ValueError(mode)
+    if zero_lengths:
+        idx = torch.arange(batch_size, device=device)
+        empty = (idx % 5 == 0) | (idx == batch_size - 1)
+        lengths = torch.where(empty[:, None], 0, lengths)
+    return torch.arange(max_seqlen, device=device)[None] < lengths
 
 
 @torch.no_grad()
