@@ -15,6 +15,15 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               nothing; the backward twice for equal bits; then attn_fault:
               the window cases with the kernels handed a window one column
               wider, which every kernel's check must catch;
+     varlen_kernels, varlen_fault, varlen_train, vllm: kernels 6-8 and
+              vLLM's per-layer calls (see each function);
+     decode_kernels  the general decode kernel (kernel 5) against its plain
+              version at Mistral-7B widths: decode, generate's 4500-token
+              prefill, batch index, leftpad with a window, ALiBi, sinks,
+              chunks, sink tokens, softcap, non-causal, paged "phd" views,
+              TinyLlama's d 64, and a vLLM step with s_aux sinks at
+              gpt-oss-20b widths; then decode_fault: a window, leftpad or
+              chunk off by one, which every check must catch;
   4. logits   a Mistral-7B-v0.1-width model (random seeded weights, bf16, all
               32 layers): chunked prefill of a ~4500-token prompt and 8 decode
               steps through the engine's own forward, logits held against a
@@ -23,6 +32,11 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               proof that every attention call went through the kernel;
   6. profile  torch.profiler device time by kernel over the prefill and the
               decode steps of 8 more requests, beside the host wall time;
+     generate the same model's generate() over contiguous caches (kernel 5):
+              batch 4, 4500-token prompts, 32 new tokens, scores held against
+              an fp32 forward, launches counted, tokens/s;
+     speculative  decode_speculative with a TinyLlama-1.1B-width draft,
+              tokens equal to greedy generate's;
   7. train_grad  one loss and gradient of GPT-2-medium (configs/gpt2m-synth.yaml,
               full depth, fp32 weights, bf16 compute) through the kernels,
               held against the plain model in fp32 under the 2x-bf16-eager
@@ -58,12 +72,21 @@ from flash_attn_tpu_torch.flash_attn_interface import (  # noqa: E402
     flash_attn_varlen_func,
 )
 from flash_attn_tpu_torch.kernels import _build  # noqa: E402
-from flash_attn_tpu_torch.kernels.common import normalize_window  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
     _bwd_dkv_ref,
     _bwd_dq_ref,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+)
+from flash_attn_tpu_torch.kernels.common import (  # noqa: E402
+    default_alibi_slopes,
+    normalize_window,
+    visible_mask,
+)
+from flash_attn_tpu_torch.kernels.flash_decode import (  # noqa: E402
+    flash_attention_decode_general,
+    flash_attention_decode_ref,
+    visible_columns,
 )
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import (  # noqa: E402
     flash_attention_decode_multipage,
@@ -94,6 +117,11 @@ from flash_attn_tpu_torch.runtime.engine import (  # noqa: E402
     EngineConfig,
     LLMEngine,
 )
+from flash_attn_tpu_torch.runtime.generation import (  # noqa: E402
+    decode,
+    decode_speculative,
+    make_apply_fn,
+)
 from flash_attn_tpu_torch.runtime.kv_cache import (  # noqa: E402
     allocate_fused_paged_kv_cache,
     allocate_paged_kv_cache,
@@ -119,6 +147,13 @@ MISTRAL_7B = dict(
     num_key_value_heads=8, intermediate_size=14336, vocab_size=32000,
     rope_theta=10000.0, rms_norm_eps=1e-5, sliding_window=4096,
     tie_word_embeddings=False,
+)
+# TinyLlama-1.1B, https://huggingface.co/TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T
+# config.json: the speculative phase's draft model.
+TINYLLAMA_1B = dict(
+    hidden_size=2048, num_hidden_layers=22, num_attention_heads=32,
+    num_key_value_heads=4, intermediate_size=5632, vocab_size=32000,
+    rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
 )
 ENGINE = EngineConfig(max_batch_size=8, page_size=16, num_pages=4096,
                       max_pages_per_seq=384, prefill_chunk=256, max_seqlen=8192)
@@ -455,9 +490,18 @@ def attn_case(name, b, h, hk, sq, sk, d, causal, window, softcap, dtype,
 
         result["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
         result["library"] = ("scaled_dot_product_attention(is_causal=True):"
-                             " a yardstick only; it has no sliding window "
-                             "and the port never calls it")
+                             " a yardstick only; the port never calls it")
         del qt, kt, vt
+    if name == "mistral-window":
+        # Yardstick: SDPA with the window as a boolean mask and enable_gqa,
+        # the same function in one call; the port never calls it.
+        mask = visible_mask(sq, sk, normalize_window(window, causal),
+                            device=q.device)
+        result["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), reps=10)
+        result["library"] = ("scaled_dot_product_attention(attn_mask=window "
+                             "mask, enable_gqa=True): a yardstick only")
+        del mask
     emit(result)
     check(result["ok"], f"attn_kernels case {name} disagrees with its plain "
                         "version or is not deterministic")
@@ -699,10 +743,10 @@ def varlen_case(name, seed):
     return result
 
 
-def paged_step(qlens, contexts, page, seed):
-    """A chunked-prefill step at Mistral-7B widths over vLLM "phd" pools:
-    q, the pools, their head-major views, the block table, cu_seqlens_q and
-    seqused_k."""
+def paged_step(qlens, contexts, page, seed, h=H, hk=HK, d=D):
+    """A chunked-prefill step over vLLM "phd" pools, at Mistral-7B widths
+    unless others are given: q, the pools, their head-major views, the
+    block table, cu_seqlens_q and seqused_k."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.RandomState(seed)
@@ -715,10 +759,10 @@ def paged_step(qlens, contexts, page, seed):
     for j, n in enumerate(pages):
         table[j, :n] = ids[start:start + n]
         start += n
-    k_phd, v_phd = (torch.randn(npages, page, HK, D, generator=gen, device=dev,
+    k_phd, v_phd = (torch.randn(npages, page, hk, d, generator=gen, device=dev,
                                 dtype=torch.bfloat16) for _ in range(2))
     return dict(
-        q=torch.randn(sum(qlens), H, D, generator=gen, device=dev,
+        q=torch.randn(sum(qlens), h, d, generator=gen, device=dev,
                       dtype=torch.bfloat16),
         k_phd=k_phd, v_phd=v_phd,
         pools=(k_phd.transpose(1, 2), v_phd.transpose(1, 2)),
@@ -1121,6 +1165,294 @@ def vllm_phase(seed=2, layers=32):
     return result
 
 
+# -- phases: decode_kernels, decode_fault (kernel 5 vs plain) -----------------
+
+# Decode contexts between 2831 and 4144 tokens (seeded, as the serve
+# phase's), eight batch rows.
+DECODE_LENS = (2831, 4144, 3862, 3591, 2891, 3377, 4012, 3105)
+# The generate and speculative phases' shapes: generate at batch 4 on
+# 4500-token prompts with 32 new tokens; decode_speculative at gamma 4 on a
+# 1024-token prompt with 64 new tokens, its caches gamma + 1 slots longer.
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 4500, 32
+SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 1024, 64, 4
+SPEC_SLOTS = SPEC_PROMPT + SPEC_NEW + SPEC_GAMMA + 1
+DECODE_DEFAULTS = dict(b=8, sq=1, h=H, hk=HK, d=D, smax=4608, lens=DECODE_LENS,
+                       dtype=torch.bfloat16, page=0, causal=True,
+                       window_left=-1, chunk=0, sink_tokens=0, softcap=0.0,
+                       batch_idx=None, leftpad=None, alibi=False, sink=False)
+# Kernel 5 at Mistral-7B widths (h 32, hk 8, d 128) unless a case says
+# otherwise; contiguous (b, hk, smax, d) caches unless `page` is set.
+DECODE_CASES = {
+    "decode": dict(window_left=WINDOW),
+    # generate()'s prefill and a late decode step, at its batch and cache
+    # length: the whole prompt through the decode kernel, 282 blocks of 64
+    # rows per (batch row, kv head).
+    "prefill": dict(b=GEN_BATCH, sq=GEN_PROMPT, smax=GEN_PROMPT + GEN_NEW,
+                    lens=(GEN_PROMPT,) * GEN_BATCH, window_left=WINDOW),
+    "generate-decode": dict(b=GEN_BATCH, smax=GEN_PROMPT + GEN_NEW,
+                            lens=(4501, 4511, 4521, 4531), window_left=WINDOW),
+    # decode_speculative's target verify (gamma + 1 = 5 tokens, 20 packed
+    # rows) and its TinyLlama-width draft's prefill of prompt[:-1].
+    "spec-verify-sq5": dict(b=1, sq=SPEC_GAMMA + 1, smax=SPEC_SLOTS,
+                            lens=(SPEC_SLOTS,), window_left=WINDOW),
+    "spec-draft-prefill": dict(b=1, sq=SPEC_PROMPT - 1, hk=4, d=64,
+                               smax=SPEC_SLOTS, lens=(SPEC_PROMPT - 1,)),
+    "batch-idx-permuted": dict(window_left=WINDOW,
+                               batch_idx=(5, 2, 7, 0, 3, 6, 1, 4)),
+    # The reference's fault (flash_decode.py:122) scaled up: its walk would
+    # start 2000 columns past the first visible one in row 0.
+    "leftpad-window": dict(b=4, smax=8192, lens=(8000, 7000, 6500, 5000),
+                           leftpad=(2000, 1000, 3000, 500),
+                           window_left=WINDOW),
+    "alibi-batched": dict(alibi=True),
+    "sink": dict(window_left=WINDOW, sink=True),
+    # Llama-4-Scout's attention_chunk_size; row 1's four rows straddle its
+    # chunk boundary at leftpad + 8192.
+    "chunk8192-leftpad": dict(b=4, sq=4, smax=12288,
+                              lens=(8000, 8294, 10500, 12000),
+                              leftpad=(0, 100, 500, 1000), chunk=8192),
+    "sinktok4-window": dict(smax=8192, lens=(4500, 5200, 6100, 7000, 7900,
+                                             4800, 6600, 8000),
+                            window_left=WINDOW, sink_tokens=4),
+    "softcap50-fp16": dict(window_left=WINDOW, softcap=50.0,
+                           dtype=torch.float16),
+    "noncausal-sq4": dict(sq=4, causal=False),
+    "paged-phd-sinks": dict(page=16, window_left=WINDOW, sink=True),
+    # TinyLlama-1.1B widths: 32 query heads over 4 kv heads of 64.
+    "tinyllama-d64-g8": dict(hk=4, d=64),
+}
+# The planted faults: (case, what the kernel is handed instead).
+DECODE_FAULTS = (("prefill", "window_left + 1"),
+                 ("chunk8192-leftpad", "cache_leftpad + 1"),
+                 ("chunk8192-leftpad", "attention_chunk + 1"))
+
+
+def decode_inputs(name, seed):
+    """A case's seeded inputs: (config, q, k_cache, v_cache, lengths, the
+    kernel's keyword arguments)."""
+    c = dict(DECODE_DEFAULTS, **DECODE_CASES[name])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    b, h, hk, d, dt = c["b"], c["h"], c["hk"], c["d"], c["dtype"]
+    q = torch.randn(b, c["sq"], h, d, generator=gen, device=dev, dtype=dt)
+    kw = dict(causal=c["causal"], window_left=c["window_left"],
+              attention_chunk=c["chunk"], sink_token_length=c["sink_tokens"],
+              softcap=c["softcap"])
+    if c["page"]:
+        page = c["page"]
+        max_pages = -(-max(c["lens"]) // page)
+        npages = b * max_pages + 1
+        k, v = (torch.randn(npages, page, hk, d, generator=gen, device=dev,
+                            dtype=dt).transpose(1, 2) for _ in range(2))
+        kw["block_table"] = _dev_int(rng.permutation(npages)[: b * max_pages]
+                                     .reshape(b, max_pages))
+    else:
+        rows = len(c["batch_idx"]) if c["batch_idx"] else b
+        k, v = (torch.randn(rows, hk, c["smax"], d, generator=gen, device=dev,
+                            dtype=dt) for _ in range(2))
+    if c["batch_idx"]:
+        kw["cache_batch_idx"] = _dev_int(c["batch_idx"])
+    if c["leftpad"]:
+        kw["cache_leftpad"] = _dev_int(c["leftpad"])
+    if c["alibi"]:
+        kw["alibi_slopes"] = (default_alibi_slopes(h).to(dev)[None]
+                              * torch.from_numpy(rng.uniform(0.5, 1.5, (b, h))
+                                                 .astype(np.float32)).to(dev))
+    if c["sink"]:
+        kw["sink"] = torch.randn(h, generator=gen, device=dev)
+    return c, q, k, v, _dev_int(c["lens"]), kw
+
+
+def decode_masks(c, lens, kw, ncols):
+    """(b, 1, sq, ncols) bool: the columns each query row sees, by the
+    function's own rule (`visible_columns`)."""
+    dev = lens.device
+    lp = kw.get("cache_leftpad")
+    masks = []
+    for i, length in enumerate(lens.tolist()):
+        pos = torch.arange(length - c["sq"], length, device=dev).reshape(1, -1, 1)
+        masks.append(visible_columns(
+            length, pos, ncols, leftpad=0 if lp is None else lp[i],
+            causal=kw["causal"], window_left=kw["window_left"],
+            attention_chunk=kw["attention_chunk"],
+            sink_token_length=kw["sink_token_length"]).expand(1, c["sq"], ncols))
+    return torch.stack(masks)
+
+
+def decode_bound(c, pairs, kv_rows):
+    """Least time: each visible K/V row read once, q/out/lse moved once; 4d
+    flops per visible pair (`pairs` over all heads, `kv_rows` over all kv
+    heads)."""
+    el = 2
+    q_rows = c["b"] * c["sq"] * c["h"]
+    nbytes = kv_rows * 2 * c["d"] * el + 2 * q_rows * c["d"] * el + q_rows * 4
+    return attn_bound(4, nbytes, 1, 1, c["d"], pairs)
+
+
+def decode_library(c, q, k, v, lens, kw):
+    """The yardstick: SDPA with enable_gqa on the same cache rows cut to the
+    longest length, with a boolean mask (a float bias with ALiBi). Returns
+    (ms, what ran) or (None, why not)."""
+    if c["page"] or c["sink"] or c["softcap"]:
+        return None, ("none: no PyTorch attention call takes a "
+                      + ("page table" if c["page"] else
+                         "learnable sink" if c["sink"] else "softcap"))
+    dev = q.device
+    longest = int(lens.max())
+    rows = kw.get("cache_batch_idx")
+    rows = rows.long() if rows is not None else torch.arange(c["b"], device=dev)
+    ks, vs = k[rows, :, :longest], v[rows, :, :longest]
+    mask = decode_masks(c, lens, kw, longest)
+    what = "SDPA enable_gqa, boolean mask"
+    if c["alibi"]:
+        cols = torch.arange(longest, device=dev)
+        pos = (lens.long()[:, None] - c["sq"]
+               + torch.arange(c["sq"], device=dev)[None])  # (b, sq)
+        dist = (cols[None, None] - pos[..., None]).abs().float()
+        bias = -kw["alibi_slopes"][:, :, None, None] * dist[:, None]
+        mask = bias.masked_fill(~mask, float("-inf")).to(q.dtype)
+        what = "SDPA enable_gqa, float ALiBi bias"
+    qt = q.transpose(1, 2)
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, ks, vs, attn_mask=mask, enable_gqa=True), reps=10)
+    return ms, what
+
+
+def decode_compare(name, seed, fault=None):
+    """Kernel 5 and its plain version on one case's inputs, held per
+    element; with `fault` the kernel alone gets the planted argument."""
+    c, q, k, v, lens, kw = decode_inputs(name, seed)
+    kkw = dict(kw)
+    if fault == "window_left + 1":
+        kkw["window_left"] += 1
+    elif fault == "cache_leftpad + 1":
+        kkw["cache_leftpad"] = kw["cache_leftpad"] + 1
+    elif fault == "attention_chunk + 1":
+        kkw["attention_chunk"] += 1
+    out, lse = flash_attention_decode_general(q, k, v, lens, **kkw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_decode_ref(q.float(), k, v, lens, **kw)
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max()) if finite.any() else 0.0
+    res = dict(out=held(out, ref_out), lse_max_abs_err=lse_err,
+               empty_rows=int((~finite).sum()))
+    res["ok"] = bool(res["out"]["err_over_limit"] <= 1
+                     and torch.equal(finite, torch.isfinite(lse))
+                     and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all())
+    del ref_out, ref_lse
+    return res, (c, q, k, v, lens, kw)
+
+
+def decode_case(name, seed):
+    checked, (c, q, k, v, lens, kw) = decode_compare(name, seed)
+    mask = decode_masks(c, lens, kw, int(lens.max()))
+    pairs = int(mask.sum()) * c["h"]
+    kv_rows = int(mask.any(dim=2).sum()) * c["hk"]
+    del mask
+    bound_ms, bound_by = decode_bound(c, pairs, kv_rows)
+    library_ms, library = decode_library(c, q, k, v, lens, kw)
+    result = dict(
+        phase="decode_kernels", kernel="general_decode", case=name,
+        **{key: (str(val).split(".")[-1] if key == "dtype" else val)
+           for key, val in c.items() if key != "lens"},
+        lens=list(c["lens"]), **checked, tolerance=ATTN_TOLERANCE,
+        ms=cuda_ms(lambda: flash_attention_decode_general(q, k, v, lens, **kw)),
+        plain_ms=cuda_ms(lambda: flash_attention_decode_ref(q, k, v, lens, **kw),
+                         reps=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, visible_pairs=pairs,
+        kv_rows_read=kv_rows, library_ms=library_ms, library=library)
+    emit(result)
+    check(result["ok"], f"decode_kernels case {name} disagrees with its plain "
+                        "version")
+    return result
+
+
+# gpt-oss-20b attention widths (https://huggingface.co/openai/gpt-oss-20b
+# config.json: 64 query heads, 8 kv heads of 64, sliding_window 128 on
+# alternate layers, learnable sinks), vLLM "phd" pools at page 16.
+GPT_OSS = dict(h=64, hk=8, d=64, window=127)
+SINKS_QLENS = (2048,) + (1,) * 7
+SINKS_CONTEXTS = (4096, 2831, 3862, 2770, 1355, 3591, 689, 2891)
+
+
+def vllm_sinks_case(seed=90):
+    """One vLLM step with s_aux sinks: a 2048-token chunk (at context 4096)
+    and seven decode rows through vllm_compat.flash_attn_varlen_func
+    (kernel 5's paged route), held per element against kernel 5's plain
+    version run on each sequence's own rows."""
+    h, hk, d, window = (GPT_OSS[key] for key in ("h", "hk", "d", "window"))
+    qlens, contexts = SINKS_QLENS, SINKS_CONTEXTS
+    st = paged_step(qlens, contexts, VLLM_PAGE, seed, h=h, hk=hk, d=d)
+    sinks = torch.randn(h, generator=torch.Generator(device="cuda")
+                        .manual_seed(seed), device="cuda")
+    kw = dict(causal=True, window_size=(window, -1), block_table=st["table"],
+              s_aux=sinks, return_softmax_lse=True)
+
+    def call():
+        return vllm_flash_attn_varlen_func(
+            st["q"], st["k_phd"], st["v_phd"], st["max_q"], st["cu_q"],
+            max(contexts), seqused_k=st["used"], **kw)
+
+    def plain():
+        outs, lses = [], []
+        cu = _cu_of(qlens)
+        for j in range(len(qlens)):
+            o, lse_j = flash_attention_decode_ref(
+                st["q"][cu[j]:cu[j + 1]].float()[None], *st["pools"],
+                st["used"][j:j + 1], block_table=st["table"][j:j + 1],
+                sink=sinks, window_left=window)
+            outs.append(o[0])
+            lses.append(lse_j[0])
+        return torch.cat(outs), torch.cat(lses, dim=1)
+
+    launches0 = flash_attention_decode_general.launches
+    out, lse = call()
+    torch.cuda.synchronize()
+    launches = flash_attention_decode_general.launches - launches0
+    ref_out, ref_lse = plain()
+    lse_err = float((lse - ref_lse).abs().max())
+    res = dict(out=held(out, ref_out), lse_max_abs_err=lse_err)
+    del ref_out, ref_lse
+    pairs = kv_rows = 0
+    for ql, ctx in zip(qlens, contexts):
+        p, n = varlen_pairs(ql, ctx, ctx - ql, window, 0)
+        pairs, kv_rows = pairs + p * h, kv_rows + n * hk
+    cfg = dict(b=1, sq=sum(qlens), h=h, d=d)
+    bound_ms, bound_by = decode_bound(cfg, pairs, kv_rows)
+    result = dict(
+        phase="decode_kernels", kernel="general_decode",
+        case="vllm-gpt-oss-sinks-mixed", model="gpt-oss-20b attention widths",
+        qlens=list(qlens), contexts=list(contexts), h=h, hk=hk, d=d,
+        window_size=[window, -1], page=VLLM_PAGE, pools="phd",
+        kernel5_launches=launches, **res, tolerance=ATTN_TOLERANCE,
+        ok=bool(res["out"]["err_over_limit"] <= 1 and lse_err <= ATTN_LSE_TOL
+                and launches == 1 and torch.isfinite(out).all()),
+        ms=cuda_ms(call), plain_ms=cuda_ms(plain, reps=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by, visible_pairs=pairs,
+        library_ms=None,
+        library="none: no PyTorch call attends through a page table with "
+                "sinks")
+    emit(result)
+    check(result["ok"], "decode_kernels: the vLLM step with sinks disagrees "
+                        "with the plain version")
+    return result
+
+
+def decode_fault_phase():
+    """The tolerance's power on kernel 5: the kernel handed a window one
+    column wider, a leftpad one larger, or a chunk one longer (its
+    boundaries moved) than the plain version. Every check must fail."""
+    for i, (name, fault) in enumerate(DECODE_FAULTS):
+        checked, _ = decode_compare(name, seed=80 + i, fault=fault)
+        emit(dict(phase="decode_fault", case=name, kernel_given=fault,
+                  err_over_limit=checked["out"]["err_over_limit"],
+                  lse_max_abs_err=checked["lse_max_abs_err"],
+                  caught=not checked["ok"], ok=not checked["ok"]))
+        check(not checked["ok"], f"decode_fault: {fault} in case {name} "
+                                 "passes the tolerance")
+
+
 # -- phases 3 and 4: the model and the engine ---------------------------------
 
 class TimedEngine(LLMEngine):
@@ -1245,6 +1577,253 @@ def serve_phase(engine, model, seed=2):
     )
     emit(result)
     check(ok, "serve: launches != layers x steps, or malformed outputs")
+    return result
+
+
+def _zero_all_counts():
+    _zero_attn_counts()
+    _zero_varlen_counts()
+    flash_attention_decode_multipage.launches = 0
+    flash_attention_decode_general.launches = 0
+
+
+def _all_counts():
+    return dict(general_decode=flash_attention_decode_general.launches,
+                paged_decode=flash_attention_decode_multipage.launches,
+                **_attn_counts(), **_varlen_counts())
+
+
+def _timed(apply_fn, seconds):
+    """apply_fn, each call's host-clock time (synchronised) appended to
+    `seconds`."""
+    def fn(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply_fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return fn
+
+
+def generate_phase(model, logits_limit, seed=6):
+    """`model.generate` (contiguous caches, kernel 5 for every attention
+    call) at batch 4 on 4500-token prompts, 32 new tokens, greedy, with
+    scores: the scores of every batch row at every step against an fp32
+    plain forward (one row at a time) under the 2x bf16-eager contract,
+    every token the argmax of its step's scores, launches = layers x
+    forward calls with no other attention kernel, peak memory; then the
+    same decode timed call by call for prefill and decode tokens/s."""
+    c = model.config
+    dev = model.device
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, c.vocab_size, (GEN_BATCH, GEN_PROMPT))
+                           ).to(dev)
+    length = GEN_PROMPT + GEN_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, length, return_dict_in_generate=True,
+                         output_scores=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seqs, scores = out.sequences, out.scores
+    want = {k: 0 for k in counts}
+    want["general_decode"] = c.n_layer * GEN_NEW  # 1 prefill + 31 steps
+    argmax_ok = bool(torch.equal(scores.argmax(-1), seqs[:, GEN_PROMPT + 1:]))
+    # Every row's scores against a plain forward over its own tokens.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err_port = err_bf16 = ref_max = 0.0
+    for i in range(GEN_BATCH):
+        row = seqs[i:i + 1, :GEN_PROMPT + GEN_NEW - 1]
+        ref32 = gpt_forward_ref(model, row, dtype=torch.float32)[0, GEN_PROMPT:]
+        ref16 = gpt_forward_ref(model, row, dtype=torch.bfloat16)[
+            0, GEN_PROMPT:].float()
+        err_port = max(err_port, (scores[i] - ref32).abs().max().item())
+        err_bf16 = max(err_bf16, (ref16 - ref32).abs().max().item())
+        ref_max = max(ref_max, ref32.abs().max().item())
+        del ref32, ref16
+    floor = LOGIT_FLOOR_FRACTION * ref_max
+    scores_ok = (bool(torch.isfinite(scores).all())
+                 and err_port <= 2 * err_bf16 + floor)
+    # The same decode again, each forward timed, under torch.profiler
+    # (device activity only).
+    from torch.profiler import ProfilerActivity, profile
+
+    seconds = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode(ids, _timed(make_apply_fn(model, length, GEN_BATCH), seconds),
+               model.allocate_inference_cache(GEN_BATCH, length)
+               .key_value_memory_dict, GEN_NEW)
+    prefill_s, decode_s = seconds[0], sum(seconds[1:])
+    by_kernel = _device_ms_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    k5 = sum(v for k, v in by_kernel.items() if "decode_kernel" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    profiled = dict(
+        forwards_wall_ms=1e3 * sum(seconds),
+        device_busy_ms=busy if busy > 0 else None,
+        idle_share=1 - busy / (1e3 * sum(seconds)) if busy > 0 else None,
+        general_decode_ms=k5 if busy > 0 else None,
+        general_decode_share=k5 / busy if busy > 0 else None,
+        top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+    ok = argmax_ok and scores_ok and counts == want
+    result = dict(
+        phase="generate", model="Mistral-7B-v0.1 widths, random weights (seed 0)",
+        layers=c.n_layer, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+        new_tokens=GEN_NEW, cache=f"contiguous (b, hk, {length}, d) bf16 per layer",
+        scores_checked=f"all {GEN_BATCH} rows x {GEN_NEW - 1} steps",
+        max_abs_err_port=err_port,
+        max_abs_err_bf16_eager=err_bf16, floor=floor,
+        limit=2 * err_bf16 + floor, scores_ok=scores_ok,
+        tokens_are_argmax_of_scores=argmax_ok, launches=counts,
+        launches_expected=want, wall_s=wall, peak_memory_gb=peak,
+        prefill_s=prefill_s,
+        prefill_tokens_per_s=GEN_BATCH * GEN_PROMPT / prefill_s,
+        decode_steps=len(seconds) - 1, decode_s=decode_s,
+        decode_tokens_per_s=GEN_BATCH * (len(seconds) - 1) / decode_s,
+        profile=profiled, logits_limit_of_logits_phase=logits_limit, ok=ok)
+    emit(result)
+    check(ok, "generate: scores outside the 2x bf16-eager contract, a token "
+              "not the argmax of its step, or launches off the count")
+    return result
+
+
+def _speculative(model, draft, ids, new_tokens):
+    """decode_speculative of `new_tokens` (gamma SPEC_GAMMA, greedy) with
+    fresh caches, launch counts zeroed before it: (output, verify rounds,
+    launch counts, seconds, launches expected)."""
+    slots = ids.shape[1] + new_tokens + SPEC_GAMMA + 1
+    target_calls = [0]
+    target_apply = make_apply_fn(model, slots, 1)
+
+    def counted(*args):
+        target_calls[0] += 1
+        return target_apply(*args)
+
+    target_caches = model.allocate_inference_cache(1, slots).key_value_memory_dict
+    draft_caches = draft.allocate_inference_cache(1, slots).key_value_memory_dict
+    torch.cuda.synchronize()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    out = decode_speculative(ids, counted, target_caches,
+                             make_apply_fn(draft, slots, 1), draft_caches,
+                             new_tokens, gamma=SPEC_GAMMA)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _all_counts()
+    rounds = target_calls[0] - 1
+    want = dict({k: 0 for k in counts},
+                general_decode=(model.config.n_layer * (1 + rounds)
+                                + draft.config.n_layer
+                                * (1 + SPEC_GAMMA * rounds)))
+    return out, rounds, counts, seconds, want
+
+
+def _tokens_held(model, seq, prompt_len, logits_limit):
+    """Each new token of `seq` (1, prompt + new) against one fp32 plain
+    forward over the sequence: the token's logit must lie within twice the
+    logits tolerance of the step's largest (a token that is the argmax of
+    logits within L of the reference's lies within 2L of its maximum).
+    Returns (ok, worst margin, tokens that are not the reference's
+    argmax)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = gpt_forward_ref(model, seq[:, :-1], dtype=torch.float32)[
+        0, prompt_len - 1:]
+    tokens = seq[0, prompt_len:].long()
+    margin = ref.max(dim=-1).values - ref.gather(1, tokens[:, None])[:, 0]
+    worst = float(margin.max())
+    return (worst <= 2 * logits_limit, worst,
+            int((ref.argmax(dim=-1) != tokens).sum()))
+
+
+SPEC_SELF_NEW = 16
+
+
+def speculative_phase(model, logits_limit, seed=7):
+    """decode_speculative (gamma 4, batch 1, a 1024-token prompt, 64 new
+    tokens): the Mistral-width target with a TinyLlama-1.1B-width draft
+    (random weights, seed 1). Every new token is held against one fp32
+    plain forward of the target over the speculative sequence
+    (`_tokens_held`); the tokens must equal the target's greedy generate,
+    except past a step whose top-2 logit margin is within the logits
+    tolerance (printed). Then a short run with the target as its own draft,
+    so that drafts are accepted: at least half of them must be, and its
+    tokens are held the same way. Rounds, accepted drafts per round,
+    tokens/s beside plain greedy generate's, kernel-5 launches per run."""
+    dev = model.device
+    draft_cfg = llama_config_to_gpt_config(TINYLLAMA_1B)
+    draft = GPTLMHeadModel(draft_cfg, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, model.config.vocab_size,
+                                       (1, SPEC_PROMPT))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = model.generate(ids, SPEC_PROMPT + SPEC_NEW,
+                           return_dict_in_generate=True, output_scores=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    out, rounds, counts, spec_s, launches_want = _speculative(
+        model, draft, ids, SPEC_NEW)
+    del draft
+    committed = int(out.lengths[0])
+    got = out.sequences[0, SPEC_PROMPT:]
+    want = plain.sequences[0, SPEC_PROMPT:]
+    differ = (got != want).nonzero()
+    divergence = None
+    if len(differ):
+        j = int(differ[0])
+        if j == 0:
+            with torch.no_grad():
+                logits = model(ids, num_last_tokens=1)[0, -1].float()
+        else:
+            logits = plain.scores[0, j - 1]
+        top2 = logits.topk(2).values
+        divergence = dict(step=j, target_top2_margin=float(top2[0] - top2[1]),
+                          logits_limit=logits_limit)
+    held_ok, worst, not_argmax = _tokens_held(model, out.sequences,
+                                              SPEC_PROMPT, logits_limit)
+    # The target as its own draft: the accept path.
+    self_out, self_rounds, self_counts, self_s, self_want = _speculative(
+        model, model, ids, SPEC_SELF_NEW)
+    self_accepted = int(self_out.lengths[0]) - self_rounds
+    self_ok, self_worst, self_not_argmax = _tokens_held(
+        model, self_out.sequences, SPEC_PROMPT, logits_limit)
+    self_run = dict(
+        new_tokens=SPEC_SELF_NEW, rounds=self_rounds,
+        accepted=self_accepted,
+        accepted_per_round=self_accepted / max(self_rounds, 1),
+        tokens_held=self_ok, worst_margin=self_worst,
+        tokens_not_ref_argmax=self_not_argmax, spec_s=self_s,
+        launches=self_counts, launches_expected=self_want,
+        ok=bool(self_ok and self_counts == self_want
+                and 2 * self_accepted >= SPEC_GAMMA * self_rounds))
+    ok = (got.shape == want.shape and counts == launches_want and held_ok
+          and self_run["ok"]
+          and (divergence is None
+               or divergence["target_top2_margin"] <= logits_limit))
+    result = dict(
+        phase="speculative", target="Mistral-7B-v0.1 widths (seed 0)",
+        draft="TinyLlama-1.1B widths, random weights (seed 1)",
+        gamma=SPEC_GAMMA, prompt_len=SPEC_PROMPT, new_tokens=SPEC_NEW,
+        rounds=rounds, committed=committed,
+        accepted_per_round=(committed - rounds) / max(rounds, 1),
+        tokens_held=held_ok, worst_margin=worst,
+        margin_limit=2 * logits_limit, tokens_not_ref_argmax=not_argmax,
+        equal_to_greedy=divergence is None, divergence=divergence,
+        spec_s=spec_s, spec_tokens_per_s=SPEC_NEW / spec_s,
+        greedy_generate_s=plain_s, greedy_tokens_per_s=SPEC_NEW / plain_s,
+        launches=counts, launches_expected=launches_want,
+        self_draft=self_run, ok=ok)
+    emit(result)
+    check(ok, "speculative: a token off the plain forward, tokens differ from "
+              "greedy generate away from a near-tie, too few drafts accepted "
+              "with the target as its own draft, or launches off the count")
     return result
 
 
@@ -1489,10 +2068,12 @@ def train_profile_phase(seed=5):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", nargs="+", choices=("kernel", "attn", "varlen", "vllm"),
+        "--only", nargs="+",
+        choices=("kernel", "attn", "varlen", "vllm", "decode"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
-             "varlen_kernels + varlen_fault + varlen_train, vllm) and stop, "
-             "with no result line: for iterating on one kernel")
+             "varlen_kernels + varlen_fault + varlen_train, vllm, "
+             "decode_kernels + decode_fault) and stop, with no result line: "
+             "for iterating on one kernel")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1526,6 +2107,11 @@ def main(argv=None):
             varlen_train_phase()
         if "vllm" in only:
             vllm_phase()
+        if "decode" in only:
+            for i, name in enumerate(DECODE_CASES):
+                decode_case(name, seed=70 + i)
+            vllm_sinks_case()
+            decode_fault_phase()
         print(smi(), flush=True)
         return 0
 
@@ -1540,6 +2126,12 @@ def main(argv=None):
     vllm = vllm_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    decodes = {name: decode_case(name, seed=70 + i)
+               for i, name in enumerate(DECODE_CASES)}
+    vllm_sinks = vllm_sinks_case()
+    decode_fault_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     config = llama_config_to_gpt_config(MISTRAL_7B)
     t0 = time.perf_counter()
@@ -1551,10 +2143,15 @@ def main(argv=None):
               params_b=sum(p.numel() for p in model.parameters()) / 1e9,
               init_s=time.perf_counter() - t0,
               memory_gb=torch.cuda.memory_allocated() / 1e9))
-    logits_phase(engine, model)
+    logits = logits_phase(engine, model)
     serve = serve_phase(engine, model)
     profile_phase(engine, model)
-    del engine, model
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_phase(model, logits["limit"])
+    spec = speculative_phase(model, logits["limit"])
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1586,6 +2183,29 @@ def main(argv=None):
         prefill=dict({k: prefill[k] for k in keys},
                      shape="prefill chunk: b=8 sq=256, otherwise as decode"),
     )]
+    dec, pre = decodes["decode"], decodes["prefill"]
+    general_err = max([c["out"]["max_abs_err"] for c in decodes.values()]
+                      + [vllm_sinks["out"]["max_abs_err"]])
+    kernels.append(dict(
+        name="general_decode", route="cuda",
+        source="flash_attn_tpu_torch/csrc/decode.cu",
+        replaces="flash_attn_tpu/kernels/flash_decode.py:56",
+        launches=gen["launches"]["general_decode"],
+        launches_by_path=dict(
+            generate=gen["launches"]["general_decode"],
+            speculative=spec["launches"]["general_decode"],
+            vllm_sinks=vllm_sinks["kernel5_launches"]),
+        max_abs_err=general_err, max_err=general_err,
+        **{k: dec[k] for k in keys},
+        shape="decode: b=8 sq=1 h=32 hk=8 d=128 contiguous smax 4608, "
+              "window 4095, bf16",
+        prefill=dict({k: pre[k] for k in keys},
+                     shape="generate's prefill: b=4 sq=4500 smax 4532, "
+                           "otherwise as decode"),
+        vllm_sinks=dict({k: vllm_sinks[k] for k in keys},
+                        shape="vLLM mixed step with s_aux, gpt-oss-20b "
+                              "widths, phd page 16"),
+    ))
     gpt2m, mistral = attn["gpt2m"], attn["mistral-window"]
     for name, key, source, replaces, tensors in (
             ("flash_fwd", "fwd", "flash_fwd.cu", "flash_fwd.py:95", ("out",)),
@@ -1609,6 +2229,8 @@ def main(argv=None):
                          plain_ms=mistral[f"{key}_plain_ms"],
                          bound_ms=mistral[f"{key}_bound_ms"],
                          bound_by=mistral[f"{key}_bound_by"],
+                         library_ms=(mistral["library_fwd_ms"]
+                                     if key == "fwd" else None),
                          shape="b=1 h=32 hk=8 s=8192 d=128 causal window "
                                "4095 bf16"),
         ))

@@ -7,6 +7,7 @@ and build with `nvcc` at first use (see `kernels/_build.py`).
 
 from flash_attn_tpu_torch.flash_attn_interface import (
     compile_flash_attn_varlen_func_from_specs,
+    flash_attn_combine,
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
@@ -24,6 +25,7 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (
 __all__ = [
     "VarlenPlan",
     "compile_flash_attn_varlen_func_from_specs",
+    "flash_attn_combine",
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",

@@ -36,35 +36,33 @@
 // The pools are read through their (page, head, slot) strides, so vLLM's
 // (num_blocks, page, hk, d) "phd" pools, viewed head-major as (num_blocks,
 // hk, page, d), are taken without a copy, as are the two halves of a fused
-// K|V pool.
+// K|V pool. The loader and the walk are decode_tile.cuh's, shared with
+// the general decode kernel (decode.cu). The tile step is written out
+// here: through the general kernel's step function (a functor for the
+// score and one for the mask) it compiled to 171 registers instead of 205
+// at d = 128 and ran 1.25-1.4x slower (PERF.md).
 //
 // Known gap: a decode step (sq = 1) gives only b * hk blocks (64 at b = 8,
 // hk = 8) for 132 SMs, and only one warp of each has rows to compute, so
 // decode runs well under the bandwidth bound. Splitting the KV range over
 // more blocks (split-KV with a combine pass) is the fix, for a later change.
 
-#include "mma_utils.cuh"
+#include "decode_tile.cuh"
 
 namespace {
 
 using namespace fa;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = kWarps * 16;
-constexpr int kTileN = 64;  // kv tokens per shared-memory tile
+using namespace fa::decode;
 
 struct Params {
   const void* q;      // (b, sq, h, d)
-  const void* k;      // K row of (page, head, slot) at page*k_page + head*k_head + slot*k_slot
-  const void* v;      // V row likewise with the v_ strides
+  const void* k;      // K pool, read through pool's strides
+  const void* v;      // V pool likewise
   void* out;          // (b, sq, h, d)
   float* lse;         // (b, h, sq)
   const int* seqlens; // (b,) total lengths, new tokens included
-  const int* table;   // (b, max_pages)
-  int sq, h, hk, group, page, max_pages, npages;
-  long long k_page, k_head, v_page, v_head;  // element strides
-  int k_slot32, v_slot32;  // slot strides: (page - 1) * them fits in 32 bits
+  KvPool pool;        // its table (b, max_pages) is never null here
+  int sq, h, hk, group;
   // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
   // with a softcap (score_mul = scale / softcap, cap_log2 = softcap*log2 e).
   float score_mul, cap_log2;
@@ -72,57 +70,13 @@ struct Params {
   int window_left;
 };
 
-// Copies the K and V rows of kv tile `tile` of batch row b into smem
-// stage `stage`: each thread one 16-byte column chunk of kPasses rows. The
-// tile's block-table reads are all issued before its copies, one division
-// per row gives both page and slot, and the offset within a page is 32-bit
-// (the wrapper checks it fits). Rows past the sequence, and pages outside
-// the pool, are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_kv_tile(const Params& p, const T* kbase,
-                                             const T* vbase, T* sK, T* sV,
-                                             int b, int seqlen, int tile,
-                                             int stage, int tid) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  constexpr int kRowsPerPass = kThreads / kChunksPerRow;
-  constexpr int kPasses = kTileN / kRowsPerPass;
-  const int part = tid % kChunksPerRow;
-  const int tok0 = tid / kChunksPerRow;
-  const int base = tile * kTileN;
-  int page_id[kPasses];
-  int slot[kPasses];
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    const int col = base + tok0 + i * kRowsPerPass;
-    const int pidx = col / p.page;
-    slot[i] = col - pidx * p.page;
-    page_id[i] = col < seqlen && pidx < p.max_pages
-                     ? __ldg(p.table + static_cast<long long>(b) * p.max_pages +
-                             pidx)
-                     : -1;
-  }
-#pragma unroll
-  for (int i = 0; i < kPasses; ++i) {
-    const int tok = tok0 + i * kRowsPerPass;
-    const bool ok = page_id[i] >= 0 && page_id[i] < p.npages;
-    const long long pg = ok ? page_id[i] : 0;
-    T* dk = sK + (stage * kTileN + tok) * kStride + part * 8;
-    T* dv = sV + (stage * kTileN + tok) * kStride + part * 8;
-    cp_async_16(dk, kbase + pg * p.k_page + slot[i] * p.k_slot32 + part * 8,
-                ok ? 16 : 0);
-    cp_async_16(dv, vbase + pg * p.v_page + slot[i] * p.v_slot32 + part * 8,
-                ok ? 16 : 0);
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const Params p) {
   constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
   constexpr int kKSteps = D / 16;
-  constexpr int kNTiles = kTileN / 8;
   constexpr int kOTiles = D / 8;
+  constexpr int kNTiles = kTileN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kTileN][kStride]
   T* sV = sK + 2 * kTileN * kStride;       // [2][kTileN][kStride]
@@ -152,7 +106,6 @@ __global__ void __launch_bounds__(kThreads)
   const int wrow0 = row0 + warp * 16;
   const bool warp_active = wrow0 < rows_total;
   int pos[2];
-  const T* qrow[2];
   long long orow[2];
   int lse_idx[2];
 #pragma unroll
@@ -163,27 +116,16 @@ __global__ void __launch_bounds__(kThreads)
       const int head = g * p.group + r % p.group;
       pos[i] = seqlen - p.sq + t;
       orow[i] = ((static_cast<long long>(b) * p.sq + t) * p.h + head) * D;
-      qrow[i] = static_cast<const T*>(p.q) + orow[i];
       lse_idx[i] = (b * p.h + head) * p.sq + t;
     } else {
       pos[i] = -1;  // sees no column; never stored
       orow[i] = -1;
-      qrow[i] = nullptr;
       lse_idx[i] = -1;
     }
   }
 
   uint32_t qf[kKSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const T* src = qrow[j & 1];
-      const int col = ks * 16 + tig * 2 + (j >> 1) * 8;
-      qf[ks][j] = src ? *reinterpret_cast<const uint32_t*>(src + col) : 0u;
-    }
-  }
-
+  load_q<T, D>(p.q, orow, qf, tig);
   float o[kOTiles][4];
 #pragma unroll
   for (int nt = 0; nt < kOTiles; ++nt) {
@@ -192,123 +134,102 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kMask, kMask};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  const T* kbase = static_cast<const T*>(p.k) + g * p.k_head;
-  const T* vbase = static_cast<const T*>(p.v) + g * p.v_head;
-
-  auto load_tile = [&](int tile, int stage) {
-    load_kv_tile<T, D>(p, kbase, vbase, sK, sV, b, seqlen, tile, stage, tid);
+  auto page_of = [&](int pidx) {
+    return __ldg(p.pool.table + static_cast<long long>(b) * p.pool.max_pages +
+                 pidx);
   };
-
-  if (n_tiles > 0) load_tile(tile_lo, 0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) load_tile(tile_lo + it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-
-    if (warp_active) {
-      const T* ks_ptr = sK + stage * kTileN * kStride;
-      const T* vs_ptr = sV + stage * kTileN * kStride;
-      const int col0 = (tile_lo + it) * kTileN;
-
-      float s[kNTiles][4];
+  walk_kv<T, D>(
+      p.pool, g, page_of, seqlen, p.k, p.v, sK, sV, n_tiles,
+      [&](int it) { return tile_lo + it; }, warp_active,
+      [&](const T* ks_ptr, const T* vs_ptr, int col0) {
+        float s[kNTiles][4];
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const T* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
+        for (int nt = 0; nt < kNTiles; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          const T* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
 #pragma unroll
-        for (int ks = 0; ks < kKSteps; ++ks) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + ks * 16);
-          const uint32_t b1 =
-              *reinterpret_cast<const uint32_t*>(krow + ks * 16 + 8);
-          Mma<T>::run(s[nt], qf[ks], b0, b1);
-        }
-      }
-
-      // Scale (base 2), softcap, mask; visibility kept as bits.
-      uint32_t vis = 0;
-      float tmax[2] = {kMask, kMask};
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int col = col0 + nt * 8 + tig * 2 + (e & 1);
-          float x = s[nt][e];
-          x = p.has_softcap ? tanhf(x * p.score_mul) * p.cap_log2
-                            : x * p.score_mul;
-          const bool ok = col < seqlen && col <= pos[i] &&
-                          (p.window_left < 0 || col >= pos[i] - p.window_left);
-          if (ok) {
-            vis |= 1u << (nt * 4 + e);
-            tmax[i] = fmaxf(tmax[i], x);
+          for (int ks = 0; ks < kKSteps; ++ks) {
+            const uint32_t b0 = ld_u32(krow + ks * 16);
+            const uint32_t b1 = ld_u32(krow + ks * 16 + 8);
+            Mma<T>::run(s[nt], qf[ks], b0, b1);
           }
-          s[nt][e] = x;
         }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m[i], quad_max(tmax[i]));
-        alpha[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float pe =
-              (vis >> (nt * 4 + e)) & 1u ? exp2f(s[nt][e] - m[i]) : 0.f;
-          l[i] += pe;
-          s[nt][e] = pe;
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kOTiles; ++nt) {
-        o[nt][0] *= alpha[0];
-        o[nt][1] *= alpha[0];
-        o[nt][2] *= alpha[1];
-        o[nt][3] *= alpha[1];
-      }
 
-      // O += P V: P's A fragments come straight from the S accumulators.
+        // Scale (base 2), softcap, mask; visibility kept as bits.
+        uint32_t vis = 0;
+        float tmax[2] = {kMask, kMask};
 #pragma unroll
-      for (int kk = 0; kk < kTileN / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const T* vrow = vs_ptr + (kk * 16 + tig * 2) * kStride + gid;
+        for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int col = col0 + nt * 8 + tig * 2 + (e & 1);
+            float x = s[nt][e];
+            x = p.has_softcap ? tanhf(x * p.score_mul) * p.cap_log2
+                              : x * p.score_mul;
+            const bool ok = col < seqlen && col <= pos[i] &&
+                            (p.window_left < 0 || col >= pos[i] - p.window_left);
+            if (ok) {
+              vis |= 1u << (nt * 4 + e);
+              tmax[i] = fmaxf(tmax[i], x);
+            }
+            s[nt][e] = x;
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], quad_max(tmax[i]));
+          alpha[i] = exp2f(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= alpha[i];
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float pe =
+                (vis >> (nt * 4 + e)) & 1u ? exp2f(s[nt][e] - m[i]) : 0.f;
+            l[i] += pe;
+            s[nt][e] = pe;
+          }
+        }
 #pragma unroll
         for (int nt = 0; nt < kOTiles; ++nt) {
-          const T* vc = vrow + nt * 8;
-          const uint32_t b0 = pack_u16(vc, vc + kStride);
-          const uint32_t b1 = pack_u16(vc + 8 * kStride, vc + 9 * kStride);
-          Mma<T>::run(o[nt], a, b0, b1);
+          o[nt][0] *= alpha[0];
+          o[nt][1] *= alpha[0];
+          o[nt][2] *= alpha[1];
+          o[nt][3] *= alpha[1];
         }
-      }
-    }
-    __syncthreads();
-  }
+
+        // O += P V: P's A fragments come straight from the S accumulators.
+#pragma unroll
+        for (int kk = 0; kk < kTileN / 16; ++kk) {
+          uint32_t a[4];
+          a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+          a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+          a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+          const T* vrow = vs_ptr + (kk * 16 + tig * 2) * kStride + gid;
+#pragma unroll
+          for (int nt = 0; nt < kOTiles; ++nt) {
+            const T* vc = vrow + nt * 8;
+            const uint32_t b0 = pack_u16(vc, vc + kStride);
+            const uint32_t b1 = pack_u16(vc + 8 * kStride, vc + 9 * kStride);
+            Mma<T>::run(o[nt], a, b0, b1);
+          }
+        }
+      },
+      tid);
 
   if (!warp_active) return;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float lsum = quad_sum(l[i]);
     if (orow[i] < 0) continue;
-    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-    T* out = static_cast<T*>(p.out) + orow[i];
-#pragma unroll
-    for (int nt = 0; nt < kOTiles; ++nt) {
-      *reinterpret_cast<uint32_t*>(out + nt * 8 + tig * 2) =
-          Mma<T>::pack(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
-    }
+    store_row<T, D>(static_cast<T*>(p.out) + orow[i], o, i,
+                    lsum > 0.f ? 1.f / lsum : 0.f, tig);
     if (tig == 0) {
       p.lse[lse_idx[i]] =
           lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : -INFINITY;
@@ -318,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = 2 * 2 * kTileN * (D + 8) * sizeof(T);
+  const size_t smem = smem_bytes<D>(sizeof(T));
   const cudaError_t err = cudaFuncSetAttribute(
       paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -349,20 +270,11 @@ extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
   p.out = out;
   p.lse = lse;
   p.seqlens = seqlens;
-  p.table = table;
+  p.pool = make_pool(table, page, max_pages, npages, pool_strides);
   p.sq = sq;
   p.h = h;
   p.hk = hk;
   p.group = h / hk;
-  p.page = page;
-  p.max_pages = max_pages;
-  p.npages = npages;
-  p.k_page = pool_strides[0];
-  p.k_head = pool_strides[1];
-  p.k_slot32 = static_cast<int>(pool_strides[2]);
-  p.v_page = pool_strides[3];
-  p.v_head = pool_strides[4];
-  p.v_slot32 = static_cast<int>(pool_strides[5]);
   p.has_softcap = softcap > 0.f;
   p.score_mul = p.has_softcap ? scale / softcap : scale * kLog2e;
   p.cap_log2 = softcap * kLog2e;

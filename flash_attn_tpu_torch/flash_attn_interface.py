@@ -13,6 +13,10 @@ Layouts: (batch, seqlen, nheads, headdim) ["bshd"] by default, or
 ["bhsd"]; varlen (total, nheads, headdim) ["thd"] or (nheads, total,
 headdim) ["hsd"]. The kernels take strided inputs, so these go in as views
 without a copy, and the outputs come back in the same layout as q.
+
+`flash_attn_with_kvcache` attends over a contiguous or paged KV cache
+through `kernels.flash_decode` (kernel 5, or kernel 4 for plain paged
+calls); `flash_attn_combine` merges split-attention partials.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import torch
 
 from flash_attn_tpu_torch.kernels.common import rows_dense
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
-from flash_attn_tpu_torch.kernels.flash_decode import flash_attention_decode
+from flash_attn_tpu_torch.kernels.flash_decode import (
+    combine_partials,
+    flash_attention_decode,
+)
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     check_unported as check_varlen_unported,
@@ -34,7 +41,10 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (
     resolve_max_seqlens,
 )
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
-from flash_attn_tpu_torch.runtime.kv_cache import update_paged_kv_cache
+from flash_attn_tpu_torch.runtime.kv_cache import (
+    update_kv_cache,
+    update_paged_kv_cache,
+)
 
 __all__ = [
     "flash_attn_func",
@@ -44,6 +54,7 @@ __all__ = [
     "flash_attn_varlen_qkvpacked_func",
     "flash_attn_varlen_kvpacked_func",
     "flash_attn_with_kvcache",
+    "flash_attn_combine",
     "compile_flash_attn_varlen_func_from_specs",
     "sparse_attn_func",
 ]
@@ -196,7 +207,7 @@ def flash_attn_kvpacked_func(
 
 def flash_attn_with_kvcache(
     q: torch.Tensor,        # (b, sq, h, d)
-    k_cache: torch.Tensor,  # paged (npages, page, hk, d)
+    k_cache: torch.Tensor,  # (b, smax, hk, d) | paged (npages, page, hk, d)
     v_cache: torch.Tensor,
     k: Optional[torch.Tensor] = None,  # (b, snew, hk, d) to append
     v: Optional[torch.Tensor] = None,
@@ -223,25 +234,20 @@ def flash_attn_with_kvcache(
     layout: str = "bshd",
     block_kv: Optional[int] = None,
 ):
-    """Decode-step attention over a paged KV cache, as the JAX package's
+    """Decode-step attention over a KV cache, as the JAX package's
     `flash_attn_with_kvcache` (flash_attn_interface.py:495).
 
-    Paged caches only: (npages, page, hk, d) ["bshd"] or (npages, hk, page,
-    d) ["bhsd"]. New k/v are rotated (with rotary_cos/sin) and written into
-    the pools IN PLACE (`runtime.kv_cache.update_paged_kv_cache`, through a
-    head-major view of a bshd pool), and attention runs through the
-    paged-decode kernel (`kernels.flash_decode`). Returns out[, lse][,
-    (k_cache, v_cache)] as the JAX function does; the returned caches are
-    the given tensors. A contiguous cache (block_table None) and the extras
-    of the general decode kernel raise NotImplementedError (ROADMAP queue 2,
-    kernel 5). `num_splits` and `block_kv` are taken for the JAX signature
-    and not read."""
+    Caches are contiguous (b, smax, hk, d) or paged (npages, page, hk, d)
+    ["bshd"], or (b, hk, smax, d) / (npages, hk, page, d) ["bhsd"]. New k/v
+    are rotated (with rotary_cos/sin) and written into the caches IN PLACE
+    (`runtime.kv_cache.update_kv_cache`, rows picked by cache_batch_idx, or
+    `update_paged_kv_cache`; through head-major views of bshd caches), and
+    attention runs through `kernels.flash_decode.flash_attention_decode`.
+    Returns out[, lse][, (k_cache, v_cache)] as the JAX function does; the
+    returned caches are the given tensors. `num_splits` and `block_kv` are
+    taken for the JAX signature and not read."""
     del num_splits, block_kv
-    if block_table is None:
-        raise NotImplementedError(
-            "flash_attn_with_kvcache on a contiguous cache needs the general "
-            "decode kernel, not ported yet: ROADMAP queue 2, kernel 5 "
-            "(flash_decode.py _decode_kernel)")
+    paged = block_table is not None
     if layout == "bshd":
         kc, vc = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
     elif layout == "bhsd":
@@ -250,7 +256,7 @@ def flash_attn_with_kvcache(
         raise ValueError(f"unknown layout {layout!r}")
     batch, sq = q.shape[0], q.shape[1]
     if cache_seqlens is None:
-        smax = kc.shape[2] * block_table.shape[1]
+        smax = kc.shape[2] * (block_table.shape[1] if paged else 1)
         cache_seqlens = smax - (0 if k is None else k.shape[1])
     if not isinstance(cache_seqlens, torch.Tensor) or cache_seqlens.dim() == 0:
         cache_seqlens = torch.full((batch,), int(cache_seqlens),
@@ -263,10 +269,15 @@ def flash_attn_with_kvcache(
             k = apply_rotary_emb(k, rotary_cos, rotary_sin, **rot)
     total = cache_seqlens
     if k is not None:
-        update_paged_kv_cache(kc, vc, k, v, cache_seqlens, block_table)
+        if paged:
+            update_paged_kv_cache(kc, vc, k, v, cache_seqlens, block_table)
+        else:
+            update_kv_cache(kc, vc, k, v, cache_seqlens,
+                            cache_batch_idx=cache_batch_idx)
         total = cache_seqlens + k.shape[1]
     out, lse = flash_attention_decode(
-        q, kc, vc, total, block_table=block_table.to(torch.int32),
+        q, kc, vc, total,
+        block_table=None if not paged else block_table.to(torch.int32),
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
         alibi_slopes=alibi_slopes, sink=sink, k_scale=k_scale,
         v_scale=v_scale, softmax_scale=softmax_scale,
@@ -279,6 +290,24 @@ def flash_attn_with_kvcache(
     if k is not None:
         ret.append((k_cache, v_cache))
     return ret[0] if len(ret) == 1 else tuple(ret)
+
+
+def flash_attn_combine(
+    out_partial: torch.Tensor,  # (nsplits, ..., h, d) fp32 partials
+    lse_partial: torch.Tensor,  # (nsplits, ..., h)
+    out: Optional[torch.Tensor] = None,
+    out_dtype=None,
+    return_lse: bool = True,
+):
+    """Merge split-attention partials (the JAX package's
+    `flash_attn_combine`): batched (n, b, s, h, d) or varlen (n, total, h,
+    d), each partial normalised by its own softmax sum, lse in natural log.
+    `out` is taken for the JAX signature and not read, as there."""
+    del out
+    o, lse = combine_partials(out_partial.float(), lse_partial.float())
+    if out_dtype is not None:
+        o = o.to(out_dtype)
+    return (o, lse) if return_lse else o
 
 
 class _FlashAttnVarlenCore(torch.autograd.Function):

@@ -23,6 +23,25 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def default_alibi_slopes(nheads: int) -> torch.Tensor:
+    """Geometric ALiBi slopes, (nheads,) fp32 (the JAX package's
+    `default_alibi_slopes`): for a power of two n, start * start**i with
+    start = 2**(-2**-(log2 n - 3)); otherwise the closest power of two's
+    slopes, then every other slope of twice that count."""
+
+    def slopes_power_of_2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start**i) for i in range(n)]
+
+    if math.log2(nheads).is_integer():
+        s = slopes_power_of_2(nheads)
+    else:
+        closest = 2 ** math.floor(math.log2(nheads))
+        s = (slopes_power_of_2(closest)
+             + slopes_power_of_2(2 * closest)[0::2][: nheads - closest])
+    return torch.tensor(s, dtype=torch.float32)
+
+
 def normalize_window(
     window_size: Tuple[Optional[int], Optional[int]], causal: bool,
 ) -> Tuple[int, int]:

@@ -3,8 +3,10 @@ flash_attn_tpu/models/gpt.py): one `GPTConfig` covers GPT-2-style and
 Llama/Mistral-style models. Without a cache the forward runs the whole
 sequence through the flash-attention kernels (training; `remat` sets the
 activation checkpointing); with a paged KV cache (`InferenceParams` with a
-block table) it is `LLMEngine`'s step. `utils.testing.gpt_forward_ref` is a
-plain full-sequence forward to check it against."""
+block table) it is `LLMEngine`'s step; with contiguous caches
+(`allocate_inference_cache`) it is `generate`'s.
+`utils.testing.gpt_forward_ref` is a plain full-sequence forward to check
+it against."""
 
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
 from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
 from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
+from flash_attn_tpu_torch.runtime.generation import GenerationMixin
+from flash_attn_tpu_torch.runtime.kv_cache import allocate_kv_cache
 from flash_attn_tpu_torch.utils.device import resolve_device
 
 GATED_ACTIVATIONS = ("swiglu", "silu", "glu", "swiglu_gelu")
@@ -213,7 +217,7 @@ class GPTModel(nn.Module):
         return self.ln_f(residual).to(c.dtype)
 
 
-class GPTLMHeadModel(nn.Module):
+class GPTLMHeadModel(nn.Module, GenerationMixin):
     """LM-head model. Built on `device` (CUDA unless named; the CPU only on
     request) with random weights drawn from `generator` (a torch.Generator
     on that device; seed 0 when None) at flax's default scales:
@@ -274,3 +278,22 @@ class GPTLMHeadModel(nn.Module):
             wte = self.transformer.embeddings.word_embeddings.weight
             return F.linear(hidden, wte.to(self.config.dtype))
         return self.lm_head(hidden)
+
+    def allocate_inference_cache(self, batch_size: int, max_seqlen: int,
+                                 dtype=None) -> InferenceParams:
+        """Zeroed contiguous (batch_size, hk, max_seqlen, d) K and V caches
+        for every layer, on the model's device."""
+        c = self.config
+        if c.attn_type == "mla":
+            raise NotImplementedError(
+                "the MLA latent cache is not ported yet: ROADMAP queue 1, "
+                "item 10 (MLA)")
+        caches = {
+            i: allocate_kv_cache(batch_size, max_seqlen, c.resolved_n_head_kv,
+                                 c.resolved_head_dim, dtype or c.dtype,
+                                 device=self.device)
+            for i in range(c.n_layer)
+        }
+        return InferenceParams(max_seqlen=max_seqlen,
+                               max_batch_size=batch_size, seqlen_offset=0,
+                               key_value_memory_dict=caches)

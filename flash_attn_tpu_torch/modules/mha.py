@@ -1,11 +1,14 @@
 """Multi-head attention (counterpart of flash_attn_tpu/modules/mha.py).
 
-Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window and softcap.
-Without a cache (training, full-sequence forwards) it runs dense causal
-flash attention (`flash_attn_func`: the flash forward and backward
-kernels). With a paged cache, `_decode_step` appends the new K/V to the
-layer's paged pool in place and runs the paged decode kernel. ALiBi,
-dwconv, attention dropout and quantized pools raise NotImplementedError.
+Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window, softcap and
+ALiBi. Without a cache (training, full-sequence forwards) it runs dense
+causal flash attention (`flash_attn_func`: the flash forward and backward
+kernels). With a cache, `_decode_step` appends the new K/V to the layer's
+cache in place, a contiguous (b, hk, smax, d) pair (`generate`) or a paged
+pool (`LLMEngine`), and runs `flash_attention_decode` over it (kernel 5 for
+contiguous caches and ALiBi, kernel 4 for the engine's paged pools). ALiBi
+without a cache, dwconv, attention dropout and quantized pools raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ import torch
 from torch import nn
 
 from flash_attn_tpu_torch.flash_attn_interface import flash_attn_func
+from flash_attn_tpu_torch.kernels.common import default_alibi_slopes
 from flash_attn_tpu_torch.kernels.flash_decode import flash_attention_decode
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
 from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
 from flash_attn_tpu_torch.runtime.kv_cache import (
     update_fused_paged_kv_cache,
+    update_kv_cache,
     update_paged_kv_cache,
 )
 
@@ -30,10 +35,11 @@ from flash_attn_tpu_torch.runtime.kv_cache import (
 @dataclasses.dataclass
 class InferenceParams:
     """KV-cache state for a forward with a cache. `key_value_memory_dict`
-    maps layer_idx to a fused K|V page pool (a tensor) or to a (k_pages,
-    v_pages) tuple; `block_table` (b, max_pages) int32 maps positions to
-    pages; `seqlen_offset` is an int or a (b,) int32 tensor of cache lengths
-    before this call's tokens."""
+    maps layer_idx to a (k_cache, v_cache) tuple, contiguous (b, hk, smax,
+    d) when `block_table` is None, else paged (npages, hk, page, d), or to a
+    fused K|V page pool (a tensor); `block_table` (b, max_pages) int32 maps
+    positions to pages; `seqlen_offset` is an int or a (b,) int32 tensor of
+    cache lengths before this call's tokens."""
 
     max_seqlen: int
     max_batch_size: int
@@ -44,7 +50,7 @@ class InferenceParams:
 
 class MHA(nn.Module):
     """Causal self-attention with separate q/k/v projections, rotary,
-    GQA/MQA, sliding window, softcap, and a paged KV-cache decode path.
+    GQA/MQA, sliding window, softcap, ALiBi, and a KV-cache decode path.
     Projection weights are stored in `param_dtype` (default: `dtype`) and
     computed in `dtype`. Attention dropout (`dropout` > 0) raises while
     training."""
@@ -72,11 +78,6 @@ class MHA(nn.Module):
         param_dtype=None,
     ):
         super().__init__()
-        if use_alibi:
-            raise NotImplementedError(
-                "ALiBi decode needs the general decode kernel: ROADMAP queue 2, "
-                "kernel 5"
-            )
         if dwconv:
             raise NotImplementedError(
                 "dwconv is not ported yet: ROADMAP queue 1, item 4 (mha.py)"
@@ -104,6 +105,12 @@ class MHA(nn.Module):
                             interleaved=rotary_emb_interleaved)
             if rotary_emb_dim > 0 else None
         )
+        # The JAX module's fixed geometric slopes; a buffer so that it moves
+        # with the module, left out of the state_dict.
+        self.register_buffer(
+            "alibi_slopes",
+            default_alibi_slopes(h).to(device=device) if use_alibi else None,
+            persistent=False)
 
     def forward(self, x: torch.Tensor,
                 inference_params: Optional[InferenceParams] = None):
@@ -135,21 +142,16 @@ class MHA(nn.Module):
                                  interleaved=self.rotary_emb_interleaved)
         return flash_attn_func(q, k, v, softmax_scale=self.softmax_scale,
                                causal=True, window_size=self.window_size,
-                               softcap=self.softcap)
+                               softcap=self.softcap,
+                               alibi_slopes=self.alibi_slopes)
 
     def _decode_step(self, q, k, v, inference_params: InferenceParams):
-        """Append this call's K/V to the layer's paged pool (in place) and
-        attend the new queries to the cache, prefill chunks and decode
-        steps alike."""
+        """Append this call's K/V to the layer's cache (in place) and attend
+        the new queries to it, prefills and decode steps alike."""
         b, s = q.shape[0], q.shape[1]
         layer = self.layer_idx if self.layer_idx is not None else 0
         entry = inference_params.key_value_memory_dict[layer]
         table = inference_params.block_table
-        if table is None:
-            raise NotImplementedError(
-                "contiguous KV caches need the general decode kernel: "
-                "ROADMAP queue 2, kernel 5"
-            )
         offset = inference_params.seqlen_offset
         if isinstance(offset, int):
             offsets = torch.full((b,), offset, dtype=torch.int32,
@@ -167,13 +169,18 @@ class MHA(nn.Module):
                     causal=True, window_left=self.window_size[0],
                     softcap=self.softcap)
         if isinstance(entry, tuple):
-            k_pages, v_pages = update_paged_kv_cache(
-                entry[0], entry[1], k, v, offsets, table
-            )
+            if table is None:
+                update_kv_cache(entry[0], entry[1], k, v, offsets)
+            else:
+                update_paged_kv_cache(entry[0], entry[1], k, v, offsets, table)
             out, _ = flash_attention_decode(
-                q, k_pages, v_pages, offsets + s, **attn
+                q, entry[0], entry[1], offsets + s,
+                alibi_slopes=self.alibi_slopes, **attn
             )
             return out
+        if self.alibi_slopes is not None:
+            raise ValueError("fused K|V page pools do not take ALiBi: "
+                             "allocate split pools")
         update_fused_paged_kv_cache(entry, k, v, offsets, table)
         out, _ = flash_attention_decode(
             q, entry, None, offsets + s, fused_kv_dim=k.shape[-1],

@@ -1,6 +1,7 @@
 """Plain reference computations for checking the port: the attention oracle
 (counterpart of flash_attn_tpu/utils/testing.py `attention_ref`: causal
-and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap),
+and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap,
+key padding and leftpad, chunks, sink tokens, a learnable sink),
 its packed-varlen form, random padding masks, a full-sequence GPT forward
 with no cache, and its loss as a gradient oracle."""
 
@@ -20,19 +21,65 @@ from flash_attn_tpu_torch.modules.mlp import ACT2FN
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
 
 
+def _key_cols(seqlen_k, key_leftpad, device):
+    """Key columns, leftpad-relative with key_leftpad ((b, 1, 1, sk); the
+    columns below a row's leftpad become 2**30), else (sk,)."""
+    col = torch.arange(seqlen_k, device=device)
+    if key_leftpad is None:
+        return col
+    lp = key_leftpad.to(device).long().reshape(-1, 1, 1, 1)
+    return torch.where(col >= lp, col - lp, torch.full_like(col - lp, 2**30))
+
+
+def _key_len(seqlen_k, key_padding_mask):
+    if key_padding_mask is None:
+        return seqlen_k
+    return key_padding_mask.sum(-1).reshape(-1, 1, 1, 1)
+
+
 def construct_local_mask(seqlen_q: int, seqlen_k: int,
                          window_size: Tuple[Optional[int], Optional[int]],
-                         device=None) -> torch.Tensor:
-    """(sq, sk) boolean mask of entries to DROP: a bottom-right aligned
-    window, (None, wr) for causal-style masks without a left edge."""
+                         device=None, *, sink_token_length: int = 0,
+                         key_padding_mask: Optional[torch.Tensor] = None,
+                         key_leftpad: Optional[torch.Tensor] = None,
+                         ) -> torch.Tensor:
+    """Boolean mask of entries to DROP: a window aligned bottom-right to
+    each row's key length (key_padding_mask's count, else seqlen_k), in
+    leftpad-relative columns with key_leftpad; (None, wr) for causal-style
+    masks without a left edge; the first sink_token_length columns stay
+    visible past the left edge. (sq, sk), or (b, 1, sq, sk) with a padding
+    mask or leftpad."""
     row = torch.arange(seqlen_q, device=device)[:, None]
-    col = torch.arange(seqlen_k, device=device)[None]
-    diag = row + seqlen_k - seqlen_q
+    col = _key_cols(seqlen_k, key_leftpad, device)
+    sk = _key_len(seqlen_k, key_padding_mask)
+    diag = row + sk - seqlen_q
     if window_size[0] is None:
         return col > diag + window_size[1]
-    return (col > torch.clamp(diag + window_size[1], max=seqlen_k)) | (
-        col < diag - window_size[0]
-    )
+    limit = diag + window_size[1]
+    if key_padding_mask is None:
+        limit = torch.clamp(limit, max=seqlen_k)
+    else:
+        limit = torch.minimum(limit, sk)
+    return (col > limit) | ((col < diag - window_size[0])
+                            & (col >= sink_token_length))
+
+
+def construct_chunk_mask(seqlen_q: int, seqlen_k: int, attention_chunk: int,
+                         device=None, *,
+                         key_padding_mask: Optional[torch.Tensor] = None,
+                         key_leftpad: Optional[torch.Tensor] = None,
+                         ) -> torch.Tensor:
+    """Boolean mask of entries to DROP for chunked (Llama-4-style)
+    attention (counterpart of flash_attn_tpu/utils/testing.py:66): query
+    row i, aligned bottom-right at diag = i + sk - sq, sees only the keys
+    of its own chunk [diag - diag % chunk, + chunk), in leftpad-relative
+    columns with key_leftpad (floor modulo, so negative diagonals round
+    toward -inf)."""
+    row = torch.arange(seqlen_q, device=device)[:, None]
+    col = _key_cols(seqlen_k, key_leftpad, device)
+    diag = row + _key_len(seqlen_k, key_padding_mask) - seqlen_q
+    lo = diag - torch.remainder(diag, attention_chunk)
+    return (col < lo) | (col >= lo + attention_chunk)
 
 
 def attention_ref(
@@ -40,8 +87,13 @@ def attention_ref(
     k: torch.Tensor,  # (b, sk, hk, d)
     v: torch.Tensor,  # (b, sk, hk, dv)
     *,
+    key_padding_mask: Optional[torch.Tensor] = None,  # (b, sk) bool
+    key_leftpad: Optional[torch.Tensor] = None,       # (b,)
     causal: bool = False,
     window_size: Tuple[Optional[int], Optional[int]] = (None, None),
+    attention_chunk: int = 0,
+    sink_token_length: int = 0,
+    learnable_sink: Optional[torch.Tensor] = None,    # (h,)
     softcap: float = 0.0,
     softmax_scale: Optional[float] = None,
     upcast: bool = True,
@@ -49,7 +101,10 @@ def attention_ref(
     """Exact attention; returns (output (b, sq, h, dv), probs (b, h, sq,
     sk)), both in q's dtype. upcast=False keeps the products in the input
     dtype (the "eager low-precision" run of the tolerance contract); the
-    softmax is computed in fp32 either way."""
+    softmax is computed in fp32 either way. Keys outside key_padding_mask
+    are dropped; windows and chunks are aligned to each row's key count in
+    leftpad-relative columns (the reference oracle's rules); a learnable
+    sink adds exp(sink) to each row's softmax denominator."""
     if causal:
         window_size = (window_size[0], 0)
     dtype_og = q.dtype
@@ -63,19 +118,31 @@ def attention_ref(
     scores = torch.einsum("bthd,bshd->bhts", q * scale, k).float()
     if softcap > 0:
         scores = torch.tanh(scores / softcap) * softcap
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(~key_padding_mask.reshape(b, 1, 1, seqlen_k),
+                                    float("-inf"))
     wl = window_size[0] if window_size[0] is not None and window_size[0] >= 0 else None
     wr = window_size[1] if window_size[1] is not None and window_size[1] >= 0 else None
+    masks = dict(key_padding_mask=key_padding_mask, key_leftpad=key_leftpad)
     if wl is not None or wr is not None:
         mask = construct_local_mask(
             seqlen_q, seqlen_k, (wl, seqlen_k if wr is None else wr),
-            device=q.device,
-        )
+            device=q.device, sink_token_length=sink_token_length, **masks)
         scores = scores.masked_fill(mask, float("-inf"))
+    if attention_chunk > 0:
+        scores = scores.masked_fill(construct_chunk_mask(
+            seqlen_q, seqlen_k, attention_chunk, device=q.device, **masks),
+            float("-inf"))
     row_max = scores.amax(dim=-1, keepdim=True)
+    if learnable_sink is not None:
+        sink = learnable_sink.float().to(q.device).reshape(1, h, 1, 1)
+        row_max = torch.maximum(row_max, sink)
     row_max = torch.where(torch.isfinite(row_max), row_max,
                           torch.zeros_like(row_max))
     unnorm = torch.exp(scores - row_max)
     denom = unnorm.sum(dim=-1, keepdim=True)
+    if learnable_sink is not None:
+        denom = denom + torch.exp(sink - row_max)
     attention = torch.where(denom > 0, unnorm / denom.clamp_min(1e-37),
                             torch.zeros_like(unnorm))
     output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)

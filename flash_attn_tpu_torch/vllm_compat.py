@@ -10,12 +10,16 @@ module:
   * no block table: packed varlen attention (`flash_attn_varlen_func` of
     the interface: kernel 6 forward, kernels 7-8 backward);
   * a block table and max_seqlen_q > 4 (chunked prefill, or prefill and
-    decode rows mixed): kernel 6 reading K/V from the pools through the
-    block table (`kernels.flash_varlen`, route "paged-prefill-inkernel");
+    decode rows mixed), no `s_aux`: kernel 6 reading K/V from the pools
+    through the block table (`kernels.flash_varlen`, route
+    "paged-prefill-inkernel");
   * a block table and max_seqlen_q <= 4 (decode only): the paged-decode
     kernel (kernel 4, route "paged-decode"), the pools as strided views;
     the q rows go in as they are when every sequence has one, else
-    right-aligned into (nseq, max_seqlen_q).
+    right-aligned into (nseq, max_seqlen_q);
+  * a block table and `s_aux` sinks (gpt-oss), any max_seqlen_q: the same
+    decode route with the sinks, which only the general decode kernel
+    takes (kernel 5, route "paged-decode-sinks").
 
 Pools are vLLM's (num_blocks, page, hk, d) ["phd"], head-major (num_blocks,
 hk, page, d) ["hpd"], or a fused K|V pool ["hpd_fused"]; every route reads
@@ -167,13 +171,14 @@ def flash_attn_varlen_func(
     if q_descale is not None or k_descale is not None or v_descale is not None:
         raise _unported("descales", "queue 2, kernels 4 and 6 (1-byte pools "
                                     "and descales)")
-    if s_aux is not None:
-        raise _unported("s_aux (sinks)", "queue 2, kernel 5 (sinks)")
     if cp_world_size > 1:
         raise _unported("cp_world_size > 1",
                         "queue 1, item 12 (context parallelism)")
 
     if block_table is None:
+        if s_aux is not None:
+            raise _unported("s_aux (sinks) and no block table",
+                            "queue 2, kernels 6-8 (learnable sink)")
         log_dispatch("varlen", route="packed", total_q=q.shape[0])
         res, lse, _ = _varlen_packed(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
@@ -205,7 +210,7 @@ def flash_attn_varlen_func(
     nseq = cu_seqlens_q.shape[0] - 1
     sq = int(max_seqlen_q)
 
-    if sq > _DECODE_MAX_Q:
+    if sq > _DECODE_MAX_Q and s_aux is None:
         plan = None
         if sm is not None and sm.plan is not None and plan_mismatch(
                 sm.plan, cu_seqlens_q=cu_seqlens_q, seqused_k=seqused_k,
@@ -222,14 +227,15 @@ def flash_attn_varlen_func(
             plan=plan, max_seqlen_q=None if plan is not None else sq)
         return _finish(res, lse, out, return_softmax_lse)
 
-    log_dispatch("varlen", route="paged-decode", page=kc.shape[2], nseq=nseq,
+    log_dispatch("varlen", route="paged-decode" if s_aux is None
+                 else "paged-decode-sinks", page=kc.shape[2], nseq=nseq,
                  total_q=total_q, fused=fused)
     fused_kw = dict(fused_kv_dim=head_dim, fused_kv_dim_v=head_dim) if fused \
         else {}
     decode_kw = dict(block_table=block_table.to(torch.int32).contiguous(),
                      softmax_scale=softmax_scale, causal=True,
                      window_left=int(window_size[0]), softcap=softcap,
-                     **fused_kw)
+                     sink=s_aux, **fused_kw)
     used = seqused_k.to(torch.int32).contiguous()
     if sq == 1 and total_q == nseq:
         # One row per sequence (vLLM's decode steps): the rows are already

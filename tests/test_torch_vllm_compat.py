@@ -25,6 +25,7 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (
 )
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
 from flash_attn_tpu_torch.utils.fa_logging import dispatch_counts
+from flash_attn_tpu_torch.utils.testing import attention_ref
 from flash_attn_tpu_torch.vllm_compat import (
     flash_attn_varlen_func,
     flash_attn_with_kvcache,
@@ -232,15 +233,54 @@ def test_unported_arguments_raise():
     t = torch.from_numpy
     for extra in (dict(q_v=t(s["q"])), dict(alibi_slopes=torch.ones(H)),
                   dict(q_descale=torch.ones(1)), dict(k_descale=torch.ones(1)),
-                  dict(s_aux=torch.ones(H)), dict(cp_world_size=2),
-                  dict(dropout_p=0.1),
+                  dict(s_aux=torch.ones(H), block_table=None),
+                  dict(cp_world_size=2), dict(dropout_p=0.1),
                   dict(pools=(t(s["k"]).to(torch.int8), t(s["v"]).to(torch.int8)))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_call(s, **extra)
     for fn in (vllm_compat.sparse_attn_func, vllm_compat.sparse_attn_varlen_func):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
-    q = torch.zeros(2, 1, H, D)
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        flash_attn_with_kvcache(q, torch.zeros(2, 8, HK, D),
-                                torch.zeros(2, 8, HK, D), cache_seqlens=3)
+
+
+def test_sinks_step_matches_oracle_not_reference_interior_tiles():
+    """A mixed step with s_aux sinks (gpt-oss) goes to the general decode
+    kernel's paged route, every sequence's rows right-aligned, and equals
+    the exact answer (out, and lse with the sink in its sum). The JAX
+    kernel does not: it skips the mask on tiles that its FIRST query row
+    sees whole (flash_decode.py:152-156), so later rows of a window attend
+    keys left of their window."""
+    s = _step(5, **MIXED)
+    sinks = np.random.default_rng(6).standard_normal(H).astype(np.float32)
+    dispatch_counts.clear()
+    out, lse = _port_call(s, s_aux=torch.from_numpy(sinks))
+    assert dict(dispatch_counts) == {("varlen", "paged-decode-sinks"): 1}
+    t = torch.from_numpy
+    cu = s["cu_q"]
+    want = torch.zeros_like(out)
+    for j, used in enumerate(s["used"].tolist()):
+        rows = slice(int(cu[j]), int(cu[j + 1]))
+        pages = t(s["table"][j]).long()
+        k, v = (t(x)[pages].reshape(-1, HK, D)[:used][None]
+                for x in (s["k"], s["v"]))
+        q = t(s["q"])[rows][None]
+        want[rows] = attention_ref(q, k, v, causal=True,
+                                   window_size=s["window"],
+                                   learnable_sink=t(sinks))[0][0]
+        scores = torch.einsum("thd,shd->hts", q[0] * D**-0.5,
+                              k[0].repeat_interleave(H // HK, dim=1))
+        pos = used - q.shape[1] + torch.arange(q.shape[1])[:, None]
+        col = torch.arange(used)[None]
+        seen = (col <= pos) & (col >= pos - s["window"][0])
+        scores = scores.masked_fill(~seen, float("-inf"))
+        sink_col = t(sinks)[:, None, None].expand(H, q.shape[1], 1)
+        _close(lse[:, rows].numpy(),
+               torch.logsumexp(torch.cat([scores, sink_col], -1), -1).numpy())
+    _close(out.numpy(), want.numpy())
+    out_j = jax_vllm(
+        jnp.asarray(s["q"]), jnp.asarray(s["k"]), jnp.asarray(s["v"]),
+        max_seqlen_q=s["max_q"], cu_seqlens_q=s["cu_q"],
+        max_seqlen_k=s["max_k"], seqused_k=s["used"], causal=True,
+        window_size=s["window"], block_table=s["table"],
+        s_aux=jnp.asarray(sinks))
+    assert np.abs(np.asarray(out_j) - want.numpy()).max() > 0.1
