@@ -24,6 +24,18 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               TinyLlama's d 64, and a vLLM step with s_aux sinks at
               gpt-oss-20b widths; then decode_fault: a window, leftpad or
               chunk off by one, which every check must catch;
+     sparse_kernels, sparse_fault, sparse_autograd, sparse_crossover,
+     sparse_vllm  vertical-slash sparse attention (kernels 12-15): both
+              forward routes and the backward against their plain versions
+              on MInference-style metadata (the 32768-token Mistral-width
+              prefill, 8192 forward and backward, d 64, ALiBi + softcap
+              fp16, padded lengths, overlaps and garbage, empty blocks),
+              each with a slash offset moved by one column that every check
+              must catch; sparse_attn_func's autograd with launches
+              counted; sparse against dense over contexts, densities and
+              slash shares, and the crossover fit; a 32-layer prefill step
+              of two packed sequences through vllm_compat's
+              sparse_attn_varlen_func, host syncs made errors;
   4. logits   a Mistral-7B-v0.1-width model (random seeded weights, bf16, all
               32 layers): chunked prefill of a ~4500-token prompt and 8 decode
               steps through the engine's own forward, logits held against a
@@ -55,6 +67,7 @@ It needs a CUDA device and the rest of this repository beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import os
@@ -69,7 +82,9 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from flash_attn_tpu_torch.flash_attn_interface import (  # noqa: E402
+    flash_attn_func,
     flash_attn_varlen_func,
+    sparse_attn_func,
 )
 from flash_attn_tpu_torch.kernels import _build  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
@@ -95,6 +110,23 @@ from flash_attn_tpu_torch.kernels.flash_decode_multipage import (  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_fwd import (  # noqa: E402
     flash_attention_fwd,
     flash_attention_fwd_ref,
+)
+from flash_attn_tpu_torch.kernels.flash_sparse import (  # noqa: E402
+    _sparse_dkv_ref,
+    _sparse_dq_ref,
+    column_limits,
+    flash_attention_sparse_bwd_dkv,
+    flash_attention_sparse_bwd_dq,
+    flash_attention_sparse_fwd_ref,
+    flash_attention_sparse_tiles_fwd,
+    plan_inverse,
+    plan_sparse,
+    sparse_route,
+    visible_chunks,
+)
+from flash_attn_tpu_torch.kernels.flash_sparse_gather import (  # noqa: E402
+    flash_attention_sparse_gather_fwd,
+    plan_gather,
 )
 from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
     _varlen_dkv_ref,
@@ -129,7 +161,12 @@ from flash_attn_tpu_torch.runtime.kv_cache import (  # noqa: E402
 from flash_attn_tpu_torch.training import run as train_run  # noqa: E402
 from flash_attn_tpu_torch.training.run import load_config  # noqa: E402
 from flash_attn_tpu_torch.training.trainer import Trainer  # noqa: E402
+from flash_attn_tpu_torch.utils import sparse_crossover  # noqa: E402
 from flash_attn_tpu_torch.utils.fa_logging import dispatch_counts  # noqa: E402
+from flash_attn_tpu_torch.utils.sparse_crossover import (  # noqa: E402
+    fit_crossover,
+    metadata_density,
+)
 from flash_attn_tpu_torch.utils.testing import (  # noqa: E402
     gpt_forward_ref,
     gpt_loss_ref,
@@ -139,6 +176,9 @@ from flash_attn_tpu_torch.vllm_compat import (  # noqa: E402
 )
 from flash_attn_tpu_torch.vllm_compat import (  # noqa: E402
     get_scheduler_metadata,
+)
+from flash_attn_tpu_torch.vllm_compat import (  # noqa: E402
+    sparse_attn_varlen_func as vllm_sparse_attn_varlen_func,
 )
 
 # Mistral-7B-v0.1, https://huggingface.co/mistralai/Mistral-7B-v0.1 config.json
@@ -171,7 +211,15 @@ OUT_ATOL, OUT_RTOL, LSE_ATOL = 1e-2, 1e-2, 1e-3
 LOGIT_FLOOR_FRACTION = 1e-2
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line also carries t_s, the seconds
+    since the script started (a phase's wall time is the step from the line
+    before)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -2065,15 +2113,781 @@ def train_profile_phase(seed=5):
     return result
 
 
+# -- phases: sparse_kernels, sparse_fault, sparse_autograd, sparse_crossover,
+#    sparse_vllm (vertical-slash sparse attention, kernels 12-15) ------------
+
+# Synthetic traffic. The (vertical, slash) top-k sizes are candidates of
+# the search space that MInference (arXiv 2407.02490) describes for its
+# vertical-slash heads, as recalled, not its per-head configuration of a
+# 7-8B model, which is not in this repository; the heads here take them in
+# turn. Where the slash diagonals lie has no source: MINF_LOCAL of them lie
+# next to the main diagonal, the rest are drawn over the context. Every
+# timing of the sparse phases holds for this traffic only (PERF.md).
+MINF_HEADS = ((30, 800), (100, 750), (500, 700), (3500, 100))
+MINF_LOCAL = 0.9
+
+
+def vs_metadata(b, h, sq, sk, heads, causal, seed, garbage=False):
+    """Seeded MInference-style metadata on the card, built as vLLM's
+    convert_vertical_slash_indexes builds it: per (batch row, head) the
+    `slash` diagonals, those closer than 64 merged into one range, emitted
+    per 64-row block as 64-column slash blocks at unaligned offsets from the
+    block's last row (clamped at 0); the `vertical` columns (the first 4
+    and the rest drawn) that the block's rows can see, outside its ranges.
+    Entries past the counts hold leftovers, or random values with garbage.
+    `heads` is a (vertical, slash) pair per head, taken in turn."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    nqb = -(-sq // 64)
+    e = torch.arange(1, nqb + 1, device=dev)[:, None] * 64 + (sk - sq)
+    limit = torch.minimum(e, torch.tensor(sk, device=dev)) if causal else sk
+    rows = []
+    for _ in range(b):
+        for hi in range(h):
+            n_v, n_s = heads[hi % len(heads)]
+            n_s = max(1, min(n_s, sk))
+            n_loc = min(int(np.ceil(MINF_LOCAL * n_s)), sk)
+            far = (rng.choice(np.arange(n_loc, sk), min(n_s - n_loc,
+                                                        sk - n_loc),
+                              replace=False) if sk > n_loc else [])
+            deltas = np.sort(np.concatenate([np.arange(n_loc), far]))
+            cut = np.nonzero(np.diff(deltas) > 64)[0] + 1
+            lo = deltas[np.r_[0, cut]]
+            hi_ = deltas[np.r_[cut - 1, len(deltas) - 1]]
+            rel = np.sort(np.concatenate([
+                -64 - top + 64 * np.arange(-(-(top - bot + 64) // 64))
+                for bot, top in zip(lo, hi_)]))
+            off = e + torch.from_numpy(rel).to(dev)
+            ok = (off > -64) & (off < limit)
+            order = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)
+            off = off.clamp_min(0).gather(1, order)
+            n_v = min(n_v, sk // 2)
+            cols = np.unique(np.concatenate([
+                np.arange(min(4, sk)),
+                rng.choice(np.arange(4, sk), max(n_v - 4, 0), replace=False)]))
+            c = torch.from_numpy(cols).to(dev)[None]
+            x = e - c - 1  # the diagonal distance of column c from the block
+            gi = torch.searchsorted(torch.from_numpy(lo).to(dev),
+                                    x.contiguous(), right=True) - 1
+            hi_t = torch.from_numpy(hi_).to(dev)
+            inside = (gi >= 0) & (x <= hi_t[gi.clamp_min(0)] + 63)
+            okv = ~inside & (c < limit)
+            order = torch.argsort((~okv).to(torch.int8), dim=1, stable=True)
+            rows.append((off, ok.sum(1), c.expand(nqb, -1).gather(1, order),
+                         okv.sum(1)))
+    ns = max(r[0].shape[1] for r in rows)
+    nv = max(r[2].shape[1] for r in rows)
+
+    def stack(i, n):
+        out = torch.stack([torch.nn.functional.pad(r[i], (0, n - r[i].shape[1]),
+                                                   value=-1) for r in rows])
+        return out.reshape(b, h, nqb, n).int()
+
+    bo, ci = stack(0, ns), stack(2, nv)
+    bc = torch.stack([r[1] for r in rows]).reshape(b, h, nqb).int()
+    cc = torch.stack([r[3] for r in rows]).reshape(b, h, nqb).int()
+    if garbage:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for lst, cnt in ((bo, bc), (ci, cc)):
+            junk = torch.randint(-256, 2 * sk, lst.shape, generator=g,
+                                 device=dev, dtype=torch.int32)
+            past = torch.arange(lst.shape[-1], device=dev) >= cnt[..., None]
+            lst[past] = junk[past]
+    return bc.contiguous(), bo.contiguous(), cc.contiguous(), ci.contiguous()
+
+
+def vs_variant(meta, variant):
+    """"overlap": each block's first slash range also 17 columns later and
+    repeated, its first vertical column repeated and a column inside that
+    range added (union semantics); "empty": every third block's counts 0."""
+    bc, bo, cc, ci = (x.clone() for x in meta)
+    if variant == "overlap":
+        has = (bc >= 1).int()
+        bo = torch.cat([bo[..., :1] + 17, bo[..., :1], bo], -1)
+        bc = bc + 2 * has
+        ci = torch.cat([ci[..., :1], bo[..., 1:2] + 5, ci], -1)
+        cc = cc + 2 * ((cc >= 1) & (bc >= 1)).int()
+    elif variant == "empty":
+        bc[..., ::3] = 0
+        cc[..., ::3] = 0
+    return tuple(x.contiguous() for x in (bc, bo, cc, ci))
+
+
+def vs_cover(meta, bi, hi, sk):
+    """(nqb, sk + 64) int32: how many slash ranges and vertical entries of
+    (bi, hi) cover each column, per 64-row block (for planting faults)."""
+    bc, bo, cc, ci = meta
+    dev = bo.device
+    nqb = bo.shape[2]
+    width = sk + 64
+    steps = torch.zeros(nqb, width + 1, dtype=torch.int32, device=dev)
+    ok = torch.arange(bo.shape[-1], device=dev)[None] < bc[bi, hi, :, None]
+    lo = bo[bi, hi].long().clamp(0, width)
+    hi_ = (bo[bi, hi].long() + 64).clamp(0, width)
+    steps.scatter_add_(1, torch.where(ok, lo, width), ok.int())
+    steps.scatter_add_(1, torch.where(ok, hi_, width), -ok.int())
+    cover = steps[:, :width].cumsum(1).int()
+    okv = ((torch.arange(ci.shape[-1], device=dev)[None] < cc[bi, hi, :, None])
+           & (ci[bi, hi] >= 0) & (ci[bi, hi] < width))
+    cover.scatter_add_(1, torch.where(okv, ci[bi, hi].long(), 0), okv.int())
+    return cover
+
+
+def vs_planted(meta, sq, sk, causal, lens_q=None, lens_k=None):
+    """The metadata with one slash offset per 64-row block moved by one
+    column: right where the column lost (the old offset) and the one
+    gained (old offset + 64) are both visible to some row of the block and
+    covered by nothing else, else left where the same holds for columns
+    old offset + 63 and old offset - 1. Returns (planted metadata, blocks
+    changed)."""
+    bc, bo, cc, ci = meta
+    b, h, nqb, ns = bo.shape
+    lim = column_limits(b, sq, sk, causal, lens_q, lens_k, bo.device)
+    bo = bo.clone()
+    moved = 0
+    for bi in range(b):
+        for hi in range(h):
+            cover = vs_cover(meta, bi, hi, sk)
+            off = bo[bi, hi].long()
+            listed = (torch.arange(ns, device=bo.device)[None]
+                      < bc[bi, hi, :, None])
+            lim_b = lim[bi, :, None]
+
+            def alone(col, n):  # covered n times and visible to some row
+                safe = col.clamp(0, sk + 63)
+                return (col >= 0) & (col < lim_b) & (cover.gather(1, safe) == n)
+
+            right = listed & alone(off, 1) & alone(off + 64, 0)
+            left = listed & alone(off + 63, 1) & alone(off - 1, 0)
+            pick = torch.arange(nqb, device=bo.device)
+            use_right = right.any(1)
+            first = torch.where(use_right, torch.argmax(right.int(), 1),
+                                torch.argmax(left.int(), 1))
+            shift = torch.where(use_right, 1, -left.any(1).int())
+            bo[bi, hi, pick, first] += shift.int()
+            moved += int((shift != 0).sum())
+    return (bc, bo, cc, ci), moved
+
+
+# (b, h, hk, sq, sk, d, causal, dtype, softcap, alibi, lens, variant, bwd)
+SPARSE_CASES = {
+    # vLLM's long-context prefill at Mistral-7B widths: forward only.
+    "vllm-prefill-32k": (1, H, HK, 32768, 32768, D, True, torch.bfloat16, 0.0,
+                         False, None, None, False),
+    "prefill-8k": (1, H, HK, 8192, 8192, D, True, torch.bfloat16, 0.0, False,
+                   None, None, True),
+    "tinyllama-d64-noncausal": (2, 32, 4, 1000, 3000, 64, False,
+                                torch.bfloat16, 0.0, False, None, None, True),
+    "alibi-softcap-fp16": (2, 8, 2, 2048, 2048, D, True, torch.float16, 30.0,
+                           True, None, None, True),
+    "padded-varlen": (3, 8, 2, 2048, 2048, D, True, torch.bfloat16, 0.0, False,
+                      ((2048, 1500, 700), (2048, 1500, 900)), None, True),
+    "overlap-dup-garbage": (1, 8, 2, 2048, 2048, D, True, torch.bfloat16, 0.0,
+                            False, None, "overlap", True),
+    "empty-blocks": (1, 8, 2, 1500, 2000, D, False, torch.bfloat16, 0.0, False,
+                     None, "empty", True),
+}
+# The largest boolean mask handed to SDPA as the library yardstick.
+SDPA_MASK_BYTES = 4 << 30
+
+
+def vs_visible_pairs(gplan, b, sq, sk, causal, lens_q, lens_k):
+    """Exact visible (head, row, column) triples of a call, from its gather
+    lists: each row counts its block's listed columns at or left of its
+    diagonal (all of them without causal), on rows inside seqlens_q."""
+    counts, cols = gplan
+    dev = cols.device
+    n = cols.shape[-1]
+    uq = (torch.full((b,), sq, device=dev) if lens_q is None
+          else lens_q.long())
+    uk = (torch.full((b,), sk, device=dev) if lens_k is None
+          else lens_k.long())
+    total = 0
+    for m0 in range(0, cols.shape[2], 64):
+        listed = (torch.arange(n, device=dev)
+                  < counts[:, :, m0:m0 + 64, None].long())
+        c = torch.where(listed, cols[:, :, m0:m0 + 64].long(), 1 << 40)
+        r = (torch.arange(c.shape[2], device=dev)[:, None] + m0) * 64 + \
+            torch.arange(64, device=dev)[None]  # (blocks, 64) rows
+        diag = r[None] + (uk - uq)[:, None, None]  # (b, blocks, 64)
+        hi = diag if causal else torch.full_like(diag, 1 << 39)
+        seen = torch.searchsorted(
+            c.reshape(-1, n).contiguous(),
+            hi[:, None].expand(-1, c.shape[1], -1, -1).reshape(-1, 64)
+            .contiguous(), right=True).reshape(b, c.shape[1], -1, 64)
+        seen = torch.minimum(seen, counts[:, :, m0:m0 + 64, None].long())
+        seen = seen * (r < torch.minimum(uq, torch.tensor(sq, device=dev))
+                       [:, None, None])[:, None]
+        total += int(seen.sum())
+    return total
+
+
+def vs_sdpa_mask(meta, b, h, sq, sk, causal, lens_q, lens_k):
+    """The call's (b, h, sq, sk) boolean visibility, for SDPA (a yardstick
+    only; the port never calls it)."""
+    mask = torch.zeros(b, h, sq, sk, dtype=torch.bool, device=meta[1].device)
+    for bi, hi, rows, vis, _ in visible_chunks(meta, b, h, sq, sk, causal,
+                                              lens_q, lens_k, None):
+        mask[bi, hi, rows] = vis
+    return mask
+
+
+def sparse_compare(name, seed):
+    """Kernels 12 and 15 (both routes) and 13-14 against their plain
+    versions on one case's seeded inputs and metadata, then the same
+    kernels given the metadata with a slash offset moved by one column in
+    every block (`vs_planted`), which every check must catch. The backward
+    kernels take the plain forward's LSE and the plain dQ's delta, as in
+    `attn_compare`. Returns (result, fault result, tensors)."""
+    (b, h, hk, sq, sk, d, causal, dtype, softcap, alibi, lens, variant,
+     bwd) = SPARSE_CASES[name]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    meta = vs_metadata(b, h, sq, sk, MINF_HEADS, causal, seed,
+                       garbage=variant == "overlap")
+    if variant:
+        meta = vs_variant(meta, variant)
+    lens_q = lens_k = None
+    if lens:
+        lens_q, lens_k = (_dev_int(x) for x in lens)
+    slopes = None
+    if alibi:  # one set of slopes per batch row
+        slopes = torch.stack([default_alibi_slopes(h) * (1 + 0.25 * i)
+                              for i in range(b)]).to(dev)
+    kw = dict(softmax_scale=None, causal=causal, softcap=softcap,
+              alibi_slopes=slopes, seqlens_q=lens_q, seqlens_k=lens_k)
+    plans = dict(seqlen_q=sq, seqlen_k=sk, causal=causal, seqlens_q=lens_q,
+                 seqlens_k=lens_k)
+    up = tuple(x.float() for x in (q, k, v, do))
+    ref_out, ref_lse = flash_attention_sparse_fwd_ref(*up[:3], *meta, **kw)
+    finite = torch.isfinite(ref_lse)
+    refs = dict(out=ref_out)
+    if bwd:
+        ref_dq, ref_delta = _sparse_dq_ref(*up, ref_lse, *meta, **kw)
+        ref_dk, ref_dv = _sparse_dkv_ref(*up, ref_lse, ref_delta, *meta, **kw)
+        refs.update(dq=ref_dq, delta=ref_delta, dk=ref_dk, dv=ref_dv)
+    del up
+
+    def run(m):
+        """Both forward routes and the backward kernels on metadata m."""
+        plan = plan_sparse(*m, keep_table=bwd, **plans)
+        gplan = plan_gather(*m, **plans)
+        got = {}
+        for route, (out, lse) in (
+                ("tiles", flash_attention_sparse_tiles_fwd(
+                    q, k, v, *m, plan=plan, **kw)),
+                ("gather", flash_attention_sparse_gather_fwd(
+                    q, k, v, *m, plan=gplan, **kw))):
+            lse_err = (float((lse - ref_lse)[finite].abs().max())
+                       if finite.any() else 0.0)
+            got[route] = dict(out=held(out, ref_out), lse_max_abs_err=lse_err)
+            got[route]["ok"] = bool(
+                got[route]["out"]["err_over_limit"] <= 1
+                and lse_err <= ATTN_LSE_TOL
+                and torch.equal(finite, torch.isfinite(lse))
+                and bool(torch.isfinite(out).all())
+                and bool((out.float()[~finite] == 0).all()))
+        if bwd:
+            args = (q, k, v, do, ref_lse)
+            dq, delta = flash_attention_sparse_bwd_dq(*args, *m, plan=plan,
+                                                      **kw)
+            dq2, delta2 = flash_attention_sparse_bwd_dq(*args, *m, plan=plan,
+                                                        **kw)
+            inverse = plan_inverse(plan.table, hk)
+            dk, dv = flash_attention_sparse_bwd_dkv(
+                *args, ref_delta, *m, inverse=inverse, **kw)
+            dk2, dv2 = flash_attention_sparse_bwd_dkv(
+                *args, ref_delta, *m, inverse=inverse, **kw)
+            torch.cuda.synchronize()
+            got.update(
+                dq=held(dq, ref_dq), delta=held(delta, ref_delta),
+                dk=held(dk, ref_dk), dv=held(dv, ref_dv),
+                bwd_bitwise_deterministic=all(
+                    torch.equal(x, y) for x, y in
+                    ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))),
+                grads_finite=all(bool(torch.isfinite(x).all())
+                                 for x in (dq, dk, dv)))
+            if lens_k is not None:  # keys past a row's length get nothing
+                past = (torch.arange(sk, device=dev)[None]
+                        >= lens_k[:, None])[:, None, :, None]
+                got["padded_keys_zero"] = bool(
+                    (dk.float() * past == 0).all()
+                    and (dv.float() * past == 0).all())
+            got["dq_ok"] = (got["dq"]["err_over_limit"] <= 1
+                            and got["delta"]["err_over_limit"] <= 1)
+            got["dkv_ok"] = max(got["dk"]["err_over_limit"],
+                                got["dv"]["err_over_limit"]) <= 1
+        return got, plan, gplan
+
+    got, plan, gplan = run(meta)
+    ok = got["tiles"]["ok"] and got["gather"]["ok"]
+    if bwd:
+        ok = ok and (got["dq_ok"] and got["dkv_ok"]
+                     and got["bwd_bitwise_deterministic"]
+                     and got["grads_finite"]
+                     and got.get("padded_keys_zero", True))
+    planted, moved = vs_planted(meta, sq, sk, causal, lens_q, lens_k)
+    bad, _, _ = run(planted)
+    caught = dict(fwd_tiles=not bad["tiles"]["ok"],
+                  fwd_gather=not bad["gather"]["ok"])
+    if bwd:
+        caught.update(dq=not bad["dq_ok"], dkv=not bad["dkv_ok"])
+    fault = dict(
+        phase="sparse_fault", case=name, blocks_moved=moved,
+        blocks=b * h * meta[0].shape[2],
+        err_over_limit=dict(
+            out_tiles=bad["tiles"]["out"]["err_over_limit"],
+            out_gather=bad["gather"]["out"]["err_over_limit"],
+            **({key: bad[key]["err_over_limit"]
+                for key in ("dq", "delta", "dk", "dv")} if bwd else {})),
+        lse_max_abs_err=dict(tiles=bad["tiles"]["lse_max_abs_err"],
+                             gather=bad["gather"]["lse_max_abs_err"]),
+        caught=caught, ok=all(caught.values()) and moved > 0)
+    del refs, ref_out
+    result = dict(
+        phase="sparse_kernels", case=name, b=b, h=h, hk=hk, sq=sq, sk=sk,
+        d=d, causal=causal, dtype=str(dtype).split(".")[-1], softcap=softcap,
+        alibi=alibi, seqlens=lens, variant=variant,
+        nnz_s=meta[1].shape[-1], nnz_v=meta[3].shape[-1],
+        route=sparse_route(meta[1].shape[-1], meta[3].shape[-1], sk),
+        density=metadata_density(meta[0], meta[2], sq, sk),
+        empty_rows=int((~finite).sum()), **got, tolerance=ATTN_TOLERANCE,
+        ok=ok)
+    tensors = dict(q=q, k=k, v=v, do=do, meta=meta, kw=kw, plans=plans,
+                   plan=plan, gplan=gplan, lse=ref_lse,
+                   delta=ref_delta if bwd else None)
+    return result, fault, tensors
+
+
+def sparse_case(name, seed):
+    """sparse_compare, then CUDA-event times of every kernel (planners
+    timed apart), its bound, its plain version and, where the mask fits,
+    SDPA with a boolean mask (the library yardstick)."""
+    result, fault, t = sparse_compare(name, seed)
+    (b, h, hk, sq, sk, d, causal, dtype, _, _, _, _, bwd) = SPARSE_CASES[name]
+    q, k, v, do, meta, kw = (t[x] for x in ("q", "k", "v", "do", "meta", "kw"))
+    plan, gplan, plans = t["plan"], t["gplan"], t["plans"]
+    big = sq * sk >= 1 << 26
+    reps = dict(reps=5, warmup=1) if big else {}
+    plain = dict(reps=2, warmup=0) if big else dict(reps=3, warmup=1)
+    result.update(
+        tiles_ms=cuda_ms(lambda: flash_attention_sparse_tiles_fwd(
+            q, k, v, *meta, plan=plan, **kw), **reps),
+        gather_ms=cuda_ms(lambda: flash_attention_sparse_gather_fwd(
+            q, k, v, *meta, plan=gplan, **kw), **reps),
+        plan_tiles_ms=cuda_ms(lambda: plan_sparse(*meta, **plans), **reps),
+        plan_gather_ms=cuda_ms(lambda: plan_gather(*meta, **plans), **reps),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_sparse_fwd_ref(
+            q, k, v, *meta, **kw), **plain))
+    pairs = vs_visible_pairs(gplan, b, sq, sk, causal, kw["seqlens_q"],
+                             kw["seqlens_k"])
+    el = q.element_size()
+    qb, kvb, stats = b * h * sq * d * el, b * hk * sk * d * el, b * h * sq * 4
+    result["visible_pairs"] = pairs
+    result["visible_share"] = pairs / (b * h * sq * sk)
+    for key, per_d, nbytes in (("fwd", 4, 2 * qb + 2 * kvb + stats),
+                               ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+                               ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        if key != "fwd" and not bwd:
+            continue
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, 1, 1, d, pairs)
+    if bwd:
+        args = (q, k, v, do, t["lse"])
+        inverse = plan_inverse(plan.table, hk)
+        result.update(
+            dq_ms=cuda_ms(lambda: flash_attention_sparse_bwd_dq(
+                *args, *meta, plan=plan, **kw), **reps),
+            dkv_ms=cuda_ms(lambda: flash_attention_sparse_bwd_dkv(
+                *args, t["delta"], *meta, inverse=inverse, **kw), **reps),
+            plan_inverse_ms=cuda_ms(lambda: plan_inverse(plan.table, hk),
+                                    **reps),
+            dq_plain_ms=cuda_ms(lambda: _sparse_dq_ref(*args, *meta, **kw),
+                                **plain),
+            dkv_plain_ms=cuda_ms(lambda: _sparse_dkv_ref(
+                *args, t["delta"], *meta, **kw), **plain))
+    result["library_fwd_ms"] = None
+    result["library"] = "not run: the (b, h, sq, sk) mask exceeds 4 GiB"
+    if b * h * sq * sk <= SDPA_MASK_BYTES:
+        mask = vs_sdpa_mask(meta, b, h, sq, sk, causal, kw["seqlens_q"],
+                            kw["seqlens_k"])
+        try:
+            if kw["softcap"] or kw["alibi_slopes"] is not None:
+                raise ValueError("SDPA has no softcap or ALiBi")
+            result["library_fwd_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), **reps)
+            result["library"] = ("scaled_dot_product_attention(attn_mask="
+                                 "visibility, enable_gqa=True): a yardstick")
+        except Exception as exc:  # a yardstick: report why it did not run
+            result["library"] = f"not run: {type(exc).__name__}: {exc}"[:200]
+        del mask
+    emit(result)
+    emit(fault)
+    check(result["ok"], f"sparse_kernels case {name} disagrees with its "
+                        "plain version or is not deterministic")
+    check(fault["ok"], f"sparse_fault: a slash offset moved by one column in "
+                       f"case {name} passes the tolerance")
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _sparse_counts():
+    return dict(flash_sparse_fwd=flash_attention_sparse_tiles_fwd.launches,
+                flash_sparse_gather_fwd=flash_attention_sparse_gather_fwd.launches,
+                flash_sparse_bwd_dq=flash_attention_sparse_bwd_dq.launches,
+                flash_sparse_bwd_dkv=flash_attention_sparse_bwd_dkv.launches)
+
+
+def _zero_sparse_counts():
+    flash_attention_sparse_tiles_fwd.launches = 0
+    flash_attention_sparse_gather_fwd.launches = 0
+    flash_attention_sparse_bwd_dq.launches = 0
+    flash_attention_sparse_bwd_dkv.launches = 0
+
+
+def sparse_autograd_phase(seed=111, s=8192, heads=MINF_HEADS):
+    """`sparse_attn_func`'s autograd path at the prefill-8k case (bshd
+    layout, as a training step calls it): the forward on its route, then
+    kernels 14 and 13 through backward(), launches counted from zero;
+    gradients held against the plain versions. `heads` sets the route:
+    all four MInference sizes list more than 8192 columns (kernel 12), the
+    first three fewer (kernel 15, whose backward builds kernel 12's plan)."""
+    b, h, hk, sq, sk, d = 1, H, HK, s, s, D
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, hk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    meta = vs_metadata(b, h, sq, sk, heads, True, seed)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    _zero_sparse_counts()
+    dispatch_counts.clear()
+    out = sparse_attn_func(*leaves, *meta, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = _sparse_counts()
+    routes = {f"{k_}/{r}": n for (k_, r), n in dispatch_counts.items()}
+    route = sparse_route(meta[1].shape[-1], meta[3].shape[-1], sk)
+    fwd_name = ("flash_sparse_fwd" if route == "tiles"
+                else "flash_sparse_gather_fwd")
+    want = dict(flash_sparse_fwd=0, flash_sparse_gather_fwd=0,
+                flash_sparse_bwd_dq=1, flash_sparse_bwd_dkv=1)
+    want[fwd_name] = 1
+    qh, kh, vh, doh = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    ref_out, ref_lse = flash_attention_sparse_fwd_ref(qh, kh, vh, *meta,
+                                                      causal=True)
+    ref_dq, ref_delta = _sparse_dq_ref(qh, kh, vh, doh, ref_lse, *meta,
+                                       causal=True)
+    ref_dk, ref_dv = _sparse_dkv_ref(qh, kh, vh, doh, ref_lse, ref_delta,
+                                     *meta, causal=True)
+    checks = dict(out=held(out.detach().transpose(1, 2), ref_out),
+                  dq=held(grads[0].transpose(1, 2), ref_dq),
+                  dk=held(grads[1].transpose(1, 2), ref_dk),
+                  dv=held(grads[2].transpose(1, 2), ref_dv))
+    ok = launches == want and all(c["err_over_limit"] <= 1
+                                  for c in checks.values())
+    result = dict(phase="sparse_autograd", b=b, h=h, hk=hk, s=sq, d=d,
+                  layout="bshd", route=route, launches=launches,
+                  launches_expected=want, routes=routes, **checks,
+                  tolerance=ATTN_TOLERANCE, ok=ok)
+    emit(result)
+    check(ok, "sparse_autograd: launches off the count or a gradient outside "
+              "the tolerance")
+    return result
+
+
+CROSSOVER_CONTEXTS = (2048, 4096, 8192, 16384, 32768)
+CROSSOVER_DENSITIES = (0.02, 0.05, 0.1, 0.2)
+CROSSOVER_SHARES = (0.3, 0.7)
+
+
+def crossover_metadata(sk, density, share, seed):
+    """Causal MInference-style metadata (b 1, H heads, s = sk) aimed at a
+    metadata density (the JAX package's count, `metadata_density`) with
+    `share` of it from slashes: a first guess (a causal row sees half the
+    drawn vertical columns), then each size scaled once by how far its part
+    of the density landed from its target."""
+    n_v, n_s = (max(4, int(2 * (1 - share) * density * sk)),
+                max(1, int(share * density * sk)))
+    for attempt in range(2):
+        meta = vs_metadata(1, H, sk, sk, ((n_v, n_s),), True, seed)
+        if attempt:
+            return meta
+        grid = H * sk * sk
+        got_s = float(meta[0].sum()) * 64 * 64 / grid
+        got_v = float(meta[2].sum()) * 64 / grid
+        n_s = max(1, int(n_s * share * density / max(got_s, 1e-9)))
+        n_v = max(4, int(n_v * (1 - share) * density / max(got_v, 1e-9)))
+
+
+def sparse_crossover_phase(seed=120):
+    """Sparse (`sparse_attn_func` on its route, planner included, and each
+    route alone) against the port's dense causal `flash_attn_func` (kernel
+    1) at Mistral-7B widths (b 1, 32/8 heads of 128, causal, bf16), over
+    contexts, densities and slash shares; then the fit of
+    utils/sparse_crossover.py's constants from those cells."""
+    dev = torch.device("cuda")
+    cells = []
+    for sk in CROSSOVER_CONTEXTS:
+        gen = torch.Generator(device=dev).manual_seed(seed + sk)
+        q = torch.randn(1, H, sk, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(1, HK, sk, D, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        dense_ms = cuda_ms(lambda: flash_attn_func(q, k, v, causal=True,
+                                                   layout="bhsd"),
+                           reps=5, warmup=1)
+        for share in CROSSOVER_SHARES:
+            for target in CROSSOVER_DENSITIES:
+                meta = crossover_metadata(sk, target, share,
+                                          seed + sk + int(1000 * target))
+                dens = metadata_density(meta[0], meta[2], sk, sk)
+                route = sparse_route(meta[1].shape[-1], meta[3].shape[-1], sk)
+                times = dict(routed=cuda_ms(
+                    lambda: sparse_attn_func(q, k, v, *meta, causal=True,
+                                             layout="bhsd"),
+                    reps=5, warmup=1))
+                for r, fwd in (("tiles", flash_attention_sparse_tiles_fwd),
+                               ("gather", flash_attention_sparse_gather_fwd)):
+                    times[r] = cuda_ms(lambda: fwd(q, k, v, *meta,
+                                                   causal=True),
+                                       reps=5, warmup=1)
+                slash_cols = float(meta[0].sum()) * 64
+                cells.append(dict(
+                    seqlen_k=sk, target_density=target, density=dens,
+                    slash_frac=share,
+                    slash_frac_measured=slash_cols / max(
+                        slash_cols + float(meta[2].sum()), 1.0),
+                    nnz_s=meta[1].shape[-1], nnz_v=meta[3].shape[-1],
+                    gather_bound_share=(64 * meta[1].shape[-1]
+                                        + meta[3].shape[-1]) / sk,
+                    route=route, dense_ms=dense_ms, sparse_ms=times["routed"],
+                    tiles_ms=times["tiles"], gather_ms=times["gather"],
+                    speedup=dense_ms / times["routed"]))
+                del meta
+        del q, k, v
+    fit = fit_crossover(cells)
+    module = dict(MIN_CONTEXT=sparse_crossover.MIN_CONTEXT,
+                  MAX_DENSITY=sparse_crossover.MAX_DENSITY,
+                  MIN_SLASH_FRAC=sparse_crossover.MIN_SLASH_FRAC)
+    result = dict(phase="sparse_crossover", card=smi(), cells=cells, fit=fit,
+                  module_constants=module,
+                  module_matches_fit=all(module.get(k_) == v_
+                                         for k_, v_ in fit.items()),
+                  ok=len(cells) == (len(CROSSOVER_CONTEXTS)
+                                    * len(CROSSOVER_SHARES)
+                                    * len(CROSSOVER_DENSITIES)))
+    emit(result)
+    check(result["ok"], "sparse_crossover: a cell did not run")
+    return result
+
+
+VLLM_SPARSE_LENS = (32768, 16384)
+VLLM_SPARSE_PATTERNS = 4  # distinct per-layer metadata sets, in turn
+
+
+def sparse_varlen_ref(q, k, v, meta, lens, causal=True):
+    """The plain version of one vllm sparse layer call: each sequence
+    sliced out of the packed rows into a zero-padded batch, the plain
+    sparse forward with seqlens, and the rows sliced back."""
+    nseq, smax = len(lens), max(lens)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    h, d, hk = q.shape[1], q.shape[2], k.shape[1]
+    qp = q.new_zeros(nseq, h, smax, d, dtype=torch.float32)
+    kp = k.new_zeros(nseq, hk, smax, d, dtype=torch.float32)
+    vp = v.new_zeros(nseq, hk, smax, d, dtype=torch.float32)
+    for j, n in enumerate(lens):
+        qp[j, :, :n] = q[cu[j]:cu[j + 1]].transpose(0, 1).float()
+        kp[j, :, :n] = k[cu[j]:cu[j + 1]].transpose(0, 1).float()
+        vp[j, :, :n] = v[cu[j]:cu[j + 1]].transpose(0, 1).float()
+    lens_t = _dev_int(lens)
+    out, _ = flash_attention_sparse_fwd_ref(qp, kp, vp, *meta, causal=causal,
+                                            seqlens_q=lens_t, seqlens_k=lens_t)
+    return torch.cat([out[j, :, :n].transpose(0, 1) for j, n in
+                      enumerate(lens)])
+
+
+def sparse_vllm_phase(seed=130, layers=32):
+    """One long-context prefill step in vLLM's calling convention: two
+    sequences (32768 and 16384 tokens) packed, causal, Mistral-7B widths,
+    through 32 layer calls of vllm_compat.sparse_attn_varlen_func, each
+    with its layer's MInference-style metadata (VLLM_SPARSE_PATTERNS sets in
+    turn), host syncs made errors. Launches = layers per route taken; one
+    layer's output held whole against the plain version, and that layer's
+    call profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    lens = list(VLLM_SPARSE_LENS)
+    total, smax = sum(lens), max(lens)
+    cu = _dev_int(_cu_of(lens))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    patterns = []
+    for i in range(VLLM_SPARSE_PATTERNS):
+        # Each layer takes the MInference head sizes in its own order.
+        heads = MINF_HEADS[i:] + MINF_HEADS[:i]
+        patterns.append(vs_metadata(len(lens), H, smax, smax, heads, True,
+                                    seed + i))
+    qkv = [(torch.randn(total, H, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16),
+            torch.randn(total, HK, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16),
+            torch.randn(total, HK, D, generator=gen, device=dev,
+                        dtype=torch.bfloat16)) for _ in range(layers)]
+    outs = [torch.empty(total, H, D, device=dev, dtype=torch.bfloat16)
+            for _ in range(layers)]
+
+    def step():
+        for layer, (q, k, v) in enumerate(qkv):
+            vllm_sparse_attn_varlen_func(
+                q, k, v, *patterns[layer % len(patterns)], cu, cu, smax, smax,
+                causal=True, out=outs[layer])
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    inputs_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _zero_sparse_counts()
+    dispatch_counts.clear()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    with _SyncsRaise():
+        step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end)
+    launches = _sparse_counts()
+    routes = {f"{k_}/{r}": n for (k_, r), n in dispatch_counts.items()}
+    want_routes = collections.Counter(
+        sparse_route(patterns[i % len(patterns)][1].shape[-1],
+                     patterns[i % len(patterns)][3].shape[-1], smax)
+        for i in range(layers))
+    want = dict(flash_sparse_fwd=want_routes["tiles"],
+                flash_sparse_gather_fwd=want_routes["gather"],
+                flash_sparse_bwd_dq=0, flash_sparse_bwd_dkv=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    q, k, v = qkv[0]
+    ref = sparse_varlen_ref(q, k, v, patterns[0], lens)
+    check0 = held(outs[0], ref)
+    del ref
+    # Where one layer call's time goes (device activity only).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vllm_sparse_attn_varlen_func(q, k, v, *patterns[0], cu, cu, smax, smax,
+                                     causal=True, out=outs[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms_by_kernel(prof)
+    busy = sum(by_kernel.values())
+    layer_profile = dict(
+        wall_ms=wall_ms, device_busy_ms=busy,
+        idle_share=1 - busy / wall_ms if busy > 0 else None,
+        top_kernels=[dict(name=k_[:80], ms=v_) for k_, v_ in
+                     sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]])
+    dens = [metadata_density(p[0], p[2], smax, smax) for p in patterns]
+    ok = (launches == want and check0["err_over_limit"] <= 1
+          and sum(want_routes.values()) == layers)
+    result = dict(
+        phase="sparse_vllm", model="Mistral-7B-v0.1 attention widths",
+        layers=layers, seq_lens=lens, query_tokens=total,
+        heads_vertical_slash=list(MINF_HEADS), patterns=len(patterns),
+        nnz=[[p[1].shape[-1], p[3].shape[-1]] for p in patterns],
+        density=dens, step_ms=step_ms,
+        query_tokens_per_s=total / (step_ms / 1e3),
+        resident_inputs_gb=inputs_gb, peak_memory_gb=peak,
+        host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
+        launches=launches, launches_expected=want, routes=routes,
+        layer0=check0, layer0_profile=layer_profile,
+        tolerance=ATTN_TOLERANCE, ok=ok)
+    emit(result)
+    check(ok, "sparse_vllm: launches off the count or layer 0 outside the "
+              "tolerance")
+    del qkv, outs, patterns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def sparse_kernel_entries(sparse):
+    """Kernels 12-15 for the kernels line: times at the vLLM prefill shape
+    (forward) and the prefill-8k case (backward; forward there too),
+    launches on the slice's two paths (`sparse_vllm`, `sparse_autograd`),
+    each counted from zero. Fails if one of them never launched there."""
+    cases = sparse["cases"]
+    p32, p8 = cases["vllm-prefill-32k"], cases["prefill-8k"]
+    runs = sparse["autograd"]
+    paths = dict(sparse_vllm=sparse["vllm"]["launches"],
+                 sparse_autograd={k: sum(a["launches"][k] for a in runs)
+                                  for k in runs[0]["launches"]})
+    entries = []
+    for name, route, source, replaces, key, tensors in (
+            ("flash_sparse_fwd", "tiles", "flash_sparse_fwd.cu",
+             "flash_sparse.py:130", "fwd", ("tiles",)),
+            ("flash_sparse_gather_fwd", "gather", "flash_sparse_fwd.cu",
+             "flash_sparse_gather.py:127", "fwd", ("gather",)),
+            ("flash_sparse_bwd_dkv", None, "flash_sparse_bwd.cu",
+             "flash_sparse.py:542", "dkv", ("dk", "dv")),
+            ("flash_sparse_bwd_dq", None, "flash_sparse_bwd.cu",
+             "flash_sparse.py:638", "dq", ("dq", "delta"))):
+        by_path = {p: c[name] for p, c in paths.items()}
+        err = max(c[t]["out"]["max_abs_err"] if route else c[t]["max_abs_err"]
+                  for c in cases.values() for t in tensors if t in c)
+        at = p32 if route else p8
+        ms_key = f"{route}_ms" if route else f"{key}_ms"
+        entry = dict(
+            name=name, route="cuda",
+            source=f"flash_attn_tpu_torch/csrc/{source}",
+            replaces=f"flash_attn_tpu/kernels/{replaces}",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=err, ms=at[ms_key], plain_ms=at[f"{key}_plain_ms"],
+            bound_ms=at[f"{key}_bound_ms"], bound_by=at[f"{key}_bound_by"],
+            library_ms=at["library_fwd_ms"] if route else None,
+            shape=(f"{at['case']}: b={at['b']} h={at['h']} hk={at['hk']} "
+                   f"s={at['sq']} d={at['d']} causal, density "
+                   f"{at['density']:.4f}"))
+        if route:
+            entry["prefill_8k"] = dict(
+                ms=p8[ms_key], plain_ms=p8["fwd_plain_ms"],
+                bound_ms=p8["fwd_bound_ms"], bound_by=p8["fwd_bound_by"],
+                library_ms=p8["library_fwd_ms"])
+        entries.append(entry)
+        check(entry["launches"] > 0, f"{name} never launched on the sparse "
+                                     "paths")
+    return entries
+
+
+def sparse_phases():
+    """Every sparse phase; returns their results for the kernels line."""
+    cases = {name: sparse_case(name, seed=100 + i)
+             for i, name in enumerate(SPARSE_CASES)}
+    autograd = [sparse_autograd_phase(),
+                sparse_autograd_phase(seed=112, heads=MINF_HEADS[:3])]
+    check(sorted(a["route"] for a in autograd) == ["gather", "tiles"],
+          "sparse_autograd: the two cases did not take both routes")
+    crossover = sparse_crossover_phase()
+    vllm = sparse_vllm_phase()
+    return dict(cases=cases, autograd=autograd, crossover=crossover,
+                vllm=vllm)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", nargs="+",
-        choices=("kernel", "attn", "varlen", "vllm", "decode"),
+        choices=("kernel", "attn", "varlen", "vllm", "decode", "sparse"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
              "varlen_kernels + varlen_fault + varlen_train, vllm, "
-             "decode_kernels + decode_fault) and stop, with no result line: "
-             "for iterating on one kernel")
+             "decode_kernels + decode_fault, the sparse phases) and stop, "
+             "with no result line: for iterating on one kernel")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2112,6 +2926,8 @@ def main(argv=None):
                 decode_case(name, seed=70 + i)
             vllm_sinks_case()
             decode_fault_phase()
+        if "sparse" in only:
+            sparse_phases()
         print(smi(), flush=True)
         return 0
 
@@ -2132,6 +2948,7 @@ def main(argv=None):
     decode_fault_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    sparse = sparse_phases()
 
     config = llama_config_to_gpt_config(MISTRAL_7B)
     t0 = time.perf_counter()
@@ -2268,6 +3085,7 @@ def main(argv=None):
                       "contexts 2831-6000, h=32 hk=8 d=128, window 4095, "
                       "page 16, phd views")
         kernels.append(entry)
+    kernels += sparse_kernel_entries(sparse)
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

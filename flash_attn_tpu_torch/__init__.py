@@ -17,6 +17,10 @@ from flash_attn_tpu_torch.flash_attn_interface import (
     flash_attn_with_kvcache,
     sparse_attn_func,
 )
+from flash_attn_tpu_torch.flash_blocksparse_attention import (
+    convert_blockmask,
+    flash_blocksparse_attn_func,
+)
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     VarlenPlan,
     make_varlen_plan,
@@ -25,6 +29,7 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (
 __all__ = [
     "VarlenPlan",
     "compile_flash_attn_varlen_func_from_specs",
+    "convert_blockmask",
     "flash_attn_combine",
     "flash_attn_func",
     "flash_attn_kvpacked_func",
@@ -33,6 +38,7 @@ __all__ = [
     "flash_attn_varlen_kvpacked_func",
     "flash_attn_varlen_qkvpacked_func",
     "flash_attn_with_kvcache",
+    "flash_blocksparse_attn_func",
     "make_varlen_plan",
     "sparse_attn_func",
 ]

@@ -17,10 +17,13 @@ without a copy, and the outputs come back in the same layout as q.
 `flash_attn_with_kvcache` attends over a contiguous or paged KV cache
 through `kernels.flash_decode` (kernel 5, or kernel 4 for plain paged
 calls); `flash_attn_combine` merges split-attention partials.
+`sparse_attn_func` runs vertical-slash sparse attention through
+`kernels.flash_sparse` (kernels 12-15) with `_SparseAttnCore`.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import torch
@@ -32,6 +35,18 @@ from flash_attn_tpu_torch.kernels.flash_decode import (
     flash_attention_decode,
 )
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu_torch.kernels.flash_sparse import (
+    check_metadata as check_sparse_metadata,
+)
+from flash_attn_tpu_torch.kernels.flash_sparse import (
+    check_unported as check_sparse_unported,
+)
+from flash_attn_tpu_torch.kernels.flash_sparse import (
+    flash_attention_sparse_bwd,
+    flash_attention_sparse_fwd,
+    plan_sparse,
+    sparse_route,
+)
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     check_unported as check_varlen_unported,
 )
@@ -45,6 +60,7 @@ from flash_attn_tpu_torch.runtime.kv_cache import (
     update_kv_cache,
     update_paged_kv_cache,
 )
+from flash_attn_tpu_torch.utils.fa_logging import get_logger
 
 __all__ = [
     "flash_attn_func",
@@ -471,9 +487,108 @@ def compile_flash_attn_varlen_func_from_specs(**specs):
         "queue 1, item 6 (varlen leftovers)")
 
 
-def sparse_attn_func(*args, **kwargs):
-    """Not ported: vertical-slash sparse attention; raises
-    NotImplementedError."""
-    raise NotImplementedError(
-        "sparse_attn_func is not ported yet: ROADMAP queue 1, item 9 "
-        "(vertical-slash sparse)")
+class _SparseAttnCore(torch.autograd.Function):
+    """out, lse = vertical-slash sparse attention(q, k, v) in (b, h, s, d):
+    the forward through `kernels.flash_sparse.flash_attention_sparse_fwd`
+    (kernel 12 or 15), the backward through kernels 14 and 13. As in
+    `_FlashAttnCore`, the LSE's cotangent is ignored and no copy of out is
+    kept. On the card, when a gradient is wanted and the forward takes
+    kernel 12, its plan (with its word table) is kept for the backward; on
+    kernel 15's route the backward builds that plan itself, so no forward
+    pays for a planner it does not use."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_count, block_offset, column_count,
+                column_index, alibi_slopes, seqlens_q, seqlens_k, kw):
+        q, k, v = (rows_dense(x) for x in (q, k, v))
+        meta = (block_count, block_offset, column_count, column_index)
+        plan = None
+        if (q.device.type != "cpu" and any(ctx.needs_input_grad[:3])
+                and sparse_route(block_offset.shape[-1],
+                                 column_index.shape[-1], k.shape[2])
+                == "tiles"):
+            check_sparse_metadata(q, *meta)
+            plan = plan_sparse(
+                *meta, seqlen_q=q.shape[2], seqlen_k=k.shape[2],
+                causal=kw["causal"], seqlens_q=seqlens_q, seqlens_k=seqlens_k,
+                keep_table=True)
+        out, lse = flash_attention_sparse_fwd(
+            q, k, v, *meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
+            seqlens_k=seqlens_k, plan=plan, **kw)
+        ctx.save_for_backward(q, k, v, lse, *meta, alibi_slopes, seqlens_q,
+                              seqlens_k)
+        ctx.kw = kw
+        ctx.plan = plan
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, lse, *meta, alibi, lens_q, lens_k = ctx.saved_tensors
+        dq, dk, dv = flash_attention_sparse_bwd(
+            q, k, v, lse, rows_dense(dout), *meta, alibi_slopes=alibi,
+            seqlens_q=lens_q, seqlens_k=lens_k, plan=ctx.plan, **ctx.kw)
+        return (dq, dk, dv) + (None,) * 8
+
+
+def sparse_attn_func(
+    q: torch.Tensor,  # (b, sq, h, d)
+    k: torch.Tensor,  # (b, sk, hk, d)
+    v: torch.Tensor,
+    block_count: torch.Tensor,   # (b, h, cdiv(sq, 64)) int32
+    block_offset: torch.Tensor,  # (b, h, nqb, NNZ_S) int32
+    column_count: torch.Tensor,  # (b, h, nqb) int32
+    column_index: torch.Tensor,  # (b, h, nqb, NNZ_V) int32
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,  # (h,) or (b, h) fp32
+    deterministic: bool = False,
+    return_attn_probs: bool = False,
+    *,
+    return_softmax_lse: bool = False,
+    seqlens_q: Optional[torch.Tensor] = None,  # (b,) per-row lengths
+    seqlens_k: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[torch.Tensor] = None,
+    layout: str = "bshd",
+):
+    """Vertical-slash (MInference) sparse attention, as the JAX package's
+    `sparse_attn_func` (flash_attn_interface.py:1119), differentiable in q,
+    k and v. The metadata's meaning is `kernels.flash_sparse`'s: per 64-row
+    query block, the union of slash ranges [off, off + 64) (unaligned
+    offsets taken as they are) and vertical columns. With seqlens_q/k each
+    batch row is a left-aligned sequence of its own lengths (rows past
+    seqlens_q come out 0, lse -inf). Returns out in q's layout ["bshd" or
+    "bhsd"], and the lse (b, h, sq) fp32 with return_softmax_lse.
+
+    `deterministic`, `return_attn_probs` and `dropout_seed` are taken for
+    calls written for the JAX API and not read: the backward is always
+    deterministic, and dropout raises."""
+    del deterministic, return_attn_probs, dropout_seed
+    check_sparse_unported(dropout_p=dropout_p)
+    if get_logger().isEnabledFor(logging.INFO):
+        # The crossover advisory reads the counts on the host: only when
+        # dispatch logging is on.
+        from flash_attn_tpu_torch.utils.sparse_crossover import (
+            metadata_density,
+            warn_if_slow,
+        )
+
+        s_axis = 1 if layout == "bshd" else 2
+        warn_if_slow(k.shape[s_axis], metadata_density(
+            block_count, column_count, q.shape[s_axis], k.shape[s_axis]))
+    if layout == "bshd":
+        q_, k_, v_ = (x.transpose(1, 2) for x in (q, k, v))
+    elif layout == "bhsd":
+        q_, k_, v_ = q, k, v
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    kw = dict(softmax_scale=softmax_scale, causal=bool(causal),
+              softcap=float(softcap))
+    out, lse = _SparseAttnCore.apply(
+        q_, k_, v_, block_count, block_offset, column_count, column_index,
+        alibi_slopes, seqlens_q, seqlens_k, kw)
+    if layout == "bshd":
+        out = out.transpose(1, 2)
+    return (out, lse) if return_softmax_lse else out

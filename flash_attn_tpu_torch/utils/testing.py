@@ -2,8 +2,9 @@
 (counterpart of flash_attn_tpu/utils/testing.py `attention_ref`: causal
 and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap,
 key padding and leftpad, chunks, sink tokens, a learnable sink),
-its packed-varlen form, random padding masks, a full-sequence GPT forward
-with no cache, and its loss as a gradient oracle."""
+its packed-varlen form, the vertical-slash sparse oracle, random padding
+masks, a full-sequence GPT forward with no cache, and its loss as a
+gradient oracle."""
 
 from __future__ import annotations
 
@@ -187,6 +188,85 @@ def varlen_attention_ref(
                              softmax_scale=softmax_scale, upcast=upcast)
         outs.append(torch.cat([o[0], zero[rows:]]))
     return torch.cat(outs)
+
+
+def sparse_attention_ref(
+    q: torch.Tensor,  # (b, sq, h, d)
+    k: torch.Tensor,  # (b, sk, hk, d)
+    v: torch.Tensor,  # (b, sk, hk, d)
+    block_count: torch.Tensor,   # (b, h, cdiv(sq, 64))
+    block_offset: torch.Tensor,  # (b, h, nqb, NNZ_S)
+    column_count: torch.Tensor,  # (b, h, nqb)
+    column_index: torch.Tensor,  # (b, h, nqb, NNZ_V)
+    *,
+    causal: bool = False,
+    softcap: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # (h,) or (b, h)
+    seqlens_q: Optional[torch.Tensor] = None,     # (b,)
+    seqlens_k: Optional[torch.Tensor] = None,
+    upcast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact vertical-slash sparse attention, an oracle independent of the
+    port's planners and plain versions: the rows of 64-row block m attend
+    key columns [off, off + 64) for each of its first block_count offsets
+    (unaligned offsets taken as they are, MInference's meaning) and each of
+    its first column_count vertical columns, those in [0, sk); then row i
+    sees column j only if i < len_q, j < len_k and, with causal,
+    j <= i + len_k - len_q; ALiBi subtracts slope * |j - i - (len_k -
+    len_q)| after the softcap. Returns (out (b, sq, h, d) in q's dtype, lse
+    (b, h, sq) fp32, -inf on rows that see nothing); differentiable."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    keep = torch.zeros(b, h, sq, sk, dtype=torch.bool)
+    bc, bo = block_count.tolist(), block_offset.tolist()
+    cc, ci = column_count.tolist(), column_index.tolist()
+    for bi in range(b):
+        for hi in range(h):
+            for m in range(len(bc[bi][hi])):
+                rows = slice(64 * m, 64 * (m + 1))
+                for off in bo[bi][hi][m][:bc[bi][hi][m]]:
+                    keep[bi, hi, rows, max(off, 0):max(off + 64, 0)] = True
+                for col in ci[bi][hi][m][:cc[bi][hi][m]]:
+                    if 0 <= col < sk:
+                        keep[bi, hi, rows, col] = True
+    len_q = (torch.full((b,), sq) if seqlens_q is None
+             else seqlens_q.cpu().long())[:, None, None, None]
+    len_k = (torch.full((b,), sk) if seqlens_k is None
+             else seqlens_k.cpu().long())[:, None, None, None]
+    row = torch.arange(sq)[:, None]
+    col = torch.arange(sk)[None]
+    keep &= (row < len_q) & (col < len_k)
+    rel = col - row - (len_k - len_q)
+    if causal:
+        keep &= rel <= 0
+    keep = keep.to(q.device)
+    dtype_og = q.dtype
+    if upcast:
+        q, k, v = q.float(), k.float(), v.float()
+    k = k.repeat_interleave(h // hk, dim=2)
+    v = v.repeat_interleave(h // hk, dim=2)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().cpu()
+        slopes = slopes.reshape(1, h) if slopes.dim() == 1 else slopes
+        scores = scores - (slopes[:, :, None, None]
+                           * rel.abs().float()).to(scores.device)
+    scores = scores.masked_fill(~keep, float("-inf"))
+    row_max = scores.amax(dim=-1, keepdim=True)
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros_like(row_max))
+    unnorm = torch.exp(scores - row_max)
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    attention = torch.where(denom > 0, unnorm / denom.clamp_min(1e-37),
+                            torch.zeros_like(unnorm))
+    lse = torch.where(denom > 0, row_max + torch.log(denom.clamp_min(1e-37)),
+                      torch.full_like(denom, float("-inf")))[..., 0]
+    output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)
+    return output.to(dtype_og), lse
 
 
 def generate_random_padding_mask(max_seqlen: int, batch_size: int,

@@ -51,6 +51,7 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (
     flash_attention_varlen_fwd,
     make_varlen_plan,
     plan_mismatch,
+    resolve_max_seqlens,
 )
 from flash_attn_tpu_torch.utils.fa_logging import log_dispatch
 
@@ -274,9 +275,83 @@ def _finish(res, lse, out, return_softmax_lse):
     return (res, lse) if return_softmax_lse else res
 
 
-def sparse_attn_varlen_func(*args, **kwargs):
-    """Not ported: varlen vertical-slash sparse attention; raises
-    NotImplementedError."""
-    raise NotImplementedError(
-        "sparse_attn_varlen_func is not ported yet: ROADMAP queue 1, item 9 "
-        "(vertical-slash sparse)")
+def sparse_attn_varlen_func(
+    q: torch.Tensor,  # (total_q, h, d) packed
+    k: torch.Tensor,  # (total_k, hk, d)
+    v: torch.Tensor,
+    block_count: torch.Tensor,   # (nseq, h, cdiv(max_seqlen_q, 64)) int32
+    block_offset: torch.Tensor,  # (nseq, h, nqb, NNZ_S): each sequence's keys
+    column_count: torch.Tensor,
+    column_index: torch.Tensor,
+    cu_seqlens_q: Optional[torch.Tensor] = None,
+    cu_seqlens_k: Optional[torch.Tensor] = None,
+    max_seqlen_q: Optional[int] = None,
+    max_seqlen_k: Optional[int] = None,
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    deterministic: bool = False,
+    return_attn_probs: bool = False,
+    *,
+    return_softmax_lse: bool = False,
+    out: Optional[torch.Tensor] = None,
+):
+    """vLLM's varlen vertical-slash prefill call (vllm_flash_attn
+    flash_attn_interface.py:388; the JAX module's :469). The metadata
+    indexes each sequence's own keys, so the packed batch is unpacked into
+    left-aligned (nseq, max_seqlen, h, d) rows, `sparse_attn_func` runs
+    with each sequence's lengths as seqlens_q/k (causal bottom-right per
+    sequence), and the rows are packed back. Returns out (total_q, h, d),
+    and lse (h, total_q) fp32 with return_softmax_lse; `out`, when given,
+    receives the result in place and is returned. Differentiable: the
+    unpack and repack are gathers. With max_seqlen_q and max_seqlen_k given
+    the call makes no host read; without, one read of cu_seqlens sizes
+    them. `deterministic` and `return_attn_probs` are taken and not read."""
+    del deterministic, return_attn_probs
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            "vllm_compat.sparse_attn_varlen_func with dropout is not ported "
+            "yet: ROADMAP queue 2, kernels 1-3 / 12-14: murmur3 dropout")
+    if cu_seqlens_q is None or cu_seqlens_k is None:
+        raise ValueError("sparse_attn_varlen_func needs cu_seqlens_q and "
+                         "cu_seqlens_k")
+    if max_seqlen_q is None or max_seqlen_k is None:
+        max_seqlen_q, max_seqlen_k = resolve_max_seqlens(
+            cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, None)
+    sq, sk = int(max_seqlen_q), int(max_seqlen_k)
+    cu_q = cu_seqlens_q.to(q.device, torch.int64)
+    cu_k = cu_seqlens_k.to(q.device, torch.int64)
+    lens_q, lens_k = cu_q[1:] - cu_q[:-1], cu_k[1:] - cu_k[:-1]
+    total_q, num_heads, head_dim = q.shape
+    log_dispatch("sparse_varlen", route="unpack", nseq=cu_q.shape[0] - 1,
+                 total_q=total_q)
+
+    def unpack(x, cu, lens, smax):
+        row = torch.arange(smax, device=x.device)[None]
+        src = (cu[:-1, None] + row).clamp(0, max(x.shape[0] - 1, 0))
+        xp = x[src.reshape(-1)].reshape(len(lens), smax, *x.shape[1:])
+        return torch.where((row < lens[:, None])[..., None, None], xp,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    res, lse = sparse_attn_func(
+        unpack(q, cu_q, lens_q, sq), unpack(k, cu_k, lens_k, sk),
+        unpack(v, cu_k, lens_k, sk), block_count, block_offset,
+        column_count, column_index, softmax_scale=softmax_scale,
+        causal=causal, softcap=softcap, alibi_slopes=alibi_slopes,
+        return_softmax_lse=True, seqlens_q=lens_q.to(torch.int32),
+        seqlens_k=lens_k.to(torch.int32))
+    # Repack: packed row t of sequence j is padded row (j, t - cu_q[j]).
+    tok = torch.arange(total_q, device=q.device)
+    seq = torch.searchsorted(cu_q[1:], tok, right=True).clamp_max(
+        cu_q.shape[0] - 2)
+    row = tok - cu_q[seq]
+    valid = (tok < cu_q[-1]) & (row < sq)
+    idx = torch.where(valid, seq * sq + row, 0)
+    res = torch.where(valid[:, None, None],
+                      res.reshape(-1, num_heads, res.shape[-1])[idx],
+                      torch.zeros((), dtype=res.dtype, device=q.device))
+    lse = torch.where(valid[None], lse.transpose(0, 1).reshape(
+        num_heads, -1)[:, idx], torch.zeros((), device=q.device))
+    return _finish(res, lse, out, return_softmax_lse)

@@ -238,9 +238,10 @@ def test_unported_arguments_raise():
                   dict(pools=(t(s["k"]).to(torch.int8), t(s["v"]).to(torch.int8)))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_call(s, **extra)
+    # The sparse entry points are ported; dropout is what they do not take.
     for fn in (vllm_compat.sparse_attn_func, vllm_compat.sparse_attn_varlen_func):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+            fn(*[None] * 7, dropout_p=0.1)
 
 
 def test_sinks_step_matches_oracle_not_reference_interior_tiles():
