@@ -36,6 +36,18 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               slash shares, and the crossover fit; a 32-layer prefill step
               of two packed sequences through vllm_compat's
               sparse_attn_varlen_func, host syncs made errors;
+     blocksparse_kernels, blocksparse_fault, blocksparse_train,
+     blocksparse_varlen  mask_mod attention over block-sparse plans
+              (kernels 9-11) against their plain versions: the doc5, doc10
+              and prefix masks and an aux-table document mask of
+              benchmarks/benchmark_blocksparse.py, doc10 at Mistral-7B
+              widths, d 64 fp16 with a softcap and a broadcast single-head
+              plan, fast sampling, no full blocks, a plan with no mod, rows
+              that keep nothing; a row's word shifted and a sub-tile
+              dropped, which every check must catch; GPT-2-medium's packed
+              documents through 24 layers of flash_attn_func fwd+bwd with
+              one plan per step, host syncs made errors, held against
+              kernels 6-8; and flash_attn_varlen_func over a varlen plan;
   4. logits   a Mistral-7B-v0.1-width model (random seeded weights, bf16, all
               32 layers): chunked prefill of a ~4500-token prompt and 8 decode
               steps through the engine's own forward, logits held against a
@@ -68,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import gc
 import json
 import os
@@ -87,6 +100,20 @@ from flash_attn_tpu_torch.flash_attn_interface import (  # noqa: E402
     sparse_attn_func,
 )
 from flash_attn_tpu_torch.kernels import _build  # noqa: E402
+from flash_attn_tpu_torch.kernels.block_sparsity import (  # noqa: E402
+    BlockSparseTensors,
+    _blocksparse_dkv_ref,
+    _blocksparse_dq_ref,
+    block_sparse_keep_mask,
+    build_execution_lists,
+    compute_block_sparsity,
+    compute_block_sparsity_varlen,
+    flash_attention_blocksparse_bwd_dkv,
+    flash_attention_blocksparse_bwd_dq,
+    flash_attention_blocksparse_fwd,
+    flash_attention_blocksparse_fwd_ref,
+    prepare_lists,
+)
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
     _bwd_dkv_ref,
     _bwd_dq_ref,
@@ -94,6 +121,7 @@ from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
     flash_attention_bwd_dq,
 )
 from flash_attn_tpu_torch.kernels.common import (  # noqa: E402
+    aux_take,
     default_alibi_slopes,
     normalize_window,
     visible_mask,
@@ -2879,15 +2907,532 @@ def sparse_phases():
                 vllm=vllm)
 
 
+# -- phases: blocksparse_kernels, blocksparse_fault, blocksparse_train,
+#    blocksparse_varlen (mask_mod plans, kernels 9-11) -----------------------
+
+def doc_ids(s, ndocs, dev="cuda"):
+    """Per-token document ids of `ndocs` equal documents over s tokens, the
+    boundaries rounded as benchmarks/benchmark_blocksparse.py rounds them."""
+    bounds = np.linspace(0, s, ndocs + 1).astype(np.int64)
+    return torch.tensor(np.repeat(np.arange(ndocs), np.diff(bounds)),
+                        dtype=torch.int32, device=dev)
+
+
+def doc_aux_mod(b, h, q_idx, kv_idx, aux):
+    """Causal attention inside each document of the aux doc-id table."""
+    d = aux.tensors[0]
+    return (kv_idx <= q_idx) & (aux_take(d, q_idx) == aux_take(d, kv_idx))
+
+
+def doc_closed_mod(s, ndocs):
+    """benchmark_blocksparse.py's doc_mask: equal causal documents in closed
+    form (no aux)."""
+    dlen = s // ndocs
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx <= q_idx) & (q_idx // dlen == kv_idx // dlen)
+
+    return mask_mod
+
+
+def prefix_mod(prefix):
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx < prefix) | (kv_idx <= q_idx)
+
+    return mask_mod
+
+
+def causal_mod(b, h, q_idx, kv_idx):
+    return kv_idx <= q_idx
+
+
+def rows_gap_mod(b, h, q_idx, kv_idx):
+    """Causal, with query rows 1000-1099 keeping nothing."""
+    return (kv_idx <= q_idx) & ((q_idx < 1000) | (q_idx >= 1100))
+
+
+def block_causal_plan(s, tile, dev="cuda"):
+    """A plan with no mod (a block mask): each q-tile's diagonal kv-tile
+    partial, the tiles left of it full."""
+    n = -(-s // tile)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)[None, None]
+    low = torch.ones(n, n, dtype=torch.bool, device=dev).tril(-1)[None, None]
+
+    def pack(flags):
+        order = torch.sort((~flags).to(torch.uint8), dim=-1, stable=True)
+        return flags.sum(-1, dtype=torch.int32), order.indices.int()
+
+    return BlockSparseTensors(*pack(eye), *pack(low), (tile, tile), s, s, n, n)
+
+
+BF16, FP16 = torch.bfloat16, torch.float16
+# name -> (b, h, hk, s, d, dtype, softcap, tile, mod, aux key, plan options):
+# the first four are benchmarks/benchmark_blocksparse.py's (b 1, 16 heads of
+# 128, s 8192, 512 x 512 tiles; doc_aux_2k at s 2048); "mistral-doc10"
+# runs doc10 through the aux table at Mistral-7B widths (GQA).
+BS_CASES = {
+    "doc5": (1, 16, 16, 8192, 128, BF16, 0.0, 512, doc_closed_mod(8192, 5),
+             None, {}),
+    "doc10": (1, 16, 16, 8192, 128, BF16, 0.0, 512, doc_closed_mod(8192, 10),
+              None, {}),
+    "prefix": (1, 16, 16, 8192, 128, BF16, 0.0, 512, prefix_mod(8192 // 16),
+               None, {}),
+    "doc_aux_2k": (1, 16, 16, 2048, 128, BF16, 0.0, 512, doc_aux_mod,
+                   (2048, 4), {}),
+    "mistral-doc10": (1, 32, 8, 8192, 128, BF16, 0.0, 512, doc_aux_mod,
+                      (8192, 10), {}),
+    # A single-head plan of one batch row, broadcast to b 2 x 16 heads.
+    "softcap30-fp16-d64": (2, 16, 16, 8000, 64, FP16, 30.0, 128, doc_aux_mod,
+                           (8000, 7), dict(batch_size=1, num_heads=1)),
+    "fast-sampling": (1, 16, 16, 4096, 128, BF16, 0.0, 512,
+                      doc_closed_mod(4096, 10), None,
+                      dict(use_fast_sampling=True)),
+    "no-full-blocks": (1, 16, 16, 4096, 128, BF16, 0.0, 512,
+                       doc_closed_mod(4096, 10), None,
+                       dict(compute_full_blocks=False)),
+    "blockmask-no-mod": (1, 16, 16, 4000, 128, BF16, 0.0, 512, None, None,
+                         dict(blockmask=True)),
+    "empty-rows": (1, 16, 16, 4096, 128, BF16, 0.0, 512, rows_gap_mod, None,
+                   {}),
+}
+BS_FAULT_CASES = ("doc_aux_2k", "mistral-doc10", "softcap30-fp16-d64")
+
+
+def _bs_counts():
+    return dict(block_sparse_fwd=flash_attention_blocksparse_fwd.launches,
+                block_sparse_bwd_dkv=flash_attention_blocksparse_bwd_dkv.launches,
+                block_sparse_bwd_dq=flash_attention_blocksparse_bwd_dq.launches)
+
+
+def _zero_bs_counts():
+    flash_attention_blocksparse_fwd.launches = 0
+    flash_attention_blocksparse_bwd_dkv.launches = 0
+    flash_attention_blocksparse_bwd_dq.launches = 0
+
+
+def bs_plan(name):
+    """(plan, mod, aux) of a case; a CUDA planner also builds the kernels'
+    execution lists."""
+    b, h, _, s, _, _, _, tile, mod, aux_key, opts = BS_CASES[name]
+    aux = () if aux_key is None else (doc_ids(*aux_key),)
+    if opts.get("blockmask"):
+        return block_causal_plan(s, tile), mod, aux
+    kw = dict(batch_size=b, num_heads=h, seqlen_q=s, seqlen_k=s, tile_m=tile,
+              tile_n=tile, aux_tensors=aux)
+    kw.update(opts)
+    return compute_block_sparsity(mod, **kw), mod, aux
+
+
+def bs_check(tensors, refs, kw, lists=None):
+    """Kernels 9-11 on `tensors` over `lists` (the cached ones if None),
+    against the plain versions' `refs`: per-element `held` results and, for
+    each kernel, its worst ratio to its limit (<= 1 passes). The backward
+    kernels take the plain forward's LSE and the plain dQ's delta, and run
+    twice for equal bits."""
+    q, k, v, do = tensors
+    plan = kw["plan"]
+    kk = dict(mask_mod=kw["mask_mod"], aux_tensors=kw["aux_tensors"],
+              softcap=kw["softcap"], lists=lists)
+    out, lse = flash_attention_blocksparse_fwd(q, k, v, plan, **kk)
+    dq, delta = flash_attention_blocksparse_bwd_dq(q, k, v, do, refs["lse"],
+                                                   plan, **kk)
+    dq2, delta2 = flash_attention_blocksparse_bwd_dq(q, k, v, do, refs["lse"],
+                                                     plan, **kk)
+    args = (q, k, v, do, refs["lse"], refs["delta"], plan)
+    dk, dv = flash_attention_blocksparse_bwd_dkv(*args, **kk)
+    dk2, dv2 = flash_attention_blocksparse_bwd_dkv(*args, **kk)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(refs["lse"])
+    same_empty = torch.equal(finite, torch.isfinite(lse))
+    lse_err = (float((lse - refs["lse"])[finite & torch.isfinite(lse)].abs()
+                     .max()) if finite.any() else 0.0)
+    got = dict(out=held(out, refs["out"]), dq=held(dq, refs["dq"]),
+               delta=held(delta, refs["delta"]), dk=held(dk, refs["dk"]),
+               dv=held(dv, refs["dv"]), lse_max_abs_err=lse_err,
+               same_empty_rows=same_empty,
+               empty_rows_zero=bool((out.float()[~finite] == 0).all()),
+               bwd_bitwise_deterministic=all(
+                   torch.equal(x, y) for x, y in
+                   ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))),
+               grads_finite=all(bool(torch.isfinite(x).all())
+                                for x in (out, dq, dk, dv)))
+    ratio = lambda *keys: max(got[key]["err_over_limit"] for key in keys)  # noqa: E731
+    got["worst"] = dict(
+        fwd=max(ratio("out"), lse_err / ATTN_LSE_TOL,
+                0.0 if same_empty else float("inf")),
+        dq=ratio("dq", "delta"), dkv=ratio("dk", "dv"))
+    return got
+
+
+def bs_word_fault(lists):
+    """The lists with one row's word in one mode-2 sub-tile shifted by one
+    column: the row with the fewest kept columns (a document's first row)."""
+    w = lists.words
+    bits = sum(((w >> i) & 1) for i in range(64))
+    bits = torch.where(bits > 0, bits, 65)
+    g, r = divmod(int(bits.argmin()), 64)
+    words = w.clone()
+    words[g, r] = w[g, r] << 1
+    return dataclasses.replace(lists, words=words), dict(group=g, row=r)
+
+
+def bs_drop_fault(lists):
+    """The lists with one live sub-tile dropped, from the forward list and
+    from the inverse list alike: the last entry of the first head's row
+    block with the fewest entries (a document's first block)."""
+    counts, tiles = lists.counts.clone(), lists.tiles
+    inv_counts, inv_rows = lists.inv_counts.clone(), lists.inv_rows.clone()
+    inv_wofs = lists.inv_wofs.clone()
+    c = counts[0, 0].clone()
+    mb = int(torch.where(c > 0, c, c.max() + 1).argmin())
+    nb = int(tiles[0, 0, mb, int(c[mb]) - 1]) >> 2
+    counts[0, 0, mb] -= 1
+    n = int(inv_counts[0, 0, nb])
+    row = inv_rows[0, 0, nb, :n]
+    pos = int(((row >> 2) == mb).nonzero()[0, 0])
+    for t in (inv_rows, inv_wofs):
+        t[0, 0, nb, pos:n - 1] = t[0, 0, nb, pos + 1:n].clone()
+    inv_counts[0, 0, nb] -= 1
+    return dataclasses.replace(lists, counts=counts, inv_counts=inv_counts,
+                               inv_rows=inv_rows, inv_wofs=inv_wofs), dict(
+        row_block=mb, key_block=nb)
+
+
+def bs_case(name, seed):
+    """Kernels 9-11 against their plain versions on one case, with
+    CUDA-event times, the bound from the exact count of kept pairs, SDPA
+    with the dense boolean mask as the library yardstick, and launches;
+    then, for BS_FAULT_CASES, the planted faults of blocksparse_fault."""
+    b, h, hk, s, d, dtype, softcap, tile, mod, aux_key, opts = BS_CASES[name]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, s, d, generator=gen, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan, mod, aux = bs_plan(name)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    lists = prepare_lists(q, k, v, plan, mask_mod=mod, aux_tensors=aux)
+    kw = dict(plan=plan, mask_mod=mod, aux_tensors=aux, softcap=softcap)
+    rk = dict(mask_mod=mod, aux_tensors=aux, softcap=softcap)
+    up = tuple(x.float() for x in (q, k, v, do))
+    refs = {}
+    refs["out"], refs["lse"] = flash_attention_blocksparse_fwd_ref(
+        *up[:3], plan, **rk)
+    refs["dq"], refs["delta"] = _blocksparse_dq_ref(*up, refs["lse"], plan,
+                                                    **rk)
+    refs["dk"], refs["dv"] = _blocksparse_dkv_ref(*up, refs["lse"],
+                                                  refs["delta"], plan, **rk)
+    del up
+    _zero_bs_counts()
+    got = bs_check((q, k, v, do), refs, kw)
+    launches = _bs_counts()
+    ok = (max(got["worst"].values()) <= 1 and got["bwd_bitwise_deterministic"]
+          and got["grads_finite"] and got["empty_rows_zero"])
+    faults = []
+    if name in BS_FAULT_CASES:
+        for what, (bad, where) in (
+                ("one row's word shifted by one column",
+                 bs_word_fault(lists)),
+                ("one live sub-tile dropped", bs_drop_fault(lists))):
+            worst = bs_check((q, k, v, do), refs, kw, lists=bad)["worst"]
+            caught = {key: x > 1 for key, x in worst.items()}
+            faults.append(dict(phase="blocksparse_fault", case=name,
+                               planted=what, where=where, err_over_limit=worst,
+                               caught=caught, ok=all(caught.values())))
+    empty = int((~torch.isfinite(refs["lse"])).sum())
+    del refs
+    # Kept pairs, counted from the expanded keep-mask; the same mask as
+    # SDPA's boolean attn_mask (one head's when every head keeps the same).
+    keep = block_sparse_keep_mask(plan, b, h, s, s, mask_mod=mod,
+                                  aux_tensors=aux, device=dev)
+    pairs = int(keep.sum())
+    same_heads = bool((keep == keep[:, :1]).all())
+    mask = keep[:, :1] if same_heads else keep
+    del keep
+    el = q.element_size()
+    qb, kvb, stats = b * h * s * d * el, b * hk * s * d * el, b * h * s * 4
+    _, lse_k = flash_attention_blocksparse_fwd(q, k, v, plan, **rk, lists=lists)
+    _, delta_k = flash_attention_blocksparse_bwd_dq(q, k, v, do, lse_k, plan,
+                                                    **rk, lists=lists)
+    args = (q, k, v, do, lse_k, delta_k, plan)
+    reps = 10 if s >= 8000 else 20
+    result = dict(
+        phase="blocksparse_kernels", case=name, b=b, h=h, hk=hk, s=s, d=d,
+        dtype=str(dtype).split(".")[-1], softcap=softcap, tile=tile,
+        plan_heads=int(plan.mask_block_cnt.shape[1]),
+        plan_batch=int(plan.mask_block_cnt.shape[0]),
+        options=dict(opts), **got,
+        tolerance=ATTN_TOLERANCE, empty_rows=empty, launches=launches,
+        plan_ms=plan_ms, kept_pairs=pairs, density=pairs / (b * h * s * s),
+        sub_tiles=int(lists.counts.sum()), word_groups=int(lists.words.shape[0]),
+        words_mb=lists.words.numel() * 8 / 1e6,
+        fwd_ms=cuda_ms(lambda: flash_attention_blocksparse_fwd(
+            q, k, v, plan, **rk, lists=lists), reps=reps),
+        dq_ms=cuda_ms(lambda: flash_attention_blocksparse_bwd_dq(
+            *args[:5], plan, **rk, lists=lists), reps=reps),
+        dkv_ms=cuda_ms(lambda: flash_attention_blocksparse_bwd_dkv(
+            *args, **rk, lists=lists), reps=reps),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_blocksparse_fwd_ref(
+            q, k, v, plan, **rk), reps=3, warmup=1),
+        dq_plain_ms=cuda_ms(lambda: _blocksparse_dq_ref(
+            *args[:5], plan, **rk), reps=3, warmup=1),
+        dkv_plain_ms=cuda_ms(lambda: _blocksparse_dkv_ref(
+            *args[:6], plan, **rk), reps=3, warmup=1),
+        ok=ok)
+    for key, per_d, nbytes in (
+            ("fwd", 4, 2 * qb + 2 * kvb + stats),
+            ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+            ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, 1, 1, d, pairs)
+    if softcap == 0.0:
+        # Yardstick only: SDPA with the dense boolean mask; the port never
+        # calls it.
+        qt, kt, vt = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=hk != h)
+        result["library_fwd_ms"] = cuda_ms(sdpa, reps=5, warmup=1)
+        result["library_fwd_bwd_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do), reps=5,
+            warmup=1)
+        result["library"] = ("scaled_dot_product_attention(attn_mask=the "
+                             f"expanded keep-mask{'' if same_heads else ' per head'}"
+                             f"{', enable_gqa' if hk != h else ''}): a yardstick "
+                             "only")
+        del qt, kt, vt
+    else:
+        result["library_fwd_ms"] = None
+        result["library"] = "none: SDPA takes no softcap"
+    del mask
+    emit(result)
+    check(result["ok"], f"blocksparse_kernels case {name} disagrees with its "
+                        "plain version or is not deterministic")
+    for fault in faults:
+        emit(fault)
+        check(fault["ok"], f"blocksparse_fault: {fault['planted']} in case "
+                           f"{name} passes a check")
+    return result
+
+
+def blocksparse_train_phase(vtrain, layers=24, seed=140):
+    """GPT-2-medium's packed-document training attention, block-sparsely:
+    GPT2M_DOCS as one 16384-token stream (b 1, 16 heads of 64, bf16), a
+    doc-id aux_take mask_mod (causal inside each document), one
+    `compute_block_sparsity` plan per step at the default 512 tiles (its
+    execution lists built with it), then 24 layers forward and backward
+    through `flash_attn_func` and autograd with every host sync made an
+    error. Layer 0's output and gradients are held against
+    `flash_attn_varlen_func(causal=True)` over the same documents (kernels
+    6-8), which computes the same kept pairs."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tq, h, d = sum(GPT2M_DOCS), 16, 64
+    ids = torch.repeat_interleave(
+        torch.arange(len(GPT2M_DOCS), dtype=torch.int32, device=dev),
+        torch.tensor(GPT2M_DOCS, device=dev))
+    qkv = [torch.randn(3, 1, tq, h, d, generator=gen, device=dev,
+                       dtype=torch.bfloat16).requires_grad_()
+           for _ in range(layers)]
+    do = torch.randn(1, tq, h, d, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    outs = []
+
+    def step():
+        for x in qkv:
+            x.grad = None
+        plan = compute_block_sparsity(doc_aux_mod, batch_size=1, num_heads=h,
+                                      seqlen_q=tq, seqlen_k=tq,
+                                      aux_tensors=(ids,))
+        with _SyncsRaise():
+            outs[:] = [flash_attn_func(x[0], x[1], x[2], mask_mod=doc_aux_mod,
+                                       aux_tensors=(ids,),
+                                       block_sparse_tensors=plan)
+                       for x in qkv]
+            torch.autograd.backward(outs, [do] * layers)
+        return plan
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    _zero_bs_counts()
+    builds = build_execution_lists.builds
+    t0 = time.perf_counter()
+    plan = step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _bs_counts()
+    builds = build_execution_lists.builds - builds
+    want = dict(block_sparse_fwd=layers, block_sparse_bwd_dkv=layers,
+                block_sparse_bwd_dq=layers)
+    # Layer 0 against kernels 6-8 on the same documents.
+    cu = _dev_int(_cu_of(GPT2M_DOCS))
+    x = qkv[0].detach()[:, 0].clone().requires_grad_()
+    ref = flash_attn_varlen_func(x[0], x[1], x[2], cu, cu, max(GPT2M_DOCS),
+                                 max(GPT2M_DOCS), causal=True)
+    (ref_grad,) = torch.autograd.grad(ref, (x,), do[0])
+    versus = dict(out=held(outs[0][0].detach(), ref.detach()))
+    for i, name in enumerate(("dq", "dk", "dv")):
+        versus[name] = held(qkv[0].grad[i, 0], ref_grad[i])
+    grads_finite = all(bool(torch.isfinite(y.grad).all()) for y in qkv)
+    agree = max(r["err_over_limit"] for r in versus.values()) <= 1
+    ok = counts == want and builds == 1 and grads_finite and agree
+    t0 = time.perf_counter()
+    compute_block_sparsity(doc_aux_mod, batch_size=1, num_heads=h,
+                           seqlen_q=tq, seqlen_k=tq, aux_tensors=(ids,))
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    result = dict(
+        phase="blocksparse_train", layers=layers, docs=len(GPT2M_DOCS),
+        tokens=tq, h=h, d=d, tile=list(plan.block_size),
+        live_plan_tiles=int(plan.mask_block_cnt.sum()
+                            + plan.full_block_cnt.sum()),
+        plan_tiles=h * plan.num_m * plan.num_n,
+        step_wall_ms=wall_ms, step_ms_by_events=cuda_ms(step, reps=5, warmup=1),
+        plan_and_lists_ms=plan_ms,
+        varlen_train_step_ms=vtrain["step_ms_by_events"] if vtrain else None,
+        launches=counts, launches_expected=want, plan_and_list_builds=builds,
+        host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
+        layer0_vs_kernels_6_8=versus, tolerance=ATTN_TOLERANCE,
+        grads_finite=grads_finite, ok=ok)
+    emit(result)
+    check(ok, "blocksparse_train: launches or builds off the count, "
+              "non-finite gradients, or layer 0 disagrees with kernels 6-8")
+    return result
+
+
+def blocksparse_varlen_phase(seed=150):
+    """`flash_attn_varlen_func` with a `compute_block_sparsity_varlen` plan
+    (causal mask_mod) over GPT2M_DOCS packed, forward and backward, held
+    against kernels 6-8 (`causal=True`) and against the plain versions;
+    then with seqused_q trimming every other document by 37 rows, whose
+    trimmed rows must read out 0 and lse -inf."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tq, h, d = sum(GPT2M_DOCS), 16, 64
+    cu = _dev_int(_cu_of(GPT2M_DOCS))
+    q, k, v, do = (torch.randn(tq, h, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    t0 = time.perf_counter()
+    plan, _, _ = compute_block_sparsity_varlen(causal_mod, cu_seqlens_q=cu,
+                                               cu_seqlens_k=cu, num_heads=h)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+
+    def fwd_bwd(**kw):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse, _ = flash_attn_varlen_func(*leaves, cu, cu,
+                                             return_attn_probs=True, **kw)
+        return (out, lse) + torch.autograd.grad(out, leaves, do)
+
+    _zero_bs_counts()
+    got = fwd_bwd(mask_mod=causal_mod, block_sparse_tensors=plan)
+    torch.cuda.synchronize()
+    launches = _bs_counts()
+    maxlen = max(GPT2M_DOCS)
+    k68 = fwd_bwd(max_seqlen_q=maxlen, max_seqlen_k=maxlen, causal=True)
+    up = tuple(x.float() for x in (q, k, v, do))
+    rkw = dict(causal=True)
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(*up[:3], cu, cu, **rkw)
+    ref_dq, ref_delta = _varlen_dq_ref(*up, ref_lse, cu, cu, **rkw)
+    ref_dk, ref_dv = _varlen_dkv_ref(*up, ref_lse, ref_delta, cu, cu, **rkw)
+    names = ("out", "dq", "dk", "dv")
+    mine = (got[0].detach(),) + got[2:]
+    vs_plain = {n: held(x, r) for n, x, r in zip(
+        names, mine, (ref_out, ref_dq, ref_dk, ref_dv))}
+    vs_k68 = {n: held(x, r) for n, x, r in zip(
+        names, mine, (k68[0].detach(),) + k68[2:])}
+    lse_err = float((got[1] - ref_lse).abs().max())
+    # seqused_q: every other document loses its last 37 rows.
+    used = [n - 37 if i % 2 == 0 and n > 37 else n
+            for i, n in enumerate(GPT2M_DOCS)]
+    out_t, lse_t, _ = flash_attn_varlen_func(
+        q, k, v, cu, cu, mask_mod=causal_mod, block_sparse_tensors=plan,
+        seqused_q=_dev_int(used), return_attn_probs=True)
+    starts = _cu_of(GPT2M_DOCS)
+    trimmed = torch.zeros(tq, dtype=torch.bool, device=dev)
+    for i, n in enumerate(used):
+        trimmed[starts[i] + n:starts[i + 1]] = True
+    trimmed_ok = bool((out_t[trimmed] == 0).all()
+                      and torch.isneginf(lse_t[:, trimmed]).all()
+                      and torch.isfinite(lse_t[:, ~trimmed]).all())
+    kept = held(out_t[~trimmed], mine[0][~trimmed])
+    ok = (max(r["err_over_limit"] for r in (*vs_plain.values(),
+                                             *vs_k68.values(), kept)) <= 1
+          and lse_err <= ATTN_LSE_TOL and trimmed_ok
+          and launches == dict(block_sparse_fwd=1, block_sparse_bwd_dkv=1,
+                               block_sparse_bwd_dq=1))
+    result = dict(phase="blocksparse_varlen", docs=len(GPT2M_DOCS), tokens=tq,
+                  h=h, d=d, tile=list(plan.block_size), plan_ms=plan_ms,
+                  padded_seqlen=plan.seqlen_q, vs_plain=vs_plain,
+                  vs_kernels_6_8=vs_k68, lse_max_abs_err=lse_err,
+                  trimmed_rows=int(trimmed.sum()),
+                  trimmed_rows_out0_lse_neginf=trimmed_ok,
+                  kept_rows_vs_untrimmed=kept, launches=launches,
+                  tolerance=ATTN_TOLERANCE, ok=ok)
+    emit(result)
+    check(ok, "blocksparse_varlen disagrees with kernels 6-8 or the plain "
+              "versions, or trimmed rows are not out 0 / lse -inf")
+    return result
+
+
+def blocksparse_phases(vtrain=None):
+    """Every block-sparse phase; returns their results for the kernels
+    line."""
+    cases = {name: bs_case(name, seed=140 + i)
+             for i, name in enumerate(BS_CASES)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = blocksparse_train_phase(vtrain)
+    varlen = blocksparse_varlen_phase()
+    return dict(cases=cases, train=train, varlen=varlen)
+
+
+def blocksparse_kernel_entries(bsr):
+    """Kernels 9-11 for the kernels line: times at `doc10` (b 1, h 16, s
+    8192, d 128, tile 512), launches from `blocksparse_train`."""
+    at, launches = bsr["cases"]["doc10"], bsr["train"]["launches"]
+    entries = []
+    for name, key, source, replaces, tensors in (
+            ("block_sparse_fwd", "fwd", "block_sparse_fwd.cu",
+             "block_sparsity.py:455", ("out",)),
+            ("block_sparse_bwd_dkv", "dkv", "block_sparse_bwd.cu",
+             "block_sparsity.py:807", ("dk", "dv")),
+            ("block_sparse_bwd_dq", "dq", "block_sparse_bwd.cu",
+             "block_sparsity.py:906", ("dq", "delta"))):
+        err = max(c[t]["max_abs_err"] for c in bsr["cases"].values()
+                  for t in tensors)
+        entry = dict(
+            name=name, route="cuda",
+            source=f"flash_attn_tpu_torch/csrc/{source}",
+            replaces=f"flash_attn_tpu/kernels/{replaces}",
+            launches=launches[name],
+            launches_by_path=dict(blocksparse_train=launches[name],
+                                  blocksparse_varlen=bsr["varlen"]["launches"][name]),
+            max_abs_err=err, ms=at[f"{key}_ms"], plain_ms=at[f"{key}_plain_ms"],
+            bound_ms=at[f"{key}_bound_ms"], bound_by=at[f"{key}_bound_by"],
+            library_ms=at["library_fwd_ms"] if key == "fwd" else None,
+            shape=(f"doc10: b=1 h=16 s=8192 d=128 tile 512, kept density "
+                   f"{at['density']:.4f}"))
+        entries.append(entry)
+        check(entry["launches"] > 0, f"{name} never launched on "
+                                     "blocksparse_train")
+    return entries
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", nargs="+",
-        choices=("kernel", "attn", "varlen", "vllm", "decode", "sparse"),
+        choices=("kernel", "attn", "varlen", "vllm", "decode", "sparse",
+                 "blocksparse"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
              "varlen_kernels + varlen_fault + varlen_train, vllm, "
-             "decode_kernels + decode_fault, the sparse phases) and stop, "
-             "with no result line: for iterating on one kernel")
+             "decode_kernels + decode_fault, the sparse phases, the "
+             "block-sparse phases) and stop, with no result line: for "
+             "iterating on one kernel")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2928,6 +3473,8 @@ def main(argv=None):
             decode_fault_phase()
         if "sparse" in only:
             sparse_phases()
+        if "blocksparse" in only:
+            blocksparse_phases()
         print(smi(), flush=True)
         return 0
 
@@ -2949,6 +3496,11 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     sparse = sparse_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bsr = blocksparse_phases(vtrain)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     config = llama_config_to_gpt_config(MISTRAL_7B)
     t0 = time.perf_counter()
@@ -3086,6 +3638,7 @@ def main(argv=None):
                       "page 16, phd views")
         kernels.append(entry)
     kernels += sparse_kernel_entries(sparse)
+    kernels += blocksparse_kernel_entries(bsr)
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,14 +21,22 @@ from flash_attn_tpu_torch.flash_blocksparse_attention import (
     convert_blockmask,
     flash_blocksparse_attn_func,
 )
+from flash_attn_tpu_torch.kernels.block_sparsity import (
+    BlockSparseTensors,
+    compute_block_sparsity,
+    compute_block_sparsity_varlen,
+)
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     VarlenPlan,
     make_varlen_plan,
 )
 
 __all__ = [
+    "BlockSparseTensors",
     "VarlenPlan",
     "compile_flash_attn_varlen_func_from_specs",
+    "compute_block_sparsity",
+    "compute_block_sparsity_varlen",
     "convert_blockmask",
     "flash_attn_combine",
     "flash_attn_func",

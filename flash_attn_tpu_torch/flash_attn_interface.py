@@ -18,7 +18,10 @@ without a copy, and the outputs come back in the same layout as q.
 through `kernels.flash_decode` (kernel 5, or kernel 4 for plain paged
 calls); `flash_attn_combine` merges split-attention partials.
 `sparse_attn_func` runs vertical-slash sparse attention through
-`kernels.flash_sparse` (kernels 12-15) with `_SparseAttnCore`.
+`kernels.flash_sparse` (kernels 12-15) with `_SparseAttnCore`. With
+`block_sparse_tensors=` (a `compute_block_sparsity` plan), `flash_attn_func`
+and `flash_attn_varlen_func` run `mask_mod` attention block-sparsely through
+`kernels.block_sparsity` (kernels 9-11) with `_BlockSparseCore`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.kernels.block_sparsity import (
+    as_plan,
+    check_score_mod,
+    flash_attention_blocksparse_bwd,
+    flash_attention_blocksparse_fwd,
+    prepare_lists,
+    varlen_key,
+    varlen_lengths,
+    wrap_varlen_mask_mod,
+)
 from flash_attn_tpu_torch.kernels.common import rows_dense
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_decode import (
@@ -74,6 +87,43 @@ __all__ = [
     "compile_flash_attn_varlen_func_from_specs",
     "sparse_attn_func",
 ]
+
+
+class _BlockSparseCore(torch.autograd.Function):
+    """out, lse = block-sparse attention(q, k, v) in (b, h, s, d) over a
+    plan: kernel 9 forward, kernels 11 and 10 backward (plain versions on
+    the CPU). On the card the execution lists are looked up once (cached
+    per plan, mod, aux and shape; `key` names a varlen call's own objects)
+    and the backward reuses them. As in `_FlashAttnCore`, the LSE's
+    cotangent is ignored and no copy of out is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plan, kw, key):
+        q, k, v = (rows_dense(x) for x in (q, k, v))
+        lists = prepare_lists(q, k, v, plan, mask_mod=kw["mask_mod"],
+                              aux_tensors=kw["aux_tensors"],
+                              aux_scalars=kw["aux_scalars"], key=key)
+        out, lse = flash_attention_blocksparse_fwd(q, k, v, plan, lists=lists,
+                                                   **kw)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.plan, ctx.kw, ctx.lists = plan, kw, lists
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_blocksparse_bwd(
+            q, k, v, lse, rows_dense(dout), ctx.plan, lists=ctx.lists,
+            **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def _blocksparse_kw(mask_mod, aux_tensors, aux_scalars, softmax_scale,
+                    softcap):
+    return dict(mask_mod=mask_mod, aux_tensors=tuple(aux_tensors or ()),
+                aux_scalars=tuple(aux_scalars or ()),
+                softmax_scale=softmax_scale, softcap=float(softcap))
 
 
 class _FlashAttnCore(torch.autograd.Function):
@@ -141,6 +191,12 @@ def flash_attn_func(
     return_attn_probs=True returns (out, softmax_lse (b, h, sq) fp32,
     None).
 
+    With `block_sparse_tensors` (a plan of `compute_block_sparsity`) the
+    call runs `mask_mod` (with aux_tensors/aux_scalars) block-sparsely
+    through kernels 9-11; it composes with softcap only, as in the JAX
+    package (causal, windows and the other features raise ValueError), and
+    a score_mod raises NotImplementedError.
+
     `deterministic`, `bias_grad` and `dropout_seed` are taken so that calls
     written for the JAX API run unchanged, and nothing reads them: the
     backward is always deterministic, and a bias or dropout raises."""
@@ -150,29 +206,45 @@ def flash_attn_func(
             "gather_kv_indices (top-k gathered attention) is not ported yet: "
             "ROADMAP queue 2, kernels 1-3: gather_kv_indices"
         )
-    if block_sparse_tensors is not None:
-        raise NotImplementedError(
-            "block_sparse_tensors is not ported yet: ROADMAP queue 1, item 8 "
-            "(block sparsity)"
-        )
     if layout == "bshd":
         q_, k_, v_ = (x.transpose(1, 2) for x in (q, k, v))
     elif layout == "bhsd":
         q_, k_, v_ = q, k, v
     else:
         raise ValueError(f"unknown layout {layout!r}")
-    extras = dict(
-        qv=qv, bias=attn_bias, alibi_slopes=alibi_slopes, sink=sink,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        attention_chunk=attention_chunk, sink_token_length=sink_token_length,
-        dropout_p=dropout_p, score_mod=score_mod, mask_mod=mask_mod,
-        aux_tensors=aux_tensors, aux_scalars=aux_scalars,
-    )
-    out, lse = _FlashAttnCore.apply(
-        q_, k_, v_, softmax_scale, bool(causal),
-        tuple(int(w) for w in window_size), float(softcap), extras,
-    )
+    if block_sparse_tensors is not None:
+        bad = [name for name, val in (
+            ("attn_bias", attn_bias), ("alibi_slopes", alibi_slopes),
+            ("sink", sink), ("q_segment_ids", q_segment_ids), ("qv", qv),
+            ("q_descale", q_descale), ("k_descale", k_descale),
+            ("v_descale", v_descale)) if val is not None]
+        if (causal or tuple(window_size) != (-1, -1) or attention_chunk
+                or sink_token_length or dropout_p > 0.0 or bad):
+            raise ValueError(
+                "block_sparse_tensors composes with mask_mod/score_mod/"
+                "softcap only — express causality/windows inside the "
+                f"mask_mod (got causal={causal}, window={window_size}, "
+                f"chunk={attention_chunk}, dropout={dropout_p}, "
+                f"extras={bad})")
+        check_score_mod(score_mod)
+        out, lse = _BlockSparseCore.apply(
+            q_, k_, v_, as_plan(block_sparse_tensors),
+            _blocksparse_kw(mask_mod, aux_tensors, aux_scalars, softmax_scale,
+                            softcap), None)
+    else:
+        extras = dict(
+            qv=qv, bias=attn_bias, alibi_slopes=alibi_slopes, sink=sink,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
+            attention_chunk=attention_chunk,
+            sink_token_length=sink_token_length, dropout_p=dropout_p,
+            score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors,
+            aux_scalars=aux_scalars,
+        )
+        out, lse = _FlashAttnCore.apply(
+            q_, k_, v_, softmax_scale, bool(causal),
+            tuple(int(w) for w in window_size), float(softcap), extras,
+        )
     if layout == "bshd":
         out = out.transpose(1, 2)
     if return_attn_probs:
@@ -401,20 +473,43 @@ def flash_attn_varlen_func(
 
     The CUDA grids are sized by max_seqlen_q/k: the caller's, else the
     plan's (`make_varlen_plan`), else one host read of cu_seqlens.
+
+    With `block_sparse_tensors` (from `compute_block_sparsity_varlen`) the
+    call runs `mask_mod` block-sparsely (`_varlen_blocksparse`); it
+    composes with softcap and seqused_q/k only, as in the JAX package.
     `deterministic`, `dropout_seed`, `block_q` and `block_kv` are taken for
     calls written for the JAX API and not read: the backward is always
     deterministic and the CUDA tiles are fixed."""
     del deterministic, dropout_seed, block_q, block_kv
+    if layout not in ("thd", "hsd"):
+        raise ValueError(f"unknown varlen layout {layout!r}")
+    if layout == "hsd" and (block_sparse_tensors is not None
+                            or gather_kv_indices is not None):
+        raise ValueError(
+            "layout='hsd' is not supported with block_sparse_tensors/"
+            "gather_kv_indices (those routes consume packed (total, h, d))")
     if block_sparse_tensors is not None:
-        raise NotImplementedError(
-            "block_sparse_tensors is not ported yet: ROADMAP queue 1, item 8 "
-            "(block sparsity)")
+        bad = [name for name, val in (
+            ("attn_bias", attn_bias), ("alibi_slopes", alibi_slopes),
+            ("qv", qv), ("gather_kv_indices", gather_kv_indices))
+            if val is not None]
+        if (causal or tuple(window_size) != (-1, -1) or attention_chunk
+                or dropout_p > 0.0 or bad):
+            raise ValueError(
+                "varlen block_sparse_tensors composes with mask_mod/"
+                "score_mod/softcap only — express causality inside the "
+                f"mask_mod (got causal={causal}, extras={bad})")
+        check_score_mod(score_mod)
+        out, lse = _varlen_blocksparse(
+            q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
+            as_plan(block_sparse_tensors),
+            _blocksparse_kw(mask_mod, aux_tensors, aux_scalars, softmax_scale,
+                            softcap))
+        return (out, lse, None) if return_attn_probs else out
     if gather_kv_indices is not None:
         raise NotImplementedError(
             "gather_kv_indices (top-k gathered attention) is not ported yet: "
             "ROADMAP queue 1, item 6 (varlen leftovers)")
-    if layout not in ("thd", "hsd"):
-        raise ValueError(f"unknown varlen layout {layout!r}")
     if q.device.type != "cpu":
         max_seqlen_q, max_seqlen_k = resolve_max_seqlens(
             cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, plan)
@@ -432,6 +527,54 @@ def flash_attn_varlen_func(
     if return_attn_probs:
         return out, lse, None
     return out
+
+
+def _varlen_blocksparse(q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
+                        seqused_k, plan, kw):
+    """Varlen block-sparse attention (the JAX package's
+    `_varlen_blocksparse`): the packed (total, h, d) tensors are unpacked
+    by device gathers into a left-aligned (nseq, s, h, d) layout, s the
+    plan's recorded seqlen (else its tiles' span); the mod is wrapped with
+    each sequence's lengths (seqused_q/k applied) and run through
+    `_BlockSparseCore`; out is repacked to (total_q, h, d) and the lse to
+    (h, total_q), rows past a sequence's used length at out 0, lse -inf.
+    No host read: the lengths stay on the device, and the execution lists
+    are cached per the caller's own mod, aux and length tensors."""
+    tm, tn = plan.block_size
+    idx_shape = tuple(plan.mask_block_idx.shape)
+    sq = plan.seqlen_q if plan.seqlen_q is not None else idx_shape[2] * tm
+    sk = plan.seqlen_k if plan.seqlen_k is not None else idx_shape[3] * tn
+    dev = q.device
+    total_q, h, _ = q.shape
+    nseq = cu_seqlens_q.shape[0] - 1
+    lq, lk = varlen_lengths(cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
+                            dev)
+
+    def unpack(x, cu, smax):
+        src = (cu.to(device=dev, dtype=torch.int64)[:-1, None]
+               + torch.arange(smax, device=dev)[None])
+        rows = x[src.clamp(0, max(x.shape[0] - 1, 0)).reshape(-1)]
+        return rows.reshape(nseq, smax, *x.shape[1:]).transpose(1, 2), src
+
+    qp, src = unpack(q, cu_seqlens_q, sq)
+    kp, _ = unpack(k, cu_seqlens_k, sk)
+    vp, _ = unpack(v, cu_seqlens_k, sk)
+    user_aux, scalars = kw["aux_tensors"], kw["aux_scalars"]
+    key = varlen_key(kw["mask_mod"], user_aux, scalars, cu_seqlens_q,
+                     cu_seqlens_k, seqused_q, seqused_k)
+    kw = dict(kw, mask_mod=wrap_varlen_mask_mod(
+        kw["mask_mod"], len(user_aux), bool(user_aux or scalars)),
+              aux_tensors=user_aux + (lq, lk))
+    out_p, lse_p = _BlockSparseCore.apply(qp, kp, vp, plan, kw, key)
+    valid = torch.arange(sq, device=dev)[None] < lq[:, None]
+    dst = torch.where(valid, src, total_q).reshape(-1)
+    flat_out = out_p.transpose(1, 2).reshape(nseq * sq, h, -1)
+    out = torch.zeros((total_q + 1, h, flat_out.shape[-1]), dtype=q.dtype,
+                      device=dev).index_copy(0, dst, flat_out)[:total_q]
+    flat_lse = lse_p.transpose(1, 2).reshape(nseq * sq, h)
+    lse = torch.full((total_q + 1, h), float("-inf"), device=dev).index_copy(
+        0, dst, flat_lse)[:total_q].T
+    return out, lse
 
 
 def flash_attn_varlen_qkvpacked_func(

@@ -5,7 +5,7 @@ kernels need are kept here)."""
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -14,6 +14,8 @@ DEFAULT_MASK_VALUE = -0.7 * 3.4028234663852886e38  # -0.7 * float32 max
 
 LOG2E = math.log2(math.e)
 
+NUM_LANES = 128  # the JAX package's aux-table padding unit
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -21,6 +23,52 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class AuxData(NamedTuple):
+    """Runtime captures handed to a mask_mod as its trailing `aux`
+    argument: `tensors` (lookup tables such as per-token document ids) and
+    `scalars` (fp32 0-d tensors)."""
+
+    tensors: tuple = ()
+    scalars: tuple = ()
+
+
+def pad_aux_table(a: torch.Tensor) -> torch.Tensor:
+    """Edge-pad a 1-D aux table to a multiple of 128 entries, as the JAX
+    package does before a kernel reads it. Edge mode keeps the clamped-index
+    meaning of `aux_take` at the tail."""
+    n = a.shape[0]
+    n_pad = round_up(max(n, NUM_LANES), NUM_LANES)
+    if n_pad == n:
+        return a
+    return torch.cat([a, a[-1:].expand(n_pad - n)])
+
+
+def aux_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`table[idx]` over the flattened table, indices clamped into range;
+    `idx` may have any shape (the mods receive broadcast coordinates):
+        aux_take(aux.tensors[0], q_idx) == aux_take(aux.tensors[0], kv_idx)
+    """
+    flat = table.reshape(-1)
+    return flat[idx.clamp(0, flat.shape[0] - 1)]
+
+
+def aux_at(table: torch.Tensor, i) -> torch.Tensor:
+    """Lookup `table[i]` for a (possibly broadcast) index, clamped, e.g.
+    aux_at(aux.tensors[0], h) for a per-head table."""
+    flat = table.reshape(-1)
+    if not isinstance(i, torch.Tensor):
+        i = torch.tensor(i, device=flat.device)
+    return flat[i.clamp(0, flat.shape[0] - 1)]
+
+
+def call_mod(mod, *args, aux: Optional[AuxData] = None):
+    """Invoke a mask_mod, appending `aux` only when it holds captures:
+    mask_mod(b, h, q_idx, kv_idx[, aux])."""
+    if aux is not None and (aux.tensors or aux.scalars):
+        return mod(*args, aux)
+    return mod(*args)
 
 
 def default_alibi_slopes(nheads: int) -> torch.Tensor:

@@ -2,9 +2,10 @@
 (counterpart of flash_attn_tpu/utils/testing.py `attention_ref`: causal
 and windows aligned bottom-right for seqlen_q != seqlen_k, GQA, softcap,
 key padding and leftpad, chunks, sink tokens, a learnable sink),
-its packed-varlen form, the vertical-slash sparse oracle, random padding
-masks, a full-sequence GPT forward with no cache, and its loss as a
-gradient oracle."""
+its packed-varlen form, the vertical-slash sparse oracle, attention under
+a dense keep-mask (block-sparse plans), random padding masks, a
+full-sequence GPT forward with no cache, and its loss as a gradient
+oracle."""
 
 from __future__ import annotations
 
@@ -256,6 +257,45 @@ def sparse_attention_ref(
         scores = scores - (slopes[:, :, None, None]
                            * rel.abs().float()).to(scores.device)
     scores = scores.masked_fill(~keep, float("-inf"))
+    row_max = scores.amax(dim=-1, keepdim=True)
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros_like(row_max))
+    unnorm = torch.exp(scores - row_max)
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    attention = torch.where(denom > 0, unnorm / denom.clamp_min(1e-37),
+                            torch.zeros_like(unnorm))
+    lse = torch.where(denom > 0, row_max + torch.log(denom.clamp_min(1e-37)),
+                      torch.full_like(denom, float("-inf")))[..., 0]
+    output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)
+    return output.to(dtype_og), lse
+
+
+def masked_attention_ref(
+    q: torch.Tensor,  # (b, sq, h, d)
+    k: torch.Tensor,  # (b, sk, hk, d)
+    v: torch.Tensor,  # (b, sk, hk, dv)
+    keep: torch.Tensor,  # (b | 1, h | 1, sq, sk) bool
+    *,
+    softcap: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    upcast: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact attention under a dense keep-mask (True: row i sees column j),
+    for block-sparse plans expanded element by element. Returns (out (b,
+    sq, h, dv) in q's dtype, lse (b, h, sq) fp32, -inf on rows that keep
+    nothing, whose out is 0); differentiable."""
+    b, sq, h, d = q.shape
+    hk = k.shape[2]
+    dtype_og = q.dtype
+    if upcast:
+        q, k, v = q.float(), k.float(), v.float()
+    k = k.repeat_interleave(h // hk, dim=2)
+    v = v.repeat_interleave(h // hk, dim=2)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~keep.to(scores.device), float("-inf"))
     row_max = scores.amax(dim=-1, keepdim=True)
     row_max = torch.where(torch.isfinite(row_max), row_max,
                           torch.zeros_like(row_max))

@@ -267,7 +267,6 @@ def test_unported_arguments_raise():
                   dict(aux_tensors=(q,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attention_varlen_fwd(q, q, q, cu, cu, **extra)
-    for extra in (dict(bias_grad=True), dict(block_sparse_tensors=()),
-                  dict(gather_kv_indices=q)):
+    for extra in (dict(bias_grad=True), dict(gather_kv_indices=q)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attn_varlen_func(q, q, q, cu, cu, **extra)

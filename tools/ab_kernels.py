@@ -1,18 +1,23 @@
-"""Same-call A/B of the port's dense attention kernels (1-3) built from two
-checkouts: ptxas registers and spills of every kernel, and CUDA-event times
-in turns.
+"""Same-call A/B of the port's attention kernels that share the tile steps
+of csrc/flash_fwd_tile.cuh and csrc/flash_bwd_tile.cuh (dense 1-3, varlen
+6-8, vertical-slash sparse 12-15) built from two checkouts: ptxas
+registers and spills of every kernel, and CUDA-event times in turns.
 
     python3 tools/ab_kernels.py --base build/parent [--rounds 6]
 
 `--base` is another checkout of the repository (e.g. the parent commit,
-unpacked with `git archive`). Both checkouts' csrc/flash_fwd.cu and
-csrc/flash_bwd.cu are compiled with the port's nvcc flags (four nvcc at
-once) into build/ab/. The kernels are then timed through this checkout's
-wrappers (whose C interface the base must share) on chip_smoke.py's
-"gpt2m" and "mistral-window" shapes, the builds in turns (base, tree,
-tree, base per round), each time the median of 20 CUDA-event times; the
-last line gives each kernel's median over the rounds for either build.
-Needs one CUDA card.
+unpacked with `git archive`). Every csrc/*.cu source both checkouts have
+is compiled with the port's nvcc flags (all nvcc at once) into build/ab/,
+and the ptxas registers and spills of every kernel are compared. The
+kernels of csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_sparse_fwd.cu
+and csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
+(whose C interface the base must share) on chip_smoke.py's "gpt2m" and
+"mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8) and its
+"prefill-8k" sparse case (12-15), the builds in turns (base, tree, tree,
+base per round), each time the median of 20 CUDA-event times; the last
+line gives each kernel's median over the rounds for either build. The
+block-sparse kernels 9-11 (csrc/block_sparse_*.cu) have steps of their
+own and are not built here. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -32,19 +37,36 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from flash_attn_tpu_torch.kernels import _build, flash_bwd, flash_fwd  # noqa: E402
+from flash_attn_tpu_torch.kernels import (  # noqa: E402
+    _build,
+    flash_bwd,
+    flash_fwd,
+    flash_sparse,
+    flash_sparse_gather,
+    flash_varlen,
+)
 
-SOURCES = ("flash_fwd", "flash_bwd")
-CASES = ("gpt2m", "mistral-window")
+SOURCES = ("flash_fwd", "flash_bwd", "flash_sparse_fwd", "flash_sparse_bwd")
+CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "prefill-8k")
 OUT_DIR = os.path.join(REPO, "build", "ab")
 
 
+def common_sources(trees):
+    """The csrc/*.cu sources every tree has: all are built for the register
+    comparison, SOURCES are also timed."""
+    names = [{f[:-3] for f in os.listdir(os.path.join(root, "flash_attn_tpu_torch",
+                                                      "csrc")) if f.endswith(".cu")}
+             for root in trees.values()]
+    return sorted(set.intersection(*names))
+
+
 def build(trees):
-    """Compiles SOURCES of every tree at once; returns {tag: {source: log}}."""
+    """Compiles the sources every tree has, all at once; returns {tag:
+    {source: log}}."""
     os.makedirs(OUT_DIR, exist_ok=True)
     jobs = {}
     for tag, root in trees.items():
-        for src in SOURCES:
+        for src in common_sources(trees):
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                    os.path.join(OUT_DIR, f"{tag}-{src}.so"),
                    os.path.join(root, "flash_attn_tpu_torch", "csrc",
@@ -63,8 +85,7 @@ def build(trees):
 
 def registers(log):
     """{kernel: (registers, spill stores, spill loads)} from ptxas -v output,
-    keyed by the demangled name with its first four template arguments (the
-    sparse modes' ALiBi flag, a fifth, is dropped so both builds match)."""
+    keyed by the demangled name with its template arguments."""
     found, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -84,8 +105,7 @@ def registers(log):
     keyed = {}
     for full, value in found.items():
         m = re.search(r"(\w+)<(.*)>\(", full)
-        key = (f"{m.group(1)}<{', '.join(m.group(2).split(', ')[:4])}>"
-               if m else full)
+        key = f"{m.group(1)}<{m.group(2)}>" if m else full
         keyed[key] = value
     return keyed
 
@@ -95,12 +115,78 @@ def use(tag):
     paths = {src: os.path.join(OUT_DIR, f"{tag}-{src}.so") for src in SOURCES}
     _build.library_path = lambda name: paths[name]
     _build.load_library.cache_clear()
-    flash_fwd._kernel.cache_clear()
-    flash_bwd._kernels.cache_clear()
+    for loader in (flash_fwd._kernel, flash_bwd._kernels,
+                   flash_varlen._fwd_kernel, flash_varlen._bwd_kernels,
+                   flash_sparse._fwd_kernel, flash_sparse._bwd_kernels):
+        loader.cache_clear()
+
+
+def varlen_inputs(name, seed):
+    """chip_smoke.VARLEN_CASES' `name` (thd, no seqused): kernels 6-8."""
+    lens, _, _, _, h, hk, d, causal, window, _, _ = chip_smoke.VARLEN_CASES[name]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tot = sum(lens)
+    q, do = (torch.randn(tot, h, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(tot, hk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    cu = chip_smoke._dev_int(chip_smoke._cu_of(lens))
+    kw = dict(causal=causal, window_size=window)
+    mq, mk = dict(max_seqlen_q=max(lens)), dict(max_seqlen_k=max(lens))
+    _, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, cu, cu, **kw, **mq)
+    _, delta = flash_varlen.flash_attention_varlen_bwd_dq(q, k, v, do, lse, cu,
+                                                          cu, **kw, **mq)
+    return dict(
+        varlen_fwd=lambda: flash_varlen.flash_attention_varlen_fwd(
+            q, k, v, cu, cu, **kw, **mq),
+        varlen_dkv=lambda: flash_varlen.flash_attention_varlen_bwd_dkv(
+            q, k, v, do, lse, delta, cu, cu, **kw, **mk),
+        varlen_dq=lambda: flash_varlen.flash_attention_varlen_bwd_dq(
+            q, k, v, do, lse, cu, cu, **kw, **mq))
+
+
+def sparse_inputs(name, seed):
+    """chip_smoke.SPARSE_CASES' `name` on its seeded metadata: kernels 12
+    and 15 (each over its planner's lists, planners outside the timing),
+    14 and 13."""
+    b, h, hk, sq, sk, d, causal, dtype = chip_smoke.SPARSE_CASES[name][:8]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    meta = chip_smoke.vs_metadata(b, h, sq, sk, chip_smoke.MINF_HEADS, causal,
+                                  seed)
+    plans = dict(seqlen_q=sq, seqlen_k=sk, causal=causal)
+    plan = flash_sparse.plan_sparse(*meta, keep_table=True, **plans)
+    gplan = flash_sparse_gather.plan_gather(*meta, **plans)
+    inverse = flash_sparse.plan_inverse(plan.table, hk)
+    kw = dict(causal=causal)
+    _, lse = flash_sparse.flash_attention_sparse_tiles_fwd(q, k, v, *meta,
+                                                           plan=plan, **kw)
+    _, delta = flash_sparse.flash_attention_sparse_bwd_dq(
+        q, k, v, do, lse, *meta, plan=plan, **kw)
+    return dict(
+        sparse_tiles_fwd=lambda: flash_sparse.flash_attention_sparse_tiles_fwd(
+            q, k, v, *meta, plan=plan, **kw),
+        sparse_gather_fwd=lambda: (
+            flash_sparse_gather.flash_attention_sparse_gather_fwd(
+                q, k, v, *meta, plan=gplan, **kw)),
+        sparse_dkv=lambda: flash_sparse.flash_attention_sparse_bwd_dkv(
+            q, k, v, do, lse, delta, *meta, inverse=inverse, **kw),
+        sparse_dq=lambda: flash_sparse.flash_attention_sparse_bwd_dq(
+            q, k, v, do, lse, *meta, plan=plan, **kw))
 
 
 def inputs(name, seed):
-    """chip_smoke.ATTN_CASES' `name` shape: (timed calls by kernel)."""
+    """The `name` case's timed calls by kernel: chip_smoke.ATTN_CASES'
+    shapes for kernels 1-3, else the varlen or sparse case."""
+    if name in chip_smoke.VARLEN_CASES:
+        return varlen_inputs(name, seed)
+    if name in chip_smoke.SPARSE_CASES:
+        return sparse_inputs(name, seed)
     (_, b, h, hk, sq, sk, d, causal, window, softcap,
      dtype) = next(c for c in chip_smoke.ATTN_CASES if c[0] == name)
     dev = torch.device("cuda")
@@ -132,8 +218,9 @@ def main(argv=None):
     logs = build(trees)
     regs = {tag: {} for tag in trees}
     for tag in trees:
-        for src in SOURCES:
-            regs[tag].update(registers(logs[tag][src]))
+        for src in logs[tag]:
+            regs[tag].update({f"{src}: {name}": value for name, value in
+                              registers(logs[tag][src]).items()})
     differ = {k: dict(base=regs["base"].get(k), tree=v)
               for k, v in regs["tree"].items() if regs["base"].get(k) != v
               and k in regs["base"]}
