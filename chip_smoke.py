@@ -6,15 +6,22 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
 
   1. env      torch/CUDA versions, the card's name and power limit, build time;
   2. kernel   the paged-decode kernel against its plain PyTorch version at the
-              serving path's shapes (Mistral-7B widths), with CUDA-event times
-              of the kernel, the plain version, a PyTorch library yardstick,
-              and the card's bound for the same work;
+              serving path's shapes (Mistral-7B widths) and the split-KV
+              schedule's edges (b 1, contexts under one tile, a short
+              window), with CUDA-event times of the kernel (eager, and
+              replayed from a CUDA graph), the plain version, a PyTorch
+              library yardstick, and the card's bound for the same work;
+              then split_fault: the kernel's partials merged with a split
+              dropped, and the plain split schedule with a boundary moved
+              by one token, which the check must catch;
   3. attn_kernels  the flash forward, dK/dV and dQ kernels likewise, at the
               GPT-2-medium training shape, the Mistral-7B shape (GQA, window
-              4095), a short window (127), a softcap, and rows that see
-              nothing; the backward twice for equal bits; then attn_fault:
-              the window cases with the kernels handed a window one column
-              wider, which every kernel's check must catch;
+              4095), a short window (127), a softcap, rows that see nothing,
+              and lengths off the forward's tiles; the backward twice for
+              equal bits; attn_tma_copy: the forward on inputs its tensor
+              maps cannot take as they are (copied, counted); then
+              attn_fault: the window cases with the kernels handed a window
+              one column wider, which every kernel's check must catch;
      varlen_kernels, varlen_fault, varlen_train, vllm: kernels 6-8 and
               vLLM's per-layer calls (see each function);
      decode_kernels  the general decode kernel (kernel 5) against its plain
@@ -84,6 +91,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -131,9 +139,14 @@ from flash_attn_tpu_torch.kernels.flash_decode import (  # noqa: E402
     flash_attention_decode_ref,
     visible_columns,
 )
+from flash_attn_tpu_torch.kernels import (  # noqa: E402
+    flash_decode_multipage as fdm,
+)
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import (  # noqa: E402
     flash_attention_decode_multipage,
     flash_attention_decode_multipage_ref,
+    flash_attention_decode_multipage_split_ref,
+    split_ranges,
 )
 from flash_attn_tpu_torch.kernels.flash_fwd import (  # noqa: E402
     flash_attention_fwd,
@@ -272,6 +285,61 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """cuda_ms of fn() captured once in a CUDA graph and replayed: the
+    device time of its launches without the host's time to issue them
+    (which bounds an eager call of a kernel that runs in tens of
+    microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def ptxas_of(logs, fragment):
+    """[registers, spill store bytes, spill load bytes] of every kernel whose
+    mangled name holds `fragment`, from the build's ptxas -v output."""
+    found, name, spills = [], None, (0, 0)
+    for line in (ln for log in logs.values() for ln in log.splitlines()):
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and fragment in name:
+            found.append([int(m.group(1)), *spills])
+            name = None
+    return found
+
+
+def sass_counts(library, words):
+    """How often each of `words` appears in the library's SASS
+    (cuobjdump -sass, the toolkit's or Triton's copy); None without one."""
+    tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for tool in tools:
+        if os.path.exists(tool):
+            sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                                  text=True, timeout=300, check=True).stdout
+            return {w: sass.count(w) for w in words}
+    return None
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -292,7 +360,17 @@ CASES = [
     ("prefill", 256, True, 16, WINDOW, 0.0, True, False),  # an engine prefill chunk
     ("prefill-split-page128", 256, False, 128, -1, 0.0, True, False),
     ("decode-phd-view", 1, False, 16, WINDOW, 0.0, True, True),
+    # The split-KV schedule's edges: b 1 at a 4500-token context (the most
+    # splits), contexts shorter than one 64-token tile (splits left empty),
+    # and a short window whose edge falls inside the splits.
+    ("decode-b1-ctx4500", 1, True, 16, -1, 0.0, True, False),
+    ("decode-short-contexts", 1, True, 16, -1, 0.0, True, False),
+    ("decode-window300", 1, False, 16, 300, 0.0, True, False),
 ]
+# Batch and contexts of the cases that do not draw them (kernel_case).
+CASE_LENS = {"decode-b1-ctx4500": (4500,),
+             "decode-short-contexts": (1, 5, 17, 33, 40, 50, 63, 64),
+             "split-fault": (70, 96, 129, 150, 170, 190, 200, 130)}
 B, H, HK, D = 8, 32, 8, 128
 MAX_CTX = 6000
 
@@ -307,23 +385,30 @@ def bound(seqlens, sq, window, table_shape):
         lo = np.maximum(pos - window, 0) if window >= 0 else np.zeros(sq, int)
         pairs += int(np.maximum(np.minimum(pos + 1, L) - lo, 0).sum())
         tokens += max(0, L - int(lo[0]))
-    nbytes = (tokens * HK * 2 * D * 2 + 2 * B * sq * H * D * 2 + B * H * sq * 4
-              + 4 * table_shape[0] * table_shape[1] + 4 * B)
+    b = len(seqlens)
+    nbytes = (tokens * HK * 2 * D * 2 + 2 * b * sq * H * D * 2 + b * H * sq * 4
+              + 4 * table_shape[0] * table_shape[1] + 4 * b)
     flops = 4 * D * H * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
+def kernel_inputs(name, sq, fused, page, window, softcap, permuted, phd,
+                  seed):
+    """The seeded inputs of a paged-decode case: (args, kwargs, seqlens)."""
     rng = np.random.RandomState(seed)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    seqlens = rng.randint(max(sq, 1), MAX_CTX + 1, B)
-    seqlens[0] = max(seqlens[0], 4500)  # one context past the 4096 window
+    if name in CASE_LENS:
+        seqlens = np.asarray(CASE_LENS[name])
+    else:
+        seqlens = rng.randint(max(sq, 1), MAX_CTX + 1, B)
+        seqlens[0] = max(seqlens[0], 4500)  # one context past the 4096 window
+    batch = len(seqlens)
     max_pages = -(-MAX_CTX // page)
-    npages = B * max_pages + 1
+    npages = batch * max_pages + 1
     ids = rng.permutation(npages - 1) if permuted else np.arange(npages - 1)
-    table = torch.from_numpy(ids[: B * max_pages].reshape(B, max_pages)
+    table = torch.from_numpy(ids[: batch * max_pages].reshape(batch, max_pages)
                              .astype(np.int32)).to(dev)
     lens = torch.from_numpy(seqlens.astype(np.int32)).to(dev)
     if fused:
@@ -338,25 +423,54 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
         k_pages, v_pages = allocate_paged_kv_cache(npages, page, HK, D, device=dev)
         v_pages.normal_(generator=gen)
     k_pages.normal_(generator=gen)
-    q = torch.randn(B, sq, H, D, generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn(batch, sq, H, D, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
     kw = dict(fused_kv_dim=D if fused else 0, window_left=window, softcap=softcap)
-    args = (q, k_pages, v_pages, lens, table)
+    return (q, k_pages, v_pages, lens, table), kw, seqlens
 
-    out, lse = flash_attention_decode_multipage(*args, **kw)
-    torch.cuda.synchronize()
+
+def paged_ref(args, kw):
+    """The plain version in fp32 on the case's inputs."""
     up = [None if a is None else a.float() if a.is_floating_point() else a
           for a in args]
-    ref_out, ref_lse = flash_attention_decode_multipage_ref(*up, **kw)
+    return flash_attention_decode_multipage_ref(*up, **kw)
+
+
+def paged_held(out, lse, ref_out, ref_lse):
+    """The paged-decode check: (ok, max abs error of out, of the finite
+    lse). A row that sees nothing must give out 0 and lse -inf."""
     err = (out.float() - ref_out).abs()
-    lse_err = (lse - ref_lse).abs().max().item()
+    fin = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[fin].abs().max()) if fin.any() else 0.0
     ok = bool((err <= OUT_ATOL + OUT_RTOL * ref_out.abs()).all()
-              and lse_err <= LSE_ATOL and torch.isfinite(out).all())
-    del up, ref_out, ref_lse
+              and lse_err <= LSE_ATOL and torch.isfinite(out).all()
+              and torch.equal(fin, torch.isfinite(lse)))
+    return ok, float(err.max()), lse_err
+
+
+def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
+    args, kw, seqlens = kernel_inputs(name, sq, fused, page, window, softcap,
+                                      permuted, phd, seed)
+    q, k_pages, v_pages, lens, table = args
+    batch = len(seqlens)
+    dev = q.device
+    splits = fdm.splits_of(q, k_pages, table, window)
+    out, lse = flash_attention_decode_multipage(*args, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = paged_ref(args, kw)
+    ok, max_err, lse_err = paged_held(out, lse, ref_out, ref_lse)
+    del ref_out, ref_lse
 
     ms = cuda_ms(lambda: flash_attention_decode_multipage(*args, **kw))
+    launches = (flash_attention_decode_multipage.launches,
+                flash_attention_decode_multipage.combine_launches)
+    kernel_graph_ms = graph_ms(
+        lambda: flash_attention_decode_multipage(*args, **kw))
+    (flash_attention_decode_multipage.launches,
+     flash_attention_decode_multipage.combine_launches) = launches
     plain_ms = cuda_ms(lambda: flash_attention_decode_multipage_ref(*args, **kw),
                        reps=20, warmup=1)
-    library_ms = None
+    library_ms = library_graph_ms = None
     if softcap == 0.0:
         # Yardstick: one PyTorch call on K/V already gathered contiguous (no
         # PyTorch call reads a paged pool); the port never calls it.
@@ -365,8 +479,8 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
         else:
             kc, vc = k_pages, v_pages
         tl = table.long()
-        kg = kc[tl].permute(0, 2, 1, 3, 4).reshape(B, HK, -1, D).contiguous()
-        vg = vc[tl].permute(0, 2, 1, 3, 4).reshape(B, HK, -1, D).contiguous()
+        kg = kc[tl].permute(0, 2, 1, 3, 4).reshape(batch, HK, -1, D).contiguous()
+        vg = vc[tl].permute(0, 2, 1, 3, 4).reshape(batch, HK, -1, D).contiguous()
         cols = torch.arange(kg.shape[2], device=dev)[None, None]
         pos = (lens.long()[:, None, None] - sq
                + torch.arange(sq, device=dev)[None, :, None])
@@ -375,22 +489,70 @@ def kernel_case(name, sq, fused, page, window, softcap, permuted, phd, seed):
             mask &= cols >= pos - window
         mask = mask[:, None]
         qt = q.transpose(1, 2)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask, enable_gqa=True))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        library_ms = cuda_ms(sdpa)
+        library_graph_ms = graph_ms(sdpa)
         del kg, vg, mask
     bound_ms, bound_by = bound(seqlens.tolist(), sq, window, tuple(table.shape))
+    rows = sq * (H // HK)
     result = dict(
-        phase="kernel", kernel="paged_decode", case=name, b=B, sq=sq, h=H,
+        phase="kernel", kernel="paged_decode", case=name, b=batch, sq=sq, h=H,
         hk=HK, d=D, page=page, fused=fused, phd_view=phd, window_left=window,
         softcap=softcap, permuted=permuted, max_ctx=int(seqlens.max()),
-        max_abs_err=float(err.max()), lse_max_abs_err=lse_err,
+        design="split-kv" if rows <= fdm.SPLIT_ROWS else "rows",
+        num_splits=splits,
+        grid=([splits, HK, batch] if rows <= fdm.SPLIT_ROWS
+              else [-(-rows // 64), HK, batch]),
+        max_abs_err=max_err, lse_max_abs_err=lse_err,
         tolerance=f"|out-ref| <= {OUT_ATOL} + {OUT_RTOL}|ref|, |lse-ref| <= {LSE_ATOL}",
         ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound_ms, bound_by=bound_by, graph_ms=kernel_graph_ms,
+        library_graph_ms=library_graph_ms,
     )
     emit(result)
     check(ok, f"paged_decode case {name} disagrees with its plain version")
     return result
+
+
+def split_fault_phase(seed=95, num_splits=3):
+    """The split-KV check's power, shown with kernel_case's check at
+    contexts of 70-200 tokens over three splits, where one token carries
+    weight: the kernel's partials merged whole must pass; merged with split
+    1 dropped, and the plain split schedule with split 1 starting one token
+    late (a column no split sees), must fail."""
+    args, kw, seqlens = kernel_inputs("split-fault", 1, True, 16, -1, 0.0,
+                                      True, False, seed)
+    q = args[0]
+    ref_out, ref_lse = paged_ref(args, kw)
+    o_part, lse_part = fdm._run(*args, num_splits, **kw)
+    held_by = {}
+    out, lse = fdm.combine_splits(o_part, lse_part, q.dtype)
+    held_by["whole"] = paged_held(out, lse, ref_out, ref_lse)
+    keep = [i for i in range(num_splits) if i != 1]
+    out, lse = fdm.combine_splits(o_part[keep], lse_part[keep], q.dtype)
+    held_by["split_dropped"] = paged_held(out, lse, ref_out, ref_lse)
+    moved = [[(lo + (i == 1 and hi > lo), hi) for i, (lo, hi) in
+              enumerate(split_ranges(int(n), 1, -1, num_splits))]
+             for n in seqlens]
+    up = [None if a is None else a.float() if a.is_floating_point() else a
+          for a in args]
+    out, lse = flash_attention_decode_multipage_split_ref(
+        *up, num_splits, ranges=moved, **kw)
+    held_by["boundary_moved"] = paged_held(out, lse, ref_out, ref_lse)
+    ok = (held_by["whole"][0] and not held_by["split_dropped"][0]
+          and not held_by["boundary_moved"][0])
+    emit(dict(phase="split_fault", contexts=seqlens.tolist(),
+              num_splits=num_splits,
+              held={k: dict(ok=v[0], max_abs_err=v[1], lse_max_abs_err=v[2])
+                    for k, v in held_by.items()},
+              tolerance=f"|out-ref| <= {OUT_ATOL} + {OUT_RTOL}|ref|, "
+                        f"|lse-ref| <= {LSE_ATOL}", ok=ok))
+    check(ok, "split_fault: the whole merge fails, or a dropped split or a "
+              "moved boundary passes the check")
 
 
 # -- phase: attn_kernels (flash fwd, dK/dV and dQ vs plain) ----------------
@@ -409,6 +571,9 @@ ATTN_CASES = [
      0.0, torch.bfloat16),
     ("causal-sq3000-sk1000", 1, 4, 2, 3000, 1000, 64, True, (-1, -1), 0.0,
      torch.bfloat16),
+    # Neither length a multiple of kernel 1's 128-row and 128-key tiles.
+    ("causal-d128-fp16-sq1000-sk1100", 2, 8, 4, 1000, 1100, 128, True,
+     (-1, -1), 0.0, torch.float16),
 ]
 # Kernel vs plain fp32 on the same bf16/fp16 inputs, element by element:
 #   |x - ref| <= RTOL |ref| + ROW_ATOL rms(ref's row) + FLOOR max|ref|,
@@ -584,6 +749,36 @@ def attn_case(name, b, h, hk, sq, sk, d, causal, window, softcap, dtype,
     return result
 
 
+def attn_copy_phase(seed=29):
+    """Kernel 1 on inputs its tensor maps cannot all take as they are: q with
+    a base 2 bytes off 16 (copied first, and the copy counted), k and v as
+    (b, s, h, d) tensors viewed (b, h, s, d) (taken as they are)."""
+    b, h, hk, s, d = 2, 8, 2, 1000, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, s, d + 8, generator=gen, device=dev,
+                    dtype=torch.bfloat16)[..., 1:d + 1]
+    k, v = (torch.randn(b, s, hk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16).transpose(1, 2) for _ in range(2))
+    before = flash_attention_fwd.tma_copies
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    copies = flash_attention_fwd.tma_copies - before
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                               causal=True)
+    out_held = held(out, ref_out)
+    lse_err = float((lse - ref_lse).abs().max())
+    ok = (out_held["err_over_limit"] <= 1 and lse_err <= ATTN_LSE_TOL
+          and copies == 1)
+    emit(dict(phase="attn_tma_copy", b=b, h=h, hk=hk, s=s, d=d,
+              q="base 2 bytes off 16: copied", kv="(b, s, h, d) views",
+              tma_copies=copies, out=out_held, lse_max_abs_err=lse_err,
+              tolerance=ATTN_TOLERANCE, ok=ok))
+    check(ok, "attn_tma_copy: kernel 1 disagrees on strided inputs, or the "
+              "copies are not one")
+    return copies
+
+
 def attn_fault_phase():
     """The tolerance's power, shown: each window case again with the kernels
     handed a window one column wider on the left than the plain versions
@@ -673,18 +868,34 @@ def _cu_of(lens):
     return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
 
 
-def library_packed(q, k, v, cu, causal):
+def library_packed(q, k, v, do, cu, causal):
     """The yardstick of a packed call: SDPA on jagged torch.nested tensors
-    (the port never calls it). Returns (ms, what ran) or (None, why not)."""
-    try:
-        offs = cu.long()
+    (the port never calls it), forward, and forward with the backward to
+    q, k and v for the gradient `do`. Returns (ms, fwd+bwd ms, what ran);
+    a time that could not be taken is None, and `what` says why."""
+    offs = cu.long()
+
+    def sdpa(q, k, v):
         qn, kn, vn = (torch.nested.nested_tensor_from_jagged(x, offs)
                       .transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qn, kn, vn, is_causal=causal))
-        return ms, f"SDPA on jagged torch.nested tensors, is_causal={causal}"
+        return F.scaled_dot_product_attention(qn, kn, vn, is_causal=causal)
+
+    what = f"SDPA on jagged torch.nested tensors, is_causal={causal}"
+    try:
+        ms = cuda_ms(lambda: sdpa(q, k, v))
     except Exception as exc:  # a yardstick: report why it did not run
-        return None, f"not run: {type(exc).__name__}: {str(exc)[:160]}"
+        return None, None, f"not run: {type(exc).__name__}: {str(exc)[:160]}"
+    leaves = tuple(x.detach().requires_grad_() for x in (q, k, v))
+
+    def fwd_bwd():
+        out = sdpa(*leaves).transpose(1, 2).values()
+        torch.autograd.grad(out, leaves, do)
+
+    try:
+        return ms, cuda_ms(fwd_bwd), what
+    except Exception as exc:
+        return ms, None, (f"{what}; backward not run: {type(exc).__name__}: "
+                          f"{str(exc)[:160]}")
 
 
 def varlen_compare(name, seed, fault=False):
@@ -811,8 +1022,8 @@ def varlen_case(name, seed):
         result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
             per_d, nbytes, 1, h, d, pairs)
     if layout == "thd" and used_q is None and used_k is None:
-        result["library_fwd_ms"], result["library"] = library_packed(
-            q, k, v, cu_q, causal)
+        (result["library_fwd_ms"], result["library_fwd_bwd_ms"],
+         result["library"]) = library_packed(q, k, v, do, cu_q, causal)
     emit(result)
     check(result["ok"], f"varlen_kernels case {name} disagrees with its plain "
                         "version or is not deterministic")
@@ -1117,6 +1328,7 @@ def vllm_phase(seed=2, layers=32):
     pool_gb = 2 * layers * pools[0][0].numel() * 2 / 1e9
     _zero_varlen_counts()
     flash_attention_decode_multipage.launches = 0
+    flash_attention_decode_multipage.combine_launches = 0
     dispatch_counts.clear()
     kinds, attn_ms, checks = [], [], []
     q_tokens = plan_reused = 0
@@ -1183,7 +1395,8 @@ def vllm_phase(seed=2, layers=32):
         if kind not in profiles and (kind == "decode" or si >= 2):
             counts_before = (flash_attention_varlen_fwd.launches,
                              flash_attention_decode_multipage.launches,
-                             dict(dispatch_counts))
+                             dict(dispatch_counts),
+                             flash_attention_decode_multipage.combine_launches)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1193,6 +1406,7 @@ def vllm_phase(seed=2, layers=32):
             # The profiled replay is not part of the scheduler loop's count.
             flash_attention_varlen_fwd.launches = counts_before[0]
             flash_attention_decode_multipage.launches = counts_before[1]
+            flash_attention_decode_multipage.combine_launches = counts_before[3]
             dispatch_counts.clear()
             dispatch_counts.update(counts_before[2])
             by_kernel = _device_ms_by_kernel(prof)
@@ -1232,6 +1446,7 @@ def vllm_phase(seed=2, layers=32):
         host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
         steps_reusing_plan=plan_reused,
         launches=launches, launches_expected=want, routes=routes,
+        combine_launches=flash_attention_decode_multipage.combine_launches,
         checked=len(checks), worst_err_over_limit=worst,
         tolerance=ATTN_TOLERANCE, profile=profiles, ok=ok)
     emit(result)
@@ -1628,6 +1843,7 @@ def serve_phase(engine, model, seed=2):
     torch.cuda.reset_peak_memory_stats()
     p0, d0 = engine.prefill_steps, engine.decode_steps
     flash_attention_decode_multipage.launches = 0
+    flash_attention_decode_multipage.combine_launches = 0
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new)
     torch.cuda.synchronize()
@@ -1649,7 +1865,9 @@ def serve_phase(engine, model, seed=2):
         prefill_tokens_per_s=prefill_tokens / engine.seconds["prefill"],
         decode_tokens_per_s=decode_tokens / engine.seconds["decode"],
         wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        kernel_launches=launches, layers_x_steps=c.n_layer * steps, ok=ok,
+        kernel_launches=launches, layers_x_steps=c.n_layer * steps,
+        combine_launches=flash_attention_decode_multipage.combine_launches,
+        ok=ok,
     )
     emit(result)
     check(ok, "serve: launches != layers x steps, or malformed outputs")
@@ -1949,7 +2167,10 @@ def profile_phase(engine, model, n_requests=8, prompt_len=2048, max_new=8,
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_kernel = _device_ms_by_kernel(prof)
         busy = sum(by_kernel.values())
-        attn = sum(v for k, v in by_kernel.items() if "paged_decode" in k)
+        attn = sum(v for k, v in by_kernel.items()
+                   if any(n in k for n in ("paged_decode_kernel",
+                                           "paged_split_kernel",
+                                           "paged_combine_kernel")))
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
         result[kind] = dict(
             steps=steps, wall_ms=wall_ms,
@@ -2126,7 +2347,7 @@ def train_profile_phase(seed=5):
     by_kernel = _device_ms_by_kernel(prof)
     busy = sum(by_kernel.values())
     attn = {name: sum(v for k, v in by_kernel.items() if name in k)
-            for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+            for name in ("fwd_sm90_kernel", "flash_bwd_dkv_kernel",
                          "flash_bwd_dq_kernel")}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     result = dict(
@@ -2834,6 +3055,7 @@ def sparse_vllm_phase(seed=130, layers=32):
         resident_inputs_gb=inputs_gb, peak_memory_gb=peak,
         host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
         launches=launches, launches_expected=want, routes=routes,
+        combine_launches=flash_attention_decode_multipage.combine_launches,
         layer0=check0, layer0_profile=layer_profile,
         tolerance=ATTN_TOLERANCE, ok=ok)
     emit(result)
@@ -3454,9 +3676,11 @@ def main(argv=None):
         if "kernel" in only:
             for i, case in enumerate(CASES):
                 kernel_case(*case, seed=10 + i)
+            split_fault_phase()
         if "attn" in only:
             for i, c in enumerate(ATTN_CASES):
                 attn_case(*c, seed=20 + i)
+            attn_copy_phase()
             attn_fault_phase()
         if "varlen" in only:
             for i, name in enumerate(VARLEN_CASES):
@@ -3479,7 +3703,9 @@ def main(argv=None):
         return 0
 
     cases = [kernel_case(*case, seed=10 + i) for i, case in enumerate(CASES)]
+    split_fault_phase()
     attn = {c[0]: attn_case(*c, seed=20 + i) for i, c in enumerate(ATTN_CASES)}
+    tma_copies = attn_copy_phase()
     attn_fault_phase()
     varlen = {name: varlen_case(name, seed=30 + i)
               for i, name in enumerate(VARLEN_CASES)}
@@ -3538,9 +3764,18 @@ def main(argv=None):
         name="paged_decode", route="cuda",
         source="flash_attn_tpu_torch/csrc/paged_decode.cu",
         replaces="flash_attn_tpu/kernels/flash_decode_multipage.py:65",
+        design="split-kv (decode: sq * group <= 16 rows), warps on rows "
+               "(prefill chunks)",
+        num_splits=decode["num_splits"], grid=decode["grid"],
+        graph_ms=decode["graph_ms"], library_graph_ms=decode["library_graph_ms"],
+        ptxas=dict(split=ptxas_of(logs, "paged_split_kernel"),
+                   combine=ptxas_of(logs, "paged_combine_kernel"),
+                   rows=ptxas_of(logs, "paged_decode_kernel")),
         launches=serve["kernel_launches"],
         launches_by_path=dict(serve=serve["kernel_launches"],
                               vllm=vllm["launches"]["paged_decode"]),
+        combine_launches_by_path=dict(serve=serve["combine_launches"],
+                                      vllm=vllm["combine_launches"]),
         phd_view=dict({k: phd[k] for k in keys},
                       shape="decode on vLLM phd pools as views, split, "
                             "window 4095"),
@@ -3584,7 +3819,18 @@ def main(argv=None):
              ("dq", "delta"))):
         err = max(c[t]["max_abs_err"] for c in attn.values() for t in tensors)
         library = gpt2m["library_fwd_ms"] if key == "fwd" else None
-        kernels.append(dict(
+        if key == "fwd":
+            design = dict(
+                design="wgmma+tma",
+                ptxas=ptxas_of(logs, "fwd_sm90_kernel"),
+                sass=sass_counts(_build.library_path("flash_fwd"),
+                                 ("HGMMA", "UTMALDG")),
+                tma_copies=tma_copies)
+        else:
+            # SDPA's backward alone: its forward+backward less its forward.
+            design = dict(library_bwd_ms=gpt2m["library_fwd_bwd_ms"]
+                          - gpt2m["library_fwd_ms"])
+        kernels.append(dict(**design,
             name=name, route="cuda",
             source=f"flash_attn_tpu_torch/csrc/{source}",
             replaces=f"flash_attn_tpu/kernels/{replaces}",
@@ -3626,6 +3872,10 @@ def main(argv=None):
             library_ms=gpt2m_v.get("library_fwd_ms") if key == "fwd" else None,
             shape=f"gpt2m packed: 16384 tokens in {len(GPT2M_DOCS)} documents, "
                   "h=hk=16 d=64 causal bf16")
+        if key != "fwd" and gpt2m_v.get("library_fwd_bwd_ms") is not None:
+            # SDPA's backward alone: its forward+backward less its forward.
+            entry["library_bwd_ms"] = (gpt2m_v["library_fwd_bwd_ms"]
+                                       - gpt2m_v["library_fwd_ms"])
         if key == "fwd":
             entry["max_abs_err"] = max(err, *(r["out"]["max_abs_err"]
                                               for r in paged.values()))

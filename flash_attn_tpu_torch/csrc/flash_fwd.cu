@@ -1,27 +1,58 @@
 // Flash-attention forward over dense batches (b, h, s, d) or packed
 // variable-length sequences (total, h, d), the latter with K/V packed or
 // read from page pools through a page table: the C entry points of kernels
-// 1 and 6. The tile step, its function, bound and design are in
+// 1 and 6. The dense kernel, its function, bound and design are in
+// csrc/flash_fwd_sm90.cuh; the varlen tile step is in
 // csrc/flash_fwd_tile.cuh, shared with the sparse modes of
 // csrc/flash_sparse_fwd.cu.
 
+#include "flash_fwd_sm90.cuh"
 #include "flash_fwd_tile.cuh"
 
-// strides: 12 element strides, (batch, head, seq) of q, k, v and out.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported head
-// dim. Launches on `stream`; does not synchronise.
+// strides: 12 element strides, (batch, head, seq) of q, k, v and out; those
+// of q, k and v and the base pointers must be multiples of 16 bytes (TMA),
+// those of out multiples of 8 elements. Returns 0, a cudaError_t from the
+// launch, -1 for an unsupported head dim, or -2 if cuTensorMapEncodeTiled
+// refuses a tensor map. Launches on `stream`; does not synchronise.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, float* lse, const long long* strides,
                          int batch, int h, int hk, int sq, int sk, int d,
                          float scale, int window_left, int window_right,
                          float softcap, int is_fp16, void* stream) {
-  FwdParams p = make_params(q, k, v, out, lse, strides, h, hk, scale,
-                            window_left, window_right, softcap);
+  namespace f = fa::fwd90;
+  if (d != 64 && d != 128) return -1;
+  CUtensorMap tq, tk, tv;
+  if (f::make_map(&tq, q, is_fp16, d, sq, h, batch, strides[2], strides[1],
+                  strides[0], f::block_m(d)) ||
+      f::make_map(&tk, k, is_fp16, d, sk, hk, batch, strides[5], strides[4],
+                  strides[3], f::kBlockN) ||
+      f::make_map(&tv, v, is_fp16, d, sk, hk, batch, strides[8], strides[7],
+                  strides[6], f::kBlockN)) {
+    return -2;
+  }
+  f::Params p;
+  p.out = out;
+  p.lse = lse;
+  p.o_b = strides[9];
+  p.o_h = strides[10];
+  p.o_s = strides[11];
+  p.h = h;
+  p.group = h / hk;
   p.sq = sq;
   p.sk = sk;
-  p.lse_h = sq;
-  return dispatch<kDense>(p, (sq + kTileM - 1) / kTileM, batch, d, is_fp16,
-                          static_cast<cudaStream_t>(stream));
+  p.left = window_left;
+  p.right = window_right;
+  const bool cap = softcap > 0.f;
+  p.score_mul = cap ? scale / softcap : scale * fa::kLog2e;
+  p.cap_log2 = softcap * fa::kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    return d == 64 ? f::launch_softcap<__half, 64>(tq, tk, tv, p, cap, batch, s)
+                   : f::launch_softcap<__half, 128>(tq, tk, tv, p, cap, batch, s);
+  }
+  return d == 64
+             ? f::launch_softcap<__nv_bfloat16, 64>(tq, tk, tv, p, cap, batch, s)
+             : f::launch_softcap<__nv_bfloat16, 128>(tq, tk, tv, p, cap, batch, s);
 }
 
 // Varlen forward over nseq packed sequences. strides: 12 element strides,

@@ -1,12 +1,12 @@
-// Flash-attention forward tile step, shared by csrc/flash_fwd.cu (dense,
-// varlen and paged modes) and csrc/flash_sparse_fwd.cu (the vertical-slash
-// sparse modes): out = softmax(scale * Q K^T [masked]) V and the fp32
-// log-sum-exp of every query row.
+// Flash-attention forward tile step, shared by csrc/flash_fwd.cu (varlen
+// and paged modes) and csrc/flash_sparse_fwd.cu (the vertical-slash sparse
+// modes): out = softmax(scale * Q K^T [masked]) V and the fp32 log-sum-exp
+// of every query row. The dense forward has its own Hopper kernel
+// (csrc/flash_fwd_sm90.cuh).
 //
-// Replaces the TPU kernels flash_attn_tpu/kernels/flash_fwd.py:95
-// (_fwd_kernel, launched at :930 by flash_attention_fwd :540),
-// flash_attn_tpu/kernels/flash_varlen.py:542 (_varlen_fwd_kernel, launched
-// at :1485 by flash_attention_varlen_fwd :1160),
+// Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:542
+// (_varlen_fwd_kernel, launched at :1485 by flash_attention_varlen_fwd
+// :1160),
 // flash_attn_tpu/kernels/flash_sparse.py:130 (_sparse_fwd_kernel, launched
 // at :453 by flash_attention_sparse_fwd :273) and
 // flash_attn_tpu/kernels/flash_sparse_gather.py:127 (_gather_kernel,
@@ -20,15 +20,14 @@
 // KV tiles, int8 bitmap rows, DMA semaphores and the VMEM budget that routes
 // to the gather kernel) is not carried over.
 //
-// Function. Within one sequence (the batch row of a dense or sparse call;
+// Function. Within one sequence (the batch row of a sparse call;
 // sequence b of a varlen call, whose rows start at cu_q[b] and keys at
 // cu_k[b] or in the pages of table row b), query row i of head hq sees key
 // column j of kv head hq / (h / hk) iff i < rows, j < keys and, with
 // diag = i + used_k - used_q, j >= diag - left (left >= 0) and
 // j <= diag + right (right >= 0); in the sparse modes also iff j is in the
-// attended set of i's 64-row block (below). Dense: rows = used_q = sq, keys =
-// used_k = sk. Sparse: used_q = seqlens_q[b] (else sq), rows = min(used_q,
-// sq); used_k likewise. Varlen: used_q = seqused_q[b] (else the sequence's
+// attended set of i's 64-row block (below). Sparse: used_q = seqlens_q[b]
+// (else sq), rows = min(used_q, sq); used_k likewise. Varlen: used_q = seqused_q[b] (else the sequence's
 // length), rows = min(used_q, length); used_k likewise, keys = min(used_k,
 // length) packed or used_k paged. Scores are s * scale, or
 // tanh(s * scale / softcap) * softcap, then minus slope * |j - diag| with
@@ -96,19 +95,21 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileM = kWarps * 16;  // query rows per block
 constexpr int kTileN = 64;           // key columns per shared-memory tile
 
-enum Mode { kDense = 0, kVarlen = 1, kPaged = 2, kSparse = 3, kGather = 4 };
+// The dense forward (kernel 1) has a kernel of its own for Hopper,
+// csrc/flash_fwd_sm90.cuh.
+enum Mode { kVarlen = 1, kPaged = 2, kSparse = 3, kGather = 4 };
 
 struct FwdParams {
-  const void* q;  // dense (b, h, sq, d); varlen (total_q, h, d) or (h, total_q, d)
-  const void* k;  // dense (b, hk, sk, d); varlen packed as q; paged: a pool
+  const void* q;  // sparse (b, h, sq, d); varlen (total_q, h, d) or (h, total_q, d)
+  const void* k;  // sparse (b, hk, sk, d); varlen packed as q; paged: a pool
   const void* v;
   void* out;      // as q
-  float* lse;     // dense (b, h, sq); varlen (h, total_q); contiguous
+  float* lse;     // sparse (b, h, sq); varlen (h, total_q); contiguous
   // Element strides (batch, head, seq). Varlen: batch unused. Paged K/V:
   // (page, head, slot) of the pool.
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
-  long long lse_h;  // lse stride per head: dense sq, varlen total_q
-  int h, group, sq, sk;  // sq, sk: dense and sparse only
+  long long lse_h;  // lse stride per head: sparse sq, varlen total_q
+  int h, group, sq, sk;  // sq, sk: sparse only
   int left, right;  // normalised window; negative = unbounded
   // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
   // with a softcap (score_mul = scale / softcap, cap_log2 = softcap*log2 e).
@@ -149,18 +150,7 @@ struct Seq {
 template <int kMode>
 __device__ __forceinline__ Seq seq_of(const FwdParams& p, int b) {
   Seq s;
-  if constexpr (kMode == kDense) {
-    // As the backward's dense rows (csrc/flash_bwd_tile.cuh): no reads of
-    // the optional lengths.
-    s.q = b * p.q_b;
-    s.k = b * p.k_b;
-    s.v = b * p.v_b;
-    s.o = b * p.o_b;
-    s.lse = static_cast<long long>(b) * p.h * p.sq;
-    s.rows = p.sq;
-    s.keys = p.sk;
-    s.off = p.sk - p.sq;
-  } else if constexpr (kMode == kSparse || kMode == kGather) {
+  if constexpr (kMode == kSparse || kMode == kGather) {
     s.q = b * p.q_b;
     s.k = b * p.k_b;
     s.v = b * p.v_b;
@@ -522,23 +512,15 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   }
 }
 
-// The second bound is the blocks per SM asked of ptxas (0: its own choice).
-// Since the sparse modes share this step, ptxas gives the d = 64 dense
-// forward without softcap 151 registers instead of 128, 3 blocks per SM
-// instead of 4, and it ran 3-6% slower than before; rewriting its setup did
-// not move the count. Asking for 4 blocks caps it at 128 (12 bytes of
-// spill) and restores its time (tools/ab_kernels.py against the parent,
-// PERF.md).
+// The second bound, the blocks per SM asked of ptxas, is 0: its own choice.
 template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
-__global__ void __launch_bounds__(
-    kThreads, D == 64 && !kSoftcap && kMode == kDense ? 4 : 0)
+__global__ void __launch_bounds__(kThreads, 0)
     flash_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const Seq s = seq_of<kMode>(p, b);
   const int n_m = (s.rows + kTileM - 1) / kTileM;
-  // Dense: one pass, m_block = gridDim.x - 1 - blockIdx.x.
   for (int mb = blockIdx.x; mb < n_m; mb += gridDim.x) {
     fwd_tile<T, D, kSoftcap, kMode, kAlibi>(p, s, n_m - 1 - mb, head, b,
                                             smem_raw);

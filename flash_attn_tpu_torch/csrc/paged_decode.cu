@@ -42,10 +42,29 @@
 // score and one for the mask) it compiled to 171 registers instead of 205
 // at d = 128 and ran 1.25-1.4x slower (PERF.md).
 //
-// Known gap: a decode step (sq = 1) gives only b * hk blocks (64 at b = 8,
-// hk = 8) for 132 SMs, and only one warp of each has rows to compute, so
-// decode runs well under the bandwidth bound. Splitting the KV range over
-// more blocks (split-KV with a combine pass) is the fix, for a later change.
+// That kernel keeps warps on rows, which suits prefill chunks (sq = 256:
+// 1024 packed rows). A decode step has sq * group <= 16 packed rows (4 at
+// sq = 1 with a group of 4): one warp's worth, and b * hk blocks (64 at
+// b = 8, hk = 8) for 132 SMs. Such calls go to the split-KV kernel below:
+//  * one block per (split, kv head, batch row). The host picks num_splits
+//    from what it knows without reading the device (batch, kv heads, the
+//    longest context the table can hold, the window, the SM count;
+//    kernels/flash_decode_multipage.py `num_splits_for`): enough blocks for
+//    two per SM, at least 256 tokens a split. Each block derives its chunk
+//    from the device-side seqlen: the visible range (from the window's first
+//    visible column, not from 0) in 64-token tiles, split s taking tiles
+//    [s n / S, (s + 1) n / S) of the n, so the chunks cover the range once;
+//  * every warp at work: the block's 16 rows sit in every warp's Q
+//    fragments, and each warp takes its own 16 keys of every 64-token tile
+//    (S, online softmax and P V on mma.sync), so all four share the tile's
+//    bytes; their (m, l, O) merge through shared memory at the end;
+//  * a ring of three tile stages, two tiles in flight while one computes
+//    (~64 KB per block in flight, two blocks per SM);
+//  * with num_splits == 1 the block writes out and lse itself; otherwise it
+//    writes its fp32 partial O (normalised by its own sum) and its LSE (-inf
+//    for a chunk with no visible column), and a second kernel merges the
+//    partials in split order, with no atomics, as the JAX package's
+//    combine_partials (flash_attn_tpu/kernels/flash_decode.py:648) does.
 
 #include "decode_tile.cuh"
 
@@ -237,6 +256,311 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kSplitRows = 16;  // packed rows of a split-KV block
+constexpr int kSplitStages = 3;
+
+__device__ __forceinline__ void cp_async_wait_0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Partial results of the split-KV kernel: o_part (num_splits, b, sq, h, d)
+// and lse_part (num_splits, b, h, sq), fp32; unused with one split.
+struct Splits {
+  float* o_part;
+  float* lse_part;
+  int num;
+};
+
+// Tiles [first, last) of the n_tiles visible ones that split s of n takes.
+__device__ __forceinline__ int split_start(int s, int n, int n_tiles) {
+  return static_cast<int>(static_cast<long long>(s) * n_tiles / n);
+}
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads)
+    paged_split_kernel(const Params p, const Splits sp) {
+  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
+  constexpr int kKSteps = D / 16;
+  constexpr int kOTiles = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);           // [3][kTileN][kStride]
+  T* sV = sK + kSplitStages * kTileN * kStride;     // [3][kTileN][kStride]
+
+  const int split = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int rows_total = p.sq * p.group;  // <= kSplitRows
+  const int seqlen = p.seqlens[b];
+
+  // The visible range of all rows, in tiles, and this split's share.
+  const int pos_first = seqlen - p.sq;
+  const int kv_lo = p.window_left >= 0 ? max(pos_first - p.window_left, 0) : 0;
+  const int kv_hi = seqlen;
+  const int tile_lo = kv_lo / kTileN;
+  const int n_all =
+      kv_hi > kv_lo ? (kv_hi - tile_lo * kTileN + kTileN - 1) / kTileN : 0;
+  const int first = tile_lo + split_start(split, sp.num, n_all);
+  const int n_tiles = tile_lo + split_start(split + 1, sp.num, n_all) - first;
+
+  // This thread's two rows, gid and gid + 8, in every warp.
+  int pos[2];
+  long long orow[2];
+  int lse_idx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = gid + 8 * i;
+    if (r < rows_total) {
+      const int t = r / p.group;
+      const int head = g * p.group + r % p.group;
+      pos[i] = seqlen - p.sq + t;
+      orow[i] = ((static_cast<long long>(b) * p.sq + t) * p.h + head) * D;
+      lse_idx[i] = (b * p.h + head) * p.sq + t;
+    } else {
+      pos[i] = -1;  // sees no column; never stored
+      orow[i] = -1;
+      lse_idx[i] = -1;
+    }
+  }
+  uint32_t qf[kKSteps][4];
+  load_q<T, D>(p.q, orow, qf, tig);
+  float o[kOTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kOTiles; ++nt) {
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  }
+  float m[2] = {kMask, kMask};
+  float l[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  const T* kbase = static_cast<const T*>(p.k) + g * p.pool.k_head;
+  const T* vbase = static_cast<const T*>(p.v) + g * p.pool.v_head;
+  auto page_of = [&](int pidx) {
+    return __ldg(p.pool.table + static_cast<long long>(b) * p.pool.max_pages +
+                 pidx);
+  };
+  auto load = [&](int it) {
+    if (it < n_tiles) {
+      load_kv_tile<T, D>(p.pool, kbase, vbase, sK, sV, page_of, seqlen,
+                         first + it, it % kSplitStages, tid);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  load(1);
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_1();  // tile it has landed (it + 1 may be in flight)
+    __syncthreads();    // ... for every thread; stage (it + 2) % 3 is free
+    load(it + 2);
+    const T* ks_ptr = sK + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
+    const T* vs_ptr = sV + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
+    const int col0 = (first + it) * kTileN + warp * 16;
+
+    // S: this warp's 16 keys of the tile.
+    float s[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const T* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        Mma<T>::run(s[nt], qf[ks], ld_u32(krow + ks * 16),
+                    ld_u32(krow + ks * 16 + 8));
+      }
+    }
+    // Scale (base 2), softcap, mask; visibility kept as bits.
+    uint32_t vis = 0;
+    float tmax[2] = {kMask, kMask};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int col = col0 + nt * 8 + tig * 2 + (e & 1);
+        float x = s[nt][e];
+        x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
+        const bool ok = col < seqlen && col <= pos[i] &&
+                        (p.window_left < 0 || col >= pos[i] - p.window_left);
+        if (ok) {
+          vis |= 1u << (nt * 4 + e);
+          tmax[i] = fmaxf(tmax[i], x);
+        }
+        s[nt][e] = x;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(tmax[i]));
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float pe =
+            (vis >> (nt * 4 + e)) & 1u ? exp2f(s[nt][e] - m[i]) : 0.f;
+        l[i] += pe;
+        s[nt][e] = pe;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kOTiles; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+    // O += P V over the warp's 16 keys.
+    uint32_t a[4];
+    a[0] = Mma<T>::pack(s[0][0], s[0][1]);
+    a[1] = Mma<T>::pack(s[0][2], s[0][3]);
+    a[2] = Mma<T>::pack(s[1][0], s[1][1]);
+    a[3] = Mma<T>::pack(s[1][2], s[1][3]);
+    const T* vrow = vs_ptr + tig * 2 * kStride + gid;
+#pragma unroll
+    for (int nt = 0; nt < kOTiles; ++nt) {
+      const T* vc = vrow + nt * 8;
+      Mma<T>::run(o[nt], a, pack_u16(vc, vc + kStride),
+                  pack_u16(vc + 8 * kStride, vc + 9 * kStride));
+    }
+  }
+
+  // Merge the four warps' (m, l, O) through shared memory, once every
+  // copy has landed and every warp is done with the tiles.
+  cp_async_wait_0();
+  __syncthreads();
+  float* sO = reinterpret_cast<float*>(smem_raw);  // [4][16][D]
+  float* sM = sO + kWarps * kSplitRows * D;        // [4][16]
+  float* sL = sM + kWarps * kSplitRows;            // [4][16]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = gid + 8 * i;
+    const float lsum = quad_sum(l[i]);
+    if (tig == 0) {
+      sM[warp * kSplitRows + r] = m[i];
+      sL[warp * kSplitRows + r] = lsum;
+    }
+    float* dst = sO + (warp * kSplitRows + r) * D + tig * 2;
+#pragma unroll
+    for (int nt = 0; nt < kOTiles; ++nt) {
+      *reinterpret_cast<float2*>(dst + nt * 8) =
+          make_float2(o[nt][2 * i], o[nt][2 * i + 1]);
+    }
+  }
+  __syncthreads();
+  // Thread tid: row tid / 8, columns (tid % 8) * D / 8 ...
+  constexpr int kCols = D / 8;
+  const int r = tid >> 3;
+  const int c0 = (tid & 7) * kCols;
+  if (r >= rows_total) return;
+  float mw[kWarps];
+  float mx = kMask;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    mw[w] = sM[w * kSplitRows + r];
+    mx = fmaxf(mx, mw[w]);
+  }
+  float lsum = 0.f;
+  float acc[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float f = exp2f(mw[w] - mx);
+    lsum += sL[w * kSplitRows + r] * f;
+    const float* src = sO + (w * kSplitRows + r) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] += src[c] * f;
+  }
+  const int t = r / p.group;
+  const int head = g * p.group + r % p.group;
+  const long long orow_r =
+      ((static_cast<long long>(b) * p.sq + t) * p.h + head) * D + c0;
+  const int lrow = (b * p.h + head) * p.sq + t;
+  const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+  const float lse = lsum > 0.f ? (mx + log2f(lsum)) * kLn2 : -INFINITY;
+  if (sp.num == 1) {
+    T* out = static_cast<T*>(p.out) + orow_r;
+#pragma unroll
+    for (int c = 0; c < kCols; c += 2) {
+      *reinterpret_cast<uint32_t*>(out + c) =
+          Mma<T>::pack(acc[c] * inv, acc[c + 1] * inv);
+    }
+    if ((tid & 7) == 0) p.lse[lrow] = lse;
+  } else {
+    const long long rows_all = static_cast<long long>(gridDim.z) * p.sq * p.h;
+    float* out = sp.o_part + split * rows_all * D + orow_r;
+#pragma unroll
+    for (int c = 0; c < kCols; c += 4) {
+      *reinterpret_cast<float4*>(out + c) = make_float4(
+          acc[c] * inv, acc[c + 1] * inv, acc[c + 2] * inv, acc[c + 3] * inv);
+    }
+    if ((tid & 7) == 0) sp.lse_part[split * rows_all + lrow] = lse;
+  }
+}
+
+// Merges the partials of num_splits splits, in split order: one warp per
+// (batch row, query token, head) row, out (b, sq, h, D) in T and lse
+// (b, h, sq). A row whose every partial is empty (lse -inf) gives out 0 and
+// lse -inf.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    paged_combine_kernel(const float* o_part, const float* lse_part, T* out,
+                         float* lse, int num, int rows, int sq, int h) {
+  constexpr int kPer = D / 32;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int head = row % h;
+  const int bt = row / h;  // b * sq + t
+  const int lrow = ((bt / sq) * h + head) * sq + bt % sq;
+  float mx = -INFINITY;
+  for (int s = 0; s < num; ++s) mx = fmaxf(mx, lse_part[s * rows + lrow]);
+  float acc[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) acc[c] = 0.f;
+  float den = 0.f;
+  if (mx > -INFINITY) {
+    for (int s = 0; s < num; ++s) {
+      const float ls = lse_part[s * rows + lrow];
+      const float w = ls > -INFINITY ? expf(ls - mx) : 0.f;
+      den += w;
+      const float* src =
+          o_part + (static_cast<long long>(s) * rows + row) * D + lane * kPer;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) acc[c] += w * src[c];
+    }
+  }
+  const float inv = den > 0.f ? 1.f / den : 0.f;
+  T* dst = out + static_cast<long long>(row) * D + lane * kPer;
+#pragma unroll
+  for (int c = 0; c < kPer; c += 2) {
+    *reinterpret_cast<uint32_t*>(dst + c) =
+        Mma<T>::pack(acc[c] * inv, acc[c + 1] * inv);
+  }
+  if (lane == 0) lse[lrow] = den > 0.f ? mx + logf(den) : -INFINITY;
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch_split(const Params& p, const Splits& sp, int batch,
+                 cudaStream_t stream) {
+  const size_t smem = kSplitStages * 2 * kTileN * (D + 8) * sizeof(T);
+  const cudaError_t err = cudaFuncSetAttribute(
+      paged_split_kernel<T, D, kSoftcap>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(sp.num, p.hk, batch);
+  paged_split_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(p, sp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(sizeof(T));
@@ -253,16 +577,21 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace
 
 // pool_strides: 6 element strides, (page, head, slot) of the K pool, then
-// of the V pool; (page - 1) * slot stride + 8 * d must fit in an int.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported head
-// dim / dtype. Launches on `stream`; does not synchronise.
+// of the V pool; (page - 1) * slot stride + 8 * d must fit in an int. Calls
+// with sq * (h / hk) <= 16 packed rows run the split-KV kernel over
+// num_splits splits: with one it writes out and lse, with more o_part
+// (num_splits, b, sq, h, d) and lse_part (num_splits, b, h, sq), fp32, for
+// paged_decode_combine. Other calls take num_splits == 1. Returns 0, a
+// cudaError_t from the launch, -1 for an unsupported head dim, or -3 for
+// splits the call cannot take. Launches on `stream`; does not synchronise.
 extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
                                 void* out, float* lse, const int* seqlens,
                                 const int* table, int batch, int sq, int h,
                                 int hk, int d, int page, int max_pages,
                                 int npages, const long long* pool_strides,
                                 float scale, int window_left, float softcap,
-                                int is_fp16, void* stream) {
+                                int is_fp16, float* o_part, float* lse_part,
+                                int num_splits, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -280,12 +609,65 @@ extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
   p.cap_log2 = softcap * kLog2e;
   p.window_left = window_left;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Splits sp = {o_part, lse_part, num_splits};
+  if (d != 64 && d != 128) return -1;
+  if (sq * p.group <= kSplitRows) {
+    if (num_splits < 1 || (num_splits > 1 && (!o_part || !lse_part))) return -3;
+    const bool cap = p.has_softcap;
+    if (is_fp16) {
+      if (d == 64) {
+        return cap ? launch_split<__half, 64, true>(p, sp, batch, s)
+                   : launch_split<__half, 64, false>(p, sp, batch, s);
+      }
+      return cap ? launch_split<__half, 128, true>(p, sp, batch, s)
+                 : launch_split<__half, 128, false>(p, sp, batch, s);
+    }
+    if (d == 64) {
+      return cap ? launch_split<__nv_bfloat16, 64, true>(p, sp, batch, s)
+                 : launch_split<__nv_bfloat16, 64, false>(p, sp, batch, s);
+    }
+    return cap ? launch_split<__nv_bfloat16, 128, true>(p, sp, batch, s)
+               : launch_split<__nv_bfloat16, 128, false>(p, sp, batch, s);
+  }
+  if (num_splits != 1) return -3;
   if (is_fp16) {
     if (d == 64) return launch<__half, 64>(p, batch, s);
-    if (d == 128) return launch<__half, 128>(p, batch, s);
-  } else {
-    if (d == 64) return launch<__nv_bfloat16, 64>(p, batch, s);
-    if (d == 128) return launch<__nv_bfloat16, 128>(p, batch, s);
+    return launch<__half, 128>(p, batch, s);
   }
-  return -1;
+  if (d == 64) return launch<__nv_bfloat16, 64>(p, batch, s);
+  return launch<__nv_bfloat16, 128>(p, batch, s);
+}
+
+// Merges paged_decode_fwd's partials: o_part (num_splits, b, sq, h, d) and
+// lse_part (num_splits, b, h, sq), fp32, into out (b, sq, h, d) in q's type
+// and lse (b, h, sq). Returns 0, a cudaError_t, or -1 for an unsupported
+// head dim.
+extern "C" int paged_decode_combine(const float* o_part, const float* lse_part,
+                                    void* out, float* lse, int num_splits,
+                                    int batch, int sq, int h, int d,
+                                    int is_fp16, void* stream) {
+  const int rows = batch * sq * h;
+  const dim3 grid((rows + kWarps - 1) / kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d != 64 && d != 128) return -1;
+  if (is_fp16) {
+    if (d == 64) {
+      paged_combine_kernel<__half, 64><<<grid, kThreads, 0, s>>>(
+          o_part, lse_part, static_cast<__half*>(out), lse, num_splits, rows,
+          sq, h);
+    } else {
+      paged_combine_kernel<__half, 128><<<grid, kThreads, 0, s>>>(
+          o_part, lse_part, static_cast<__half*>(out), lse, num_splits, rows,
+          sq, h);
+    }
+  } else if (d == 64) {
+    paged_combine_kernel<__nv_bfloat16, 64><<<grid, kThreads, 0, s>>>(
+        o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, num_splits,
+        rows, sq, h);
+  } else {
+    paged_combine_kernel<__nv_bfloat16, 128><<<grid, kThreads, 0, s>>>(
+        o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, num_splits,
+        rows, sq, h);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

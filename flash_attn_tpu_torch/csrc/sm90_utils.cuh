@@ -1,0 +1,332 @@
+// Hopper (sm_90a) building blocks of the dense forward (csrc/flash_fwd_sm90.cuh):
+// mbarriers, TMA tile loads through tensor maps, wgmma with its shared-memory
+// descriptors and register-file fences, and setmaxnreg.
+//
+// Shared-memory layout of every tile: the 128-byte swizzle that TMA writes
+// with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1. A tile
+// of R rows by D 16-bit columns is stored as D / 64 column blocks of
+// R rows x 128 bytes; within a block the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8). Each block starts on a 1024-byte boundary (the swizzle
+// repeats every 8 rows), so a descriptor's base offset is 0.
+//
+// Descriptors (PTX ISA, "Matrix Descriptor Format"): bits 0-13 start address
+// >> 4, 16-29 leading byte offset >> 4, 32-45 stride byte offset >> 4, 62-63
+// the swizzle (1 = 128 bytes).
+//  * K-major operand (Q as A, K as B of S = Q K^T; the reduction dim d is
+//    contiguous): 8-row groups 1024 bytes apart (stride offset); the leading
+//    offset is unused. A k16 step inside a column block advances the start
+//    by 32 bytes; the next column block is R * 128 bytes on.
+//  * N-major operand (V as B of O = P V; the reduction runs over the rows):
+//    8-row groups 1024 bytes apart (stride offset), column blocks R * 128
+//    bytes apart (leading offset). A k16 step advances the start by 16 rows,
+//    2048 bytes.
+//
+// Accumulator layout of wgmma.m64nNk16 (thread t of the warpgroup, warp
+// w = t / 32, gid = (t % 32) / 4, tig = t % 4): d[4j + e] holds row
+// 16w + gid + 8(e / 2), column 8j + 2tig + e % 2. Per warp that is the
+// mma.sync m16n8 C layout of csrc/mma_utils.cuh, once for each 8 columns, so
+// S's accumulators packed to 16 bits are the A registers of O += P V.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fa {
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrives once and adds `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A barrier fresh
+// from init is in phase 0, so a wait on parity 1 returns at once. A wait
+// that lasts ~10 s (a phase that can never complete) traps, so a fault in
+// the barrier protocol ends the kernel with an error instead of a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000ll) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion counts its bytes on `bar`. Boxes past the tensor's
+// extent are filled with zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') over `threads` threads: waits
+// until that many have arrived, counting the caller.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives on barrier `id` of `threads` threads without waiting.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// 2^x in one MUFU instruction (2 ulp; 2^-inf = 0), for the softmax.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma operand held in
+// registers (an accumulator, or A) across the asynchronous wgmma that owns
+// it, or across the fence before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+template <typename T>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16> {
+  // D (64 x 128, fp32) = A (64 x 16, smem) * B (128 x 16, smem, K-major)^T
+  // (+ D when scale_d).
+  static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 64, fp32) = A (64 x 16, registers) * B (16 x 64, smem,
+  // N-major: the transpose flag set) (+ D when scale_d).
+  static __device__ __forceinline__ void rs_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 128, fp32) = A (64 x 16, registers) * B (16 x 128, smem,
+  // N-major: the transpose flag set) (+ D when scale_d).
+  static __device__ __forceinline__ void rs_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<__half> {
+  // D (64 x 128, fp32) = A (64 x 16, smem) * B (128 x 16, smem, K-major)^T
+  // (+ D when scale_d).
+  static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 64, fp32) = A (64 x 16, registers) * B (16 x 64, smem,
+  // N-major: the transpose flag set) (+ D when scale_d).
+  static __device__ __forceinline__ void rs_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+  // D (64 x 128, fp32) = A (64 x 16, registers) * B (16 x 128, smem,
+  // N-major: the transpose flag set) (+ D when scale_d).
+  static __device__ __forceinline__ void rs_n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+}  // namespace sm90
+}  // namespace fa

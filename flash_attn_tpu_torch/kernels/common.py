@@ -141,7 +141,7 @@ def raise_unported(table, extras) -> None:
         )
 
 
-def _rows_readable(t: torch.Tensor) -> bool:
+def rows_readable(t: torch.Tensor) -> bool:
     return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
 
@@ -150,7 +150,7 @@ def check_rows_dense(name: str, t: torch.Tensor) -> None:
     """Raise unless `t` can be read by the kernels' 16-byte row copies:
     last dim dense, every other stride a multiple of 8 elements, and the
     base 16-byte aligned."""
-    if not _rows_readable(t):
+    if not rows_readable(t):
         raise ValueError(
             f"{name} must have a dense last dim, strides that are multiples "
             f"of 8 and a 16-byte aligned base; got strides {t.stride()}"
@@ -160,4 +160,4 @@ def check_rows_dense(name: str, t: torch.Tensor) -> None:
 def rows_dense(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when `check_rows_dense` accepts it, else a contiguous
     copy."""
-    return t if _rows_readable(t) else t.contiguous()
+    return t if rows_readable(t) else t.contiguous()

@@ -14,6 +14,14 @@ to 128, as `runtime.kv_cache.allocate_fused_paged_kv_cache` lays it out).
 The kernel reads pools through their strides, so a view such as vLLM's
 (num_blocks, page, hk, d) pool transposed to (num_blocks, hk, page, d) goes
 in without a copy.
+
+Decode steps (sq * group <= 16 packed rows) run split-KV: `num_splits_for`
+picks the number of splits on the host, from shapes alone (no read of
+cache_seqlens, so a vLLM layer call stays free of host syncs); the kernel
+cuts each row's visible range as `split_ranges` does, writes fp32 partials,
+and a second kernel merges them as `combine_partials` does.
+`flash_attention_decode_multipage_split_ref` is the plain version of that
+schedule, split by split.
 """
 
 from __future__ import annotations
@@ -66,10 +74,14 @@ def flash_attention_decode_multipage_ref(
     softmax_scale: Optional[float] = None,
     window_left: int = -1,
     softcap: float = 0.0,
+    col_range: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, step by step in fp32: gather the
     pages through the block table, scores, mask, softmax. Returns
-    (out (b, sq, h, dv) in q's dtype, lse (b, h, sq) fp32)."""
+    (out (b, sq, h, dv) in `out_dtype` (default q's), lse (b, h, sq) fp32).
+    `col_range`, two (b,) tensors (lo, hi), keeps only columns lo <= c < hi
+    of each batch row visible (one split's chunk)."""
     b, sq, h, d = q.shape
     npages, hk, page, _ = k_pages.shape
     group = h // hk
@@ -102,6 +114,9 @@ def flash_attention_decode_multipage_ref(
     visible = (cols < seqlen) & (cols <= pos)
     if window_left >= 0:
         visible &= cols >= pos - window_left
+    if col_range is not None:
+        lo, hi = (x.long().reshape(b, 1, 1) for x in col_range)
+        visible &= (cols >= lo) & (cols < hi)
     visible = visible[:, None, :, None, :]  # (b, 1, sq, 1, ncols)
     s = s.masked_fill(~visible, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
@@ -118,7 +133,78 @@ def flash_attention_decode_multipage_ref(
         torch.full_like(l, float("-inf")),
     )  # (b, hk, sq, group, 1)
     lse = lse[..., 0].permute(0, 1, 3, 2).reshape(b, h, sq)
-    return out.to(q.dtype), lse
+    return out.to(out_dtype or q.dtype), lse
+
+
+# The split-KV schedule of csrc/paged_decode.cu: calls with at most
+# SPLIT_ROWS packed rows (sq * group) run split-KV, over visible ranges cut
+# into SPLIT_TILE-token tiles; the host asks for BLOCKS_PER_SM blocks per
+# SM and at least MIN_SPLIT_TOKENS tokens a split.
+SPLIT_ROWS = 16
+SPLIT_TILE = 64
+BLOCKS_PER_SM = 2
+MIN_SPLIT_TOKENS = 256
+
+
+def num_splits_for(batch: int, hk: int, sq: int, group: int, max_ctx: int,
+                   window_left: int, sm_count: int) -> int:
+    """How many splits a call takes, from what the host knows without
+    reading the device: the batch, kv heads and packed rows, the longest
+    context the block table can hold (`max_ctx`), the window and the SM
+    count. Prefill chunks (more than SPLIT_ROWS packed rows) take one."""
+    if sq * group > SPLIT_ROWS:
+        return 1
+    tokens = max_ctx if window_left < 0 else min(max_ctx, window_left + sq)
+    want = BLOCKS_PER_SM * sm_count // max(batch * hk, 1)
+    return max(1, min(want, tokens // MIN_SPLIT_TOKENS))
+
+
+def split_ranges(seqlen: int, sq: int, window_left: int,
+                 num_splits: int) -> list:
+    """The column chunk [lo, hi) of each split for one batch row, as the
+    kernel cuts it: the visible range of the row's sq query tokens (from the
+    window's first visible column, not from 0) in SPLIT_TILE-token tiles,
+    split s taking tiles [s n / S, (s + 1) n / S) of the n. An empty chunk
+    has lo == hi."""
+    lo = max(seqlen - sq - window_left, 0) if window_left >= 0 else 0
+    hi = seqlen
+    tile_lo = lo // SPLIT_TILE
+    n = -(-(hi - tile_lo * SPLIT_TILE) // SPLIT_TILE) if hi > lo else 0
+    ranges = []
+    for s in range(num_splits):
+        a = (tile_lo + s * n // num_splits) * SPLIT_TILE
+        z = (tile_lo + (s + 1) * n // num_splits) * SPLIT_TILE
+        start = max(lo, a)
+        ranges.append((start, max(start, min(hi, z))))
+    return ranges
+
+
+def flash_attention_decode_multipage_split_ref(
+    q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int, *,
+    ranges: Optional[list] = None, **kw,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the split-KV schedule: each split's chunk
+    (`split_ranges` per batch row, or `ranges[b][s]` given) through
+    `flash_attention_decode_multipage_ref` in fp32, then
+    `combine_partials`. Returns (out in q's dtype, lse). Reads
+    cache_seqlens on the host."""
+    from flash_attn_tpu_torch.kernels.flash_decode import combine_partials
+
+    b, sq = q.shape[:2]
+    if ranges is None:
+        ranges = [split_ranges(int(n), sq, kw.get("window_left", -1),
+                               num_splits) for n in cache_seqlens.tolist()]
+    o_parts, lse_parts = [], []
+    for s in range(num_splits):
+        lo, hi = (torch.tensor([r[s][i] for r in ranges], device=q.device)
+                  for i in (0, 1))
+        o, lse = flash_attention_decode_multipage_ref(
+            q, k_pages, v_pages, cache_seqlens, block_table,
+            col_range=(lo, hi), out_dtype=torch.float32, **kw)
+        o_parts.append(o)
+        lse_parts.append(lse.permute(0, 2, 1))  # (b, sq, h), as o's rows
+    o, lse = combine_partials(torch.stack(o_parts), torch.stack(lse_parts))
+    return o.to(q.dtype), lse.permute(0, 2, 1)
 
 
 def flash_attention_decode_multipage(
@@ -140,7 +226,8 @@ def flash_attention_decode_multipage(
     """Paged decode. Returns (out (b, sq, h, dv), lse (b, h, sq) fp32).
 
     CUDA tensors launch `csrc/paged_decode.cu` (and count the launch in
-    `flash_attention_decode_multipage.launches`); CPU tensors take
+    `flash_attention_decode_multipage.launches`; a split-KV call's combine
+    in `.combine_launches`); CPU tensors take
     `flash_attention_decode_multipage_ref`."""
     _check_unported(qv, k_scale, v_scale, k_pages)
     kw = dict(fused_kv_dim=fused_kv_dim, fused_kv_dim_v=fused_kv_dim_v,
@@ -154,23 +241,37 @@ def flash_attention_decode_multipage(
 
 
 flash_attention_decode_multipage.launches = 0
+flash_attention_decode_multipage.combine_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernels():
     from flash_attn_tpu_torch.kernels._build import load_library
 
-    fn = load_library("paged_decode").paged_decode_fwd
+    lib = load_library("paged_decode")
+    fn = lib.paged_decode_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_int, ctypes.c_void_p])
-    return fn
+    combine = lib.paged_decode_combine
+    combine.restype = ctypes.c_int
+    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    return fn, combine
 
 
-def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
-            fused_kv_dim, fused_kv_dim_v, softmax_scale, window_left, softcap):
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, queried once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check(q, k_pages, v_pages, cache_seqlens, block_table, fused_kv_dim,
+           fused_kv_dim_v):
+    """The kernel's input checks; returns (K view, V view)."""
     b, sq, h, d = q.shape
     npages, hk, page, width = k_pages.shape
     if q.device.type != "cuda":
@@ -213,28 +314,86 @@ def _launch(q, k_pages, v_pages, cache_seqlens, block_table, *,
         raise ValueError("cache_seqlens and block_table must be int32")
     if cache_seqlens.shape != (b,) or block_table.shape[0] != b:
         raise ValueError("cache_seqlens is (b,) and block_table (b, max_pages)")
-    if softmax_scale is None:
-        softmax_scale = d**-0.5
-
-    fn = _kernel()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     pool_strides = [t.stride(i) for t in (k_view, v_view) for i in range(3)]
     if (page - 1) * max(pool_strides[2], pool_strides[5]) + 8 * d >= 2**31:
         raise ValueError("the kernel's in-page offsets are 32-bit: the pools' "
                          f"slot strides {pool_strides[2::3]} are too large "
                          f"for page {page}")
-    rc = fn(
-        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), cache_seqlens.data_ptr(),
-        block_table.data_ptr(),
+    return k_view, v_view
+
+
+def _run(q, k_pages, v_pages, cache_seqlens, block_table, num_splits, *,
+         fused_kv_dim=0, fused_kv_dim_v=0, softmax_scale=None,
+         window_left=-1, softcap=0.0):
+    """Launches kernel 4 once. One split: returns (out, lse). More: returns
+    the fp32 partials (o_part (n, b, sq, h, d), lse_part (n, b, h, sq))."""
+    b, sq, h, d = q.shape
+    npages, hk, page, _ = k_pages.shape
+    k_view, v_view = _check(q, k_pages, v_pages, cache_seqlens, block_table,
+                            fused_kv_dim, fused_kv_dim_v)
+    if softmax_scale is None:
+        softmax_scale = d**-0.5
+    if num_splits > 1:
+        first = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32,
+                            device=q.device)
+        second = torch.empty((num_splits, b, h, sq), dtype=torch.float32,
+                             device=q.device)
+        outs = (0, 0, first.data_ptr(), second.data_ptr())
+    else:
+        first = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        second = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        outs = (first.data_ptr(), second.data_ptr(), None, None)
+    pool_strides = [t.stride(i) for t in (k_view, v_view) for i in range(3)]
+    rc = _kernels()[0](
+        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(), outs[0], outs[1],
+        cache_seqlens.data_ptr(), block_table.data_ptr(),
         b, sq, h, hk, d, page, block_table.shape[1], npages,
         (ctypes.c_longlong * 6)(*pool_strides), float(softmax_scale),
-        int(window_left), float(softcap),
-        int(q.dtype == torch.float16),
+        int(window_left), float(softcap), int(q.dtype == torch.float16),
+        outs[2], outs[3], int(num_splits),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     flash_attention_decode_multipage.launches += 1
+    return first, second
+
+
+def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
+                   dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's combine on the card: merges o_part (n, b, sq, h, d) and
+    lse_part (n, b, h, sq), fp32, in split order into (out (b, sq, h, d) in
+    `dtype`, lse (b, h, sq)), as `combine_partials` does; counted in
+    `flash_attention_decode_multipage.combine_launches`."""
+    n, b, sq, h, d = o_part.shape
+    if lse_part.shape != (n, b, h, sq):
+        raise ValueError(f"lse_part {tuple(lse_part.shape)} does not match "
+                         f"o_part {tuple(o_part.shape)}")
+    o_part, lse_part = o_part.contiguous(), lse_part.contiguous()
+    out = torch.empty((b, sq, h, d), dtype=dtype, device=o_part.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=o_part.device)
+    rc = _kernels()[1](
+        o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        n, b, sq, h, d, int(dtype == torch.float16),
+        torch.cuda.current_stream(o_part.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode combine failed: CUDA error {rc}")
+    flash_attention_decode_multipage.combine_launches += 1
     return out, lse
+
+
+def splits_of(q, k_pages, block_table, window_left) -> int:
+    """`num_splits_for` at this call's shapes and card."""
+    b, sq, h, _ = q.shape
+    hk, page = k_pages.shape[1], k_pages.shape[2]
+    return num_splits_for(b, hk, sq, h // hk, block_table.shape[1] * page,
+                          window_left, sm_count(q.device.index or 0))
+
+
+def _launch(q, k_pages, v_pages, cache_seqlens, block_table, **kw):
+    n = splits_of(q, k_pages, block_table, kw["window_left"])
+    first, second = _run(q, k_pages, v_pages, cache_seqlens, block_table, n,
+                         **kw)
+    if n == 1:
+        return first, second
+    return combine_splits(first, second, q.dtype)

@@ -23,6 +23,7 @@ from flash_attn_tpu_torch.kernels.common import (
     check_rows_dense,
     normalize_window,
     raise_unported,
+    rows_readable,
     visible_mask,
 )
 
@@ -152,8 +153,9 @@ def flash_attention_fwd(
     dtype, lse (b, h, sq) fp32 natural-log sum-exp of the scaled scores).
 
     CUDA tensors launch `csrc/flash_fwd.cu` (and count the launch in
-    `flash_attention_fwd.launches`); CPU tensors take
-    `flash_attention_fwd_ref`."""
+    `flash_attention_fwd.launches`; a q, k or v that TMA cannot address is
+    copied first, counted in `flash_attention_fwd.tma_copies`); CPU tensors
+    take `flash_attention_fwd_ref`."""
     check_unported(
         qv=qv, bias=bias, alibi_slopes=alibi_slopes, sink=sink,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
@@ -173,6 +175,7 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tma_copies = 0
 
 
 def check_kernel_inputs(d: int, h: int, hk: int, **tensors) -> None:
@@ -223,13 +226,34 @@ def strides_arg(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+def tma_addressable(t: torch.Tensor) -> bool:
+    """Whether the kernel's TMA tensor maps take `t` (b, h, s, d) as it is:
+    a dense last dim, a 16-byte aligned base, and (batch, head, seq) strides
+    that are multiples of 16 bytes (`check_rows_dense`'s rule for 2-byte
+    types), none of them 0 on a dimension that is stepped."""
+    return rows_readable(t) and all(
+        n == 1 or st > 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when TMA takes it, else a contiguous copy, counted in
+    `flash_attention_fwd.tma_copies`."""
+    if tma_addressable(t):
+        return t
+    flash_attention_fwd.tma_copies += 1
+    return t.contiguous()
+
+
 def _launch(q, k, v, *, softmax_scale, causal, window_size, softcap):
     check_shapes(q, k, v)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     check_kernel_inputs(d, h, hk, q=q, k=k, v=v)
     left, right = normalize_window(window_size, causal)
-    out = torch.empty_like(q)  # q's strides: a (b, s, h, d) view stays one
+    # q's strides, so a (b, s, h, d) view stays one; the kernel's 16-byte
+    # stores take them (multiples of 8 elements).
+    out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

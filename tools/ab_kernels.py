@@ -1,7 +1,7 @@
-"""Same-call A/B of the port's attention kernels that share the tile steps
-of csrc/flash_fwd_tile.cuh and csrc/flash_bwd_tile.cuh (dense 1-3, varlen
-6-8, vertical-slash sparse 12-15) built from two checkouts: ptxas
-registers and spills of every kernel, and CUDA-event times in turns.
+"""Same-call A/B of the port's attention kernels built from two
+checkouts: ptxas registers and spills of every kernel, and CUDA-event times
+in turns (dense 1-3, varlen 6-8, vertical-slash sparse 12-15, and the decode
+kernels 4 and 5 with a vLLM decode-only step).
 
     python3 tools/ab_kernels.py --base build/parent [--rounds 6]
 
@@ -14,10 +14,14 @@ and csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
 (whose C interface the base must share) on chip_smoke.py's "gpt2m" and
 "mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8) and its
 "prefill-8k" sparse case (12-15), the builds in turns (base, tree, tree,
-base per round), each time the median of 20 CUDA-event times; the last
-line gives each kernel's median over the rounds for either build. The
-block-sparse kernels 9-11 (csrc/block_sparse_*.cu) have steps of their
-own and are not built here. Needs one CUDA card.
+base per round), each time the median of 20 CUDA-event times. Kernels 4
+and 5, whose C interfaces may differ between checkouts, are timed through
+each checkout's own wrappers: tools/ab_decode_worker.py runs once per
+checkout (its inputs built once), and each turn asks the checkout's worker
+for its times, in the same order. The last line gives each kernel's median
+over the rounds for either build. The block-sparse kernels 9-11
+(csrc/block_sparse_*.cu) have steps of their own and are not timed here.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -205,11 +209,42 @@ def inputs(name, seed):
         dq=lambda: flash_bwd.flash_attention_bwd_dq(q, k, v, do, lse, **kw))
 
 
+class DecodeWorker:
+    """tools/ab_decode_worker.py on one checkout, behind a pipe."""
+
+    def __init__(self, root):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tools", "ab_decode_worker.py"),
+             "--root", root], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True)
+
+    def ready(self):
+        line = self.proc.stdout.readline()
+        if line.strip() != "ready":
+            raise RuntimeError(f"decode worker failed to start: {line!r}")
+
+    def times(self):
+        self.proc.stdin.write("time\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            raise RuntimeError("decode worker ended early")
+        return json.loads(line)
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=120)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", required=True,
                         help="the other checkout (e.g. build/parent)")
     parser.add_argument("--rounds", type=int, default=6)
+    parser.add_argument("--cases", nargs="+", choices=CASES, default=CASES,
+                        help="the kernel 1-3, 6-8 and 12-15 cases to time")
+    parser.add_argument("--no-decode", action="store_true",
+                        help="skip kernels 4 and 5 and the vLLM step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -228,11 +263,18 @@ def main(argv=None):
                           base=trees["base"], kernels=len(regs["tree"]),
                           same_in_both=sum(k in regs["base"]
                                            for k in regs["tree"]),
-                          differ=differ, registers=regs)), flush=True)
+                          differ=differ,
+                          only_in_base=sorted(set(regs["base"]) - set(regs["tree"])),
+                          only_in_tree=sorted(set(regs["tree"]) - set(regs["base"])),
+                          registers=regs)), flush=True)
+    workers = ({} if args.no_decode else
+               {tag: DecodeWorker(root) for tag, root in trees.items()})
+    for worker in workers.values():
+        worker.ready()
     use("tree")
-    calls = {name: inputs(name, seed=20 + i) for i, name in enumerate(CASES)}
-    times = {tag: {f"{c}/{k}": [] for c in CASES for k in calls[c]}
-             for tag in trees}
+    calls = {name: inputs(name, seed=20 + CASES.index(name))
+             for name in args.cases}
+    times = {tag: {} for tag in trees}
     for r in range(args.rounds):
         for tag in ("base", "tree", "tree", "base"):
             use(tag)
@@ -240,9 +282,15 @@ def main(argv=None):
             for case, fns in calls.items():
                 for kernel, fn in fns.items():
                     turn[f"{case}/{kernel}"] = chip_smoke.cuda_ms(fn)
-                    times[tag][f"{case}/{kernel}"].append(turn[f"{case}/{kernel}"])
+            torch.cuda.synchronize()
+            if workers:
+                turn.update(workers[tag].times())
+            for key, ms in turn.items():
+                times[tag].setdefault(key, []).append(ms)
             print(json.dumps(dict(phase="turn", round=r, build=tag, ms=turn)),
                   flush=True)
+    for worker in workers.values():
+        worker.close()
     medians = {key: dict(base=float(np.median(times["base"][key])),
                          tree=float(np.median(times["tree"][key])))
                for key in times["tree"]}
