@@ -18,8 +18,9 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               GPT-2-medium training shape, the Mistral-7B shape (GQA, window
               4095), a short window (127), a softcap, rows that see nothing,
               and lengths off the forward's tiles; the backward twice for
-              equal bits; attn_tma_copy: the forward on inputs its tensor
-              maps cannot take as they are (copied, counted); then
+              equal bits; attn_tma_copy: the forward and the backward on
+              inputs their tensor maps cannot take as they are (copied,
+              counted) and on (b, s, h, d) views (taken as they are); then
               attn_fault: the window cases with the kernels handed a window
               one column wider, which every kernel's check must catch;
      varlen_kernels, varlen_fault, varlen_train, vllm: kernels 6-8 and
@@ -125,6 +126,7 @@ from flash_attn_tpu_torch.kernels.block_sparsity import (  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
     _bwd_dkv_ref,
     _bwd_dq_ref,
+    flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
 )
@@ -321,9 +323,11 @@ def ptxas_of(logs, fragment):
     return found
 
 
-def sass_counts(library, words):
-    """How often each of `words` appears in the library's SASS
-    (cuobjdump -sass, the toolkit's or Triton's copy); None without one."""
+def sass_counts(library, words, fragment=None):
+    """How often each of `words` begins an instruction word in the
+    library's SASS (cuobjdump -sass, the toolkit's or Triton's copy), over
+    the kernels whose mangled name holds `fragment` (all without one); None
+    without cuobjdump."""
     tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                           "bin", "cuobjdump")]
     try:
@@ -336,7 +340,10 @@ def sass_counts(library, words):
         if os.path.exists(tool):
             sass = subprocess.run([tool, "-sass", library], capture_output=True,
                                   text=True, timeout=300, check=True).stdout
-            return {w: sass.count(w) for w in words}
+            if fragment is not None:
+                sass = "".join(f for f in sass.split("Function : ")
+                               if f.split("\n", 1)[0].find(fragment) >= 0)
+            return {w: len(re.findall(rf"\b{w}\w*", sass)) for w in words}
     return None
 
 
@@ -734,15 +741,26 @@ def attn_case(name, b, h, hk, sq, sk, d, causal, window, softcap, dtype,
                              " a yardstick only; the port never calls it")
         del qt, kt, vt
     if name == "mistral-window":
-        # Yardstick: SDPA with the window as a boolean mask and enable_gqa,
-        # the same function in one call; the port never calls it.
+        # Yardstick: SDPA with the window as a boolean mask, the same
+        # function in one call; the port never calls it. K and V are
+        # repeated to the query heads outside the timed calls, so SDPA
+        # takes them as it takes a multi-head model's, without enable_gqa.
         mask = visible_mask(sq, sk, normalize_window(window, causal),
                             device=q.device)
+        qt, kt, vt = (x.detach().clone().requires_grad_() for x in (
+            q, k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)))
         result["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), reps=10)
+            qt, kt, vt, attn_mask=mask), reps=10)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            torch.autograd.grad(o, (qt, kt, vt), args[3])
+
+        result["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd, reps=10)
         result["library"] = ("scaled_dot_product_attention(attn_mask=window "
-                             "mask, enable_gqa=True): a yardstick only")
-        del mask
+                             "mask) on K/V repeated to 32 heads: a yardstick "
+                             "only")
+        del mask, qt, kt, vt
     emit(result)
     check(result["ok"], f"attn_kernels case {name} disagrees with its plain "
                         "version or is not deterministic")
@@ -750,9 +768,10 @@ def attn_case(name, b, h, hk, sq, sk, d, causal, window, softcap, dtype,
 
 
 def attn_copy_phase(seed=29):
-    """Kernel 1 on inputs its tensor maps cannot all take as they are: q with
-    a base 2 bytes off 16 (copied first, and the copy counted), k and v as
-    (b, s, h, d) tensors viewed (b, h, s, d) (taken as they are)."""
+    """Kernels 1-3 on inputs their tensor maps cannot all take as they are:
+    q with a base 2 bytes off 16 (copied first, and the copy counted), k, v
+    and dO as (b, s, h, d) tensors viewed (b, h, s, d) (taken as they
+    are). The backward (flash_attention_bwd, both kernels) copies q once."""
     b, h, hk, s, d = 2, 8, 2, 1000, 128
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -768,15 +787,28 @@ def attn_copy_phase(seed=29):
                                                causal=True)
     out_held = held(out, ref_out)
     lse_err = float((lse - ref_lse).abs().max())
+    do = torch.randn(b, s, h, d, generator=gen, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    before = flash_attention_bwd.tma_copies
+    dq, dk, dv = flash_attention_bwd(q, k, v, ref_lse, do, causal=True)
+    bwd_copies = flash_attention_bwd.tma_copies - before
+    torch.cuda.synchronize()
+    up = tuple(x.float() for x in (q, k, v, do)) + (ref_lse,)
+    ref_dq, ref_delta = _bwd_dq_ref(*up, causal=True)
+    ref_dk, ref_dv = _bwd_dkv_ref(*up, ref_delta, causal=True)
+    grads = dict(dq=held(dq, ref_dq), dk=held(dk, ref_dk), dv=held(dv, ref_dv))
     ok = (out_held["err_over_limit"] <= 1 and lse_err <= ATTN_LSE_TOL
-          and copies == 1)
+          and copies == 1 and bwd_copies == 1
+          and all(g["err_over_limit"] <= 1 for g in grads.values()))
     emit(dict(phase="attn_tma_copy", b=b, h=h, hk=hk, s=s, d=d,
               q="base 2 bytes off 16: copied", kv="(b, s, h, d) views",
-              tma_copies=copies, out=out_held, lse_max_abs_err=lse_err,
-              tolerance=ATTN_TOLERANCE, ok=ok))
-    check(ok, "attn_tma_copy: kernel 1 disagrees on strided inputs, or the "
-              "copies are not one")
-    return copies
+              dout="(b, s, h, d) view", tma_copies=copies,
+              bwd_tma_copies=bwd_copies, out=out_held,
+              lse_max_abs_err=lse_err, **grads, tolerance=ATTN_TOLERANCE,
+              ok=ok))
+    check(ok, "attn_tma_copy: kernels 1-3 disagree on strided inputs, or "
+              "the copies are not one each")
+    return dict(fwd=copies, bwd=bwd_copies)
 
 
 def attn_fault_phase():
@@ -2347,8 +2379,8 @@ def train_profile_phase(seed=5):
     by_kernel = _device_ms_by_kernel(prof)
     busy = sum(by_kernel.values())
     attn = {name: sum(v for k, v in by_kernel.items() if name in k)
-            for name in ("fwd_sm90_kernel", "flash_bwd_dkv_kernel",
-                         "flash_bwd_dq_kernel")}
+            for name in ("fwd_sm90_kernel", "bwd_dkv_sm90_kernel",
+                         "bwd_dq_sm90_kernel")}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     result = dict(
         phase="profile", path="train step", config="configs/gpt2m-synth.yaml",
@@ -2770,6 +2802,17 @@ def sparse_case(name, seed):
             result["library_fwd_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True), **reps)
+            if bwd:
+                qt, kt, vt = (x.detach().clone().requires_grad_()
+                              for x in (q, k, v))
+
+                def sdpa_fwd_bwd():
+                    o = F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                    torch.autograd.grad(o, (qt, kt, vt), do)
+
+                result["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd, **reps)
+                del qt, kt, vt
             result["library"] = ("scaled_dot_product_attention(attn_mask="
                                  "visibility, enable_gqa=True): a yardstick")
         except Exception as exc:  # a yardstick: report why it did not run
@@ -3109,6 +3152,10 @@ def sparse_kernel_entries(sparse):
                 ms=p8[ms_key], plain_ms=p8["fwd_plain_ms"],
                 bound_ms=p8["fwd_bound_ms"], bound_by=p8["fwd_bound_by"],
                 library_ms=p8["library_fwd_ms"])
+        elif p8.get("library_fwd_bwd_ms") is not None:
+            # SDPA's backward alone: its forward+backward less its forward.
+            entry["library_bwd_ms"] = (p8["library_fwd_bwd_ms"]
+                                       - p8["library_fwd_ms"])
         entries.append(entry)
         check(entry["launches"] > 0, f"{name} never launched on the sparse "
                                      "paths")
@@ -3638,6 +3685,10 @@ def blocksparse_kernel_entries(bsr):
             library_ms=at["library_fwd_ms"] if key == "fwd" else None,
             shape=(f"doc10: b=1 h=16 s=8192 d=128 tile 512, kept density "
                    f"{at['density']:.4f}"))
+        if key != "fwd" and at.get("library_fwd_bwd_ms") is not None:
+            # SDPA's backward alone: its forward+backward less its forward.
+            entry["library_bwd_ms"] = (at["library_fwd_bwd_ms"]
+                                       - at["library_fwd_ms"])
         entries.append(entry)
         check(entry["launches"] > 0, f"{name} never launched on "
                                      "blocksparse_train")
@@ -3825,11 +3876,26 @@ def main(argv=None):
                 ptxas=ptxas_of(logs, "fwd_sm90_kernel"),
                 sass=sass_counts(_build.library_path("flash_fwd"),
                                  ("HGMMA", "UTMALDG")),
-                tma_copies=tma_copies)
+                tma_copies=tma_copies["fwd"])
         else:
             # SDPA's backward alone: its forward+backward less its forward.
-            design = dict(library_bwd_ms=gpt2m["library_fwd_bwd_ms"]
-                          - gpt2m["library_fwd_ms"])
+            # The library also holds the varlen mode: count this kernel's
+            # instructions alone (no atomics: ATOM and RED must be 0; LDL
+            # and STL are spill loads and stores).
+            kernel = f"bwd_{key}_sm90_kernel"
+            design = dict(
+                design="wgmma+tma",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("flash_bwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=tma_copies["bwd"],
+                library_bwd_ms=gpt2m["library_fwd_bwd_ms"]
+                - gpt2m["library_fwd_ms"])
+            sass = design["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
         kernels.append(dict(**design,
             name=name, route="cuda",
             source=f"flash_attn_tpu_torch/csrc/{source}",
@@ -3846,6 +3912,9 @@ def main(argv=None):
                          bound_by=mistral[f"{key}_bound_by"],
                          library_ms=(mistral["library_fwd_ms"]
                                      if key == "fwd" else None),
+                         **({} if key == "fwd" else dict(
+                             library_bwd_ms=mistral["library_fwd_bwd_ms"]
+                             - mistral["library_fwd_ms"])),
                          shape="b=1 h=32 hk=8 s=8192 d=128 causal window "
                                "4095 bf16"),
         ))

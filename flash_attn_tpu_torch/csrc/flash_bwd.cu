@@ -1,14 +1,19 @@
 // Flash-attention backward over dense batches or packed variable-length
 // sequences: the C entry points of kernels 2-3 (dense dK/dV and dQ) and 7-8
-// (varlen). The tile steps, their function, bound and design are in
+// (varlen). The dense kernels, their function, bound and design are in
+// csrc/flash_bwd_sm90.cuh; the varlen tile steps are in
 // csrc/flash_bwd_tile.cuh, shared with the sparse mode of
 // csrc/flash_sparse_bwd.cu.
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_bwd_tile.cuh"
 
-// strides: 18 element strides, (batch, head, seq) of q, k, v, dout, dk, dv.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported head
-// dim. Launches on `stream`; does not synchronise.
+// strides: 18 element strides, (batch, head, seq) of q, k, v, dout, dk, dv;
+// those of q, k, v and dout and the base pointers must be multiples of 16
+// bytes (TMA), those of dk and dv multiples of 2 elements; lse and delta
+// (b, h, sq) contiguous, 16-byte aligned. Returns 0, a cudaError_t from the
+// launch, -1 for an unsupported head dim, or -2 if cuTensorMapEncodeTiled
+// refuses a tensor map. Launches on `stream`; does not synchronise.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
@@ -16,18 +21,51 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int hk, int sq, int sk, int d, float scale,
                              int window_left, int window_right, float softcap,
                              int is_fp16, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, strides, h, hk, scale,
-                            window_left, window_right, softcap);
-  set_dkv(p, dk, dv, strides);
-  p.sq = sq;
-  p.sk = sk;
-  p.lse_h = sq;
-  return dispatch<true, kDense>(p, (sk + kTileRows - 1) / kTileRows, hk,
-                                batch, d, is_fp16, stream);
+  namespace f = fa::bwd90;
+  if (d != 64 && d != 128) return -1;
+  const int bq = f::walk_tile(d, softcap > 0.f);
+  const long long stats = static_cast<long long>(batch) * h * sq;
+  CUtensorMap tq, tdo, tk, tv, tl, tdl;
+  if (stats > 0x7fffffffll ||  // TMA coordinates are 32-bit
+      f::make_map(&tq, q, is_fp16, d, sq, h, batch, strides[2], strides[1],
+                  strides[0], bq) ||
+      f::make_map(&tdo, dout, is_fp16, d, sq, h, batch, strides[11],
+                  strides[10], strides[9], bq) ||
+      f::make_map(&tk, k, is_fp16, d, sk, hk, batch, strides[5], strides[4],
+                  strides[3], f::kBlockRows) ||
+      f::make_map(&tv, v, is_fp16, d, sk, hk, batch, strides[8], strides[7],
+                  strides[6], f::kBlockRows) ||
+      f::make_map_1d(&tl, lse, stats, bq) ||
+      f::make_map_1d(&tdl, delta, stats, bq)) {
+    return -2;
+  }
+  f::Params p = f::make_params(h, hk, sq, sk, scale, window_left,
+                               window_right, softcap);
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_b = strides[12];
+  p.dk_h = strides[13];
+  p.dk_s = strides[14];
+  p.dv_b = strides[15];
+  p.dv_h = strides[16];
+  p.dv_s = strides[17];
+  const bool cap = softcap > 0.f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    return d == 64 ? f::launch_dkv_softcap<__half, 64>(tq, tdo, tk, tv, tl,
+                                                       tdl, p, cap, batch, s)
+                   : f::launch_dkv_softcap<__half, 128>(tq, tdo, tk, tv, tl,
+                                                        tdl, p, cap, batch, s);
+  }
+  return d == 64 ? f::launch_dkv_softcap<__nv_bfloat16, 64>(
+                       tq, tdo, tk, tv, tl, tdl, p, cap, batch, s)
+                 : f::launch_dkv_softcap<__nv_bfloat16, 128>(
+                       tq, tdo, tk, tv, tl, tdl, p, cap, batch, s);
 }
 
-// strides: 15 element strides, (batch, head, seq) of q, k, v, dout, dq.
-// Writes dq and delta (b, h, sq) fp32.
+// strides: 15 element strides, (batch, head, seq) of q, k, v, dout, dq, as
+// flash_bwd_dkv's. Writes dq and delta (b, h, sq) fp32; lse (b, h, sq)
+// contiguous. Returns as flash_bwd_dkv.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse, float* delta,
                             void* dq,
@@ -35,14 +73,40 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int sq, int sk, int d, float scale,
                             int window_left, int window_right, float softcap,
                             int is_fp16, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, nullptr, strides, h, hk,
-                            scale, window_left, window_right, softcap);
-  set_dq(p, delta, dq, strides);
-  p.sq = sq;
-  p.sk = sk;
-  p.lse_h = sq;
-  return dispatch<false, kDense>(p, (sq + kTileRows - 1) / kTileRows, hk,
-                                 batch, d, is_fp16, stream);
+  namespace f = fa::bwd90;
+  if (d != 64 && d != 128) return -1;
+  const int bn = f::walk_tile(d, softcap > 0.f);
+  CUtensorMap tq, tdo, tk, tv;
+  if (f::make_map(&tq, q, is_fp16, d, sq, h, batch, strides[2], strides[1],
+                  strides[0], f::kBlockRows) ||
+      f::make_map(&tdo, dout, is_fp16, d, sq, h, batch, strides[11],
+                  strides[10], strides[9], f::kBlockRows) ||
+      f::make_map(&tk, k, is_fp16, d, sk, hk, batch, strides[5], strides[4],
+                  strides[3], bn) ||
+      f::make_map(&tv, v, is_fp16, d, sk, hk, batch, strides[8], strides[7],
+                  strides[6], bn)) {
+    return -2;
+  }
+  f::Params p = f::make_params(h, hk, sq, sk, scale, window_left,
+                               window_right, softcap);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = dq;
+  p.dq_b = strides[12];
+  p.dq_h = strides[13];
+  p.dq_s = strides[14];
+  const bool cap = softcap > 0.f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    return d == 64 ? f::launch_dq_softcap<__half, 64>(tq, tdo, tk, tv, p, cap,
+                                                      batch, s)
+                   : f::launch_dq_softcap<__half, 128>(tq, tdo, tk, tv, p, cap,
+                                                       batch, s);
+  }
+  return d == 64 ? f::launch_dq_softcap<__nv_bfloat16, 64>(tq, tdo, tk, tv, p,
+                                                          cap, batch, s)
+                 : f::launch_dq_softcap<__nv_bfloat16, 128>(tq, tdo, tk, tv, p,
+                                                           cap, batch, s);
 }
 
 // Varlen dK/dV over nseq packed sequences. strides: 18 element strides,

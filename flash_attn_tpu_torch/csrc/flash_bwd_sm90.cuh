@@ -1,0 +1,760 @@
+// Dense flash-attention backward for Hopper (kernels 2 and 3): dQ, dK and
+// dV from q (b, h, sq, d), k, v (b, hk, sk, d), dO and the forward's
+// log-sum-exp, in two kernels, for tensors read through their strides.
+//
+// Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:233
+// (_bwd_dkv_kernel) and :449 (_bwd_dq_kernel), launched by
+// flash_attention_bwd (:669), restricted to the forward's features
+// (csrc/flash_fwd_sm90.cuh): scale, bottom-right-aligned causal, sliding
+// window, GQA/MQA (dK and dV sum each kv head's group of query heads),
+// softcap, head dim 64 or 128, bf16/fp16. The varlen and sparse modes keep
+// their own steps (csrc/flash_bwd_tile.cuh).
+//
+// Function, as _recompute_p_and_ds (flash_bwd.py:107-230) with the port's
+// delta: with s = q . k,
+//   t  = tanh(s * scale / softcap)              (softcap only)
+//   P  = exp(s * scale - lse) or exp(t * softcap - lse), 0 where masked and
+//        on rows whose lse is -inf (rows that see no key)
+//   dP = dO . v,  delta = sum_j P dP (per query row, fp32)
+//   dS = P (dP - delta) scale  [(1 - t^2) with softcap]
+//   dV = sum P^T dO,  dK = sum dS^T Q,  dQ = sum dS K.
+// delta is summed in the dQ kernel, which runs first, not taken as
+// rowsum(dO * O) as the JAX package does: with a 16-bit O the rowsum no
+// longer matches the P and dP recomputed here, and a k-projection gradient
+// magnifies what that leaves in dS (kernels/flash_bwd.py).
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): dK/dV needs
+// 8 d flops per visible (query head, row, key) triple (S, dP, dV, dK), dQ
+// 6 d (S, dP, dQ); this dQ kernel does 10 d (S and dP twice), the pair
+// 18 d against the 10 d of one backward that keeps dQ in fp32 atomics. At
+// the training shapes both are bound by operations.
+//
+// Design. Deterministic: no atomics; every output element is summed by one
+// thread in a fixed order, and each kernel writes its outputs once. A block
+// is two warpgroups of 64 rows each (wgmma's M), 256 threads, so ptxas may
+// give a thread 255 registers. There is no producer warp: ptxas compiles a
+// kernel to its launch bound and the register file is split over four
+// quarters by warp, so a ninth warp (288 threads) cut every thread to 168
+// registers and spilled 136-512 bytes at d = 128. Thread 0 issues every
+// TMA copy (4-D tensor maps over (d, s, h, b) from the caller's strides,
+// the 128-byte swizzle of csrc/sm90_utils.cuh) into a ring of kStages
+// stages with "full" and "empty" mbarriers: the first stages up front,
+// then at the end of each step the stage of the step before, which the
+// other warpgroup has most likely released by then. The walked tiles are
+// 128 wide at d = 64 (64 with a softcap) and 64 at d = 128: at d = 64 the
+// wider tiles took dQ to 0.81x (with its turns dropped) and dK/dV to 0.84x
+// of the 64-wide ones; with a softcap or at d = 128 their accumulators
+// spill.
+//  * dQ (kernel 3), Q-stationary: one block per (128 query rows, query
+//    head, batch row), the last rows (the longest causal rows) first. Q and
+//    dO are loaded once; the visible K/V tiles are walked twice.
+//    Pass 1: S = Q K^T and dP = dO V^T (wgmma, both operands from shared
+//    memory, K-major), P from the rows' LSE, and delta += P dP in fp32,
+//    reduced over the quad at the end. Pass 2: S and dP again, dS in
+//    registers, and dQ += dS K with dS packed to 16 bits as wgmma's
+//    register A operand (the accumulator layout is the A layout) and K read
+//    N-major through the transpose flag. Pass 2 is pipelined: the S and dP
+//    of tile i are issued before dQ of tile i - 1, so dS of tile i is formed
+//    while the tensor cores run that dQ product.
+//  * dK/dV (kernel 2), KV-stationary: one block per (128 keys, kv head,
+//    batch row), the first key tiles (the longest causal walks) first. K
+//    and V are loaded once; the walk goes over the group's query heads and,
+//    for each, the query tiles that see these keys: Q, dO, and the tiles'
+//    LSE and delta (1-D maps over the contiguous (b, h, sq) rows); each
+//    warpgroup turns the LSE tile into base 2 once, while its first
+//    products run. S^T = K Q^T and dP^T = V dO^T (A from shared memory;
+//    B = Q or dO, K-major), P^T and dS^T in registers, then dV += P^T dO
+//    and dK += dS^T Q with P^T and dS^T as register A operands and dO and
+//    Q read N-major from the same swizzled tiles, so no tile is copied
+//    twice or transposed. dK and dV sum the group in fp32 registers. The
+//    two warpgroups take turns to issue their products (0.91x at d = 128;
+//    in the dQ kernel turns read 1.04x at d = 64 and are not taken).
+// Tried and dropped: forming P while dP runs (S and dP as two wgmma
+// groups): dQ 1.10x and dK/dV 1.02x at d = 64. Both kernels reach about
+// 290 TFLOP/s of their own products at d = 64 and 425 at d = 128
+// (PERF.md); the pair does 18 d flops per visible triple where one
+// backward with fp32 dQ atomics does 10 d.
+// TMA fills boxes past the tensors' ends with zeros, which would score 0:
+// rows past sq take lse +inf (P = 0), keys past sk are masked, and only
+// tiles that cross the diagonal, a window edge or an end pay for the mask.
+
+#pragma once
+
+#include <type_traits>
+
+#include "mma_utils.cuh"
+#include "sm90_utils.cuh"
+
+namespace fa {
+namespace bwd90 {
+
+using namespace fa::sm90;
+
+constexpr int kWarpgroups = 2;
+constexpr int kBlockRows = 64 * kWarpgroups;  // query (dQ) or key (dK/dV) rows
+constexpr int kThreads = 128 * kWarpgroups;
+// Keys per K/V tile of the dQ walk, and query rows per Q/dO tile of the
+// dK/dV walk: 128 at d = 64 without a softcap, else 64 (at d = 128 the
+// accumulators need the registers, and with a softcap its tanh terms; at
+// 128 both kernels spilled 150-300 bytes there).
+__host__ __device__ constexpr int walk_tile(int d, bool softcap) {
+  return d == 64 && !softcap ? 128 : 64;
+}
+
+template <int D, bool kSoftcap>
+struct DqCfg {
+  static constexpr int kStages = 4;
+  static constexpr int kBN = walk_tile(D, kSoftcap);
+  static constexpr int kQBytes = kBlockRows * D * 2;  // the Q or dO tile
+  static constexpr int kTileBytes = kBN * D * 2;      // one K or V tile
+  // 1024 bytes of slack to align the tiles for the swizzle.
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes +
+                                  2 * kStages * kTileBytes +
+                                  8 * (1 + 2 * kStages);
+};
+
+template <int D, bool kSoftcap>
+struct DkvCfg {
+  static constexpr int kStages = 4;
+  static constexpr int kBQ = walk_tile(D, kSoftcap);
+  static constexpr int kKVBytes = kBlockRows * D * 2;  // the K or V tile
+  static constexpr int kQBytes = kBQ * D * 2;          // one Q or dO tile
+  static constexpr int kStatBytes = kBQ * 4;           // one LSE or delta tile
+  // Per stage: Q, dO, LSE, delta, and each warpgroup's copy of the LSE in
+  // base 2.
+  static constexpr size_t kSmem =
+      1024 + 2 * kKVBytes +
+      kStages * (2 * kQBytes + (2 + kWarpgroups) * kStatBytes) +
+      8 * (1 + 2 * kStages);
+};
+
+struct Params {
+  const float* lse;  // (b, h, sq) contiguous, natural log (dQ kernel)
+  float* delta;      // (b, h, sq) contiguous, written by the dQ kernel
+  void* dq;          // (b, h, sq, d) through dq_b, dq_h, dq_s
+  void* dk;          // (b, hk, sk, d) through dk_*
+  void* dv;          // (b, hk, sk, d) through dv_*
+  long long dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
+  int h, group, sq, sk;
+  int left, right;  // normalised window; negative = unbounded
+  float scale;
+  // Score in base 2 as in the forward: x * score_mul, or
+  // tanh(x * score_mul) * cap_log2 with a softcap.
+  float score_mul, cap_log2;
+};
+
+template <bool B>
+using Bool = std::integral_constant<bool, B>;
+
+// A row's LSE in base 2; +inf for a row past the end or one that sees no
+// key, so that its P is exp2(x - inf) = 0.
+__device__ __forceinline__ float lse_base2(float lse, bool ok) {
+  return ok && lse != -INFINITY ? lse * kLog2e : INFINITY;
+}
+
+// P of score s given its row's LSE in base 2, and dS's factor dmul: the
+// scale, times 1 - t^2 under a softcap.
+template <bool kSoftcap>
+__device__ __forceinline__ float prob(const Params& p, float s, float lse2,
+                                      float& dmul) {
+  if constexpr (kSoftcap) {
+    const float t = tanhf(s * p.score_mul);
+    dmul = (1.f - t * t) * p.scale;
+    return exp2_approx(t * p.cap_log2 - lse2);
+  } else {
+    dmul = p.scale;
+    return exp2_approx(fmaf(s, p.score_mul, -lse2));
+  }
+}
+
+// Accumulators of a 64 x N tile packed to 16 bits as wgmma's A operand,
+// k16 step by k16 step.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(const float (&acc)[N / 2],
+                                       uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[kk][j] = Mma<T>::pack(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+    }
+  }
+}
+
+// Rows r of a 64 x D accumulator tile (this thread's two, first + 8 i) out
+// to global memory, 4 bytes at a time.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride,
+                                           const int (&row)[2], int rows,
+                                           int tig, const float (&acc)[D / 2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= rows) continue;
+    T* dst = base + static_cast<long long>(row[i]) * row_stride + tig * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          Mma<T>::pack(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const Params p) {
+  using C = DqCfg<D, kSoftcap>;
+  constexpr int kStages = C::kStages;
+  constexpr int kBN = C::kBN;
+  constexpr int kBlocksD = D / 64;  // 128-byte column blocks of a row
+  extern __shared__ unsigned char smem_bwd90[];
+  unsigned char* sQ =
+      smem_bwd90 + ((1024 - (smem_u32(smem_bwd90) & 1023)) & 1023);
+  unsigned char* sdO = sQ + C::kQBytes;
+  unsigned char* sK = sdO + C::kQBytes;
+  unsigned char* sV = sK + kStages * C::kTileBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * C::kTileBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int off = p.sk - p.sq;
+  const int row_last = min(row0 + kBlockRows, p.sq) - 1;
+  const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+  const int col_hi =
+      p.right >= 0 ? min(row_last + off + p.right, p.sk - 1) : p.sk - 1;
+  const int tile_lo = col_lo / kBN;
+  const int n_tiles = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kWarpgroups);  // lane 0 of each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The copies, all issued by thread 0: Q and dO once, then the visible
+  // K/V tiles twice (pass 1 sums delta, pass 2 accumulates dQ), step x
+  // into stage x % kStages once every warp has released step x - kStages.
+  const int n_steps = 2 * n_tiles;
+  auto load_kv = [&](int x) {
+    const int s = x % kStages;
+    const int key0 = (tile_lo + x % n_tiles) * kBN;
+    const int g = head / p.group;
+    mbar_wait(empty + s, ((x / kStages) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::kTileBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sK + s * C::kTileBytes + cb * kBN * 128, &tk, full + s,
+                  cb * 64, key0, g, b);
+      tma_load_4d(sV + s * C::kTileBytes + cb * kBN * 128, &tv, full + s,
+                  cb * 64, key0, g, b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(q_full, 2 * C::kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sQ + cb * kBlockRows * 128, &tq, q_full, cb * 64, row0, head,
+                  b);
+      tma_load_4d(sdO + cb * kBlockRows * 128, &tdo, q_full, cb * 64, row0,
+                  head, b);
+    }
+    for (int x = 0; x < min(kStages, n_steps); ++x) load_kv(x);
+  }
+
+  const int cw = tid >> 7;  // warpgroup: rows 64 cw..
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int wrow0 = row0 + cw * 64;
+  const long long lrow = (static_cast<long long>(b) * p.h + head) * p.sq;
+
+  int row[2], diag[2];
+  float lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = wrow0 + warp * 16 + gid + 8 * i;
+    diag[i] = row[i] + off;
+    const bool ok = row[i] < p.sq;
+    lse2[i] = lse_base2(ok ? p.lse[lrow + row[i]] : 0.f, ok);
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+  float delta[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    // Descriptors: this warpgroup's Q and dO rows (A), K and V K-major (B of
+    // S and dP), K N-major (B of dQ += dS K).
+    const uint64_t q_desc = make_desc(sQ + cw * 64 * 128, 16, 1024);
+    const uint64_t do_desc = make_desc(sdO + cw * 64 * 128, 16, 1024);
+    const uint64_t k_desc = make_desc(sK, 16, 1024);
+    const uint64_t v_desc = make_desc(sV, 16, 1024);
+    const uint64_t kn_desc = make_desc(sK, kBN * 128, 1024);
+    float sc[kBN / 2];
+    float dp[kBN / 2];
+    uint32_t da[kBN / 16][4];
+
+    // S = Q K^T and dP = dO V^T of step x, issued and committed.
+    auto issue_sdp = [&](int x) {
+      const int s = x % kStages;
+      mbar_wait(full + s, (x / kStages) & 1);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // k16 step kk: column block kk / 4, 32 bytes per step inside it.
+        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t kb =
+            (s * C::kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBN>(sc, q_desc + qa, k_desc + kb, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t kb =
+            (s * C::kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBN>(dp, do_desc + qa, v_desc + kb, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS K of step x, issued and committed.
+    auto issue_dq = [&](int x) {
+      const int s = x % kStages;
+      fence_regs(dq);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        wgmma_rs<T, D>(dq, da[kk],
+                       kn_desc + ((s * C::kTileBytes + kk * 16 * 128) >> 4), 1);
+      }
+      wgmma_commit();
+    };
+    auto fence_sdp = [&] {
+      fence_regs(sc);
+      fence_regs(dp);
+    };
+    // Step x's stage is free for step x + kStages once both warpgroups
+    // are done with it; thread 0 refills the stage of step x - 1, which the
+    // other warpgroup has most likely released by then, so that warp 0
+    // seldom waits.
+    auto release = [&](int x) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + x % kStages);
+      if (tid == 0 && x >= 1 && x - 1 + kStages < n_steps) {
+        load_kv(x - 1 + kStages);
+      }
+    };
+
+    // Whether every row of this warpgroup sees every key of the tile.
+    auto tile_full = [&](int col0) {
+      return wrow0 + 64 <= p.sq && col0 + kBN <= p.sk &&
+             in_window(col0, wrow0 + 63 + off, p.left, -1) &&
+             in_window(col0 + kBN - 1, wrow0 + off, -1, p.right);
+    };
+    auto visible = [&](int col0, int x) {
+      const int i = (x >> 1) & 1;
+      const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+      return col < p.sk && in_window(col, diag[i], p.left, p.right);
+    };
+    // Pass 1's step: delta += P dP.
+    float dsum[2] = {0.f, 0.f};
+    auto sum_step = [&](auto masked, int col0) {
+#pragma unroll
+      for (int x = 0; x < kBN / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        float dmul;
+        float pr = prob<kSoftcap>(p, sc[x], lse2[i], dmul);
+        if constexpr (decltype(masked)::value) {
+          if (!visible(col0, x)) pr = 0.f;
+        }
+        dsum[i] += pr * dp[x];
+      }
+    };
+    // Pass 2's step: dS into sc.
+    auto ds_step = [&](auto masked, int col0) {
+#pragma unroll
+      for (int x = 0; x < kBN / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        float dmul;
+        float pr = prob<kSoftcap>(p, sc[x], lse2[i], dmul);
+        if constexpr (decltype(masked)::value) {
+          if (!visible(col0, x)) pr = 0.f;
+        }
+        sc[x] = pr * (dp[x] - delta[i]) * dmul;
+      }
+    };
+    auto form_ds = [&](int it) {
+      const int col0 = (tile_lo + it) * kBN;
+      if (tile_full(col0)) {
+        ds_step(Bool<false>(), col0);
+      } else {
+        ds_step(Bool<true>(), col0);
+      }
+    };
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      issue_sdp(it);
+      wgmma_wait<0>();
+      fence_sdp();
+      release(it);
+      const int col0 = (tile_lo + it) * kBN;
+      if (tile_full(col0)) {
+        sum_step(Bool<false>(), col0);
+      } else {
+        sum_step(Bool<true>(), col0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) delta[i] = quad_sum(dsum[i]);
+
+    // Pass 2, steps n_tiles.. of the ring: dS of tile it is formed while
+    // the tensor cores run dQ += dS K of tile it - 1.
+    issue_sdp(n_tiles);
+    wgmma_wait<0>();
+    fence_sdp();
+    form_ds(0);
+    pack_a<T, kBN>(sc, da);
+    for (int it = 1; it < n_tiles; ++it) {
+      issue_sdp(n_tiles + it);
+      issue_dq(n_tiles + it - 1);
+      wgmma_wait<1>();  // S and dP of tile it (committed first) are done
+      fence_sdp();
+      form_ds(it);
+      wgmma_wait<0>();  // dQ of tile it - 1 is done
+      fence_regs(dq);
+      release(n_tiles + it - 1);
+      pack_a<T, kBN>(sc, da);
+    }
+    issue_dq(2 * n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    release(2 * n_tiles - 1);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (tig == 0 && row[i] < p.sq) p.delta[lrow + row[i]] = delta[i];
+  }
+  store_rows<T, D>(static_cast<T*>(p.dq) + b * p.dq_b + head * p.dq_h,
+                   p.dq_s, row, p.sq, tig, dq);
+}
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tlse,
+                        const __grid_constant__ CUtensorMap tdelta,
+                        const Params p) {
+  using C = DkvCfg<D, kSoftcap>;
+  constexpr int kStages = C::kStages;
+  constexpr int kBQ = C::kBQ;
+  constexpr int kBlocksD = D / 64;
+  extern __shared__ unsigned char smem_bwd90[];
+  unsigned char* sK =
+      smem_bwd90 + ((1024 - (smem_u32(smem_bwd90) & 1023)) & 1023);
+  unsigned char* sV = sK + C::kKVBytes;
+  unsigned char* sQ = sV + C::kKVBytes;  // [kStages] tiles
+  unsigned char* sdO = sQ + kStages * C::kQBytes;
+  float* sL = reinterpret_cast<float*>(sdO + kStages * C::kQBytes);
+  float* sD = sL + kStages * kBQ;
+  float* sL2 = sD + kStages * kBQ;  // [kWarpgroups][kStages][kBQ]
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(sL2 + kWarpgroups * kStages * kBQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int key0 = blockIdx.x * kBlockRows;
+  const int off = p.sk - p.sq;
+  const int key_last = min(key0 + kBlockRows, p.sk) - 1;
+  // Query rows that see any key of the block, in tiles of kBQ, for each
+  // query head of the group: step it reads query head g * group + it /
+  // n_qt, rows (qt_lo + it % n_qt) * kBQ..
+  const int q_lo = p.right >= 0 ? max(key0 - off - p.right, 0) : 0;
+  const int q_hi =
+      p.left >= 0 ? min(key_last - off + p.left, p.sq - 1) : p.sq - 1;
+  const int qt_lo = q_lo / kBQ;
+  const int n_qt = q_hi >= q_lo ? q_hi / kBQ - qt_lo + 1 : 0;
+  const int n_iter = n_qt * p.group;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kWarpgroups);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The copies, all issued by thread 0: K and V once, then per step a Q,
+  // dO, LSE and delta tile, step it into stage it % kStages once every
+  // warp has released step it - kStages.
+  auto load_q = [&](int it) {
+    const int s = it % kStages;
+    const int head = g * p.group + it / n_qt;
+    const int rb = (qt_lo + it % n_qt) * kBQ;
+    mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * C::kStatBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sQ + s * C::kQBytes + cb * kBQ * 128, &tq, full + s, cb * 64,
+                  rb, head, b);
+      tma_load_4d(sdO + s * C::kQBytes + cb * kBQ * 128, &tdo, full + s,
+                  cb * 64, rb, head, b);
+    }
+    const int li = (b * p.h + head) * p.sq + rb;
+    tma_load_1d(sL + s * kBQ, &tlse, full + s, li);
+    tma_load_1d(sD + s * kBQ, &tdelta, full + s, li);
+  };
+  if (tid == 0 && n_iter > 0) {
+    mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sK + cb * kBlockRows * 128, &tk, kv_full, cb * 64, key0, g,
+                  b);
+      tma_load_4d(sV + cb * kBlockRows * 128, &tv, kv_full, cb * 64, key0, g,
+                  b);
+    }
+    for (int it = 0; it < min(kStages, n_iter); ++it) load_q(it);
+  }
+
+  const int cw = tid >> 7;  // warpgroup: keys 64 cw..
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int wkey0 = key0 + cw * 64;
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = wkey0 + warp * 16 + gid + 8 * i;
+  float dk[D / 2];
+  float dv[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+
+  if (n_iter > 0) {
+    // Descriptors: this warpgroup's K and V rows (A); Q and dO K-major (B
+    // of S^T and dP^T) and N-major (B of dK and dV).
+    const uint64_t k_desc = make_desc(sK + cw * 64 * 128, 16, 1024);
+    const uint64_t v_desc = make_desc(sV + cw * 64 * 128, 16, 1024);
+    const uint64_t q_desc = make_desc(sQ, 16, 1024);
+    const uint64_t do_desc = make_desc(sdO, 16, 1024);
+    const uint64_t qn_desc = make_desc(sQ, kBQ * 128, 1024);
+    const uint64_t don_desc = make_desc(sdO, kBQ * 128, 1024);
+    float st[kBQ / 2];   // S^T, then P^T
+    float dpt[kBQ / 2];  // dP^T, then dS^T
+    uint32_t pa[kBQ / 16][4];
+    uint32_t da[kBQ / 16][4];
+
+    // P^T and dS^T of step s's tile (query rows rb..) in place.
+    auto p_ds_step = [&](auto masked, int s, int rb) {
+      const float* lse2 = sL2 + (cw * kStages + s) * kBQ;
+      const float* dlt = sD + s * kBQ;
+#pragma unroll
+      for (int x = 0; x < kBQ / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
+        const int r = rb + c;
+        float dmul;
+        float pr = prob<kSoftcap>(p, st[x], lse2[c], dmul);
+        if constexpr (decltype(masked)::value) {
+          if (!(key[i] < p.sk && in_window(key[i], r + off, p.left, p.right))) {
+            pr = 0.f;
+          }
+        }
+        st[x] = pr;
+        dpt[x] = pr * (dpt[x] - dlt[c]) * dmul;
+      }
+    };
+
+    // The two warpgroups take turns to issue their wgmma (named barriers 1
+    // and 2 in a ring): one's products run while the other forms P^T and
+    // dS^T.
+    auto turn_begin = [&] { named_barrier(1 + cw, 256); };
+    auto turn_end = [&] { named_arrive(1 + (cw ^ 1), 256); };
+    mbar_wait(kv_full, 0);
+    if (cw == 1) named_arrive(1, 256);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages;
+      const int rb = (qt_lo + it % n_qt) * kBQ;
+      turn_begin();
+      mbar_wait(full + s, (it / kStages) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t qb =
+            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBQ>(st, k_desc + ka, q_desc + qb, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t qb =
+            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBQ>(dpt, v_desc + ka, do_desc + qb, kk > 0);
+      }
+      wgmma_commit();
+      turn_end();
+      // While the products run: this warpgroup's copy of the tile's LSE in
+      // base 2 (+inf past sq or for rows that see nothing), so that each
+      // score takes one FFMA before its exponential.
+      for (int c = t; c < kBQ; c += 128) {
+        sL2[(cw * kStages + s) * kBQ + c] =
+            lse_base2(sL[s * kBQ + c], rb + c < p.sq);
+      }
+      named_barrier(3 + cw, 128);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool full_tile =
+          rb + kBQ <= p.sq && wkey0 + 64 <= p.sk &&
+          in_window(wkey0, rb + kBQ - 1 + off, p.left, -1) &&
+          in_window(wkey0 + 63, rb + off, -1, p.right);
+      if (full_tile) {
+        p_ds_step(Bool<false>(), s, rb);
+      } else {
+        p_ds_step(Bool<true>(), s, rb);
+      }
+      pack_a<T, kBQ>(st, pa);
+      pack_a<T, kBQ>(dpt, da);
+
+      // dV += P^T dO and dK += dS^T Q (dS already carries the scale).
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
+        wgmma_rs<T, D>(dv, pa[kk], don_desc + step, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
+        wgmma_rs<T, D>(dk, da[kk], qn_desc + step, 1);
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      if (tid == 0 && it >= 1 && it - 1 + kStages < n_iter) {
+        load_q(it - 1 + kStages);
+      }
+    }
+  }
+
+  store_rows<T, D>(static_cast<T*>(p.dk) + b * p.dk_b + g * p.dk_h, p.dk_s,
+                   key, p.sk, tig, dk);
+  store_rows<T, D>(static_cast<T*>(p.dv) + b * p.dv_b + g * p.dv_h, p.dv_s,
+                   key, p.sk, tig, dv);
+}
+
+inline Params make_params(int h, int hk, int sq, int sk, float scale,
+                          int window_left, int window_right, float softcap) {
+  Params p = {};
+  p.h = h;
+  p.group = h / hk;
+  p.sq = sq;
+  p.sk = sk;
+  p.left = window_left;
+  p.right = window_right;
+  p.scale = scale;
+  const bool cap = softcap > 0.f;
+  p.score_mul = cap ? scale / softcap : scale * kLog2e;
+  p.cap_log2 = softcap * kLog2e;
+  return p;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch_dq(const CUtensorMap& tq, const CUtensorMap& tdo,
+              const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
+              int batch, cudaStream_t stream) {
+  const size_t smem = DqCfg<D, kSoftcap>::kSmem;
+  if (const int err = set_smem(bwd_dq_sm90_kernel<T, D, kSoftcap>, smem)) {
+    return err;
+  }
+  const dim3 grid((p.sq + kBlockRows - 1) / kBlockRows, p.h, batch);
+  bwd_dq_sm90_kernel<T, D, kSoftcap>
+      <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch_dkv(const CUtensorMap& tq, const CUtensorMap& tdo,
+               const CUtensorMap& tk, const CUtensorMap& tv,
+               const CUtensorMap& tlse, const CUtensorMap& tdelta,
+               const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = DkvCfg<D, kSoftcap>::kSmem;
+  if (const int err = set_smem(bwd_dkv_sm90_kernel<T, D, kSoftcap>, smem)) {
+    return err;
+  }
+  const dim3 grid((p.sk + kBlockRows - 1) / kBlockRows, p.h / p.group, batch);
+  bwd_dkv_sm90_kernel<T, D, kSoftcap>
+      <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, tlse, tdelta, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq_softcap(const CUtensorMap& tq, const CUtensorMap& tdo,
+                      const CUtensorMap& tk, const CUtensorMap& tv,
+                      const Params& p, bool softcap, int batch,
+                      cudaStream_t stream) {
+  return softcap ? launch_dq<T, D, true>(tq, tdo, tk, tv, p, batch, stream)
+                 : launch_dq<T, D, false>(tq, tdo, tk, tv, p, batch, stream);
+}
+
+template <typename T, int D>
+int launch_dkv_softcap(const CUtensorMap& tq, const CUtensorMap& tdo,
+                       const CUtensorMap& tk, const CUtensorMap& tv,
+                       const CUtensorMap& tlse, const CUtensorMap& tdelta,
+                       const Params& p, bool softcap, int batch,
+                       cudaStream_t stream) {
+  return softcap ? launch_dkv<T, D, true>(tq, tdo, tk, tv, tlse, tdelta, p,
+                                          batch, stream)
+                 : launch_dkv<T, D, false>(tq, tdo, tk, tv, tlse, tdelta, p,
+                                           batch, stream);
+}
+
+}  // namespace bwd90
+}  // namespace fa

@@ -1,14 +1,12 @@
-// Flash-attention backward tile steps, shared by csrc/flash_bwd.cu (dense
-// and varlen modes) and csrc/flash_sparse_bwd.cu (the vertical-slash sparse
+// Flash-attention backward tile steps, shared by csrc/flash_bwd.cu (the
+// varlen mode) and csrc/flash_sparse_bwd.cu (the vertical-slash sparse
 // mode): dQ, dK and dV from Q, K, V, dO and the forward's log-sum-exp, in
-// two kernels.
+// two kernels. The dense mode runs on the Hopper kernels of
+// csrc/flash_bwd_sm90.cuh.
 //
-// Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:233
-// (_bwd_dkv_kernel, launched at :930 by flash_attention_bwd :669),
-// flash_bwd.py:449 (_bwd_dq_kernel, launched at :1075),
-// flash_attn_tpu/kernels/flash_varlen.py:883 (_varlen_dkv_kernel, launched
-// at :1739 by flash_attention_varlen_bwd :1508) and flash_varlen.py:1005
-// (_varlen_dq_kernel, launched at :1821),
+// Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:883
+// (_varlen_dkv_kernel, launched at :1739 by flash_attention_varlen_bwd
+// :1508) and flash_varlen.py:1005 (_varlen_dq_kernel, launched at :1821),
 // flash_attn_tpu/kernels/flash_sparse.py:542 (_sparse_dkv_kernel, launched
 // at :855 by flash_attention_sparse_bwd :713) and flash_sparse.py:638
 // (_sparse_dq_kernel, launched at :915), restricted to the forward's
@@ -96,7 +94,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = kWarps * 16;  // key rows (dK/dV) or query rows (dQ)
 
-enum Mode { kDense = 0, kVarlen = 1, kSparse = 2 };
+// 0 was the dense mode (now csrc/flash_bwd_sm90.cuh); the values stay, as
+// the instantiations' names carry them.
+enum Mode { kVarlen = 1, kSparse = 2 };
 
 template <int D>
 struct Tiles {
@@ -120,7 +120,7 @@ struct BwdParams {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, do_b, do_h, do_s;
   long long dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
   long long lse_h;  // lse/delta stride per head: dense sq, varlen total_q
-  int h, group, sq, sk;  // sq, sk: dense only
+  int h, group, sq, sk;  // sq, sk: the sparse mode only
   // Varlen: sequence starts (nseq + 1) and optional used lengths (nseq).
   const int* cu_q;
   const int* cu_k;
@@ -162,22 +162,7 @@ struct Seq {
 template <int kMode>
 __device__ __forceinline__ Seq seq_of(const BwdParams& p, int b) {
   Seq s;
-  if constexpr (kMode == kDense) {
-    // Written out apart from the sparse rows below: reading the optional
-    // lengths here too took the d = 64 dK/dV kernel from 168 to 175
-    // registers, 2 blocks per SM instead of 3, and 15% slower (PERF.md).
-    s.q = b * p.q_b;
-    s.k = b * p.k_b;
-    s.v = b * p.v_b;
-    s.dout = b * p.do_b;
-    s.dq = b * p.dq_b;
-    s.dk = b * p.dk_b;
-    s.dv = b * p.dv_b;
-    s.lse = static_cast<long long>(b) * p.h * p.sq;
-    s.rows = p.sq;
-    s.keys = p.sk;
-    s.off = p.sk - p.sq;
-  } else if constexpr (kMode == kSparse) {
+  if constexpr (kMode == kSparse) {
     s.q = b * p.q_b;
     s.k = b * p.k_b;
     s.v = b * p.v_b;
@@ -727,7 +712,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Seq s = seq_of<kMode>(p, blockIdx.z);
   const int n_m = (s.rows + kTileRows - 1) / kTileRows;
-  // Dense: one pass, m_block = gridDim.x - 1 - blockIdx.x.
+  // Sparse: one pass, m_block = gridDim.x - 1 - blockIdx.x.
   for (int mb = blockIdx.x; mb < n_m; mb += gridDim.x) {
     dq_tile<T, D, kSoftcap, kMode, kAlibi>(p, s, n_m - 1 - mb, blockIdx.y,
                                            blockIdx.z, smem_raw);

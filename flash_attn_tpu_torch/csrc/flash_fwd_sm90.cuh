@@ -403,66 +403,6 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (cudaGetDriverEntryPointByVersion), so that the library needs no link
-// against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A 4-D map over (d, s, h, b) of a (b, h, s, d) tensor with element strides
-// (st_b, st_h, st_s, 1), boxes of 64 x `rows` x 1 x 1 with the 128-byte
-// swizzle. TMA takes byte strides that are multiples of 16; a dimension of
-// extent 1 is never stepped, so its stride is replaced by a packed one.
-// Returns 0, or -2 if cuTensorMapEncodeTiled refuses the map.
-inline int make_map(CUtensorMap* map, const void* ptr, int is_fp16, int d,
-                    int s, int h, int b, long long st_s, long long st_h,
-                    long long st_b, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return -2;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                        static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  long long st[3] = {st_s, st_h, st_b};
-  long long packed = d;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) st[i] = packed;
-    packed = st[i] * static_cast<long long>(dims[i + 1]);
-  }
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(st[i]) * 2;
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map,
-      is_fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : -2;
-}
-
 template <typename T, int D, bool kSoftcap>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const Params& p, int batch, cudaStream_t stream) {

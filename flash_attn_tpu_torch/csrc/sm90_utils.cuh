@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the dense forward (csrc/flash_fwd_sm90.cuh):
-// mbarriers, TMA tile loads through tensor maps, wgmma with its shared-memory
-// descriptors and register-file fences, and setmaxnreg.
+// Hopper (sm_90a) building blocks of the dense forward (csrc/flash_fwd_sm90.cuh)
+// and backward (csrc/flash_bwd_sm90.cuh): mbarriers, TMA tile loads through
+// tensor maps (and, on the host, the maps themselves), wgmma with its
+// shared-memory descriptors and register-file fences, and setmaxnreg.
 //
 // Shared-memory layout of every tile: the 128-byte swizzle that TMA writes
 // with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1. A tile
@@ -102,6 +103,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 1-D tensor map (an fp32 row) into shared memory, as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 
@@ -207,6 +219,24 @@ struct Wgmma<__nv_bfloat16> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
   }
+  // D (64 x 64, fp32) = A (64 x 16, smem) * B (64 x 16, smem, K-major)^T
+  // (+ D when scale_d).
+  static __device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // D (64 x 64, fp32) = A (64 x 16, registers) * B (16 x 64, smem,
   // N-major: the transpose flag set) (+ D when scale_d).
   static __device__ __forceinline__ void rs_n64(float (&d)[32],
@@ -281,6 +311,24 @@ struct Wgmma<__half> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
   }
+  // D (64 x 64, fp32) = A (64 x 16, smem) * B (64 x 16, smem, K-major)^T
+  // (+ D when scale_d).
+  static __device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // D (64 x 64, fp32) = A (64 x 16, registers) * B (16 x 64, smem,
   // N-major: the transpose flag set) (+ D when scale_d).
   static __device__ __forceinline__ void rs_n64(float (&d)[32],
@@ -327,6 +375,108 @@ struct Wgmma<__half> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
+
+// wgmma by tile width: wgmma_ss<T, N> is Wgmma<T>::ss_nN and wgmma_rs<T, N>
+// is Wgmma<T>::rs_nN (N = 64, 128).
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) {
+    Wgmma<T>::ss_n64(d, da, db, scale_d);
+  } else {
+    Wgmma<T>::ss_n128(d, da, db, scale_d);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) {
+    Wgmma<T>::rs_n64(d, a, db, scale_d);
+  } else {
+    Wgmma<T>::rs_n128(d, a, db, scale_d);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (cudaGetDriverEntryPointByVersion), so that the library needs no link
+// against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 4-D map over (d, s, h, b) of a (b, h, s, d) tensor with element strides
+// (st_b, st_h, st_s, 1), boxes of 64 x `rows` x 1 x 1 with the 128-byte
+// swizzle. TMA takes byte strides that are multiples of 16; a dimension of
+// extent 1 is never stepped, so its stride is replaced by a packed one.
+// Returns 0, or -2 if cuTensorMapEncodeTiled refuses the map.
+inline int make_map(CUtensorMap* map, const void* ptr, int is_fp16, int d,
+                    int s, int h, int b, long long st_s, long long st_h,
+                    long long st_b, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return -2;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                        static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  long long st[3] = {st_s, st_h, st_b};
+  long long packed = d;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) st[i] = packed;
+    packed = st[i] * static_cast<long long>(dims[i + 1]);
+  }
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(st[i]) * 2;
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map,
+      is_fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -2;
+}
+
+// A 1-D map over n fp32 values (a contiguous (b, h, s) LSE or delta read
+// as one row), boxes of `box` values, no swizzle. Returns 0, or -2 if
+// cuTensorMapEncodeTiled refuses the map (a base not 16-byte aligned).
+inline int make_map_1d(CUtensorMap* map, const void* ptr, long long n,
+                       int box) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return -2;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t estr[1] = {1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims,
+      strides, boxes, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -2;
+}
 
 }  // namespace sm90
 }  // namespace fa

@@ -11,14 +11,19 @@ and dout through two kernel wrappers, each with its own launch count:
     `_bwd_dkv_ref`), which takes that delta; its dK/dV already sum the
     query heads of each GQA group.
 
+On the card both run the Hopper kernels of `csrc/flash_bwd_sm90.cuh`
+(wgmma, TMA, mbarriers); `bwd_walks` is a plain mirror of their tile walks.
+A q, k, v or dout that the kernels' TMA tensor maps cannot take as it is
+is copied first, counted in `flash_attention_bwd.tma_copies`.
+
 Both plain versions recompute P from Q, K and the LSE exactly as the JAX
 kernels' `_recompute_p_and_ds` does, not by autograd. The JAX package takes
 delta = rowsum(dO * O) instead; the two are equal in exact arithmetic, but
 with a bf16 O the rowsum no longer matches the recomputed P and dP, and the
 error it leaves in dS reaches the k-projection gradients magnified (see
-csrc/flash_bwd.cu). CUDA tensors launch the kernels; CPU tensors take the
-plain versions. The features are those of `kernels.flash_fwd`; the rest
-raise NotImplementedError.
+csrc/flash_bwd_sm90.cuh). CUDA tensors launch the kernels; CPU tensors take
+the plain versions. The features are those of `kernels.flash_fwd`; the
+rest raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +42,57 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     check_unported,
     scores,
     strides_arg,
+    tma_ready,
 )
+
+# Rows per block of csrc/flash_bwd_sm90.cuh (query rows of the dQ kernel,
+# keys of the dK/dV kernel).
+BLOCK_ROWS = 128
+
+
+def walk_tile(d, softcap):
+    """The tile each block walks (keys per K/V tile of the dQ walk, query
+    rows per Q/dO tile of the dK/dV walk), as csrc/flash_bwd_sm90.cuh's
+    walk_tile."""
+    return 128 if d == 64 and not softcap else 64
+
+
+def bwd_walks(sq, sk, h, hk, d, causal=False, window_size=(-1, -1),
+              softcap=0.0):
+    """Plain mirror of the dense backward kernels' tile walks (one batch
+    row). Returns (dkv, dq): dkv holds (key block, kv head, query head,
+    first query row) for each step of each dK/dV block, the blocks in grid
+    order (first key blocks first) and each block's steps in its order; dq
+    holds (query block, query head, first key) for each step of one pass of
+    each dQ block (the kernel walks its tiles twice), the last query blocks
+    first. A step covers BLOCK_ROWS keys (dK/dV) or rows (dQ) and a tile of
+    walk_tile(d, softcap) rows (dK/dV) or keys (dQ)."""
+    left, right = normalize_window(window_size, causal)
+    off, group, tile = sk - sq, h // hk, walk_tile(d, softcap > 0)
+    dkv = []
+    for kb in range(-(-sk // BLOCK_ROWS)):
+        key0 = kb * BLOCK_ROWS
+        key_last = min(key0 + BLOCK_ROWS, sk) - 1
+        q_lo = max(key0 - off - right, 0) if right >= 0 else 0
+        q_hi = min(key_last - off + left, sq - 1) if left >= 0 else sq - 1
+        qt_lo = q_lo // tile
+        n_qt = q_hi // tile - qt_lo + 1 if q_hi >= q_lo else 0
+        for g in range(hk):
+            dkv += [(kb, g, g * group + it // n_qt, (qt_lo + it % n_qt) * tile)
+                    for it in range(n_qt * group)]
+    dq = []
+    n_m = -(-sq // BLOCK_ROWS)
+    for x in range(n_m):
+        mb = n_m - 1 - x
+        row0 = mb * BLOCK_ROWS
+        row_last = min(row0 + BLOCK_ROWS, sq) - 1
+        col_lo = max(row0 + off - left, 0) if left >= 0 else 0
+        col_hi = min(row_last + off + right, sk - 1) if right >= 0 else sk - 1
+        tile_lo = col_lo // tile
+        n_tiles = col_hi // tile - tile_lo + 1 if col_hi >= col_lo else 0
+        for head in range(h):
+            dq += [(mb, head, (tile_lo + i) * tile) for i in range(n_tiles)]
+    return dkv, dq
 
 
 def _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible):
@@ -115,17 +170,32 @@ def _check_stats(q, **stats):
                              f"{q.device}; got {t.dtype} {tuple(t.shape)}")
 
 
+def _stats_ready(t):
+    """A contiguous fp32 `t` as the kernels' 1-D tensor maps take it: itself
+    on a 16-byte aligned base, else a copy, counted in
+    `flash_attention_bwd.tma_copies`."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    flash_attention_bwd.tma_copies += 1
+    return t.clone()
+
+
 def _prepare(q, k, v, do, stats, softmax_scale, causal, window_size,
              softcap):
+    """(q, k, v, do, stats as the kernels take them, the C call's shape and
+    option arguments)."""
     check_shapes(q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"dout {tuple(do.shape)} must match q {tuple(q.shape)}")
+    q, k, v, do = (tma_ready(x, flash_attention_bwd) for x in (q, k, v, do))
     b, h, sq, d = q.shape
     check_kernel_inputs(d, h, k.shape[1], q=q, k=k, v=v, dout=do)
     _check_stats(q, **stats)
+    stats = {name: _stats_ready(t) for name, t in stats.items()}
     left, right = normalize_window(window_size, causal)
-    return (b, h, k.shape[1], sq, k.shape[2], d, _scale(d, softmax_scale),
-            left, right, float(softcap))
+    return q, k, v, do, stats, (b, h, k.shape[1], sq, k.shape[2], d,
+                                _scale(d, softmax_scale), left, right,
+                                float(softcap))
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
@@ -137,12 +207,14 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
               window_size=window_size, softcap=softcap)
     if q.device.type == "cpu":
         return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
-    dims = _prepare(q, k, v, do, dict(lse=lse, delta=delta), **kw)
+    q, k, v, do, stats, dims = _prepare(q, k, v, do,
+                                        dict(lse=lse, delta=delta), **kw)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     rc = _kernels().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats["lse"].data_ptr(), stats["delta"].data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
         strides_arg(q, k, v, do, dk, dv), *dims,
         int(q.dtype == torch.float16),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -165,12 +237,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, *, softmax_scale=None,
               window_size=window_size, softcap=softcap)
     if q.device.type == "cpu":
         return _bwd_dq_ref(q, k, v, do, lse, **kw)
-    dims = _prepare(q, k, v, do, dict(lse=lse), **kw)
+    q, k, v, do, stats, dims = _prepare(q, k, v, do, dict(lse=lse), **kw)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     rc = _kernels().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        stats["lse"].data_ptr(), delta.data_ptr(), dq.data_ptr(),
         strides_arg(q, k, v, do, dq), *dims,
         int(q.dtype == torch.float16),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -236,6 +308,12 @@ def flash_attention_bwd(
     )
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
+    if q.device.type != "cpu":
+        # Copied (if at all) once for both kernels.
+        q, k, v, do = (tma_ready(x, flash_attention_bwd) for x in (q, k, v, do))
     dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, **kw)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
+
+
+flash_attention_bwd.tma_copies = 0

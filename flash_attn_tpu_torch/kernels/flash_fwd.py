@@ -235,12 +235,12 @@ def tma_addressable(t: torch.Tensor) -> bool:
         n == 1 or st > 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
-def tma_ready(t: torch.Tensor) -> torch.Tensor:
+def tma_ready(t: torch.Tensor, owner=flash_attention_fwd) -> torch.Tensor:
     """`t` itself when TMA takes it, else a contiguous copy, counted in
-    `flash_attention_fwd.tma_copies`."""
+    `owner.tma_copies` (the wrapper that needs it)."""
     if tma_addressable(t):
         return t
-    flash_attention_fwd.tma_copies += 1
+    owner.tma_copies += 1
     return t.contiguous()
 
 

@@ -14,7 +14,8 @@ and csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
 (whose C interface the base must share) on chip_smoke.py's "gpt2m" and
 "mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8) and its
 "prefill-8k" sparse case (12-15), the builds in turns (base, tree, tree,
-base per round), each time the median of 20 CUDA-event times. Kernels 4
+base per round), each time the median of 20 CUDA-event times; each case
+takes all its rounds before the next one starts. Kernels 4
 and 5, whose C interfaces may differ between checkouts, are timed through
 each checkout's own wrappers: tools/ab_decode_worker.py runs once per
 checkout (its inputs built once), and each turn asks the checkout's worker
@@ -275,20 +276,27 @@ def main(argv=None):
     calls = {name: inputs(name, seed=20 + CASES.index(name))
              for name in args.cases}
     times = {tag: {} for tag in trees}
-    for r in range(args.rounds):
-        for tag in ("base", "tree", "tree", "base"):
-            use(tag)
-            turn = {}
-            for case, fns in calls.items():
-                for kernel, fn in fns.items():
-                    turn[f"{case}/{kernel}"] = chip_smoke.cuda_ms(fn)
-            torch.cuda.synchronize()
-            if workers:
-                turn.update(workers[tag].times())
-            for key, ms in turn.items():
-                times[tag].setdefault(key, []).append(ms)
-            print(json.dumps(dict(phase="turn", round=r, build=tag, ms=turn)),
-                  flush=True)
+    # Each case takes all its rounds of turns before the next case starts,
+    # so that a kernel's turns follow turns of the same case: a much
+    # faster kernel of one build, timed just before an unchanged one, made
+    # the unchanged one read 3-8% slower in that build's turns.
+    turns = [(case, fns) for case, fns in calls.items()]
+    if workers:
+        turns.append(("decode", None))
+    for case, fns in turns:
+        for r in range(args.rounds):
+            for tag in ("base", "tree", "tree", "base"):
+                use(tag)
+                if fns is None:
+                    turn = workers[tag].times()
+                else:
+                    turn = {f"{case}/{kernel}": chip_smoke.cuda_ms(fn)
+                            for kernel, fn in fns.items()}
+                    torch.cuda.synchronize()
+                for key, ms in turn.items():
+                    times[tag].setdefault(key, []).append(ms)
+                print(json.dumps(dict(phase="turn", case=case, round=r,
+                                      build=tag, ms=turn)), flush=True)
     for worker in workers.values():
         worker.close()
     medians = {key: dict(base=float(np.median(times["base"][key])),
