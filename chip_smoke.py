@@ -37,7 +37,8 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               forward routes and the backward against their plain versions
               on MInference-style metadata (the 32768-token Mistral-width
               prefill, 8192 forward and backward, d 64, ALiBi + softcap
-              fp16, padded lengths, overlaps and garbage, empty blocks),
+              fp16, padded lengths, overlaps and garbage, empty blocks, odd
+              block counts at d 64),
               each with a slash offset moved by one column that every check
               must catch; sparse_attn_func's autograd with launches
               counted; sparse against dense over contexts, densities and
@@ -158,6 +159,7 @@ from flash_attn_tpu_torch.kernels.flash_sparse import (  # noqa: E402
     _sparse_dkv_ref,
     _sparse_dq_ref,
     column_limits,
+    flash_attention_sparse_bwd,
     flash_attention_sparse_bwd_dkv,
     flash_attention_sparse_bwd_dq,
     flash_attention_sparse_fwd_ref,
@@ -2567,6 +2569,10 @@ SPARSE_CASES = {
                             False, None, "overlap", True),
     "empty-blocks": (1, 8, 2, 1500, 2000, D, False, torch.bfloat16, 0.0, False,
                      None, "empty", True),
+    # nqb 21 and nkb 31: the last block of either backward kernel has one
+    # 64-row block or key tile, its second warpgroup none.
+    "odd-blocks-d64": (1, 8, 2, 1300, 1950, 64, True, torch.bfloat16, 0.0,
+                       False, None, None, True),
 }
 # The largest boolean mask handed to SDPA as the library yardstick.
 SDPA_MASK_BYTES = 4 << 30
@@ -2862,10 +2868,12 @@ def sparse_autograd_phase(seed=111, s=8192, heads=MINF_HEADS):
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     _zero_sparse_counts()
     dispatch_counts.clear()
+    flash_attention_sparse_bwd.tma_copies = 0
     out = sparse_attn_func(*leaves, *meta, causal=True)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     launches = _sparse_counts()
+    tma_copies = flash_attention_sparse_bwd.tma_copies
     routes = {f"{k_}/{r}": n for (k_, r), n in dispatch_counts.items()}
     route = sparse_route(meta[1].shape[-1], meta[3].shape[-1], sk)
     fwd_name = ("flash_sparse_fwd" if route == "tiles"
@@ -2888,7 +2896,8 @@ def sparse_autograd_phase(seed=111, s=8192, heads=MINF_HEADS):
                                   for c in checks.values())
     result = dict(phase="sparse_autograd", b=b, h=h, hk=hk, s=sq, d=d,
                   layout="bshd", route=route, launches=launches,
-                  launches_expected=want, routes=routes, **checks,
+                  launches_expected=want, routes=routes,
+                  bwd_tma_copies=tma_copies, **checks,
                   tolerance=ATTN_TOLERANCE, ok=ok)
     emit(result)
     check(ok, "sparse_autograd: launches off the count or a gradient outside "
@@ -3110,11 +3119,14 @@ def sparse_vllm_phase(seed=130, layers=32):
     return result
 
 
-def sparse_kernel_entries(sparse):
+def sparse_kernel_entries(sparse, logs):
     """Kernels 12-15 for the kernels line: times at the vLLM prefill shape
     (forward) and the prefill-8k case (backward; forward there too),
     launches on the slice's two paths (`sparse_vllm`, `sparse_autograd`),
-    each counted from zero. Fails if one of them never launched there."""
+    each counted from zero; for the backward's Hopper kernels, their
+    ptxas registers and spills and SASS counts. Fails if one of them never
+    launched there, or if a backward kernel's SASS has no wgmma or TMA
+    load, or has atomics."""
     cases = sparse["cases"]
     p32, p8 = cases["vllm-prefill-32k"], cases["prefill-8k"]
     runs = sparse["autograd"]
@@ -3152,10 +3164,25 @@ def sparse_kernel_entries(sparse):
                 ms=p8[ms_key], plain_ms=p8["fwd_plain_ms"],
                 bound_ms=p8["fwd_bound_ms"], bound_by=p8["fwd_bound_by"],
                 library_ms=p8["library_fwd_ms"])
-        elif p8.get("library_fwd_bwd_ms") is not None:
-            # SDPA's backward alone: its forward+backward less its forward.
-            entry["library_bwd_ms"] = (p8["library_fwd_bwd_ms"]
-                                       - p8["library_fwd_ms"])
+        else:
+            if p8.get("library_fwd_bwd_ms") is not None:
+                # SDPA's backward alone: its forward+backward less its
+                # forward.
+                entry["library_bwd_ms"] = (p8["library_fwd_bwd_ms"]
+                                           - p8["library_fwd_ms"])
+            # The Hopper kernel's instructions alone (no atomics: ATOM and
+            # RED must be 0; LDL and STL are spill loads and stores).
+            kernel = f"sparse_{key}_sm90_kernel"
+            entry.update(
+                design="wgmma+tma", ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("flash_sparse_bwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=sum(a["bwd_tma_copies"] for a in runs))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
         entries.append(entry)
         check(entry["launches"] > 0, f"{name} never launched on the sparse "
                                      "paths")
@@ -3721,7 +3748,8 @@ def main(argv=None):
               nvidia_smi=card, build_s=build_s, sources=sources,
               ptxas=[ln.strip() for log in logs.values()
                      for ln in log.splitlines() if "registers" in ln
-                     or "spill" in ln or "Function properties" in ln]))
+                     or "spill" in ln or "Function properties" in ln
+                     or "Performance Loss" in ln]))
 
     if only:
         if "kernel" in only:
@@ -3956,7 +3984,7 @@ def main(argv=None):
                       "contexts 2831-6000, h=32 hk=8 d=128, window 4095, "
                       "page 16, phd views")
         kernels.append(entry)
-    kernels += sparse_kernel_entries(sparse)
+    kernels += sparse_kernel_entries(sparse, logs)
     kernels += blocksparse_kernel_entries(bsr)
     emit({"kernels": kernels})
     print(smi(), flush=True)

@@ -2,8 +2,7 @@
 // sequences: the C entry points of kernels 2-3 (dense dK/dV and dQ) and 7-8
 // (varlen). The dense kernels, their function, bound and design are in
 // csrc/flash_bwd_sm90.cuh; the varlen tile steps are in
-// csrc/flash_bwd_tile.cuh, shared with the sparse mode of
-// csrc/flash_sparse_bwd.cu.
+// csrc/flash_bwd_tile.cuh.
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_bwd_tile.cuh"
@@ -125,7 +124,7 @@ extern "C" int flash_varlen_bwd_dkv(
   set_dkv(p, dk, dv, strides);
   set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
   const int n_blocks = max((max_seqlen_k + kTileRows - 1) / kTileRows, 1);
-  return dispatch<true, kVarlen>(p, n_blocks, hk, nseq, d, is_fp16, stream);
+  return dispatch<true>(p, n_blocks, hk, nseq, d, is_fp16, stream);
 }
 
 // Varlen dQ: strides 15, (unused, head, token) of q, k, v, dout, dq; writes
@@ -142,5 +141,5 @@ extern "C" int flash_varlen_bwd_dq(
   set_dq(p, delta, dq, strides);
   set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
   const int n_blocks = max((max_seqlen_q + kTileRows - 1) / kTileRows, 1);
-  return dispatch<false, kVarlen>(p, n_blocks, hk, nseq, d, is_fp16, stream);
+  return dispatch<false>(p, n_blocks, hk, nseq, d, is_fp16, stream);
 }

@@ -1,37 +1,27 @@
-// Flash-attention backward tile steps, shared by csrc/flash_bwd.cu (the
-// varlen mode) and csrc/flash_sparse_bwd.cu (the vertical-slash sparse
-// mode): dQ, dK and dV from Q, K, V, dO and the forward's log-sum-exp, in
-// two kernels. The dense mode runs on the Hopper kernels of
-// csrc/flash_bwd_sm90.cuh.
+// Flash-attention backward tile steps of csrc/flash_bwd.cu's varlen entry
+// points (kernels 7 and 8): dQ, dK and dV from Q, K, V, dO and the
+// forward's log-sum-exp over packed variable-length sequences, in two
+// kernels. The dense mode runs on the Hopper kernels of
+// csrc/flash_bwd_sm90.cuh, the sparse one on csrc/flash_sparse_bwd_sm90.cuh.
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:883
 // (_varlen_dkv_kernel, launched at :1739 by flash_attention_varlen_bwd
 // :1508) and flash_varlen.py:1005 (_varlen_dq_kernel, launched at :1821),
-// flash_attn_tpu/kernels/flash_sparse.py:542 (_sparse_dkv_kernel, launched
-// at :855 by flash_attention_sparse_bwd :713) and flash_sparse.py:638
-// (_sparse_dq_kernel, launched at :915), restricted to the forward's
-// features here (csrc/flash_fwd_tile.cuh): scale, bottom-right-aligned
-// causal, sliding window, GQA/MQA, softcap, seqused_q/k, ALiBi (sparse),
-// head dim 64 or 128, bf16/fp16. The TPU schedule (clamped index maps, _make_inverse_bounds,
-// exact worklists, 128-lane LSE padding, the (b, h, sk, d) and (h, total_k,
-// d) per-query-head dK/dV temporaries and their reshape-sums) is not carried
-// over. A varlen sequence is what a batch row is to a dense call: the same
-// row/key/diagonal rule as the forward, with per-sequence offsets and
-// lengths; rows past a sequence's used rows and keys past its used keys are
-// not written (the varlen wrapper zero-fills dq, dk and dv beforehand).
-// A sparse call is a dense one whose visible pairs are further cut to the
-// attended set of each query row's 64-row block (csrc/flash_fwd_tile.cuh):
-// the dQ kernel walks the forward's tile lists and membership words; the
-// dK/dV kernel walks, for its 64-key tile, an inverse list of (query head
-// in the group, 64-row block, membership word) built by the planner
-// (kernels/flash_sparse.py), so each query head's own pattern reaches the
-// group's sum.
+// restricted to the forward's features here (csrc/flash_fwd_tile.cuh):
+// scale, bottom-right-aligned causal, sliding window, GQA/MQA, softcap,
+// seqused_q/k, head dim 64 or 128, bf16/fp16. The TPU schedule (clamped
+// index maps, _make_inverse_bounds, exact worklists, 128-lane LSE padding,
+// the (h, total_k, d) per-query-head dK/dV temporaries and their
+// reshape-sums) is not carried over. A varlen sequence is what a batch row
+// is to a dense call: the same row/key/diagonal rule as the forward, with
+// per-sequence offsets and lengths; rows past a sequence's used rows and
+// keys past its used keys are not written (the varlen wrapper zero-fills
+// dq, dk and dv beforehand).
 //
 // Function. Both kernels recompute P from Q, K and the LSE, as
 // _recompute_p_and_ds (flash_bwd.py:107-230) does: with s = q . k,
 //   t  = tanh(s * scale / softcap)            (softcap only)
 //   P  = exp(s * scale - lse)   or  exp(t * softcap - lse), 0 where masked
-//        (with ALiBi, minus slope * |j - diag| inside the exponent)
 //   dP = dO . v,  delta = sum_j P dP  (per query row)
 //   dS = P * (dP - delta) * scale   [* (1 - t^2) with softcap]
 //   dV = sum P^T dO,  dK = sum dS^T Q,  dQ = sum dS K
@@ -39,7 +29,7 @@
 // sees no column (lse = -inf) contributes nothing: P is 0, never NaN.
 //
 // delta. The JAX package takes delta = rowsum(dO * O) (flash_bwd.py:726,
-// flash_varlen.py:1586, flash_sparse.py:769), equal in exact arithmetic. With O rounded to bf16 it no longer matches
+// flash_varlen.py:1586), equal in exact arithmetic. With O rounded to bf16 it no longer matches
 // the P and dP the kernels recompute, so the rows of dS stop summing to 0,
 // and a k-projection gradient (sum_j dK_j x_j^T) turns that error times the
 // tokens' common component into an error several times that of a plain
@@ -65,7 +55,7 @@
 // by the longest sequence; blocks past a sequence's end return at once, and
 // a grid too short for a sequence loops over its remaining tiles.
 //  * dK/dV, KV-stationary: one block of 4 warps per (64 key rows, kv head,
-//    batch row or sequence); each warp owns 16 key rows. The block keeps
+//    sequence); each warp owns 16 key rows. The block keeps
 //    its K and V tile in shared memory and walks the group's query heads and, for each,
 //    the query tiles that see its keys, with Q, dO, lse and delta tiles
 //    double-buffered by cp.async. It computes S^T = K Q^T and dP^T = V dO^T
@@ -73,14 +63,13 @@
 //    and dK += dS^T Q in fp32 registers, written once at the end. Summing
 //    the group inside the block replaces the TPU's per-query-head temporary.
 //  * dQ, Q-stationary: one block of 4 warps per (64 query rows, query head,
-//    batch row or sequence). Q and dO stay in registers as A fragments;
+//    sequence). Q and dO stay in registers as A fragments;
 //    the block walks the visible key tiles twice (K and V double-buffered throughout): the
 //    first pass sums delta = P . dP per row, the second accumulates
 //    dQ += dS K in fp32 registers. It runs before the dK/dV kernel, which
 //    reads its delta.
 // Query tiles (dK/dV) and key tiles (dQ) are 32 wide at head dim 128 to
-// keep the accumulators in registers; a sparse 64-wide listed tile is then
-// walked as two 32-wide halves, each with its half of the membership word.
+// keep the accumulators in registers.
 
 #pragma once
 
@@ -94,33 +83,29 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileRows = kWarps * 16;  // key rows (dK/dV) or query rows (dQ)
 
-// 0 was the dense mode (now csrc/flash_bwd_sm90.cuh); the values stay, as
-// the instantiations' names carry them.
-enum Mode { kVarlen = 1, kSparse = 2 };
-
 template <int D>
 struct Tiles {
   static constexpr int kInner = D == 64 ? 64 : 32;  // walked tile width
 };
 
 struct BwdParams {
-  // Dense (b, h, s, d) tensors, or varlen (total, h, d) / (h, total, d).
-  const void* q;     // (b, h, sq, d)
-  const void* k;     // (b, hk, sk, d)
-  const void* v;     // (b, hk, sk, d)
-  const void* dout;  // (b, h, sq, d)
-  // lse and delta: dense (b, h, sq), varlen (h, total_q); contiguous.
+  // Packed (total, h, d) / (h, total, d) tensors.
+  const void* q;     // q rows
+  const void* k;     // k rows
+  const void* v;     // v rows
+  const void* dout;  // as q
+  // lse and delta: (h, total_q); contiguous.
   const float* lse;    // natural log
   const float* delta;  // the dK/dV kernel's input
   float* delta_out;    // the dQ kernel's output
-  void* dq;  // (b, h, sq, d)
-  void* dk;  // (b, hk, sk, d)
-  void* dv;  // (b, hk, sk, d)
-  // Element strides (batch, head, seq); varlen: batch unused.
+  void* dq;  // as q
+  void* dk;  // as k
+  void* dv;  // as v
+  // Element strides (batch, head, token); batch unused.
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, do_b, do_h, do_s;
   long long dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
-  long long lse_h;  // lse/delta stride per head: dense sq, varlen total_q
-  int h, group, sq, sk;  // sq, sk: the sparse mode only
+  long long lse_h;  // lse/delta stride per head: total_q
+  int h, group;
   // Varlen: sequence starts (nseq + 1) and optional used lengths (nseq).
   const int* cu_q;
   const int* cu_k;
@@ -132,80 +117,43 @@ struct BwdParams {
   // tanh(x * score_mul) * cap_log2 with a softcap.
   float score_mul, cap_log2;
   bool has_softcap;
-  // Sparse: the forward's lists (dQ), list_len entries per (b, head, 64-row
-  // block) at row (b * h + head) * nqb + block, counts[row] of them used;
-  // and the inverse lists (dK/dV), inv_len entries per (b, kv head, 64-key
-  // tile) at row (b * hk + kv head) * nkb + tile: inv_idx = head in group
-  // * nqb + 64-row block, with its membership word. used_q / used_k are the
-  // optional seqlens_q / seqlens_k.
-  const int* counts;
-  const int* tiles;
-  const unsigned long long* words;
-  const int* inv_counts;
-  const int* inv_idx;
-  const unsigned long long* inv_words;
-  long long list_len, inv_len;
-  int nqb, nkb;
-  // ALiBi (sparse): slope of (b, head) at alibi[b * alibi_b + head].
-  const float* alibi;
-  int alibi_b;
 };
 
-// One batch row or sequence: element offsets of its first row (head 0) in
-// each tensor, its row and key counts and its diagonal offset, as in
-// csrc/flash_fwd.cu.
+// One sequence: element offsets of its first row (head 0) in each tensor,
+// its row and key counts and its diagonal offset, as in csrc/flash_fwd.cu.
 struct Seq {
   long long q, k, v, dout, dq, dk, dv, lse;
   int rows, keys, off;
 };
 
-template <int kMode>
 __device__ __forceinline__ Seq seq_of(const BwdParams& p, int b) {
   Seq s;
-  if constexpr (kMode == kSparse) {
-    s.q = b * p.q_b;
-    s.k = b * p.k_b;
-    s.v = b * p.v_b;
-    s.dout = b * p.do_b;
-    s.dq = b * p.dq_b;
-    s.dk = b * p.dk_b;
-    s.dv = b * p.dv_b;
-    s.lse = static_cast<long long>(b) * p.h * p.sq;
-    const int uq = p.used_q ? p.used_q[b] : p.sq;
-    const int uk = p.used_k ? p.used_k[b] : p.sk;
-    s.rows = max(min(uq, p.sq), 0);
-    s.keys = max(min(uk, p.sk), 0);
-    s.off = uk - uq;
-  } else {
-    const long long q0 = p.cu_q[b];
-    const long long k0 = p.cu_k[b];
-    const int len_q = p.cu_q[b + 1] - p.cu_q[b];
-    const int len_k = p.cu_k[b + 1] - p.cu_k[b];
-    const int uq = p.used_q ? p.used_q[b] : len_q;
-    const int uk = p.used_k ? p.used_k[b] : len_k;
-    s.q = q0 * p.q_s;
-    s.dout = q0 * p.do_s;
-    s.dq = q0 * p.dq_s;
-    s.k = k0 * p.k_s;
-    s.v = k0 * p.v_s;
-    s.dk = k0 * p.dk_s;
-    s.dv = k0 * p.dv_s;
-    s.lse = q0;
-    s.rows = max(min(uq, len_q), 0);
-    s.keys = max(min(uk, len_k), 0);
-    s.off = uk - uq;
-  }
+  const long long q0 = p.cu_q[b];
+  const long long k0 = p.cu_k[b];
+  const int len_q = p.cu_q[b + 1] - p.cu_q[b];
+  const int len_k = p.cu_k[b + 1] - p.cu_k[b];
+  const int uq = p.used_q ? p.used_q[b] : len_q;
+  const int uk = p.used_k ? p.used_k[b] : len_k;
+  s.q = q0 * p.q_s;
+  s.dout = q0 * p.do_s;
+  s.dq = q0 * p.dq_s;
+  s.k = k0 * p.k_s;
+  s.v = k0 * p.v_s;
+  s.dk = k0 * p.dk_s;
+  s.dv = k0 * p.dv_s;
+  s.lse = q0;
+  s.rows = max(min(uq, len_q), 0);
+  s.keys = max(min(uk, len_k), 0);
+  s.off = uk - uq;
   return s;
 }
 
 // P of one score s given its row's lse (base 2), and the factor d(score)
 // / d(s) that dS carries (scale, times 1 - t^2 under a softcap). The
-// softcap and ALiBi are template parameters, as in the forward; `bias` is
-// the ALiBi term in base 2 (read only with kAlibi).
-template <bool kSoftcap, bool kAlibi>
+// softcap is a template parameter, as in the forward.
+template <bool kSoftcap>
 __device__ __forceinline__ float prob_of(const BwdParams& p, float s,
-                                         float lse2, bool ok, float& dmul,
-                                         float bias) {
+                                         float lse2, bool ok, float& dmul) {
   float x;
   if (kSoftcap) {
     const float t = tanhf(s * p.score_mul);
@@ -215,17 +163,16 @@ __device__ __forceinline__ float prob_of(const BwdParams& p, float s,
     x = s * p.score_mul;
     dmul = p.scale;
   }
-  if (kAlibi) x -= bias;
   return ok ? exp2f(x - lse2) : 0.f;
 }
 
 // P and dS of one score s given its row's lse (base 2) and delta.
-template <bool kSoftcap, bool kAlibi>
+template <bool kSoftcap>
 __device__ __forceinline__ void p_and_ds(const BwdParams& p, float s, float dp,
                                          float lse2, float delta, bool ok,
-                                         float bias, float& prob, float& ds) {
+                                         float& prob, float& ds) {
   float dmul;
-  prob = prob_of<kSoftcap, kAlibi>(p, s, lse2, ok, dmul, bias);
+  prob = prob_of<kSoftcap>(p, s, lse2, ok, dmul);
   ds = prob * (dp - delta) * dmul;
 }
 
@@ -245,9 +192,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* base, long long row_s
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
-                                         int n_block, int g, int b,
+                                         int n_block, int g,
                                          unsigned char* smem_raw) {
   constexpr int kBQ = Tiles<D>::kInner;
   constexpr int kStride = D + 8;
@@ -274,34 +221,16 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
 
   // The walk: iteration `iter` reads the query tile at row_base of query
   // head `head`: for each query head of the group, the query tiles that see
-  // any key of this tile; in the sparse mode, the halves (kSub per 64-row
-  // block) of the blocks on this tile's inverse list.
-  constexpr int kSub = kTileRows / kBQ;
-  int qt_lo = 0, n_qt = 1, n_iter;
-  long long lbase = 0;
-  if constexpr (kMode == kSparse) {
-    const long long lrow =
-        (static_cast<long long>(b) * (p.h / p.group) + g) * p.nkb + n_block;
-    lbase = lrow * p.inv_len;
-    n_iter = p.inv_counts[lrow] * kSub;
-  } else {
-    // Query rows that see any key of this tile.
-    const int q_lo = p.right >= 0 ? max(col0 - off - p.right, 0) : 0;
-    const int q_hi =
-        p.left >= 0 ? min(col_last - off + p.left, rows - 1) : rows - 1;
-    qt_lo = q_lo / kBQ;
-    n_qt = q_hi >= q_lo ? q_hi / kBQ - qt_lo + 1 : 0;
-    n_iter = n_qt * p.group;
-  }
+  // any key of this tile.
+  const int q_lo = p.right >= 0 ? max(col0 - off - p.right, 0) : 0;
+  const int q_hi =
+      p.left >= 0 ? min(col_last - off + p.left, rows - 1) : rows - 1;
+  const int qt_lo = q_lo / kBQ;
+  const int n_qt = q_hi >= q_lo ? q_hi / kBQ - qt_lo + 1 : 0;
+  const int n_iter = n_qt * p.group;
   auto head_and_rows = [&](int iter, int& head, int& row_base) {
-    if constexpr (kMode == kSparse) {
-      const int e = __ldg(p.inv_idx + lbase + iter / kSub);
-      head = g * p.group + e / p.nqb;
-      row_base = (e % p.nqb) * kTileRows + (iter % kSub) * kBQ;
-    } else {
-      head = g * p.group + iter / n_qt;
-      row_base = (qt_lo + iter % n_qt) * kBQ;
-    }
+    head = g * p.group + iter / n_qt;
+    row_base = (qt_lo + iter % n_qt) * kBQ;
   };
 
   int kv_row[2];
@@ -355,16 +284,10 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
     const T* do_t = sdO + stage * kBQ * kStride;
     const float* lse2 = sL + stage * kBQ;
     const float* dlt = sD + stage * kBQ;
-    bool full = row_base + kBQ <= rows && col0 + kTileRows <= keys &&
-                in_window(col0, row_base + kBQ - 1 + off, p.left, -1) &&
-                in_window(col0 + kTileRows - 1, row_base + off, -1, p.right);
-    unsigned long long word = 0;  // sparse: bit j - col0 for key row j
-    if constexpr (kMode == kSparse) {
-      word = __ldg(p.inv_words + lbase + it / kSub);
-      full = full && word == ~0ull;
-    }
-    float slope2 = 0.f;
-    if constexpr (kAlibi) slope2 = p.alibi[b * p.alibi_b + head] * kLog2e;
+    const bool full =
+        row_base + kBQ <= rows && col0 + kTileRows <= keys &&
+        in_window(col0, row_base + kBQ - 1 + off, p.left, -1) &&
+        in_window(col0 + kTileRows - 1, row_base + off, -1, p.right);
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows.
     float st[kQTiles][4];
@@ -401,20 +324,11 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
         const int qi = nt * 8 + tig * 2 + (e & 1);
         const int r = row_base + qi;
         const int j = kv_row[e >> 1];
-        bool ok;
-        if constexpr (kMode == kSparse) {
-          ok = (full || (((word >> (j - col0)) & 1ull) && r < rows &&
-                         j < keys && in_window(j, r + off, p.left, p.right))) &&
-               lse2[qi] > -INFINITY;
-        } else {
-          ok = (full || (r < rows && j < keys &&
-                         in_window(j, r + off, p.left, p.right))) &&
-               lse2[qi] > -INFINITY;
-        }
-        const float bias =
-            kAlibi ? slope2 * fabsf(static_cast<float>(j - r - off)) : 0.f;
-        p_and_ds<kSoftcap, kAlibi>(p, st[nt][e], dpt[nt][e], lse2[qi],
-                                   dlt[qi], ok, bias, st[nt][e], dpt[nt][e]);
+        const bool ok = (full || (r < rows && j < keys &&
+                                  in_window(j, r + off, p.left, p.right))) &&
+                        lse2[qi] > -INFINITY;
+        p_and_ds<kSoftcap>(p, st[nt][e], dpt[nt][e], lse2[qi], dlt[qi], ok,
+                           st[nt][e], dpt[nt][e]);
       }
     }
 
@@ -462,21 +376,20 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p, const Seq& sq_,
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Seq s = seq_of<kMode>(p, blockIdx.z);
+  const Seq s = seq_of(p, blockIdx.z);
   const int n_n = (s.keys + kTileRows - 1) / kTileRows;
   for (int nb = blockIdx.x; nb < n_n; nb += gridDim.x) {
-    dkv_tile<T, D, kSoftcap, kMode, kAlibi>(p, s, nb, blockIdx.y, blockIdx.z,
-                                            smem_raw);
+    dkv_tile<T, D, kSoftcap>(p, s, nb, blockIdx.y, smem_raw);
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
-                                        int m_block, int head, int b,
+                                        int m_block, int head,
                                         unsigned char* smem_raw) {
   constexpr int kBN = Tiles<D>::kInner;
   constexpr int kStride = D + 8;
@@ -499,32 +412,13 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
   const int row_last = min(row0 + kTileRows, rows) - 1;
 
   // The walk: n_tiles key tiles of kBN columns; step x reads tile
-  // tile_lo + x (the tiles visible to any row of this block), or in the
-  // sparse mode the (x % kSub)-th half of the (x / kSub)-th listed tile.
-  constexpr int kSub = 64 / kBN;
-  int tile_lo = 0, n_tiles;
-  long long lbase = 0;
-  if constexpr (kMode == kSparse) {
-    const long long lrow =
-        (static_cast<long long>(b) * p.h + head) * p.nqb + m_block;
-    lbase = lrow * p.list_len;
-    n_tiles = p.counts[lrow] * kSub;
-  } else {
-    const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
-    const int col_hi =
-        p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
-    tile_lo = col_lo / kBN;
-    n_tiles = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
-  }
-  auto tile_at = [&](int x) {
-    if constexpr (kMode == kSparse) {
-      return __ldg(p.tiles + lbase + x / kSub) * kSub + x % kSub;
-    } else {
-      return tile_lo + x;
-    }
-  };
-  float slope2 = 0.f;  // ALiBi slope, base 2
-  if constexpr (kAlibi) slope2 = p.alibi[b * p.alibi_b + head] * kLog2e;
+  // tile_lo + x (the tiles visible to any row of this block).
+  const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+  const int col_hi =
+      p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
+  const int tile_lo = col_lo / kBN;
+  const int n_tiles = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
+  auto tile_at = [&](int x) { return tile_lo + x; };
 
   int diag[2];
   bool row_ok[2];
@@ -595,18 +489,10 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
     const T* k_t = sK + stage * kBN * kStride;
     const T* v_t = sV + stage * kBN * kStride;
     const int col0 = tile_at(it % n_tiles) * kBN;
-    bool full = row0 + kTileRows <= rows && col0 + kBN <= keys &&
-                in_window(col0, row0 + kTileRows - 1 + off, p.left, -1) &&
-                in_window(col0 + kBN - 1, row0 + off, -1, p.right);
-    // Sparse: this half's membership bits, bit c for column col0 + c.
-    unsigned long long word = 0;
-    if constexpr (kMode == kSparse) {
-      constexpr unsigned long long kAll =
-          ~0ull >> (64 - kBN);
-      const int x = it % n_tiles;
-      word = (__ldg(p.words + lbase + x / kSub) >> ((x % kSub) * kBN)) & kAll;
-      full = full && word == kAll;
-    }
+    const bool full =
+        row0 + kTileRows <= rows && col0 + kBN <= keys &&
+        in_window(col0, row0 + kTileRows - 1 + off, p.left, -1) &&
+        in_window(col0 + kBN - 1, row0 + off, -1, p.right);
 
     // S = Q K^T and dP = dO V^T of this warp's 16 rows.
     float s[kNTiles][4];
@@ -627,22 +513,10 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
     }
     auto visible = [&](int nt, int e) {
       const int i = e >> 1;
-      const int c = nt * 8 + tig * 2 + (e & 1);
-      const int col = col0 + c;
-      if constexpr (kMode == kSparse) {
-        return (full || (((word >> c) & 1ull) && row_ok[i] && col < keys &&
-                         in_window(col, diag[i], p.left, p.right))) &&
-               lse2[i] > -INFINITY;
-      } else {
-        return (full || (row_ok[i] && col < keys &&
-                         in_window(col, diag[i], p.left, p.right))) &&
-               lse2[i] > -INFINITY;
-      }
-    };
-    auto bias = [&](int nt, int e) {
       const int col = col0 + nt * 8 + tig * 2 + (e & 1);
-      return kAlibi ? slope2 * fabsf(static_cast<float>(col - diag[e >> 1]))
-                    : 0.f;
+      return (full || (row_ok[i] && col < keys &&
+                       in_window(col, diag[i], p.left, p.right))) &&
+             lse2[i] > -INFINITY;
     };
 
     // The two passes are separate branches around whole tiles, so neither
@@ -653,9 +527,8 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float dmul;
-          dsum[e >> 1] += prob_of<kSoftcap, kAlibi>(p, s[nt][e], lse2[e >> 1],
-                                                    visible(nt, e), dmul,
-                                                    bias(nt, e)) * dp[nt][e];
+          dsum[e >> 1] += prob_of<kSoftcap>(p, s[nt][e], lse2[e >> 1],
+                                            visible(nt, e), dmul) * dp[nt][e];
         }
       }
     } else {
@@ -664,9 +537,8 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float prob;
-          p_and_ds<kSoftcap, kAlibi>(p, s[nt][e], dp[nt][e], lse2[e >> 1],
-                                     dlt[e >> 1], visible(nt, e), bias(nt, e),
-                                     prob, s[nt][e]);
+          p_and_ds<kSoftcap>(p, s[nt][e], dp[nt][e], lse2[e >> 1],
+                             dlt[e >> 1], visible(nt, e), prob, s[nt][e]);
         }
       }
       // dQ += dS K (dS already carries the scale).
@@ -706,89 +578,78 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p, const Seq& sq_,
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Seq s = seq_of<kMode>(p, blockIdx.z);
+  const Seq s = seq_of(p, blockIdx.z);
   const int n_m = (s.rows + kTileRows - 1) / kTileRows;
-  // Sparse: one pass, m_block = gridDim.x - 1 - blockIdx.x.
   for (int mb = blockIdx.x; mb < n_m; mb += gridDim.x) {
-    dq_tile<T, D, kSoftcap, kMode, kAlibi>(p, s, n_m - 1 - mb, blockIdx.y,
-                                           blockIdx.z, smem_raw);
+    dq_tile<T, D, kSoftcap>(p, s, n_m - 1 - mb, blockIdx.y, smem_raw);
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 int launch_dkv_kernel(const BwdParams& p, int n_blocks, int hk, int batch,
                       cudaStream_t stream) {
   constexpr int kBQ = Tiles<D>::kInner;
   const size_t smem = (2 * kTileRows + 4 * kBQ) * (D + 8) * sizeof(T) +
                       4 * kBQ * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D, kSoftcap, kMode, kAlibi>,
+      flash_bwd_dkv_kernel<T, D, kSoftcap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_blocks, hk, batch);
-  flash_bwd_dkv_kernel<T, D, kSoftcap, kMode, kAlibi>
+  flash_bwd_dkv_kernel<T, D, kSoftcap>
       <<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 int launch_dq_kernel(const BwdParams& p, int n_blocks, int hk, int batch,
                      cudaStream_t stream) {
   (void)hk;
   constexpr int kBN = Tiles<D>::kInner;
   const size_t smem = 4 * kBN * (D + 8) * sizeof(T);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D, kSoftcap, kMode, kAlibi>,
+      flash_bwd_dq_kernel<T, D, kSoftcap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_blocks, p.h, batch);
-  flash_bwd_dq_kernel<T, D, kSoftcap, kMode, kAlibi>
+  flash_bwd_dq_kernel<T, D, kSoftcap>
       <<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDkv, int kMode, bool kAlibi, typename T, int D>
-int launch_one(const BwdParams& p, int n_blocks, int hk, int batch,
-               cudaStream_t s) {
-  if constexpr (kDkv) {
-    return p.has_softcap
-               ? launch_dkv_kernel<T, D, true, kMode, kAlibi>(p, n_blocks, hk, batch, s)
-               : launch_dkv_kernel<T, D, false, kMode, kAlibi>(p, n_blocks, hk, batch, s);
-  } else {
-    return p.has_softcap
-               ? launch_dq_kernel<T, D, true, kMode, kAlibi>(p, n_blocks, hk, batch, s)
-               : launch_dq_kernel<T, D, false, kMode, kAlibi>(p, n_blocks, hk, batch, s);
-  }
-}
-
-// The softcap, and in the sparse mode ALiBi, are template parameters, as in
-// the forward. kDkv picks the kernel; n_blocks is the grid's first
-// dimension (key tiles for dK/dV, query tiles for dQ).
-template <bool kDkv, int kMode, typename T, int D>
+// The softcap is a template parameter, as in the forward. kDkv picks the
+// kernel; n_blocks is the grid's first dimension (key tiles for dK/dV,
+// query tiles for dQ).
+template <bool kDkv, typename T, int D>
 int launch(const BwdParams& p, int n_blocks, int hk, int batch,
            cudaStream_t s) {
-  if constexpr (kMode == kSparse) {
-    if (p.alibi) return launch_one<kDkv, kMode, true, T, D>(p, n_blocks, hk, batch, s);
+  if constexpr (kDkv) {
+    return p.has_softcap
+               ? launch_dkv_kernel<T, D, true>(p, n_blocks, hk, batch, s)
+               : launch_dkv_kernel<T, D, false>(p, n_blocks, hk, batch, s);
+  } else {
+    return p.has_softcap
+               ? launch_dq_kernel<T, D, true>(p, n_blocks, hk, batch, s)
+               : launch_dq_kernel<T, D, false>(p, n_blocks, hk, batch, s);
   }
-  return launch_one<kDkv, kMode, false, T, D>(p, n_blocks, hk, batch, s);
 }
 
-template <bool kDkv, int kMode>
+template <bool kDkv>
 int dispatch(const BwdParams& p, int n_blocks, int hk, int batch, int d,
              int is_fp16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp16) {
-    if (d == 64) return launch<kDkv, kMode, __half, 64>(p, n_blocks, hk, batch, s);
-    if (d == 128) return launch<kDkv, kMode, __half, 128>(p, n_blocks, hk, batch, s);
+    if (d == 64) return launch<kDkv, __half, 64>(p, n_blocks, hk, batch, s);
+    if (d == 128) return launch<kDkv, __half, 128>(p, n_blocks, hk, batch, s);
   } else {
     if (d == 64)
-      return launch<kDkv, kMode, __nv_bfloat16, 64>(p, n_blocks, hk, batch, s);
+      return launch<kDkv, __nv_bfloat16, 64>(p, n_blocks, hk, batch, s);
     if (d == 128)
-      return launch<kDkv, kMode, __nv_bfloat16, 128>(p, n_blocks, hk, batch, s);
+      return launch<kDkv, __nv_bfloat16, 128>(p, n_blocks, hk, batch, s);
   }
   return -1;
 }

@@ -41,6 +41,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     check_shapes,
     check_unported,
     scores,
+    stats_ready,
     strides_arg,
     tma_ready,
 )
@@ -171,13 +172,8 @@ def _check_stats(q, **stats):
 
 
 def _stats_ready(t):
-    """A contiguous fp32 `t` as the kernels' 1-D tensor maps take it: itself
-    on a 16-byte aligned base, else a copy, counted in
-    `flash_attention_bwd.tma_copies`."""
-    if t.data_ptr() % 16 == 0:
-        return t
-    flash_attention_bwd.tma_copies += 1
-    return t.clone()
+    """`stats_ready` counted in `flash_attention_bwd.tma_copies`."""
+    return stats_ready(t, flash_attention_bwd)
 
 
 def _prepare(q, k, v, do, stats, softmax_scale, causal, window_size,

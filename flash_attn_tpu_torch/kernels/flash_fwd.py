@@ -244,6 +244,16 @@ def tma_ready(t: torch.Tensor, owner=flash_attention_fwd) -> torch.Tensor:
     return t.contiguous()
 
 
+def stats_ready(t: torch.Tensor, owner) -> torch.Tensor:
+    """A contiguous fp32 LSE or delta `t` as the backward kernels' 1-D tensor
+    maps take it: itself on a 16-byte aligned base, else a copy, counted in
+    `owner.tma_copies`."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    owner.tma_copies += 1
+    return t.clone()
+
+
 def _launch(q, k, v, *, softmax_scale, causal, window_size, softcap):
     check_shapes(q, k, v)
     b, h, sq, d = q.shape

@@ -31,10 +31,16 @@ version that the wrapper takes for CPU tensors:
   * `flash_attention_sparse_gather_fwd` (kernel 15, in
     `kernels/flash_sparse_gather.py`): the same function over compact
     column lists;
-  * `flash_attention_sparse_bwd_dq` (kernel 14, `csrc/flash_sparse_bwd.cu`):
-    dQ and delta = sum_j P dP over the forward's lists;
+  * `flash_attention_sparse_bwd_dq` (kernel 14, `csrc/flash_sparse_bwd.cu`
+    over the Hopper kernels of `csrc/flash_sparse_bwd_sm90.cuh`): dQ and
+    delta = sum_j P dP over the forward's lists;
   * `flash_attention_sparse_bwd_dkv` (kernel 13): dK/dV per 64-key tile over
     the inverse lists (`plan_inverse`), the GQA group summed in-kernel.
+
+Each backward block merges the lists of two neighbouring 64-row blocks (dQ)
+or 64-key tiles (dK/dV); `sparse_bwd_walks` is a plain mirror of those
+walks. A q, k, v or dout that the kernels' TMA tensor maps cannot take as
+it is is copied first, counted in `flash_attention_sparse_bwd.tma_copies`.
 
 The plain versions build the dense membership mask from the metadata
 itself (not from the planner), a few query blocks at a time, so they run at
@@ -56,10 +62,15 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     _scale,
     check_kernel_inputs,
     check_shapes,
+    stats_ready,
     strides_arg,
+    tma_ready,
 )
 
 META_BLOCK = 64  # the reference's BLOCK_M = BLOCK_N (flash_api_sparse.cpp)
+# Rows (dQ) or keys (dK/dV) per block of csrc/flash_sparse_bwd_sm90.cuh: two
+# 64-row blocks or 64-key tiles, one per warpgroup.
+BWD_BLOCK_ROWS = 2 * META_BLOCK
 
 # Arguments of the JAX sparse signature the port does not take yet:
 # name -> (value that means "not used", ROADMAP item).
@@ -245,6 +256,64 @@ def plan_inverse(table: torch.Tensor, hk: int):
     (idx, words), counts = _compact(t != 0, (ids.expand_as(t), t), g * nqb)
     return (counts.reshape(b, hk, nkb), idx.reshape(b, hk, nkb, -1),
             words.reshape(b, hk, nkb, -1))
+
+
+def _merge(a, wa, b, wb):
+    """The ascending two-pointer merge of lists a and b (words wa, wb) as
+    the kernels' thread 0 runs it: [(entry, word of a or 0, word of b or
+    0)]."""
+    out, i, j = [], 0, 0
+    while i < len(a) or j < len(b):
+        t = min(a[i] if i < len(a) else 1 << 62, b[j] if j < len(b) else 1 << 62)
+        w0 = w1 = 0
+        if i < len(a) and a[i] == t:
+            w0, i = wa[i], i + 1
+        if j < len(b) and b[j] == t:
+            w1, j = wb[j], j + 1
+        out.append((t, w0, w1))
+    return out
+
+
+def _pair_walks(counts, entries, words, rows, n):
+    """Each pair's merged walk over `rows` lists of n each ((rows * n,)
+    counts, (rows * n, L) entries and words): {(row, pair): steps}. The
+    second list of a last pair with an odd n is empty: the kernels read no
+    count past a row's n."""
+    counts = counts.reshape(-1).tolist()
+    entries = entries.reshape(len(counts), -1).tolist()
+    words = words.reshape(len(counts), -1).tolist()
+    walks = {}
+    for r in range(rows):
+        for pair in range(cdiv(n, 2)):
+            lists = []
+            for m in (2 * pair, 2 * pair + 1):
+                c = counts[r * n + m] if m < n else 0
+                lists += [entries[r * n + m][:c] if c else [],
+                          [x & ((1 << 64) - 1)
+                           for x in words[r * n + m][:c]] if c else []]
+            walks[r, pair] = _merge(*lists)
+    return walks
+
+
+def sparse_bwd_walks(plan: SparsePlan, inverse):
+    """Plain mirror of kernels 13-14's merged walks over one call's lists
+    (`plan_sparse`'s and `plan_inverse`'s). Returns (dkv, dq), each a dict
+    from a block to its steps in order: dkv[(b, kv head, pair)] holds
+    (entry = head in group * nqb + 64-row block, word of key tile 2 pair,
+    word of tile 2 pair + 1) for the block of keys 128 pair..; dq[(b, head,
+    pair)] holds (key tile, word of 64-row block 2 pair, word of block 2 pair
+    + 1) for one pass (the kernel walks it twice). A word is 0 where the
+    entry is not on that warpgroup's list; warpgroup i owns tile or block
+    2 pair + i."""
+    b, h, nqb = plan.counts.shape
+    counts, idx, iwords = inverse
+    hk, nkb = counts.shape[1], counts.shape[2]
+    dq = _pair_walks(plan.counts.cpu(), plan.tiles.cpu(), plan.words.cpu(),
+                     b * h, nqb)
+    dkv = _pair_walks(counts.cpu(), idx.cpu(), iwords.cpu(), b * hk, nkb)
+    return ({(r // hk, r % hk, pair): steps
+             for (r, pair), steps in dkv.items()},
+            {(r // h, r % h, pair): steps for (r, pair), steps in dq.items()})
 
 
 # -- plain versions ----------------------------------------------------------
@@ -606,7 +675,16 @@ def _bwd_kernels() -> ctypes.CDLL:
     return lib
 
 
+def bwd_ready(q, k, v, do):
+    """q, k, v and dout as the backward kernels' TMA tensor maps take them:
+    each itself, or a contiguous copy counted in
+    `flash_attention_sparse_bwd.tma_copies`."""
+    return tuple(tma_ready(x, flash_attention_sparse_bwd) for x in (q, k, v, do))
+
+
 def _check_bwd(q, do, stats):
+    """Checks dout and the fp32 (b, h, sq) stats; returns the stats as the
+    kernels' 1-D tensor maps take them (`stats_ready`)."""
     if do.shape != q.shape:
         raise ValueError(f"dout {tuple(do.shape)} must match q "
                          f"{tuple(q.shape)}")
@@ -616,6 +694,7 @@ def _check_bwd(q, do, stats):
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 "
                              f"{tuple(q.shape[:3])} on {q.device}")
+    return [stats_ready(t, flash_attention_sparse_bwd) for t in stats.values()]
 
 
 def flash_attention_sparse_bwd_dq(
@@ -633,10 +712,11 @@ def flash_attention_sparse_bwd_dq(
               seqlens_k=seqlens_k)
     if q.device.type == "cpu":
         return _sparse_dq_ref(q, k, v, do, lse, *meta, **kw)
+    q, k, v, do = bwd_ready(q, k, v, do)
     lens_q, lens_k, slopes, alibi_b = kernel_args(
         q, k, v, meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
         seqlens_k=seqlens_k)
-    _check_bwd(q, do, dict(lse=lse))
+    lse, = _check_bwd(q, do, dict(lse=lse))
     if plan is None:
         plan = plan_sparse(*meta, seqlen_q=q.shape[2], seqlen_k=k.shape[2],
                            causal=causal,
@@ -677,10 +757,11 @@ def flash_attention_sparse_bwd_dkv(
               seqlens_k=seqlens_k)
     if q.device.type == "cpu":
         return _sparse_dkv_ref(q, k, v, do, lse, delta, *meta, **kw)
+    q, k, v, do = bwd_ready(q, k, v, do)
     lens_q, lens_k, slopes, alibi_b = kernel_args(
         q, k, v, meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
         seqlens_k=seqlens_k)
-    _check_bwd(q, do, dict(lse=lse, delta=delta))
+    lse, delta = _check_bwd(q, do, dict(lse=lse, delta=delta))
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     if inverse is None:
@@ -726,6 +807,8 @@ def flash_attention_sparse_bwd(
               seqlens_k=seqlens_k)
     inverse = None
     if q.device.type != "cpu":
+        # Copied (if at all) once for both kernels.
+        q, k, v, do = bwd_ready(q, k, v, do)
         if plan is None or plan.table is None:
             lens_q, lens_k, _, _ = kernel_args(
                 q, k, v, meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
@@ -739,3 +822,6 @@ def flash_attention_sparse_bwd(
     dk, dv = flash_attention_sparse_bwd_dkv(q, k, v, do, lse, delta, *meta,
                                             inverse=inverse, **kw)
     return dq, dk, dv
+
+
+flash_attention_sparse_bwd.tma_copies = 0

@@ -12,8 +12,9 @@ and the ptxas registers and spills of every kernel are compared. The
 kernels of csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_sparse_fwd.cu
 and csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
 (whose C interface the base must share) on chip_smoke.py's "gpt2m" and
-"mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8) and its
-"prefill-8k" sparse case (12-15), the builds in turns (base, tree, tree,
+"mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8), its
+"prefill-8k" sparse case (12-15) and its "tinyllama-d64-noncausal" one
+(12-15 at d 64, non-causal), the builds in turns (base, tree, tree,
 base per round), each time the median of 20 CUDA-event times; each case
 takes all its rounds before the next one starts. Kernels 4
 and 5, whose C interfaces may differ between checkouts, are timed through
@@ -52,7 +53,8 @@ from flash_attn_tpu_torch.kernels import (  # noqa: E402
 )
 
 SOURCES = ("flash_fwd", "flash_bwd", "flash_sparse_fwd", "flash_sparse_bwd")
-CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "prefill-8k")
+CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "prefill-8k",
+         "tinyllama-d64-noncausal")
 OUT_DIR = os.path.join(REPO, "build", "ab")
 
 
