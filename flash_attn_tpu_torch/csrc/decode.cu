@@ -47,9 +47,35 @@
 // are decode_tile.cuh's, shared with the paged decode kernel
 // (paged_decode.cu).
 //
-// Known gap: a decode step (sq = 1) gives b * hk blocks with one busy warp
-// each, so it runs well under the bandwidth bound; split-KV with a combine
-// pass is the fix, for a later change.
+// That kernel keeps warps on rows, which suits long calls (a prefill of
+// thousands of tokens, vLLM's right-aligned chunks). A decode step has
+// sq * group packed rows (4 at sq = 1 with a group of 4) and b * hk blocks
+// (64 at b = 8, hk = 8) for 132 SMs, with three of four warps idle. Calls of
+// at most 64 packed rows may go to the split-KV kernel below, after the
+// design of the paged decode's (paged_decode.cu):
+//  * one block per (split, kv head, batch row), holding all the rows. The
+//    host picks num_splits from what it knows without reading the device
+//    (kernels/flash_decode.py `num_splits_for`: batch, kv heads, packed
+//    rows, the longest range a row can see, cut by the window, the sink
+//    tokens and the chunk, and the SM count): about two blocks per SM, at
+//    least 256 tokens a split. Each block derives its chunk on the device
+//    from seqlens[b] and leftpad[b]: the walk above (the sink-token tiles,
+//    then the window's), split s taking items [s n / S, (s + 1) n / S) of
+//    its n tiles, so the splits cover it exactly once;
+//  * at most 16 rows: every warp holds all of them and takes its own 16
+//    keys of every 64-token tile; the four merge their (m, l, O) through
+//    shared memory at the end. 17-64 rows: one warp per 16 rows, as above;
+//  * a ring of three cp.async tile stages, two tiles in flight while one
+//    computes. The products stay on mma.sync.m16n8k16: wgmma's M of 64
+//    would compute 4-16x padded rows, and a decode step is bound by bytes;
+//  * with num_splits == 1 the block writes out and lse itself (the sink
+//    included); otherwise it writes its fp32 partial O (normalised by its
+//    own sum) and its LSE without the sink (-inf for a chunk with no
+//    visible column), and decode_combine_kernel merges the partials in
+//    split order with no atomics, as the JAX package's combine_partials
+//    (flash_attn_tpu/kernels/flash_decode.py:648) does. The learnable sink
+//    is added there once, as one more partial whose output is 0 and whose
+//    LSE is the sink.
 
 #include "decode_tile.cuh"
 
@@ -108,11 +134,105 @@ __device__ __forceinline__ bool sees(const Span& s, int col) {
   return (col >= s.lo1 && col < s.hi1) || (col >= s.lo2 && col < s.hi2);
 }
 
-// One kv tile of one warp's 16 rows: S = Q K^T; x = score(s, i, col) (base
-// 2) for row i (0: gid, 1: gid + 8) and column col; with kMasked only the
-// entries where visible(i, col) holds; the online-softmax update of m, l
-// and O += P V.
-template <typename T, int D, bool kMasked, typename Score, typename Visible>
+// The kv tiles of the rows whose spans run from `first` to `last` (both
+// intervals grow with pos, so the first row bounds their starts and the
+// last their ends): the sink tokens' tiles, then the window's that are not
+// among them; never the gap between them. Item it of n is tile(it).
+struct Walk {
+  int sink_lo, sink_n, win_lo, n;
+  __device__ __forceinline__ int tile(int it) const {
+    return it < sink_n ? sink_lo + it : win_lo + (it - sink_n);
+  }
+};
+
+__device__ __forceinline__ Walk walk_of(const Span& first, const Span& last) {
+  Walk w;
+  w.sink_lo = 0;
+  w.sink_n = 0;
+  if (last.hi2 > first.lo2) {
+    w.sink_lo = first.lo2 / kTileN;
+    w.sink_n = (last.hi2 + kTileN - 1) / kTileN - w.sink_lo;
+  }
+  w.win_lo = first.lo1 / kTileN;
+  const int win_hi =
+      last.hi1 > first.lo1 ? (last.hi1 + kTileN - 1) / kTileN : w.win_lo;
+  if (w.sink_n > 0) w.win_lo = max(w.win_lo, w.sink_lo + w.sink_n);
+  w.n = w.sink_n + max(win_hi - w.win_lo, 0);
+  return w;
+}
+
+// The output scale and the LSE of a row whose softmax state is (m, lsum) in
+// base 2: 1 / lsum and ln(lsum) + m, or 0 and -inf for a row that sees
+// nothing. With a sink (`sink` not null) exp(sink[head]) joins the
+// denominator, taken against max(m, sink), and a row that sees nothing
+// gets lse = sink.
+__device__ __forceinline__ void row_result(float m, float lsum,
+                                           const float* sink, int head,
+                                           float& inv, float& lse) {
+  if (sink) {
+    const float s2 = sink[head] * kLog2e;
+    const float mx = lsum > 0.f ? fmaxf(m, s2) : s2;
+    const float corr = lsum > 0.f ? exp2f(m - mx) : 0.f;
+    const float denom = lsum * corr + exp2f(s2 - mx);
+    inv = corr / denom;
+    lse = (mx + log2f(denom)) * kLn2;
+  } else {
+    inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    lse = lsum > 0.f ? (m + log2f(lsum)) * kLn2 : -INFINITY;
+  }
+}
+
+// A thread's two query rows, gid and gid + 8 of the 16 from wrow0: their
+// spans, positions, heads, ALiBi slopes (base 2), and where their out (an
+// element of out) and lse rows start, -1 for a row past the packed rows.
+struct Rows {
+  Span span[2];
+  int pos[2];
+  int head[2];
+  float slope[2];
+  long long orow[2];
+  int lse_idx[2];
+};
+
+template <int D, bool kAlibi>
+__device__ __forceinline__ Rows rows_of(const Params& p, int wrow0, int g,
+                                           int b, int seqlen, int leftpad,
+                                           int gid) {
+  Rows rw;
+  const int rows_total = p.sq * p.group;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow0 + gid + 8 * i;
+    if (r < rows_total) {
+      const int t = r / p.group;
+      rw.head[i] = g * p.group + r % p.group;
+      rw.pos[i] = seqlen - p.sq + t;
+      rw.span[i] = visible_span(p, rw.pos[i], seqlen, leftpad);
+      rw.orow[i] =
+          ((static_cast<long long>(b) * p.sq + t) * p.h + rw.head[i]) * D;
+      rw.lse_idx[i] = (b * p.h + rw.head[i]) * p.sq + t;
+      rw.slope[i] =
+          kAlibi ? p.slopes[b * p.slopes_bstride + rw.head[i]] * kLog2e : 0.f;
+    } else {
+      // Sees no column and is never stored; q = 0 keeps its scores finite
+      // in unmasked tiles.
+      rw.span[i] = Span{0, 0, 0, 0};
+      rw.pos[i] = 0;
+      rw.head[i] = 0;
+      rw.orow[i] = -1;
+      rw.lse_idx[i] = -1;
+      rw.slope[i] = 0.f;
+    }
+  }
+  return rw;
+}
+
+// kKeys keys (a whole tile, or a warp's quarter of it) of one warp's 16
+// rows: S = Q K^T; x = score(s, i, col) (base 2) for row i (0: gid, 1:
+// gid + 8) and column col; with kMasked only the entries where
+// visible(i, col) holds; the online-softmax update of m, l and O += P V.
+template <typename T, int D, bool kMasked, int kKeys = kTileN,
+          typename Score, typename Visible>
 __device__ __forceinline__ void tile_step(const T* ks_ptr, const T* vs_ptr,
                                           int col0,
                                           const uint32_t (&qf)[D / 16][4],
@@ -121,7 +241,7 @@ __device__ __forceinline__ void tile_step(const T* ks_ptr, const T* vs_ptr,
                                           Visible visible, int gid, int tig) {
   constexpr int kStride = D + 8;
   constexpr int kKSteps = D / 16;
-  constexpr int kNTiles = kTileN / 8;
+  constexpr int kNTiles = kKeys / 8;
   constexpr int kOTiles = D / 8;
 
   float s[kNTiles][4];
@@ -184,7 +304,7 @@ __device__ __forceinline__ void tile_step(const T* ks_ptr, const T* vs_ptr,
 
   // O += P V: P's A fragments come straight from the S accumulators.
 #pragma unroll
-  for (int kk = 0; kk < kTileN / 16; ++kk) {
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
     uint32_t a[4];
     a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
     a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
@@ -230,57 +350,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
       visible_span(p, seqlen - p.sq + row0 / p.group, seqlen, leftpad);
   const Span last =
       visible_span(p, seqlen - p.sq + row_last / p.group, seqlen, leftpad);
-  // Tiles walked: those of the sink tokens, then the window's that are not
-  // among them.
-  int sink_lo = 0, sink_n = 0;
-  if (last.hi2 > first.lo2) {
-    sink_lo = first.lo2 / kTileN;
-    sink_n = (last.hi2 + kTileN - 1) / kTileN - sink_lo;
-  }
-  int win_lo = first.lo1 / kTileN;
-  const int win_hi =
-      last.hi1 > first.lo1 ? (last.hi1 + kTileN - 1) / kTileN : win_lo;
-  if (sink_n > 0) win_lo = max(win_lo, sink_lo + sink_n);
-  const int n_tiles = sink_n + max(win_hi - win_lo, 0);
-  auto tile_at = [&](int it) {
-    return it < sink_n ? sink_lo + it : win_lo + (it - sink_n);
-  };
+  const Walk walk = walk_of(first, last);
 
   // This thread's two rows: gid and gid + 8 of the warp's 16.
   const int wrow0 = row0 + warp * 16;
   const bool warp_active = wrow0 < rows_total;
-  Span span[2];
-  int pos[2];
-  int head[2];
-  float slope[2];
-  long long orow[2];
-  int lse_idx[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = wrow0 + gid + 8 * i;
-    if (r < rows_total) {
-      const int t = r / p.group;
-      head[i] = g * p.group + r % p.group;
-      pos[i] = seqlen - p.sq + t;
-      span[i] = visible_span(p, pos[i], seqlen, leftpad);
-      orow[i] = ((static_cast<long long>(b) * p.sq + t) * p.h + head[i]) * D;
-      lse_idx[i] = (b * p.h + head[i]) * p.sq + t;
-      slope[i] = kAlibi ? p.slopes[b * p.slopes_bstride + head[i]] * kLog2e
-                        : 0.f;
-    } else {
-      // Sees no column and is never stored; q = 0 keeps its scores finite
-      // in unmasked tiles.
-      span[i] = Span{0, 0, 0, 0};
-      pos[i] = 0;
-      head[i] = 0;
-      orow[i] = -1;
-      lse_idx[i] = -1;
-      slope[i] = 0.f;
-    }
-  }
+  const Rows rw = rows_of<D, kAlibi>(p, wrow0, g, b, seqlen, leftpad, gid);
 
   uint32_t qf[kKSteps][4];
-  load_q<T, D>(p.q, orow, qf, tig);
+  load_q<T, D>(p.q, rw.orow, qf, tig);
   float o[kOTiles][4];
 #pragma unroll
   for (int nt = 0; nt < kOTiles; ++nt) {
@@ -291,10 +369,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
 
   auto score = [&](float x, int i, int col) {
     x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
-    if (kAlibi) x -= slope[i] * fabsf(static_cast<float>(col - pos[i]));
+    if (kAlibi) x -= rw.slope[i] * fabsf(static_cast<float>(col - rw.pos[i]));
     return x;
   };
-  auto visible = [&](int i, int col) { return sees(span[i], col); };
+  auto visible = [&](int i, int col) { return sees(rw.span[i], col); };
   // A contiguous cache is one page per cache row.
   auto page_of = [&](int pidx) {
     return p.pool.table ? __ldg(p.pool.table +
@@ -303,8 +381,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
                         : cache_row;
   };
   walk_kv<T, D>(
-      p.pool, g, page_of, seqlen, p.k, p.v, sK, sV, n_tiles, tile_at,
-      warp_active,
+      p.pool, g, page_of, seqlen, p.k, p.v, sK, sV, walk.n,
+      [&](int it) { return walk.tile(it); }, warp_active,
       [&](const T* ks_ptr, const T* vs_ptr, int col0) {
         // Every row of the block sees the whole tile: no mask.
         const bool whole =
@@ -324,23 +402,275 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float lsum = quad_sum(l[i]);
-    if (orow[i] < 0) continue;
+    if (rw.orow[i] < 0) continue;
     float inv, lse;
-    if (p.sink) {
-      // Denominator sum + exp(sink), taken against max(m, sink).
-      const float s2 = p.sink[head[i]] * kLog2e;
-      const float mx = lsum > 0.f ? fmaxf(m[i], s2) : s2;
-      const float corr = lsum > 0.f ? exp2f(m[i] - mx) : 0.f;
-      const float denom = lsum * corr + exp2f(s2 - mx);
-      inv = corr / denom;
-      lse = (mx + log2f(denom)) * kLn2;
-    } else {
-      inv = lsum > 0.f ? 1.f / lsum : 0.f;
-      lse = lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : -INFINITY;
-    }
-    store_row<T, D>(static_cast<T*>(p.out) + orow[i], o, i, inv, tig);
-    if (tig == 0) p.lse[lse_idx[i]] = lse;
+    row_result(m[i], lsum, p.sink, rw.head[i], inv, lse);
+    store_row<T, D>(static_cast<T*>(p.out) + rw.orow[i], o, i, inv, tig);
+    if (tig == 0) p.lse[rw.lse_idx[i]] = lse;
   }
+}
+
+constexpr int kSplitStages = 3;
+constexpr int kKeyRows = 16;  // up to this many packed rows: warps on keys
+
+__device__ __forceinline__ void cp_async_wait_0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Partial results of the split kernel: o_part (num, b, sq, h, d) and
+// lse_part (num, b, h, sq), fp32; unused with one split.
+struct Splits {
+  float* o_part;
+  float* lse_part;
+  int num;
+};
+
+// The first of the n_items walk items that split s of n takes.
+__device__ __forceinline__ int split_start(int s, int n, int n_items) {
+  return static_cast<int>(static_cast<long long>(s) * n_items / n);
+}
+
+// Split `blockIdx.x` of the walk of every packed row of one (kv head, batch
+// row): at most kKeyRows rows with kWarpKeys (every warp holds them all and
+// takes its quarter of each tile's keys), else at most kRowsPerBlock (one
+// warp per 16 rows).
+template <typename T, int D, bool kSoftcap, bool kAlibi, bool kWarpKeys>
+__global__ void __launch_bounds__(kThreads)
+    decode_split_kernel(const Params p, const Splits sp) {
+  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
+  constexpr int kKSteps = D / 16;
+  constexpr int kOTiles = D / 8;
+  constexpr int kKeys = kWarpKeys ? kTileN / kWarps : kTileN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);        // [3][kTileN][kStride]
+  T* sV = sK + kSplitStages * kTileN * kStride;  // [3][kTileN][kStride]
+
+  const int split = blockIdx.x;
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int rows_total = p.sq * p.group;
+  const int seqlen = p.seqlens[b];
+  const int leftpad = p.leftpad ? p.leftpad[b] : 0;
+  const int cache_row = p.batch_idx ? p.batch_idx[b] : b;
+
+  // The walk of all the rows (the first is token 0, the last token sq - 1)
+  // and this split's share of its items.
+  const Span first = visible_span(p, seqlen - p.sq, seqlen, leftpad);
+  const Span last = visible_span(p, seqlen - 1, seqlen, leftpad);
+  const Walk walk = walk_of(first, last);
+  const int item0 = split_start(split, sp.num, walk.n);
+  const int n_tiles = split_start(split + 1, sp.num, walk.n) - item0;
+
+  const int wrow0 = kWarpKeys ? 0 : warp * 16;
+  const bool warp_active = wrow0 < rows_total;
+  const Rows rw = rows_of<D, kAlibi>(p, wrow0, g, b, seqlen, leftpad, gid);
+  uint32_t qf[kKSteps][4];
+  load_q<T, D>(p.q, rw.orow, qf, tig);
+  float o[kOTiles][4];
+#pragma unroll
+  for (int nt = 0; nt < kOTiles; ++nt) {
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  }
+  float m[2] = {kMask, kMask};
+  float l[2] = {0.f, 0.f};  // this thread's partial row sums
+
+  auto score = [&](float x, int i, int col) {
+    x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
+    if (kAlibi) x -= rw.slope[i] * fabsf(static_cast<float>(col - rw.pos[i]));
+    return x;
+  };
+  auto visible = [&](int i, int col) { return sees(rw.span[i], col); };
+  auto page_of = [&](int pidx) {
+    return p.pool.table ? __ldg(p.pool.table +
+                                static_cast<long long>(b) * p.pool.max_pages +
+                                pidx)
+                        : cache_row;
+  };
+  const T* kbase = static_cast<const T*>(p.k) + g * p.pool.k_head;
+  const T* vbase = static_cast<const T*>(p.v) + g * p.pool.v_head;
+  auto load = [&](int it) {
+    if (it < n_tiles) {
+      load_kv_tile<T, D>(p.pool, kbase, vbase, sK, sV, page_of, seqlen,
+                         walk.tile(item0 + it), it % kSplitStages, tid);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  load(1);
+  const int key0 = kWarpKeys ? warp * kKeys : 0;  // this warp's keys
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_1();  // tile it has landed (it + 1 may be in flight)
+    __syncthreads();    // ... for every thread; stage (it + 2) % 3 is free
+    load(it + 2);
+    if (warp_active) {
+      const int srow = (it % kSplitStages) * kTileN + key0;
+      const T* ks_ptr = sK + srow * kStride;
+      const T* vs_ptr = sV + srow * kStride;
+      const int col0 = walk.tile(item0 + it) * kTileN + key0;
+      // Every row sees all of this warp's keys of the tile: no mask.
+      const bool whole =
+          (last.lo1 <= col0 && col0 + kKeys <= first.hi1) ||
+          (last.lo2 <= col0 && col0 + kKeys <= first.hi2);
+      if (whole) {
+        tile_step<T, D, false, kKeys>(ks_ptr, vs_ptr, col0, qf, o, m, l,
+                                      score, visible, gid, tig);
+      } else {
+        tile_step<T, D, true, kKeys>(ks_ptr, vs_ptr, col0, qf, o, m, l,
+                                     score, visible, gid, tig);
+      }
+    }
+  }
+
+  // One split writes out and lse with the sink; more write fp32 partials
+  // without it.
+  const float* sink = sp.num == 1 ? p.sink : nullptr;
+  // This split's rows of the partials (row = (b * sq + t) * h + head).
+  const long long part = static_cast<long long>(split) * gridDim.z * p.sq * p.h;
+  if constexpr (kWarpKeys) {
+    // Merge the four warps' (m, l, O) through shared memory, once every
+    // copy has landed and every warp is done with the tiles.
+    cp_async_wait_0();
+    __syncthreads();
+    float* sO = reinterpret_cast<float*>(smem_raw);  // [4][16][D]
+    float* sM = sO + kWarps * kKeyRows * D;          // [4][16]
+    float* sL = sM + kWarps * kKeyRows;              // [4][16]
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = gid + 8 * i;
+      const float lsum = quad_sum(l[i]);
+      if (tig == 0) {
+        sM[warp * kKeyRows + r] = m[i];
+        sL[warp * kKeyRows + r] = lsum;
+      }
+      float* dst = sO + (warp * kKeyRows + r) * D + tig * 2;
+#pragma unroll
+      for (int nt = 0; nt < kOTiles; ++nt) {
+        *reinterpret_cast<float2*>(dst + nt * 8) =
+            make_float2(o[nt][2 * i], o[nt][2 * i + 1]);
+      }
+    }
+    __syncthreads();
+    // Thread tid: row tid / 8, columns (tid % 8) * D / 8 ...
+    constexpr int kCols = D / 8;
+    const int r = tid >> 3;
+    const int c0 = (tid & 7) * kCols;
+    if (r >= rows_total) return;
+    float mw[kWarps];
+    float mx = kMask;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mw[w] = sM[w * kKeyRows + r];
+      mx = fmaxf(mx, mw[w]);
+    }
+    float lsum = 0.f;
+    float acc[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(mw[w] - mx);
+      lsum += sL[w * kKeyRows + r] * f;
+      const float* src = sO + (w * kKeyRows + r) * D + c0;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[c] += src[c] * f;
+    }
+    const int t = r / p.group;
+    const int head = g * p.group + r % p.group;
+    const long long orow =
+        ((static_cast<long long>(b) * p.sq + t) * p.h + head) * D + c0;
+    const int lrow = (b * p.h + head) * p.sq + t;
+    float inv, lse;
+    row_result(mx, lsum, sink, head, inv, lse);
+    if (sp.num == 1) {
+      T* out = static_cast<T*>(p.out) + orow;
+#pragma unroll
+      for (int c = 0; c < kCols; c += 2) {
+        *reinterpret_cast<uint32_t*>(out + c) =
+            Mma<T>::pack(acc[c] * inv, acc[c + 1] * inv);
+      }
+      if ((tid & 7) == 0) p.lse[lrow] = lse;
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCols; c += 4) {
+        *reinterpret_cast<float4*>(sp.o_part + part * D + orow + c) =
+            make_float4(acc[c] * inv, acc[c + 1] * inv, acc[c + 2] * inv,
+                        acc[c + 3] * inv);
+      }
+      if ((tid & 7) == 0) sp.lse_part[part + lrow] = lse;
+    }
+  } else {
+    if (!warp_active) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lsum = quad_sum(l[i]);
+      if (rw.orow[i] < 0) continue;
+      float inv, lse;
+      row_result(m[i], lsum, sink, rw.head[i], inv, lse);
+      if (sp.num == 1) {
+        store_row<T, D>(static_cast<T*>(p.out) + rw.orow[i], o, i, inv, tig);
+        if (tig == 0) p.lse[rw.lse_idx[i]] = lse;
+      } else {
+        float* dst = sp.o_part + part * D + rw.orow[i] + tig * 2;
+#pragma unroll
+        for (int nt = 0; nt < kOTiles; ++nt) {
+          *reinterpret_cast<float2*>(dst + nt * 8) =
+              make_float2(o[nt][2 * i] * inv, o[nt][2 * i + 1] * inv);
+        }
+        if (tig == 0) sp.lse_part[part + rw.lse_idx[i]] = lse;
+      }
+    }
+  }
+}
+
+// Merges the split kernel's partials in split order: one warp per (batch
+// row, query token, head) row, out (b, sq, h, D) in T and lse (b, h, sq).
+// A learnable sink (`sink` not null) is one more partial whose output is 0
+// and whose LSE is sink[head]. A row whose every partial is empty (lse
+// -inf) gives out 0 and lse -inf, or lse = sink.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    decode_combine_kernel(const float* o_part, const float* lse_part,
+                          const float* sink, T* out, float* lse, int num,
+                          int rows, int sq, int h) {
+  constexpr int kPer = D / 32;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int head = row % h;
+  const int bt = row / h;  // b * sq + t
+  const int lrow = ((bt / sq) * h + head) * sq + bt % sq;
+  const float ls_sink = sink ? sink[head] : -INFINITY;
+  float mx = ls_sink;
+  for (int s = 0; s < num; ++s) mx = fmaxf(mx, lse_part[s * rows + lrow]);
+  float acc[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) acc[c] = 0.f;
+  float den = 0.f;
+  if (mx > -INFINITY) {
+    for (int s = 0; s < num; ++s) {
+      const float ls = lse_part[s * rows + lrow];
+      const float w = ls > -INFINITY ? expf(ls - mx) : 0.f;
+      den += w;
+      const float* src =
+          o_part + (static_cast<long long>(s) * rows + row) * D + lane * kPer;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) acc[c] += w * src[c];
+    }
+    if (sink) den += expf(ls_sink - mx);
+  }
+  const float inv = den > 0.f ? 1.f / den : 0.f;
+  T* dst = out + static_cast<long long>(row) * D + lane * kPer;
+#pragma unroll
+  for (int c = 0; c < kPer; c += 2) {
+    *reinterpret_cast<uint32_t*>(dst + c) =
+        Mma<T>::pack(acc[c] * inv, acc[c + 1] * inv);
+  }
+  if (lane == 0) lse[lrow] = den > 0.f ? mx + logf(den) : -INFINITY;
 }
 
 template <typename T, int D, bool kSoftcap, bool kAlibi>
@@ -356,36 +686,60 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_flags(const Params& p, int batch, bool softcap, bool alibi,
+template <typename T, int D, bool kSoftcap, bool kAlibi>
+int launch_split(const Params& p, const Splits& sp, int batch,
                  cudaStream_t stream) {
-  if (softcap) {
-    return alibi ? launch<T, D, true, true>(p, batch, stream)
-                 : launch<T, D, true, false>(p, batch, stream);
-  }
-  return alibi ? launch<T, D, false, true>(p, batch, stream)
-               : launch<T, D, false, false>(p, batch, stream);
+  const size_t smem = kSplitStages * 2 * kTileN * (D + 8) * sizeof(T);
+  void (*kernel)(const Params, const Splits) =
+      p.sq * p.group <= kKeyRows
+          ? decode_split_kernel<T, D, kSoftcap, kAlibi, true>
+          : decode_split_kernel<T, D, kSoftcap, kAlibi, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(sp.num, p.hk, batch), kThreads, smem, stream>>>(p, sp);
+  return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// One instantiation's template arguments, as a type.
+template <typename T_, int D_, bool kSoftcap_, bool kAlibi_>
+struct Inst {
+  using T = T_;
+  static constexpr int D = D_;
+  static constexpr bool kSoftcap = kSoftcap_;
+  static constexpr bool kAlibi = kAlibi_;
+};
 
-// pool_strides: 6 element strides, (page, head, slot) of the K cache, then
-// of the V cache; a contiguous cache passes table = null, page = smax,
-// max_pages = 1 and npages = its number of rows. (page - 1) * slot stride
-// + 8 * d must fit in an int. Null pointers leave a feature off. Returns
-// 0, a cudaError_t from the launch, or -1 for an unsupported head dim.
-// Launches on `stream`; does not synchronise.
-extern "C" int decode_fwd(const void* q, const void* k, const void* v,
-                          void* out, float* lse, const int* seqlens,
-                          const int* table, const int* batch_idx,
-                          const int* leftpad, const float* slopes,
-                          int slopes_bstride, const float* sink, int batch,
-                          int sq, int h, int hk, int d, int page,
-                          int max_pages, int npages,
-                          const long long* pool_strides, float scale,
-                          int causal, int window_left, int chunk,
-                          int sink_tokens, float softcap, int is_fp16,
-                          void* stream) {
+template <typename T, int D, typename F>
+int with_flags(bool softcap, bool alibi, F f) {
+  if (softcap) {
+    return alibi ? f(Inst<T, D, true, true>()) : f(Inst<T, D, true, false>());
+  }
+  return alibi ? f(Inst<T, D, false, true>()) : f(Inst<T, D, false, false>());
+}
+
+// f(Inst<T, D, softcap, alibi>()) for the call's type, head dim and flags;
+// -1 for an unsupported head dim.
+template <typename F>
+int dispatch(int is_fp16, int d, bool softcap, bool alibi, F f) {
+  if (d != 64 && d != 128) return -1;
+  if (is_fp16) {
+    return d == 64 ? with_flags<__half, 64>(softcap, alibi, f)
+                   : with_flags<__half, 128>(softcap, alibi, f);
+  }
+  return d == 64 ? with_flags<__nv_bfloat16, 64>(softcap, alibi, f)
+                 : with_flags<__nv_bfloat16, 128>(softcap, alibi, f);
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const int* seqlens, const int* table,
+                   const int* batch_idx, const int* leftpad,
+                   const float* slopes, int slopes_bstride, const float* sink,
+                   int sq, int h, int hk, int page, int max_pages, int npages,
+                   const long long* pool_strides, float scale, int causal,
+                   int window_left, int chunk, int sink_tokens,
+                   float softcap) {
   Params p;
   p.q = q;
   p.k = k;
@@ -410,18 +764,78 @@ extern "C" int decode_fwd(const void* q, const void* k, const void* v,
   p.window_left = window_left;
   p.chunk = chunk;
   p.sink_tokens = sink_tokens;
-  const bool alibi = slopes != nullptr;
+  return p;
+}
+
+}  // namespace
+
+// pool_strides: 6 element strides, (page, head, slot) of the K cache, then
+// of the V cache; a contiguous cache passes table = null, page = smax,
+// max_pages = 1 and npages = its number of rows. (page - 1) * slot stride
+// + 8 * d must fit in an int. Null pointers leave a feature off. Returns
+// 0, a cudaError_t from the launch, or -1 for an unsupported head dim.
+// Launches on `stream`; does not synchronise.
+extern "C" int decode_fwd(const void* q, const void* k, const void* v,
+                          void* out, float* lse, const int* seqlens,
+                          const int* table, const int* batch_idx,
+                          const int* leftpad, const float* slopes,
+                          int slopes_bstride, const float* sink, int batch,
+                          int sq, int h, int hk, int d, int page,
+                          int max_pages, int npages,
+                          const long long* pool_strides, float scale,
+                          int causal, int window_left, int chunk,
+                          int sink_tokens, float softcap, int is_fp16,
+                          void* stream) {
+  const Params p = make_params(q, k, v, out, lse, seqlens, table, batch_idx,
+                               leftpad, slopes, slopes_bstride, sink, sq, h,
+                               hk, page, max_pages, npages, pool_strides,
+                               scale, causal, window_left, chunk, sink_tokens,
+                               softcap);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_fp16) {
-    if (d == 64) return launch_flags<__half, 64>(p, batch, has_softcap, alibi, s);
-    if (d == 128) return launch_flags<__half, 128>(p, batch, has_softcap, alibi, s);
-  } else {
-    if (d == 64) {
-      return launch_flags<__nv_bfloat16, 64>(p, batch, has_softcap, alibi, s);
-    }
-    if (d == 128) {
-      return launch_flags<__nv_bfloat16, 128>(p, batch, has_softcap, alibi, s);
-    }
+  return dispatch(is_fp16, d, softcap > 0.f, slopes != nullptr, [&](auto c) {
+    using C = decltype(c);
+    return launch<typename C::T, C::D, C::kSoftcap, C::kAlibi>(p, batch, s);
+  });
+}
+
+// decode_fwd's function through the split-KV kernel, for calls of at most
+// 64 packed rows (sq * h / hk), over num_splits splits of the walk: with
+// one it writes out and lse; with more it writes o_part (num_splits, b, sq,
+// h, d) and lse_part (num_splits, b, h, sq), fp32, the sink left out, and
+// the combine kernel merges them into out and lse. Returns 0, a
+// cudaError_t from a launch, -1 for an unsupported head dim, or -3 for
+// rows or splits the kernel does not take.
+extern "C" int decode_split_fwd(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    const int* seqlens, const int* table, const int* batch_idx,
+    const int* leftpad, const float* slopes, int slopes_bstride,
+    const float* sink, int batch, int sq, int h, int hk, int d, int page,
+    int max_pages, int npages, const long long* pool_strides, float scale,
+    int causal, int window_left, int chunk, int sink_tokens, float softcap,
+    int is_fp16, float* o_part, float* lse_part, int num_splits,
+    void* stream) {
+  if (sq * (h / hk) > kRowsPerBlock || num_splits < 1 ||
+      (num_splits > 1 && (!o_part || !lse_part))) {
+    return -3;
   }
-  return -1;
+  const Params p = make_params(q, k, v, out, lse, seqlens, table, batch_idx,
+                               leftpad, slopes, slopes_bstride, sink, sq, h,
+                               hk, page, max_pages, npages, pool_strides,
+                               scale, causal, window_left, chunk, sink_tokens,
+                               softcap);
+  const Splits sp = {o_part, lse_part, num_splits};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(is_fp16, d, softcap > 0.f, slopes != nullptr, [&](auto c) {
+    using C = decltype(c);
+    using T = typename C::T;
+    const int rc =
+        launch_split<T, C::D, C::kSoftcap, C::kAlibi>(p, sp, batch, s);
+    if (rc != 0 || num_splits == 1) return rc;
+    const int rows = batch * sq * h;
+    decode_combine_kernel<T, C::D>
+        <<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+            o_part, lse_part, sink, static_cast<T*>(out), lse, num_splits,
+            rows, sq, h);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

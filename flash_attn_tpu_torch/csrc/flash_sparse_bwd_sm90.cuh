@@ -99,24 +99,6 @@ struct Step {
   int at;
 };
 
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Thread 0's ascending merge of the block's two lists (entries `at`,
 // words `wd`, n used), kept in shared memory. Entry i of list l is copied
 // into slot i % 2 of its head and word when entry i - 1 is taken, so a

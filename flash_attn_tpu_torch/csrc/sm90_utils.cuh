@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the dense forward (csrc/flash_fwd_sm90.cuh)
-// and backward (csrc/flash_bwd_sm90.cuh): mbarriers, TMA tile loads through
-// tensor maps (and, on the host, the maps themselves), wgmma with its
+// and backward (csrc/flash_bwd_sm90.cuh), the sparse backward
+// (csrc/flash_sparse_bwd_sm90.cuh) and the block-sparse forward
+// (csrc/block_sparse_fwd_sm90.cuh): mbarriers, bulk copies, TMA tile loads
+// through tensor maps (and, on the host, the maps themselves), wgmma with its
 // shared-memory descriptors and register-file fences, and setmaxnreg.
 //
 // Shared-memory layout of every tile: the 128-byte swizzle that TMA writes
@@ -115,6 +117,38 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// into shared memory by the bulk copy engine; completion counts them on
+// `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 4 or 8 bytes from global into shared memory by cp.async (a thread's own
+// small reads a step ahead of their use), and the wait for all of them.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {

@@ -36,8 +36,12 @@ reads the number of partial tiles to the host once. On a CUDA device
 Kernels, each with a `.launches` count and a plain PyTorch version that
 the wrapper takes for CPU tensors:
 
-  * `flash_attention_blocksparse_fwd` (kernel 9, `csrc/block_sparse_fwd.cu`;
-    plain `flash_attention_blocksparse_fwd_ref`);
+  * `flash_attention_blocksparse_fwd` (kernel 9, `csrc/block_sparse_fwd.cu`
+    on wgmma, TMA and mbarriers, `csrc/block_sparse_fwd_sm90.cuh`; plain
+    `flash_attention_blocksparse_fwd_ref`); `bs_fwd_walks` is a plain
+    mirror of its walks, each block merging the lists of two 64-row blocks;
+    an input its TMA tensor maps cannot take as it is is copied first,
+    counted in `flash_attention_blocksparse_fwd.tma_copies`;
   * `flash_attention_blocksparse_bwd_dq` (kernel 11, `csrc/block_sparse_bwd.cu`;
     plain `_blocksparse_dq_ref`): dQ and delta = sum_j P dP;
   * `flash_attention_blocksparse_bwd_dkv` (kernel 10; plain
@@ -71,6 +75,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     check_shapes,
     scores,
     strides_arg,
+    tma_ready,
 )
 from flash_attn_tpu_torch.kernels.flash_sparse import _compact
 from flash_attn_tpu_torch.utils.device import resolve_device
@@ -845,6 +850,41 @@ def _fwd_kernel():
     return fn
 
 
+def bs_fwd_walks(lists: ExecLists) -> dict:
+    """Plain mirror of kernel 9's walks over one call's forward lists: {(b,
+    head, pair): steps}, the block of 64-row blocks 2 pair and 2 pair + 1
+    walking the ascending merge of their two lists (thread 0's two-pointer
+    merge), each step (key tile, (mode, word group) of block 2 pair or
+    None, the same of block 2 pair + 1 or None); warpgroup i owns block
+    2 pair + i. The second list of a last pair with an odd number of row
+    blocks is empty: the kernel reads no count past a head's row."""
+    b, h, nqb = lists.counts.shape
+    counts = lists.counts.reshape(-1).tolist()
+    tiles = lists.tiles.reshape(len(counts), -1).tolist()
+    wofs = lists.wofs.reshape(len(counts), -1).tolist()
+    walks = {}
+    for r in range(b * h):
+        for pair in range(cdiv(nqb, 2)):
+            heads = []
+            for m in (2 * pair, 2 * pair + 1):
+                at = r * nqb + m
+                n = counts[at] if m < nqb else 0
+                heads.append({e >> 2: (e & 3, w) for e, w in
+                              zip(tiles[at][:n], wofs[at][:n])} if n else {})
+            walks[r // h, r % h, pair] = [
+                (t, heads[0].get(t), heads[1].get(t))
+                for t in sorted(set(heads[0]) | set(heads[1]))]
+    return walks
+
+
+def fwd_ready(q, k, v):
+    """q, k, v as kernel 9's TMA tensor maps take them: each itself, or a
+    contiguous copy (`tma_ready`), counted in
+    `flash_attention_blocksparse_fwd.tma_copies`."""
+    return tuple(tma_ready(x, flash_attention_blocksparse_fwd)
+                 for x in (q, k, v))
+
+
 def flash_attention_blocksparse_fwd(
     q, k, v, block_sparse, *, mask_mod=None, score_mod=None, aux_tensors=(),
     aux_scalars=(), softmax_scale=None, softcap=0.0,
@@ -865,9 +905,13 @@ def flash_attention_blocksparse_fwd(
               softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_blocksparse_fwd_ref(q, k, v, plan, **kw)
+    q, k, v = fwd_ready(q, k, v)
     _check_cuda(q, k, v, plan)
     lists = _call_lists(q, k, v, plan, mask_mod, aux_tensors, aux_scalars,
                         lists)
+    if lists.words.data_ptr() % 16:
+        raise ValueError("the execution lists' words must start on a 16-byte "
+                         "boundary (the kernel's bulk copies)")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _fwd_kernel()(
@@ -877,6 +921,9 @@ def flash_attention_blocksparse_fwd(
         lists.tiles.shape[-1], b, h, k.shape[1], sq, sk, d,
         _scale(d, softmax_scale), float(softcap), int(q.dtype == torch.float16),
         _stream(q))
+    if rc == -2:
+        raise RuntimeError("block_sparse_fwd: cuTensorMapEncodeTiled refused "
+                           "a tensor map")
     if rc != 0:
         raise RuntimeError(f"block_sparse_fwd launch failed: CUDA error {rc}")
     flash_attention_blocksparse_fwd.launches += 1
@@ -884,6 +931,7 @@ def flash_attention_blocksparse_fwd(
 
 
 flash_attention_blocksparse_fwd.launches = 0
+flash_attention_blocksparse_fwd.tma_copies = 0
 
 
 @functools.lru_cache(maxsize=None)

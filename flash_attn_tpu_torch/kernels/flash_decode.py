@@ -7,9 +7,16 @@ covers (causal, no leftpad, batch index, ALiBi, sink, chunk or sink
 tokens), go to kernel 4 (`kernels.flash_decode_multipage`); everything else
 goes to the general decode kernel, kernel 5, through
 `flash_attention_decode_general`. On CUDA tensors that launches the
-hand-written kernel in `csrc/decode.cu`; on CPU tensors it computes
+hand-written kernels in `csrc/decode.cu`; on CPU tensors it computes
 `flash_attention_decode_ref`, the plain version of the same function, which
 is also what the kernel is checked against on the card.
+
+Calls of at most 64 packed rows (sq * h / hk) whose grid would leave the
+card idle run split-KV: `num_splits_for` picks the splits, the kernel cuts
+its walk of kv tiles (`walk_tiles`) into them (`walk_ranges`), and a combine
+kernel merges the partials with the sink.
+`flash_attention_decode_general_split_ref` is the plain version of that
+schedule.
 
 `combine_partials` is the LSE-weighted merge of attention partials, plain
 torch as the JAX package leaves it to XLA.
@@ -25,7 +32,12 @@ import torch
 
 from flash_attn_tpu_torch.kernels.common import check_rows_dense
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
+    BLOCKS_PER_SM,
+    MIN_SPLIT_TOKENS,
+    SPLIT_ROWS,
+    SPLIT_TILE,
     flash_attention_decode_multipage,
+    sm_count,
 )
 
 # Keeps `pos - window_left` inside int32 in the kernel.
@@ -127,7 +139,8 @@ def flash_attention_decode_general(
     softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 5. CUDA tensors launch `csrc/decode.cu` (and count the launch
-    in `flash_attention_decode_general.launches`); CPU tensors take
+    in `flash_attention_decode_general.launches`, a split-KV call's combine
+    kernel in `.combine_launches`); CPU tensors take
     `flash_attention_decode_ref`."""
     if block_table is not None and cache_batch_idx is not None:
         raise ValueError("cache_batch_idx picks rows of a contiguous cache; "
@@ -144,6 +157,123 @@ def flash_attention_decode_general(
 
 
 flash_attention_decode_general.launches = 0
+flash_attention_decode_general.combine_launches = 0
+
+# Calls of at most SPLIT_MAX_ROWS packed rows (one block of csrc/decode.cu)
+# may run split-KV: up to SPLIT_ROWS every warp holds all the rows and takes
+# a quarter of each tile's keys, above it one warp per 16 rows.
+SPLIT_MAX_ROWS = 64
+
+
+def num_splits_for(batch: int, hk: int, sq: int, group: int, max_cols: int,
+                   *, window_left: int, sink_token_length: int,
+                   attention_chunk: int, sm_count: int) -> int:
+    """How many splits kernel 5 takes, from what the host knows without
+    reading the device: the batch, kv heads and packed rows, the longest
+    range a row can see (`max_cols`: smax for a contiguous cache, max_pages
+    x page for a paged one) cut by the window, the sink tokens and the
+    chunk, and the SM count: about BLOCKS_PER_SM blocks per SM, at least
+    MIN_SPLIT_TOKENS tokens a split. Calls of more than SPLIT_MAX_ROWS
+    packed rows take one."""
+    if sq * group > SPLIT_MAX_ROWS:
+        return 1
+    tokens = max_cols
+    if window_left >= 0:
+        tokens = min(tokens, window_left + sq + sink_token_length)
+    if attention_chunk > 0:
+        tokens = min(tokens, attention_chunk + sq)
+    want = BLOCKS_PER_SM * sm_count // max(batch * hk, 1)
+    return max(1, min(want, tokens // MIN_SPLIT_TOKENS))
+
+
+def visible_span(pos: int, seqlen: int, leftpad: int, *, causal: bool,
+                 window_left: int, attention_chunk: int,
+                 sink_token_length: int) -> Tuple[int, int, int, int]:
+    """The columns the row at position pos sees, as csrc/decode.cu's
+    `visible_span` computes them: [lo1, hi1) (the window's) and [lo2, hi2)
+    (the sink tokens', empty without them)."""
+    lo = leftpad
+    hi = min(seqlen, pos + 1) if causal else seqlen
+    if attention_chunk > 0:
+        ch_lo = pos - (pos - leftpad) % attention_chunk  # floor modulo
+        lo, hi = max(lo, ch_lo), min(hi, ch_lo + attention_chunk)
+    lo1 = max(lo, pos - window_left) if window_left >= 0 else lo
+    hi2 = (min(hi, leftpad + sink_token_length)
+           if window_left >= 0 and sink_token_length > 0 else lo)
+    return lo1, hi, lo, hi2
+
+
+def walk_tiles(seqlen: int, leftpad: int, sq: int, **mask) -> list:
+    """The kv tiles (of SPLIT_TILE tokens) the split kernel walks for one
+    batch row's sq query tokens, in order (csrc/decode.cu's `walk_of` from
+    the first and the last token's spans): the sink tokens' tiles, then the
+    window's that are not among them, never the gap between them. `mask`:
+    visible_span's keyword arguments."""
+    lo1, _, lo2, _ = visible_span(seqlen - sq, seqlen, leftpad, **mask)
+    _, hi1, _, hi2 = visible_span(seqlen - 1, seqlen, leftpad, **mask)
+    t = SPLIT_TILE
+    sink = range(lo2 // t, -(-hi2 // t)) if hi2 > lo2 else range(0)
+    win_lo = lo1 // t
+    win_hi = -(-hi1 // t) if hi1 > lo1 else win_lo
+    if len(sink):
+        win_lo = max(win_lo, sink.stop)
+    return list(sink) + list(range(win_lo, win_hi))
+
+
+def walk_ranges(seqlen: int, leftpad: int, sq: int, num_splits: int,
+                **mask) -> list:
+    """The column range [lo, hi) of each split for one batch row, as the
+    kernel cuts its walk: split s takes items [s n / S, (s + 1) n / S) of
+    the n tiles of `walk_tiles`, from its first tile's start to its last
+    tile's end (the gap between the sink tokens' tiles and the window's
+    holds no visible column). An empty split has lo == hi == 0."""
+    tiles = walk_tiles(seqlen, leftpad, sq, **mask)
+    n = len(tiles)
+    ranges = []
+    for s in range(num_splits):
+        a, z = s * n // num_splits, (s + 1) * n // num_splits
+        ranges.append((tiles[a] * SPLIT_TILE, (tiles[z - 1] + 1) * SPLIT_TILE)
+                      if z > a else (0, 0))
+    return ranges
+
+
+def flash_attention_decode_general_split_ref(
+    q, k_cache, v_cache, cache_seqlens, num_splits: int, *,
+    ranges: Optional[list] = None, **kw,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 5's split-KV schedule: each split's chunk
+    (`walk_ranges` per batch row, or `ranges[b][s]` given) through
+    `flash_attention_decode_ref` restricted to it, without the sink, in
+    fp32; then `combine_partials` over the partials and the sink, which
+    joins the merge once as a partial whose output is 0 and whose LSE is
+    the sink. Returns (out in q's dtype, lse). Reads cache_seqlens and
+    cache_leftpad on the host."""
+    b, sq, h, d = q.shape
+    sink = kw.pop("sink", None)
+    if ranges is None:
+        mask = dict(causal=kw.get("causal", True),
+                    window_left=min(kw.get("window_left", -1), _WINDOW_CAP),
+                    attention_chunk=kw.get("attention_chunk", 0),
+                    sink_token_length=kw.get("sink_token_length", 0))
+        lp = kw.get("cache_leftpad")
+        lp = [0] * b if lp is None else lp.tolist()
+        ranges = [walk_ranges(int(n), lp[i], sq, num_splits, **mask)
+                  for i, n in enumerate(cache_seqlens.tolist())]
+    o_parts, lse_parts = [], []
+    for s in range(num_splits):
+        lo, hi = (torch.tensor([r[s][i] for r in ranges], device=q.device)
+                  for i in (0, 1))
+        o, lse = flash_attention_decode_ref(
+            q, k_cache, v_cache, cache_seqlens, col_range=(lo, hi),
+            out_dtype=torch.float32, **kw)
+        o_parts.append(o)
+        lse_parts.append(lse.permute(0, 2, 1))  # (b, sq, h), as o's rows
+    if sink is not None:
+        sink_f = sink.to(q.device, torch.float32)
+        o_parts.append(torch.zeros_like(o_parts[0]))
+        lse_parts.append(sink_f.expand(b, sq, h))
+    o, lse = combine_partials(torch.stack(o_parts), torch.stack(lse_parts))
+    return o.to(q.dtype), lse.permute(0, 2, 1)
 
 
 def visible_columns(seqlen, pos, ncols, *, leftpad, causal, window_left,
@@ -183,13 +313,17 @@ def flash_attention_decode_ref(
     attention_chunk: int = 0,
     sink_token_length: int = 0,
     softcap: float = 0.0,
+    col_range: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 5, step by step in fp32, one batch row
     at a time: the row's K/V (its cache row, or its pages through the block
     table; pages outside the pool read as zeros), scores, softcap, ALiBi,
     mask, softmax with the sink in its denominator. Returns (out (b, sq, h,
-    dv) in q's dtype, lse (b, h, sq) fp32); a row that sees nothing gives out
-    0 and lse -inf, or lse = sink with a sink."""
+    dv) in `out_dtype` or q's dtype, lse (b, h, sq) fp32); a row that sees
+    nothing gives out 0 and lse -inf, or lse = sink with a sink.
+    `col_range` = (lo, hi), (b,) each, keeps only columns lo <= c < hi of
+    each batch row (one split's chunk)."""
     b, sq, h, d = q.shape
     hk = k_cache.shape[1]
     group = h // hk
@@ -205,7 +339,7 @@ def flash_attention_decode_ref(
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(dev, torch.float32).reshape(-1, h)
     sink_f = None if sink is None else sink.to(dev, torch.float32)
-    out = torch.empty(b, sq, h, dv, dtype=q.dtype, device=dev)
+    out = torch.empty(b, sq, h, dv, dtype=out_dtype or q.dtype, device=dev)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
     for i in range(b):
         if block_table is not None:
@@ -237,6 +371,9 @@ def flash_attention_decode_ref(
                        causal=causal, window_left=window_left,
                        attention_chunk=attention_chunk,
                        sink_token_length=sink_token_length)
+        if col_range is not None:
+            cols = torch.arange(ncols, device=dev)
+            vis = vis & ((cols >= col_range[0][i]) & (cols < col_range[1][i]))
         s = s.masked_fill(~vis[:, :, None, :], float("-inf"))
         m = s.amax(dim=-1, keepdim=True)  # (hk, sq, group, 1)
         if sink_f is not None:
@@ -251,7 +388,7 @@ def flash_attention_decode_ref(
         o = torch.einsum("ktgc,kcd->tkgd", p, v)
         lt = l.permute(1, 0, 2, 3)  # (sq, hk, group, 1)
         o = torch.where(lt > 0, o / lt.clamp_min(1e-37), torch.zeros_like(o))
-        out[i] = o.reshape(sq, h, dv).to(q.dtype)
+        out[i] = o.reshape(sq, h, dv).to(out.dtype)
         row_lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)),
                               torch.full_like(l, float("-inf")))
         lse[i] = row_lse[..., 0].permute(0, 2, 1).reshape(h, sq)
@@ -259,17 +396,20 @@ def flash_attention_decode_ref(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernels() -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
 
-    fn = load_library("decode").decode_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 8
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-                   + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn
+    lib = load_library("decode")
+    args = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
+    lib.decode_fwd.argtypes = args + [ctypes.c_void_p]
+    lib.decode_split_fwd.argtypes = args + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.decode_fwd, lib.decode_split_fwd):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _int32(name, x, b, dev):
@@ -281,9 +421,17 @@ def _int32(name, x, b, dev):
     return x
 
 
-def _launch(q, k_cache, v_cache, cache_seqlens, *, block_table,
-            cache_batch_idx, cache_leftpad, alibi_slopes, sink, softmax_scale,
-            causal, window_left, attention_chunk, sink_token_length, softcap):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run(q, k_cache, v_cache, cache_seqlens, num_splits, *, block_table,
+         cache_batch_idx, cache_leftpad, alibi_slopes, sink, softmax_scale,
+         causal, window_left, attention_chunk, sink_token_length, softcap):
+    """Launches kernel 5 once and returns (out, lse): the split-KV kernel
+    for calls of at most SPLIT_ROWS packed rows or more than one split
+    (with more, its combine kernel in the same C call), else the kernel
+    that tiles the rows."""
     b, sq, h, d = q.shape
     nrows, hk, page, _ = k_cache.shape
     dev = q.device
@@ -306,10 +454,21 @@ def _launch(q, k_cache, v_cache, cache_seqlens, *, block_table,
         raise ValueError("q must be contiguous")
     check_rows_dense("k_cache", k_cache)
     check_rows_dense("v_cache", v_cache)
+    split = num_splits > 1 or sq * (h // hk) <= SPLIT_ROWS
+    if split and sq * (h // hk) > SPLIT_MAX_ROWS:
+        raise ValueError(f"{sq * (h // hk)} packed rows are more than the "
+                         f"split kernel's {SPLIT_MAX_ROWS}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if b == 0 or sq == 0:
         return out, lse
+    parts = (None, None)
+    if num_splits > 1:
+        # o_part (n, b, sq, h, d) and lse_part (n, b, h, sq), fp32, in one
+        # allocation (one allocation less on a call the host bounds).
+        rows = num_splits * b * sq * h
+        work = torch.empty(rows * (d + 1), dtype=torch.float32, device=dev)
+        parts = (work.data_ptr(), work.data_ptr() + rows * d * 4)
     seqlens = _int32("cache_seqlens", cache_seqlens, b, dev)
     batch_idx = _int32("cache_batch_idx", cache_batch_idx, b, dev)
     leftpad = _int32("cache_leftpad", cache_leftpad, b, dev)
@@ -339,25 +498,49 @@ def _launch(q, k_cache, v_cache, cache_seqlens, *, block_table,
         raise ValueError("the kernel's in-page offsets are 32-bit: the "
                          f"caches' slot strides {pool_strides[2::3]} are too "
                          f"large for {page} slots")
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = _kernel()(
+    args = (
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), seqlens.data_ptr(), ptr(table), ptr(batch_idx),
-        ptr(leftpad), ptr(slopes), slopes_bstride, ptr(sink_f),
+        lse.data_ptr(), seqlens.data_ptr(), _ptr(table), _ptr(batch_idx),
+        _ptr(leftpad), _ptr(slopes), slopes_bstride, _ptr(sink_f),
         b, sq, h, hk, d, page, max_pages, nrows,
         (ctypes.c_longlong * 6)(*pool_strides), float(softmax_scale),
         int(bool(causal)), int(min(window_left, _WINDOW_CAP)),
         int(attention_chunk), int(sink_token_length), float(softcap),
-        int(q.dtype == torch.float16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+        int(q.dtype == torch.float16))
+    # The raw stream without torch.cuda.current_stream's Python wrapping,
+    # which costs an eager decode step several microseconds.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    lib = _kernels()
+    if split:
+        rc = lib.decode_split_fwd(*args, *parts, int(num_splits), stream)
+    else:
+        rc = lib.decode_fwd(*args, stream)
     if rc != 0:
         raise RuntimeError(f"decode launch failed: CUDA error {rc}")
     flash_attention_decode_general.launches += 1
+    flash_attention_decode_general.combine_launches += num_splits > 1
     return out, lse
+
+
+def splits_of(q, k_cache, block_table, *, window_left, attention_chunk,
+              sink_token_length) -> int:
+    """`num_splits_for` at this call's shapes and card."""
+    b, sq, h, _ = q.shape
+    hk, page = k_cache.shape[1], k_cache.shape[2]
+    pages = 1 if block_table is None else block_table.shape[1]
+    return num_splits_for(
+        b, hk, sq, h // hk, page * pages,
+        window_left=min(window_left, _WINDOW_CAP),
+        sink_token_length=sink_token_length, attention_chunk=attention_chunk,
+        sm_count=sm_count(q.device.index or 0))
+
+
+def _launch(q, k_cache, v_cache, cache_seqlens, **kw):
+    n = 1 if q.numel() == 0 else splits_of(
+        q, k_cache, kw["block_table"], window_left=kw["window_left"],
+        attention_chunk=kw["attention_chunk"],
+        sink_token_length=kw["sink_token_length"])
+    return _run(q, k_cache, v_cache, cache_seqlens, n, **kw)
 
 
 def combine_partials(o_parts: torch.Tensor, lse_parts: torch.Tensor):

@@ -11,7 +11,9 @@ at "quit" or the end of its input; keys ending in "/graph" time the call
 replayed from a CUDA graph. The inputs are chip_smoke.py's: kernel 4
 at its "decode", "decode-phd-view" and "prefill" cases (b 8, Mistral-7B
 widths, page 16, window 4095, contexts drawn as there), kernel 5 at its
-"decode" case (contiguous caches), and a vLLM decode-only step: 32 layer
+"decode", "generate-decode", "spec-verify-sq5" and "prefill" cases
+(contiguous caches, Mistral-7B widths, window 4095), and a vLLM decode-only
+step: 32 layer
 calls of `vllm_compat.flash_attn_varlen_func` over per-layer "phd" pools,
 one decode row for each of 8 requests at contexts 2863-4176. Seeds are
 fixed, so every checkout times the same numbers.
@@ -31,6 +33,15 @@ DECODE_LENS = (2831, 4144, 3862, 3591, 2891, 3377, 4012, 3105)
 VLLM_LENS = tuple(n + 32 for n in (2831, 3862, 2770, 1355, 3591, 689, 2891,
                                    4144))
 LAYERS = 32
+# Kernel 5's cases: (name, sq, smax, cache lengths); generate's at batch 4
+# on 4500-token prompts with 32 new tokens, the speculative verify's gamma
+# + 1 = 5 tokens over 1024 + 64 + 5 slots.
+GENERAL_CASES = (
+    ("decode", 1, 4608, DECODE_LENS),
+    ("generate-decode", 1, 4532, (4501, 4511, 4521, 4531)),
+    ("spec-verify-sq5", 5, 1093, (1093,)),
+    ("prefill", 4500, 4532, (4500,) * 4),
+)
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -116,13 +127,16 @@ def main(argv=None):
             lambda a=args, k=kw: flash_attention_decode_multipage(*a, **k))
 
     gen = torch.Generator(device=dev).manual_seed(70)
-    q5 = torch.randn(B, 1, H, D, generator=gen, device=dev,
-                     dtype=torch.bfloat16)
-    k5, v5 = (torch.randn(B, HK, 4608, D, generator=gen, device=dev,
-                          dtype=torch.bfloat16) for _ in range(2))
-    lens5 = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
-    calls["general_decode/decode"] = lambda: flash_attention_decode_general(
-        q5, k5, v5, lens5, causal=True, window_left=WINDOW)
+    for name, sq, smax, lens in GENERAL_CASES:
+        q5 = torch.randn(len(lens), sq, H, D, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        k5, v5 = (torch.randn(len(lens), HK, smax, D, generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+                  for _ in range(2))
+        lens5 = torch.tensor(lens, dtype=torch.int32, device=dev)
+        calls[f"general_decode/{name}"] = (
+            lambda q=q5, k=k5, v=v5, n=lens5: flash_attention_decode_general(
+                q, k, v, n, causal=True, window_left=WINDOW))
 
     rng = np.random.RandomState(2)
     pages = [-(-n // PAGE) for n in VLLM_LENS]

@@ -1,7 +1,7 @@
 """Same-call A/B of the port's attention kernels built from two
 checkouts: ptxas registers and spills of every kernel, and CUDA-event times
-in turns (dense 1-3, varlen 6-8, vertical-slash sparse 12-15, and the decode
-kernels 4 and 5 with a vLLM decode-only step).
+in turns (dense 1-3, varlen 6-8, block-sparse 9-11, vertical-slash sparse
+12-15, and the decode kernels 4 and 5 with a vLLM decode-only step).
 
     python3 tools/ab_kernels.py --base build/parent [--rounds 6]
 
@@ -9,21 +9,22 @@ kernels 4 and 5 with a vLLM decode-only step).
 unpacked with `git archive`). Every csrc/*.cu source both checkouts have
 is compiled with the port's nvcc flags (all nvcc at once) into build/ab/,
 and the ptxas registers and spills of every kernel are compared. The
-kernels of csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/flash_sparse_fwd.cu
-and csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
+kernels of csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/block_sparse_fwd.cu,
+csrc/block_sparse_bwd.cu, csrc/flash_sparse_fwd.cu and
+csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
 (whose C interface the base must share) on chip_smoke.py's "gpt2m" and
 "mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8), its
-"prefill-8k" sparse case (12-15) and its "tinyllama-d64-noncausal" one
-(12-15 at d 64, non-causal), the builds in turns (base, tree, tree,
+"doc10", "prefix" and "softcap30-fp16-d64" block-sparse cases (9-11, over
+this checkout's execution lists), its "prefill-8k" sparse case (12-15)
+and its "tinyllama-d64-noncausal" one (12-15 at d 64, non-causal), the
+builds in turns (base, tree, tree,
 base per round), each time the median of 20 CUDA-event times; each case
 takes all its rounds before the next one starts. Kernels 4
 and 5, whose C interfaces may differ between checkouts, are timed through
 each checkout's own wrappers: tools/ab_decode_worker.py runs once per
 checkout (its inputs built once), and each turn asks the checkout's worker
 for its times, in the same order. The last line gives each kernel's median
-over the rounds for either build. The block-sparse kernels 9-11
-(csrc/block_sparse_*.cu) have steps of their own and are not timed here.
-Needs one CUDA card.
+over the rounds for either build. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from flash_attn_tpu_torch.kernels import (  # noqa: E402
     _build,
+    block_sparsity,
     flash_bwd,
     flash_fwd,
     flash_sparse,
@@ -52,9 +54,10 @@ from flash_attn_tpu_torch.kernels import (  # noqa: E402
     flash_varlen,
 )
 
-SOURCES = ("flash_fwd", "flash_bwd", "flash_sparse_fwd", "flash_sparse_bwd")
-CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "prefill-8k",
-         "tinyllama-d64-noncausal")
+SOURCES = ("flash_fwd", "flash_bwd", "block_sparse_fwd", "block_sparse_bwd",
+           "flash_sparse_fwd", "flash_sparse_bwd")
+CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "doc10", "prefix",
+         "softcap30-fp16-d64", "prefill-8k", "tinyllama-d64-noncausal")
 OUT_DIR = os.path.join(REPO, "build", "ab")
 
 
@@ -124,6 +127,7 @@ def use(tag):
     _build.load_library.cache_clear()
     for loader in (flash_fwd._kernel, flash_bwd._kernels,
                    flash_varlen._fwd_kernel, flash_varlen._bwd_kernels,
+                   block_sparsity._fwd_kernel, block_sparsity._bwd_kernels,
                    flash_sparse._fwd_kernel, flash_sparse._bwd_kernels):
         loader.cache_clear()
 
@@ -187,11 +191,40 @@ def sparse_inputs(name, seed):
             q, k, v, do, lse, *meta, plan=plan, **kw))
 
 
+def blocksparse_inputs(name, seed):
+    """chip_smoke.BS_CASES' `name`, its plan and this checkout's execution
+    lists built once outside the timing: kernels 9, 11 and 10."""
+    b, h, hk, s, d, dtype, softcap = chip_smoke.BS_CASES[name][:7]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, s, d, generator=gen, device=dev, dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hk, s, d, generator=gen, device=dev, dtype=dtype)
+            for _ in range(2))
+    plan, mod, aux = chip_smoke.bs_plan(name)
+    lists = block_sparsity.prepare_lists(q, k, v, plan, mask_mod=mod,
+                                         aux_tensors=aux)
+    kw = dict(mask_mod=mod, aux_tensors=aux, softcap=softcap, lists=lists)
+    _, lse = block_sparsity.flash_attention_blocksparse_fwd(q, k, v, plan,
+                                                            **kw)
+    _, delta = block_sparsity.flash_attention_blocksparse_bwd_dq(
+        q, k, v, do, lse, plan, **kw)
+    return dict(
+        bs_fwd=lambda: block_sparsity.flash_attention_blocksparse_fwd(
+            q, k, v, plan, **kw),
+        bs_dq=lambda: block_sparsity.flash_attention_blocksparse_bwd_dq(
+            q, k, v, do, lse, plan, **kw),
+        bs_dkv=lambda: block_sparsity.flash_attention_blocksparse_bwd_dkv(
+            q, k, v, do, lse, delta, plan, **kw))
+
+
 def inputs(name, seed):
     """The `name` case's timed calls by kernel: chip_smoke.ATTN_CASES'
-    shapes for kernels 1-3, else the varlen or sparse case."""
+    shapes for kernels 1-3, else the varlen, block-sparse or sparse case."""
     if name in chip_smoke.VARLEN_CASES:
         return varlen_inputs(name, seed)
+    if name in chip_smoke.BS_CASES:
+        return blocksparse_inputs(name, seed)
     if name in chip_smoke.SPARSE_CASES:
         return sparse_inputs(name, seed)
     (_, b, h, hk, sq, sk, d, causal, window, softcap,
@@ -245,7 +278,8 @@ def main(argv=None):
                         help="the other checkout (e.g. build/parent)")
     parser.add_argument("--rounds", type=int, default=6)
     parser.add_argument("--cases", nargs="+", choices=CASES, default=CASES,
-                        help="the kernel 1-3, 6-8 and 12-15 cases to time")
+                        help="the kernel 1-3, 6-8, 9-11 and 12-15 cases to "
+                             "time")
     parser.add_argument("--no-decode", action="store_true",
                         help="skip kernels 4 and 5 and the vLLM step")
     args = parser.parse_args(argv)
