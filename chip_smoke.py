@@ -190,6 +190,9 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
     flash_attention_varlen_fwd,
     flash_attention_varlen_fwd_ref,
     plan_mismatch,
+    sm90_block_m,
+    sm90_grid_tiles,
+    trace_schedule,
     varlen_window,
 )
 from flash_attn_tpu_torch.losses.cross_entropy import (  # noqa: E402
@@ -1144,13 +1147,21 @@ def paged_compare(st, fault=False):
     return res
 
 
+MIXED_QLENS = (2041,) + (1,) * 7
+MIXED_CONTEXTS = (4144, 2831, 3862, 2770, 1355, 3591, 689, 2891)
+
+
 def paged_cases(seed=40):
     """Kernel 6 on vLLM pools: held against its plain version at page 16
-    and 512, timed against its bound, and against the gather route; then
-    the cost of a step that mixes a 2041-token chunk with seven 1-token
-    decode rows, whose grid (cdiv(2041, 64) x h x 8 blocks) is mostly
-    empty."""
+    and 512, timed against its bound, and against the gather route; then a
+    step that mixes a 2041-token chunk with seven 1-token decode rows: its
+    time beside each part alone, and the flat schedule's launched and
+    exited blocks as the kernel's trace gives them (the sm80 step's grid,
+    cdiv(2041, 64) x 8 per head, was ~85% empty); then the sm80 route of
+    pools whose page size is not a multiple of 8, held against the plain
+    version (untimed). No timed case may take that route."""
     results = {}
+    sm80_before = flash_attention_varlen_fwd.launches_sm80
     pairs, needed = varlen_work(PAGED_QLENS, PAGED_CONTEXTS, None, None, True,
                                 (WINDOW, -1))
     tq = sum(PAGED_QLENS)
@@ -1190,10 +1201,30 @@ def paged_cases(seed=40):
                        "its plain version")
         results[page] = r
         del st
+    # The same step at d 64 (gpt-oss-20b's 64 query and 8 kv heads of 64),
+    # page 16: the paged instances of the d-64 kernel.
+    h64, hk64, d64 = GPT_OSS["h"], GPT_OSS["hk"], GPT_OSS["d"]
+    st = paged_step(PAGED_QLENS, PAGED_CONTEXTS, 16, seed + 3, h=h64, hk=hk64,
+                    d=d64)
+    checked = paged_compare(st)
+    r = dict(phase="varlen_kernels", case="paged-prefill-page16-d64",
+             qlens=list(PAGED_QLENS), contexts=list(PAGED_CONTEXTS), h=h64,
+             hk=hk64, d=d64, page=16, pools="phd (views)",
+             window_size=[WINDOW, -1], **checked, tolerance=ATTN_TOLERANCE,
+             ok=checked["fwd_ok"], fwd_ms=cuda_ms(lambda: paged_fwd(st)))
+    nbytes64 = (2 * tq * h64 * d64 * 2 + 2 * needed * hk64 * d64 * 2
+                + tq * h64 * 4)
+    r["fwd_bound_ms"], r["fwd_bound_by"] = attn_bound(4, nbytes64, 1, h64, d64,
+                                                      pairs)
+    emit(r)
+    check(r["ok"], "varlen_kernels: the d-64 paged case disagrees with its "
+                   "plain version")
+    results["d64"] = r
+    del st
     # A mixed step: one long chunk and seven decode rows, against each part
-    # alone; the difference is what the empty blocks of the mixed grid cost.
-    ctx = (4144, 2831, 3862, 2770, 1355, 3591, 689, 2891)
-    parts = {"mixed": ((2041,) + (1,) * 7, ctx), "chunk": ((2041,), ctx[:1]),
+    # alone.
+    ctx = MIXED_CONTEXTS
+    parts = {"mixed": (MIXED_QLENS, ctx), "chunk": ((2041,), ctx[:1]),
              "decode_rows": ((1,) * 7, ctx[1:])}
     ms = {}
     for key, (ql, cx) in parts.items():
@@ -1203,15 +1234,64 @@ def paged_cases(seed=40):
             ms["mixed_gather_route"] = cuda_ms(lambda: gather_then_packed(st))
             ms["mixed_again"] = cuda_ms(lambda: paged_fwd(st))
         del st
-    grid = -(-2041 // 64) * 8
-    emit(dict(phase="varlen_kernels", case="mixed-step-grid", qlens=[2041] + [1] * 7,
-              contexts=list(ctx), ms=ms,
-              empty_blocks_share=1 - (-(-2041 // 64) + 7) / grid,
-              # What the seven decode rows and the empty blocks add to the
-              # chunk's launch, together: an upper bound on the empty
-              # blocks' cost (the rows alone, in a launch of their own,
-              # pay that launch's fixed cost too).
-              mixed_minus_chunk_ms=ms["mixed"] - ms["chunk"]))
+    # The flat schedule as the kernel ran it: its trace of the mixed step
+    # (each launched block's sequence and first row, -1 past the last row
+    # tile), against the row tiles the lengths give, per head.
+    st = paged_step(MIXED_QLENS, ctx, 16, seed + 1)
+    trace = torch.full((4 * 4096 * H,), -2, dtype=torch.int32,
+                       device=st["q"].device)
+    trace_schedule(trace)
+    try:
+        paged_fwd(st)
+        torch.cuda.synchronize()
+    finally:
+        trace_schedule(None)
+    del st
+    rec = trace.view(-1, 4).cpu().numpy()
+    rec = rec[rec[:, 0] != -2]
+    bm = sm90_block_m(D)
+    want = sorted((j, m * bm) for j, n in enumerate(MIXED_QLENS)
+                  for m in range(-(-n // bm)))
+    grid_x = int(rec[:, 0].max()) + 1 if len(rec) else 0
+    tiles_once = all(
+        sorted(map(tuple, rec[(rec[:, 1] == y) & (rec[:, 2] >= 0)][:, 2:]
+                   .tolist())) == want for y in range(H))
+    sm80_grid = -(-2041 // 64) * 8
+    timed_sm80 = flash_attention_varlen_fwd.launches_sm80 - sm80_before
+    r = dict(phase="varlen_kernels", case="mixed-step-grid",
+             qlens=list(MIXED_QLENS), contexts=list(ctx), ms=ms,
+             schedule="read from the kernel's trace",
+             grid=[grid_x, H], grid_host=sm90_grid_tiles(sum(MIXED_QLENS),
+                                                         len(MIXED_QLENS), D),
+             blocks_launched=len(rec),
+             blocks_exited=int((rec[:, 2] < 0).sum()),
+             row_tiles_each_once=tiles_once,
+             empty_blocks_share=float((rec[:, 2] < 0).mean()) if len(rec) else None,
+             sm80_grid_empty_blocks_share=1 - (-(-2041 // 64) + 7) / sm80_grid,
+             # What the seven decode rows add to the chunk's launch.
+             mixed_minus_chunk_ms=ms["mixed"] - ms["chunk"],
+             launches_sm80_timed=timed_sm80)
+    emit(r)
+    check(r["blocks_launched"] == grid_x * H > 0
+          and grid_x == r["grid_host"] and tiles_once,
+          "mixed-step-grid: the kernel's trace misses a block or a row tile, "
+          "or visits one twice")
+    check(r["blocks_exited"] == 0 and timed_sm80 == 0,
+          "mixed-step-grid: blocks without a row tile, or a timed case on "
+          "the sm80 route")
+    results["mixed"] = r
+    # Pools of 12-slot pages: the sm80 route, once, held.
+    st = paged_step((200, 1, 77), (700, 301, 77), 12, seed + 2)
+    before = flash_attention_varlen_fwd.launches_sm80
+    checked = paged_compare(st)
+    odd = dict(phase="varlen_kernels", case="odd-page12-sm80-route",
+               qlens=[200, 1, 77], contexts=[700, 301, 77], page=12, **checked,
+               launches_sm80=flash_attention_varlen_fwd.launches_sm80 - before,
+               tolerance=ATTN_TOLERANCE)
+    odd["ok"] = checked["fwd_ok"] and odd["launches_sm80"] == 1
+    emit(odd)
+    check(odd["ok"], "varlen_kernels: the sm80 route of 12-slot pages "
+                     "disagrees with its plain version or was not taken")
     return results
 
 
@@ -1238,6 +1318,29 @@ def varlen_fault_phase():
               caught={"fwd": not checked["fwd_ok"]}, ok=not checked["fwd_ok"]))
     check(not checked["fwd_ok"], "varlen_fault: a seqused_k one token longer "
                                  "passes the tolerance")
+    # The flat schedule: the mixed step's kernel handed cu_seqlens_q with
+    # the chunk's end moved one row into the first decode row's.
+    st = paged_step(MIXED_QLENS, MIXED_CONTEXTS, 16, 71)
+    good = st["cu_q"]
+    st["cu_q"] = good.clone()
+    st["cu_q"][1] -= 1
+    out, lse = paged_fwd(st)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(
+        st["q"].float(), None, None, good, None, seqused_k=st["used"],
+        kv_pools=st["pools"], block_table=st["table"], **PAGED_KW)
+    finite = torch.isfinite(ref_lse)
+    res = held(out, ref_out)
+    lse_err = float((lse - ref_lse)[finite].abs().max())
+    passed = (res["err_over_limit"] <= 1 and lse_err <= ATTN_LSE_TOL
+              and torch.equal(finite, torch.isfinite(lse)))
+    emit(dict(phase="varlen_fault", case="mixed-step-scheduler",
+              moved="cu_seqlens_q[1] - 1",
+              err_over_limit={"out": res["err_over_limit"]},
+              lse_max_abs_err=lse_err, caught={"fwd": not passed},
+              ok=not passed))
+    check(not passed, "varlen_fault: the mixed step with a cu_seqlens_q "
+                      "boundary moved passes the tolerance")
 
 
 # -- phase: varlen_train (packed training attention through autograd) --------
@@ -1370,6 +1473,7 @@ def vllm_phase(seed=2, layers=32):
                           dtype=torch.bfloat16)) for _ in range(layers)]
     pool_gb = 2 * layers * pools[0][0].numel() * 2 / 1e9
     _zero_varlen_counts()
+    flash_attention_varlen_fwd.launches_sm80 = 0
     flash_attention_decode_multipage.launches = 0
     flash_attention_decode_multipage.combine_launches = 0
     dispatch_counts.clear()
@@ -1474,7 +1578,8 @@ def vllm_phase(seed=2, layers=32):
     mixed_ms = [t for t, k in zip(attn_ms, kinds) if k == "mixed"]
     decode_ms = [t for t, k in zip(attn_ms, kinds) if k == "decode"]
     ok = (launches == want and routes == want_routes and worst <= 1
-          and n_mixed > 0 and n_decode > 0 and plan_reused == len(steps))
+          and n_mixed > 0 and n_decode > 0 and plan_reused == len(steps)
+          and flash_attention_varlen_fwd.launches_sm80 == 0)
     result = dict(
         phase="vllm", model="Mistral-7B-v0.1 attention widths", layers=layers,
         pool_layout="phd (num_blocks, 16, 8, 128) bf16 per layer, K and V",
@@ -1489,6 +1594,7 @@ def vllm_phase(seed=2, layers=32):
         host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
         steps_reusing_plan=plan_reused,
         launches=launches, launches_expected=want, routes=routes,
+        launches_sm80=flash_attention_varlen_fwd.launches_sm80,
         combine_launches=flash_attention_decode_multipage.combine_launches,
         checked=len(checks), worst_err_over_limit=worst,
         tolerance=ATTN_TOLERANCE, profile=profiles, ok=ok)
@@ -3286,7 +3392,22 @@ def sparse_kernel_entries(sparse, logs):
                 ms=p8[ms_key], plain_ms=p8["fwd_plain_ms"],
                 bound_ms=p8["fwd_bound_ms"], bound_by=p8["fwd_bound_by"],
                 library_ms=p8["library_fwd_ms"])
-        else:
+        if route == "gather":
+            # Kernel 15's Hopper kernel alone: wgmma, cp.async gathers
+            # (LDGSTS), no atomics; LDL and STL are spill loads and stores.
+            kernel = "gather_sm90_kernel"
+            entry.update(
+                design="wgmma, cp.async row gathers into swizzled stages "
+                       "by a producer warpgroup, two blocks per SM",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("flash_sparse_fwd"),
+                                 ("HGMMA", "LDGSTS", "ATOM", "RED", "LDL",
+                                  "STL"), kernel))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["LDGSTS"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or cp.async, or atomics, in its SASS")
+        elif not route:
             if p8.get("library_fwd_bwd_ms") is not None:
                 # SDPA's backward alone: its forward+backward less its
                 # forward.
@@ -4156,7 +4277,29 @@ def main(argv=None):
                                        - gpt2m_v["library_fwd_ms"])
         if key == "fwd":
             entry["max_abs_err"] = max(err, *(r["out"]["max_abs_err"]
-                                              for r in paged.values()))
+                                              for r in paged.values()
+                                              if "out" in r))
+            # The Hopper kernel's instructions alone (no atomics: ATOM and
+            # RED must be 0; LDL and STL are spill loads and stores).
+            kernel = "varlen_fwd_sm90_kernel"
+            entry.update(
+                design="wgmma+tma, flat tile schedule, page pieces by TMA",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("flash_fwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=flash_attention_varlen_fwd.tma_copies,
+                launches_sm80=dict(vllm=vllm["launches_sm80"],
+                                   timed=paged["mixed"]["launches_sm80_timed"]),
+                mixed_step=dict(
+                    ms=paged["mixed"]["ms"]["mixed"],
+                    blocks_from="the kernel's schedule trace",
+                    blocks_launched=paged["mixed"]["blocks_launched"],
+                    blocks_exited=paged["mixed"]["blocks_exited"]))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
             entry["paged"] = dict(
                 ms=p16["fwd_ms"], plain_ms=p16["fwd_plain_ms"],
                 bound_ms=p16["fwd_bound_ms"], bound_by=p16["fwd_bound_by"],

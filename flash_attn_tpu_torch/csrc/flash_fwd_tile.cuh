@@ -1,86 +1,74 @@
-// Flash-attention forward tile step, shared by csrc/flash_fwd.cu (varlen
-// and paged modes) and csrc/flash_sparse_fwd.cu (the vertical-slash sparse
-// modes): out = softmax(scale * Q K^T [masked]) V and the fp32 log-sum-exp
-// of every query row. The dense forward has its own Hopper kernel
-// (csrc/flash_fwd_sm90.cuh).
+// Flash-attention forward tile step of kernel 12 (csrc/flash_sparse_fwd.cu,
+// vertical-slash sparse tile lists) and of the paged route of kernel 6
+// (csrc/flash_fwd.cu) for pools whose page size is not a multiple of 8,
+// which the Hopper kernel's TMA page boxes do not take: out = softmax(scale
+// * Q K^T [masked]) V and the fp32 log-sum-exp of every query row. Kernel
+// 1 has its own Hopper kernel (csrc/flash_fwd_sm90.cuh), kernel 6 on packed
+// K/V and on other pools too (csrc/flash_varlen_fwd_sm90.cuh), and kernel
+// 15 (csrc/flash_sparse_gather_sm90.cuh).
 //
-// Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:542
+// Replaces the TPU kernel flash_attn_tpu/kernels/flash_sparse.py:130
+// (_sparse_fwd_kernel, launched at :453 by flash_attention_sparse_fwd
+// :273), and on that paged route flash_attn_tpu/kernels/flash_varlen.py:542
 // (_varlen_fwd_kernel, launched at :1485 by flash_attention_varlen_fwd
-// :1160),
-// flash_attn_tpu/kernels/flash_sparse.py:130 (_sparse_fwd_kernel, launched
-// at :453 by flash_attention_sparse_fwd :273) and
-// flash_attn_tpu/kernels/flash_sparse_gather.py:127 (_gather_kernel,
-// launched at :298 by flash_attention_sparse_gather_fwd :220), restricted to
-// the features the training, serving and sparse paths use: scale,
-// bottom-right-aligned causal, sliding window (left, right), GQA/MQA,
-// softcap, seqused_q/k, ALiBi (sparse modes), head dim 64 or 128, bf16/fp16
-// inputs. The TPU schedule (clamped index maps, folded causal grid, exact
-// tile worklist with page ids in its flags, 128-lane LSE padding,
-// lane-replicated m/l scratch, 128-row sparse super-blocks, 512-wide sparse
-// KV tiles, int8 bitmap rows, DMA semaphores and the VMEM budget that routes
-// to the gather kernel) is not carried over.
+// :1160), restricted to the features the serving and sparse paths use:
+// scale, bottom-right-aligned causal, sliding window (left, right),
+// GQA/MQA, softcap, seqused_q/k, ALiBi (sparse mode), head dim 64 or 128,
+// bf16/fp16 inputs. The TPU schedule (clamped index maps, folded causal
+// grid, exact tile worklist with page ids in its flags, 128-lane LSE
+// padding, lane-replicated m/l scratch, 128-row sparse super-blocks,
+// 512-wide sparse KV tiles, int8 bitmap rows, DMA semaphores) is not
+// carried over.
 //
 // Function. Within one sequence (the batch row of a sparse call;
-// sequence b of a varlen call, whose rows start at cu_q[b] and keys at
-// cu_k[b] or in the pages of table row b), query row i of head hq sees key
-// column j of kv head hq / (h / hk) iff i < rows, j < keys and, with
+// sequence b of a paged call, whose rows start at cu_q[b] and keys lie in
+// the pages of table row b), query row i of head hq sees key column j of
+// kv head hq / (h / hk) iff i < rows, j < keys and, with
 // diag = i + used_k - used_q, j >= diag - left (left >= 0) and
-// j <= diag + right (right >= 0); in the sparse modes also iff j is in the
+// j <= diag + right (right >= 0); in the sparse mode also iff j is in the
 // attended set of i's 64-row block (below). Sparse: used_q = seqlens_q[b]
-// (else sq), rows = min(used_q, sq); used_k likewise. Varlen: used_q = seqused_q[b] (else the sequence's
-// length), rows = min(used_q, length); used_k likewise, keys = min(used_k,
-// length) packed or used_k paged. Scores are s * scale, or
-// tanh(s * scale / softcap) * softcap, then minus slope * |j - diag| with
-// ALiBi. Online softmax in fp32 (base 2). out = acc / l in q's type; lse =
-// m + ln(l) in fp32, natural log; a row that sees no column gives out 0,
-// lse -inf. Rows past `rows` are not written (the varlen and sparse
-// wrappers zero-fill out and set lse to -inf beforehand where such rows
-// exist).
+// (else sq), rows = min(used_q, sq); used_k likewise. Paged: used_q =
+// seqused_q[b] (else the sequence's length), rows = min(used_q, length);
+// keys = used_k. Scores are s * scale, or tanh(s * scale / softcap) *
+// softcap, then minus slope * |j - diag| with ALiBi. Online softmax in fp32
+// (base 2). out = acc / l in q's type; lse = m + ln(l) in fp32, natural
+// log; a row that sees no column gives out 0, lse -inf. Rows past `rows`
+// are not written (the wrappers zero-fill out and set lse to -inf
+// beforehand where such rows exist).
 //
-// Sparse modes. The planner (kernels/flash_sparse.py) turns the
-// vertical-slash metadata into, per (batch row, query head, 64-row block):
-//  * kSparse (kernel 12): the ascending list of 64-wide key tiles that hold
-//    an attended column, with one 64-bit membership word per tile (bit c:
-//    column 64 * tile + c is attended);
-//  * kGather (kernel 15): the ascending list of the attended columns
-//    themselves, deduplicated.
-// Both already drop columns that no row of the block sees (past the keys,
-// or right of the block's last row under causal masking).
+// Sparse mode (kSparse). The planner (kernels/flash_sparse.py) turns the
+// vertical-slash metadata into, per (batch row, query head, 64-row block),
+// the ascending list of 64-wide key tiles that hold an attended column,
+// with one 64-bit membership word per tile (bit c: column 64 * tile + c is
+// attended); it already drops columns that no row of the block sees (past
+// the keys, or right of the block's last row under causal masking).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 * d flops
 // for every visible (query head, row, column) triple against q, k, v and
-// out moved once. At training shapes (s = 2048, d = 64) that is ~300 flops
-// per byte, at or above the card's ridge (~295), so the kernel is bound by
-// operations; at short sequences or d = 128 with a narrow window it can be
-// bound by bytes. The sparse modes are bound the same way by the attended
-// pairs; kSparse computes whole 64 x 64 tiles of which only the member
-// columns count, kGather only 64-column blocks of attended columns.
+// out moved once, at these shapes bound by operations. kSparse computes
+// whole 64 x 64 tiles of which only the member columns count.
 //
-// Design (simple first; no wgmma/TMA yet). One block of 4 warps per
+// Design (the sm80 step: no wgmma/TMA). One block of 4 warps per
 // (64 query rows, query head, sequence); each warp owns 16 rows, and blocks
-// of the last rows (the longest causal rows) launch first. A varlen grid is
+// of the last rows (the longest causal rows) launch first. A paged grid is
 // sized by the longest sequence; a block past its sequence's rows returns
 // at once, and a grid too short for a sequence loops over its remaining row
 // tiles, so the answer never depends on the max_seqlen it was given. Q stays
 // in registers as mma.sync A fragments. The block walks only the key tiles
 // (64 columns each) that the causal/window range makes visible to its rows,
-// or its listed tiles (kSparse), or its gathered columns 64 at a time
-// (kGather); K and V tiles are copied with 16-byte cp.async, double-buffered,
-// so the next tile loads while this one computes. In paged mode each 64-key
-// tile is gathered page by page through the page table (four 16-token pages
-// at vLLM's block size), with pages outside the pool zero-filled; each key
-// row's offsets are computed from the page table into shared memory one
-// tile ahead, so the copy loop is the packed one with the row offset read
-// from shared memory. kGather fills the same offsets from its column list,
-// and keeps the columns themselves (three tiles deep: a tile's columns are
-// read by its mask after the next tile's offsets are written) for the mask
-// and ALiBi. S = Q K^T and O += P V run on mma.sync.m16n8k16 with fp32
+// or its listed tiles (kSparse); K and V tiles are copied with 16-byte
+// cp.async, double-buffered, so the next tile loads while this one
+// computes. In paged mode each 64-key tile is gathered page by page through
+// the page table, with pages outside the pool zero-filled; each key row's
+// offsets are computed from the page table into shared memory one tile
+// ahead, so the copy loop is the packed one with the row offset read from
+// shared memory. S = Q K^T and O += P V run on mma.sync.m16n8k16 with fp32
 // accumulation; P is re-packed to 16 bits from the S accumulators in
-// registers. Tiles wholly inside every row's visible range (and, in kSparse,
-// with a full membership word) skip the per-element mask. Inputs are read
-// through their strides, so (b, s, h, d) tensors viewed as (b, h, s, d), thd
-// and hsd packed tensors, and "phd" pools viewed head-major are taken
-// without a copy.
+// registers. Tiles wholly inside every row's visible range (and, in
+// kSparse, with a full membership word) skip the per-element mask. Inputs
+// are read through their strides, so (b, s, h, d) tensors viewed as (b, h,
+// s, d), thd and hsd packed tensors, and "phd" pools viewed head-major are
+// taken without a copy.
 
 #pragma once
 
@@ -95,30 +83,27 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileM = kWarps * 16;  // query rows per block
 constexpr int kTileN = 64;           // key columns per shared-memory tile
 
-// The dense forward (kernel 1) has a kernel of its own for Hopper,
-// csrc/flash_fwd_sm90.cuh.
-enum Mode { kVarlen = 1, kPaged = 2, kSparse = 3, kGather = 4 };
+enum Mode { kPaged = 2, kSparse = 3 };
 
 struct FwdParams {
-  const void* q;  // sparse (b, h, sq, d); varlen (total_q, h, d) or (h, total_q, d)
-  const void* k;  // sparse (b, hk, sk, d); varlen packed as q; paged: a pool
+  const void* q;  // sparse (b, h, sq, d); paged (total_q, h, d) or (h, total_q, d)
+  const void* k;  // sparse (b, hk, sk, d); paged: a pool
   const void* v;
   void* out;      // as q
-  float* lse;     // sparse (b, h, sq); varlen (h, total_q); contiguous
-  // Element strides (batch, head, seq). Varlen: batch unused. Paged K/V:
-  // (page, head, slot) of the pool.
+  float* lse;     // sparse (b, h, sq); paged (h, total_q); contiguous
+  // Element strides (batch, head, seq). Paged: q's and out's batch unused,
+  // K/V's (page, head, slot) of the pool.
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
-  long long lse_h;  // lse stride per head: sparse sq, varlen total_q
+  long long lse_h;  // lse stride per head: sparse sq, paged total_q
   int h, group, sq, sk;  // sq, sk: sparse only
   int left, right;  // normalised window; negative = unbounded
   // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
   // with a softcap (score_mul = scale / softcap, cap_log2 = softcap*log2 e).
   float score_mul, cap_log2;
   bool has_softcap;
-  // Varlen: sequence starts (nseq + 1), optional used lengths (nseq).
+  // Paged: sequence starts (nseq + 1), optional used lengths (nseq).
   // Sparse: used_q / used_k are the optional per-row seqlens_q / seqlens_k.
   const int* cu_q;
-  const int* cu_k;  // packed mode only
   const int* used_q;
   const int* used_k;  // required in paged mode
   // Paged: page table (nseq, max_pages) with row stride table_row.
@@ -127,12 +112,10 @@ struct FwdParams {
   int page, max_pages, npages;
   int page_shift;  // log2(page) for a power-of-two page, else -1
   // Sparse: lists of `list_len` entries per (b, head, 64-row block), at row
-  // (b * h + head) * nqb + block; counts[row] entries are used (kSparse:
-  // tiles, kGather: columns).
+  // (b * h + head) * nqb + block; counts[row] tiles are used.
   const int* counts;
-  const int* tiles;                 // kSparse
-  const unsigned long long* words;  // kSparse
-  const int* cols;                  // kGather
+  const int* tiles;
+  const unsigned long long* words;
   long long list_len;
   int nqb;
   // ALiBi (sparse modes): slope of (b, head) at alibi[b * alibi_b + head].
@@ -150,7 +133,7 @@ struct Seq {
 template <int kMode>
 __device__ __forceinline__ Seq seq_of(const FwdParams& p, int b) {
   Seq s;
-  if constexpr (kMode == kSparse || kMode == kGather) {
+  if constexpr (kMode == kSparse) {
     s.q = b * p.q_b;
     s.k = b * p.k_b;
     s.v = b * p.v_b;
@@ -165,19 +148,9 @@ __device__ __forceinline__ Seq seq_of(const FwdParams& p, int b) {
     const int q0 = p.cu_q[b];
     const int len_q = p.cu_q[b + 1] - q0;
     const int uq = p.used_q ? p.used_q[b] : len_q;
-    int uk, keys;
-    if constexpr (kMode == kVarlen) {
-      const int k0 = p.cu_k[b];
-      const int len_k = p.cu_k[b + 1] - k0;
-      uk = p.used_k ? p.used_k[b] : len_k;
-      keys = min(uk, len_k);
-      s.k = k0 * p.k_s;
-      s.v = k0 * p.v_s;
-    } else {
-      uk = p.used_k[b];
-      keys = min(uk, p.max_pages * p.page);
-      s.k = s.v = 0;
-    }
+    const int uk = p.used_k[b];
+    const int keys = min(uk, p.max_pages * p.page);
+    s.k = s.v = 0;
     s.q = q0 * p.q_s;
     s.o = q0 * p.o_s;
     s.lse = q0;
@@ -196,8 +169,8 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   constexpr int kKSteps = D / 16;
   constexpr int kNTiles = kTileN / 8;
   constexpr int kOTiles = D / 8;
-  // Key-row offsets come from shared memory (page table or column list).
-  constexpr bool kOfsInSmem = kMode == kPaged || kMode == kGather;
+  // Key-row offsets come from shared memory (page table).
+  constexpr bool kOfsInSmem = kMode == kPaged;
   T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kTileN][kStride]
   T* sV = sK + 2 * kTileN * kStride;       // [2][kTileN][kStride]
 
@@ -214,16 +187,14 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   const int row_last = min(row0 + kTileM, rows) - 1;
 
   // The walk: n_tiles steps; step x reads key tile tile_lo + x (the tiles
-  // visible to any row of this block), the x-th listed tile (kSparse) or
-  // gathered columns 64x .. 64x + 63 (kGather).
-  int tile_lo = 0, n_tiles, n_cols = 0;
+  // visible to any row of this block) or the x-th listed tile (kSparse).
+  int tile_lo = 0, n_tiles;
   long long lbase = 0;
-  if constexpr (kMode == kSparse || kMode == kGather) {
+  if constexpr (kMode == kSparse) {
     const long long lrow =
         (static_cast<long long>(b) * p.h + head) * p.nqb + m_block;
     lbase = lrow * p.list_len;
-    n_cols = p.counts[lrow];
-    n_tiles = kMode == kSparse ? n_cols : (n_cols + kTileN - 1) / kTileN;
+    n_tiles = p.counts[lrow];
   } else {
     const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
     const int col_hi =
@@ -234,8 +205,6 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   auto tile_at = [&](int x) {
     if constexpr (kMode == kSparse) {
       return __ldg(p.tiles + lbase + x);
-    } else if constexpr (kMode == kGather) {
-      return x;
     } else {
       return tile_lo + x;
     }
@@ -277,16 +246,13 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   const T* kbase = static_cast<const T*>(p.k) + sq_.k + g * p.k_h;
   const T* vbase = static_cast<const T*>(p.v) + sq_.v + g * p.v_h;
 
-  // Paged and gather modes: the K and V element offsets of each key row of
-  // a tile, from the page table or the column list, computed by one thread
-  // per key one tile ahead of the tile's copies, so the copies neither wait
-  // on the table nor redo the page arithmetic per chunk. Kept in shared
-  // memory after the K/V stages, [2 slots][K, V][kTileN]; tile tile_lo + j
-  // uses slot j & 1; -1 marks a row to zero-fill (past the keys, a page
-  // outside the pool, or past the gathered columns). kGather also keeps
-  // each row's column, [3][kTileN] after the offsets: step x in x % 3.
+  // Paged mode: the K and V element offsets of each key row of a tile, from
+  // the page table, computed by one thread per key one tile ahead of the
+  // tile's copies, so the copies neither wait on the table nor redo the
+  // page arithmetic per chunk. Kept in shared memory after the K/V stages,
+  // [2 slots][K, V][kTileN]; tile tile_lo + j uses slot j & 1; -1 marks a
+  // row to zero-fill (past the keys, or a page outside the pool).
   long long* sOfs = reinterpret_cast<long long*>(sV + 2 * kTileN * kStride);
-  int* sCol = reinterpret_cast<int*>(sOfs + 4 * kTileN);
   auto fetch_offsets = [&](int tile, int slot) {
     if constexpr (kMode == kPaged) {
       if (tid < kTileN) {
@@ -300,16 +266,6 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
         long long* dst = sOfs + slot * 2 * kTileN + tid;
         dst[0] = ok ? id * p.k_b + in_page * p.k_s : -1;
         dst[kTileN] = ok ? id * p.v_b + in_page * p.v_s : -1;
-      }
-    } else if constexpr (kMode == kGather) {
-      if (tid < kTileN) {
-        const int pos = tile * kTileN + tid;
-        int col = pos < n_cols ? __ldg(p.cols + lbase + pos) : -1;
-        if (col >= keys) col = -1;
-        long long* dst = sOfs + slot * 2 * kTileN + tid;
-        dst[0] = col >= 0 ? col * p.k_s : -1;
-        dst[kTileN] = col >= 0 ? col * p.v_s : -1;
-        sCol[(tile % 3) * kTileN + tid] = col;
       }
     }
   };
@@ -382,23 +338,14 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
     const T* ks_ptr = sK + stage * kTileN * kStride;
     const T* vs_ptr = sV + stage * kTileN * kStride;
     const int col0 = tile_at(it) * kTileN;
-    const int* cols = sCol + (it % 3) * kTileN;  // kGather only
     // Every column of the tile visible to every row of the block?
-    bool full;
+    bool full = row0 + kTileM <= rows && col0 + kTileN <= keys &&
+                in_window(col0, row0 + kTileM - 1 + off, p.left, -1) &&
+                in_window(col0 + kTileN - 1, row0 + off, -1, p.right);
     unsigned long long word = 0;
-    if constexpr (kMode == kGather) {
-      // Ascending columns: the last one bounds them all.
-      const int last = cols[kTileN - 1];
-      full = (it + 1) * kTileN <= n_cols && row0 + kTileM <= rows &&
-             last < keys && in_window(last, row0 + off, -1, p.right);
-    } else {
-      full = row0 + kTileM <= rows && col0 + kTileN <= keys &&
-             in_window(col0, row0 + kTileM - 1 + off, p.left, -1) &&
-             in_window(col0 + kTileN - 1, row0 + off, -1, p.right);
-      if constexpr (kMode == kSparse) {
-        word = __ldg(p.words + lbase + it);
-        full = full && word == ~0ull;
-      }
+    if constexpr (kMode == kSparse) {
+      word = __ldg(p.words + lbase + it);
+      full = full && word == ~0ull;
     }
 
     float s[kNTiles][4];
@@ -422,7 +369,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const int c = nt * 8 + tig * 2 + (e & 1);
-        const int col = kMode == kGather ? cols[c] : col0 + c;
+        const int col = col0 + c;
         float x = s[nt][e];
         x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
         if constexpr (kAlibi) {
@@ -431,9 +378,6 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
         bool ok;
         if constexpr (kMode == kSparse) {
           ok = full || (((word >> c) & 1ull) && row_ok[i] && col < keys &&
-                        in_window(col, diag[i], p.left, p.right));
-        } else if constexpr (kMode == kGather) {
-          ok = full || (col >= 0 && row_ok[i] && col < keys &&
                         in_window(col, diag[i], p.left, p.right));
         } else {
           ok = full || (row_ok[i] && col < keys &&
@@ -531,9 +475,7 @@ template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
 int launch_kernel(const FwdParams& p, int m_blocks, int batch,
                   cudaStream_t stream) {
   const size_t smem = 2 * 2 * kTileN * (D + 8) * sizeof(T) +
-                      (kMode == kPaged || kMode == kGather
-                           ? 4 * kTileN * sizeof(long long) : 0) +
-                      (kMode == kGather ? 3 * kTileN * sizeof(int) : 0);
+                      (kMode == kPaged ? 4 * kTileN * sizeof(long long) : 0);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, kSoftcap, kMode, kAlibi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -544,11 +486,11 @@ int launch_kernel(const FwdParams& p, int m_blocks, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The softcap, and in the sparse modes ALiBi, are template parameters, so a
+// The softcap, and in the sparse mode ALiBi, are template parameters, so a
 // kernel without one carries no tanh (or bias) in its score loop.
 template <typename T, int D, int kMode>
 int launch(const FwdParams& p, int m_blocks, int batch, cudaStream_t stream) {
-  if constexpr (kMode == kSparse || kMode == kGather) {
+  if constexpr (kMode == kSparse) {
     if (p.alibi) {
       return p.has_softcap
                  ? launch_kernel<T, D, true, kMode, true>(p, m_blocks, batch, stream)

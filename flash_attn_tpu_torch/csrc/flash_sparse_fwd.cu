@@ -1,18 +1,21 @@
 // Vertical-slash (MInference) sparse attention forward: the C entry point of
 // kernels 12 (key-tile list with membership words) and 15 (gathered column
-// list). The tile step, its function, bound and design are in
-// csrc/flash_fwd_tile.cuh (modes kSparse and kGather); the lists come from
-// the planners in kernels/flash_sparse.py and kernels/flash_sparse_gather.py.
+// list). Kernel 12's tile step, its function, bound and design are in
+// csrc/flash_fwd_tile.cuh (mode kSparse); kernel 15's Hopper kernel is in
+// csrc/flash_sparse_gather_sm90.cuh. The lists come from the planners in
+// kernels/flash_sparse.py and kernels/flash_sparse_gather.py.
 
 #include "flash_fwd_tile.cuh"
+#include "flash_sparse_gather_sm90.cuh"
 
 // q (b, h, sq, d), k and v (b, hk, sk, d), out as q: strides, 12 element
-// strides (batch, head, seq) of q, k, v and out. lse (b, h, sq) fp32.
-// counts (b, h, cdiv(sq, 64)); with cols == null (kernel 12) tiles and words
-// hold list_len entries per count, else (kernel 15) cols does. seqlens_q,
-// seqlens_k (b) and alibi (slopes of (b, head) at b * alibi_b + head) may be
-// null. Returns 0, a cudaError_t from the launch, or -1 for an unsupported
-// head dim. Launches on `stream`; does not synchronise.
+// strides (batch, head, seq) of q, k, v and out (multiples of 8 elements,
+// 16-byte aligned bases). lse (b, h, sq) fp32. counts (b, h, cdiv(sq, 64));
+// with cols == null (kernel 12) tiles and words hold list_len entries per
+// count, else (kernel 15) cols does. seqlens_q, seqlens_k (b) and alibi
+// (slopes of (b, head) at b * alibi_b + head) may be null. Returns 0, a
+// cudaError_t from the launch, or -1 for an unsupported head dim. Launches
+// on `stream`; does not synchronise.
 extern "C" int flash_sparse_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const long long* strides, const int* counts, const int* tiles,
@@ -20,6 +23,51 @@ extern "C" int flash_sparse_fwd(
     const int* seqlens_q, const int* seqlens_k, const float* alibi,
     int alibi_b, int batch, int h, int hk, int sq, int sk, int d, float scale,
     int causal, float softcap, int is_fp16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cols) {
+    namespace f = fa::gather90;
+    if (d != 64 && d != 128) return -1;
+    f::Params p = {};
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.out = out;
+    p.lse = lse;
+    p.q_b = strides[0];
+    p.q_h = strides[1];
+    p.q_s = strides[2];
+    p.k_b = strides[3];
+    p.k_h = strides[4];
+    p.k_s = strides[5];
+    p.v_b = strides[6];
+    p.v_h = strides[7];
+    p.v_s = strides[8];
+    p.o_b = strides[9];
+    p.o_h = strides[10];
+    p.o_s = strides[11];
+    p.h = h;
+    p.group = h / hk;
+    p.sq = sq;
+    p.sk = sk;
+    p.nqb = (sq + f::kRows - 1) / f::kRows;
+    p.causal = causal;
+    const bool cap = softcap > 0.f;
+    p.score_mul = cap ? scale / softcap : scale * fa::kLog2e;
+    p.cap_log2 = cap ? softcap * fa::kLog2e : 0.f;
+    p.seqlens_q = seqlens_q;
+    p.seqlens_k = seqlens_k;
+    p.counts = counts;
+    p.cols = cols;
+    p.list_len = list_len;
+    p.alibi = alibi;
+    p.alibi_b = alibi_b;
+    if (is_fp16) {
+      return d == 64 ? f::dispatch<__half, 64>(p, batch, s)
+                     : f::dispatch<__half, 128>(p, batch, s);
+    }
+    return d == 64 ? f::dispatch<__nv_bfloat16, 64>(p, batch, s)
+                   : f::dispatch<__nv_bfloat16, 128>(p, batch, s);
+  }
   FwdParams p = make_params(q, k, v, out, lse, strides, h, hk, scale, -1,
                             causal ? 0 : -1, softcap);
   p.sq = sq;
@@ -30,12 +78,9 @@ extern "C" int flash_sparse_fwd(
   p.counts = counts;
   p.tiles = tiles;
   p.words = words;
-  p.cols = cols;
   p.list_len = list_len;
   p.nqb = (sq + kTileM - 1) / kTileM;
   p.alibi = alibi;
   p.alibi_b = alibi_b;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cols) return dispatch<kGather>(p, p.nqb, batch, d, is_fp16, s);
   return dispatch<kSparse>(p, p.nqb, batch, d, is_fp16, s);
 }

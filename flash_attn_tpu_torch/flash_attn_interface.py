@@ -471,8 +471,9 @@ def flash_attn_varlen_func(
     softcap, seqused_q/k. Returns out in q's layout; with
     return_attn_probs=True, (out, softmax_lse (h, total_q) fp32, None).
 
-    The CUDA grids are sized by max_seqlen_q/k: the caller's, else the
-    plan's (`make_varlen_plan`), else one host read of cu_seqlens.
+    The backward's CUDA grids are sized by max_seqlen_q/k: the caller's,
+    else the plan's (`make_varlen_plan`), else one host read of cu_seqlens;
+    the forward's comes from the shapes alone.
 
     With `block_sparse_tensors` (from `compute_block_sparsity_varlen`) the
     call runs `mask_mod` block-sparsely (`_varlen_blocksparse`); it

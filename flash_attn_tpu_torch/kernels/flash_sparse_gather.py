@@ -6,11 +6,11 @@ masks the columns that are not attended, so a tile with one vertical column
 costs as much as a full one. Kernel 15 computes the same function over each
 64-row block's sorted, deduplicated list of attended columns, 64 at a time:
 the planner (`plan_gather`, torch ops on the device, no host read) builds
-the lists, and the kernel copies each 64-column step's K/V rows through
-offsets it writes to shared memory one step ahead (as the paged forward
-does for page tables), masking only causality and bounds. The JAX kernel's
-route rule (`_G_est * 64 <= 4096`, a VMEM budget) is not kept; the port's
-is `flash_sparse.sparse_route`.
+the lists, and the Hopper kernel (`csrc/flash_sparse_gather_sm90.cuh`)
+gathers each 64-column step's K/V rows with cp.async into the swizzled
+tiles wgmma reads, masking only causality and bounds. The JAX kernel's
+route rule (`_G_est * 64 <= 4096`, a VMEM budget) is not kept;
+the port's is `flash_sparse.sparse_route`.
 """
 
 from __future__ import annotations
@@ -140,7 +140,9 @@ def flash_attention_sparse_gather_fwd(
     h, sq) fp32). CUDA tensors launch csrc/flash_sparse_fwd.cu in its
     gather mode (counted in `flash_attention_sparse_gather_fwd.launches`),
     over `plan` ((counts, cols) of `plan_gather`) when given; CPU tensors
-    take `flash_sparse.flash_attention_sparse_fwd_ref`."""
+    take `flash_sparse.flash_attention_sparse_fwd_ref`. The Hopper kernel
+    reads q, k and v through their strides (multiples of 8 elements, bases
+    16-byte aligned)."""
     meta = (block_count, block_offset, column_count, column_index)
     kw = dict(softmax_scale=softmax_scale, causal=causal, softcap=softcap)
     if q.device.type == "cpu":

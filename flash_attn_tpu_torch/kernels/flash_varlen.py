@@ -13,20 +13,26 @@ versions use.
 Three kernels, each with a `.launches` count and a plain PyTorch version
 that the wrapper takes for CPU tensors:
 
-  * `flash_attention_varlen_fwd` (`csrc/flash_fwd.cu` flash_varlen_fwd;
-    plain `flash_attention_varlen_fwd_ref`). K/V packed, or read from page
-    pools (`kv_pools`) through a page table (`block_table`, vLLM's form);
+  * `flash_attention_varlen_fwd` (`csrc/flash_fwd.cu` flash_varlen_fwd,
+    the Hopper kernel of `csrc/flash_varlen_fwd_sm90.cuh`; plain
+    `flash_attention_varlen_fwd_ref`). K/V packed, or read from page pools
+    (`kv_pools`) through a page table (`block_table`, vLLM's form).
+    `trace_schedule` lets a check on the card read the blocks of its flat
+    tile schedule;
   * `flash_attention_varlen_bwd_dq` (`csrc/flash_bwd.cu`
     flash_varlen_bwd_dq; plain `_varlen_dq_ref`), which also returns
     delta = sum_j P dP per row, as the dense dQ kernel does;
   * `flash_attention_varlen_bwd_dkv` (flash_varlen_bwd_dkv; plain
     `_varlen_dkv_ref`), GQA groups summed in-kernel.
 
-A CUDA grid is sized by the longest sequence (`max_seqlen_q`/`_k`), from
-the caller, from a `VarlenPlan`, or else from one host read of cu_seqlens.
-The kernels cover every tile of every sequence whatever that size, so a
-wrong size costs time, never the answer. The TPU worklist (`build_worklist`,
-page ids in its flags) is a Mosaic grid device and is not ported.
+The forward's grid comes from the shapes alone (the packed row count and
+the sequence count); the backward grids, and the forward's on pools whose
+page size is not a multiple of 8 (the sm80 route, `launches_sm80`), are
+sized by the longest sequence (`max_seqlen_q`/`_k`), from the caller, from
+a `VarlenPlan`, or else from one host read of cu_seqlens. Those kernels
+cover every tile of every sequence whatever that size, so a wrong size
+costs time, never the answer. The TPU worklist (`build_worklist`, page ids
+in its flags) is a Mosaic grid device and is not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     _scale,
     check_kernel_inputs,
     flash_attention_fwd_ref,
+    tma_ready,
 )
 
 # Arguments of the JAX varlen signature the port does not take yet:
@@ -155,12 +162,13 @@ def _host(x) -> Optional[np.ndarray]:
 class VarlenPlan:
     """What the CUDA grids need, built once on the host from concrete
     lengths (the reference's scheduler metadata; `make_varlen_plan`):
-    the sequence count, the longest sequence's rows and keys (the grids'
-    first dimension), the masking it was built for, and the lengths it was
-    built from. Reuse it across layers; a call whose lengths, causal or
-    window differ is refused (`plan_mismatch`). The kernels cover every
-    tile whatever the grid size, so even a plan that slipped through could
-    not change an answer, only its time."""
+    the sequence count, the longest sequence's rows and keys (the backward
+    grids' first dimension; the forward's grid needs neither), the masking
+    it was built for, and the lengths it was built from. Reuse it across
+    layers; a call whose lengths, causal or window differ is refused
+    (`plan_mismatch`). The kernels cover every tile whatever the grid size,
+    so even a plan that slipped through could not change an answer, only
+    its time."""
 
     nseq: int
     max_seqlen_q: int
@@ -426,6 +434,38 @@ def _varlen_dkv_ref(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, *,
 
 
 # ---------------------------------------------------------------------------
+# The Hopper forward's schedule (csrc/flash_varlen_fwd_sm90.cuh).
+# ---------------------------------------------------------------------------
+
+SM90_BLOCK_N = 128  # keys per K/V tile (kBlockN)
+
+
+def sm90_block_m(d: int) -> int:
+    """Query rows per block (block_m): three 64-row consumer warpgroups at
+    d 64, two at d 128."""
+    return 192 if d == 64 else 128
+
+
+def sm90_grid_tiles(total_q: int, nseq: int, d: int) -> int:
+    """grid.x of the flat schedule (grid_tiles): an upper bound on the
+    sequences' row tiles, sum cdiv(rows_b, block_m), from the shapes alone
+    (sum floor(x) <= floor(sum x) with rows_b <= length_b)."""
+    bm = sm90_block_m(d)
+    return (total_q + nseq * (bm - 1)) // bm
+
+
+def pages_on_tma(page: int) -> bool:
+    """Whether the Hopper kernel reads pools of this page size (TMA boxes of
+    gcd(page, 128) >= 8 slots); the others take the sm80 route."""
+    return page % 8 == 0
+
+
+def piece_rows(page: int) -> int:
+    """Slots per TMA box of a pool (piece_rows): gcd(page, 128)."""
+    return int(np.gcd(page, SM90_BLOCK_N))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -490,6 +530,26 @@ def _fwd_kernel():
     return fn
 
 
+def trace_schedule(trace: Optional[torch.Tensor]) -> None:
+    """Makes the Hopper forward's later launches write their schedule
+    into `trace` (int32 on the card, four ints a block at 4 (blockIdx.y
+    grid.x + blockIdx.x): blockIdx.x, blockIdx.y (the head), the block's
+    sequence and first row, the last two -1 for a block past the last row
+    tile; blocks past its end write nothing), or stops it (None). Hold on
+    to `trace` until it is stopped."""
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    fn = load_library("flash_fwd").flash_varlen_fwd_trace
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    if trace is None:
+        fn(None, 0)
+        return
+    if trace.dtype != torch.int32 or trace.device.type != "cuda":
+        raise ValueError("the trace is an int32 tensor on the card")
+    fn(trace.data_ptr(), trace.numel())
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels() -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
@@ -551,14 +611,18 @@ def flash_attention_varlen_fwd(
     `kv_page_of_block`. Keys are then `seqused_k` (or the cu_seqlens_k
     lengths).
 
-    `plan` (from `make_varlen_plan`) supplies max_seqlen_q and is refused
-    (ValueError) when its lengths, causal or window differ from the call's.
-    Without `max_seqlen_q` or a plan, a CUDA call reads cu_seqlens_q once on
-    the host. `block_q`/`block_kv`/`dropout_seed` are taken for calls written
-    for the JAX API and not read. CUDA tensors launch
+    `plan` (from `make_varlen_plan`) is refused (ValueError) when its
+    lengths, causal or window differ from the call's. The Hopper kernel's
+    grid needs no max_seqlen_q; pools whose page size is not a multiple of
+    8 take the sm80 route (counted in
+    `flash_attention_varlen_fwd.launches_sm80` as well), whose grid
+    max_seqlen_q sizes: the caller's, the plan's, or else one host read of
+    cu_seqlens_q. `block_q`/`block_kv`/`dropout_seed` are taken for calls
+    written for the JAX API and not read. CUDA tensors launch
     `csrc/flash_fwd.cu` flash_varlen_fwd (counted in
-    `flash_attention_varlen_fwd.launches`); CPU tensors take
-    `flash_attention_varlen_fwd_ref`."""
+    `flash_attention_varlen_fwd.launches`; inputs its TMA tensor maps
+    cannot take are copied first, counted in `.tma_copies`); CPU tensors
+    take `flash_attention_varlen_fwd_ref`."""
     del block_q, block_kv, dropout_seed
     check_unported(
         qv=qv, alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
@@ -591,33 +655,45 @@ def flash_attention_varlen_fwd(
         return flash_attention_varlen_fwd_ref(
             q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools=kv_pools,
             block_table=block_table, head_dim_v=head_dim_v, **kw)
-    max_seqlen_q, _ = resolve_max_seqlens(cu_seqlens_q, None, max_seqlen_q,
-                                          None, plan)
     return _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools,
-                       block_table, head_dim_v, max_seqlen_q, **kw)
+                       block_table, head_dim_v, max_seqlen_q, plan, **kw)
 
 
 flash_attention_varlen_fwd.launches = 0
+flash_attention_varlen_fwd.launches_sm80 = 0
+flash_attention_varlen_fwd.tma_copies = 0
 
 
 def _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools, block_table,
-                head_dim_v, max_seqlen_q, *, seqused_q, seqused_k,
+                head_dim_v, max_seqlen_q, plan, *, seqused_q, seqused_k,
                 softmax_scale, causal, window_size, softcap, layout):
     dev = q.device
+    owner = flash_attention_varlen_fwd
+    q = tma_ready(q, owner)
+    sm80 = False
     if kv_pools is not None:
         total_q, h, d = _thd(q, layout).shape
         k_view, v_view = _pool_views(kv_pools, d, head_dim_v)
         npages, hk, page, _ = k_view.shape
+        sm80 = not pages_on_tma(page)
+        if sm80:  # the sm80 route's grid is sized by the longest sequence
+            max_seqlen_q, _ = resolve_max_seqlens(cu_seqlens_q, None,
+                                                  max_seqlen_q, None, plan)
+        else:
+            k_view, v_view = tma_ready(k_view, owner), tma_ready(v_view, owner)
         kv_strides = [k_view.stride(i) for i in range(3)] + [
             v_view.stride(i) for i in range(3)]
         table = _int32(block_table, dev)
         table_args = (table.data_ptr(), table.stride(0), page,
                       table.shape[1], npages)
     else:
-        k_view, v_view = k, v
-        total_q, h, d, hk = _dims(q, k, layout)
-        kv_strides = _packed_strides(k, layout) + _packed_strides(v, layout)
-        table_args = (None, 0, 0, 0, 0)
+        k_view, v_view = tma_ready(k, owner), tma_ready(v, owner)
+        total_q, h, d, hk = _dims(q, k_view, layout)
+        total_k = _thd(k_view, layout).shape[0]
+        kv_strides = (_packed_strides(k_view, layout)
+                      + _packed_strides(v_view, layout))
+        # The kernel's K/V tensor maps span the packed tokens.
+        table_args = (None, 0, 0, 0, total_k)
     if k_view.shape[-1] != d or v_view.shape[-1] != d:
         raise ValueError(f"the CUDA kernel takes K and V of head dim {d}")
     check_kernel_inputs(d, h, hk, q=q, k=k_view, v=v_view)
@@ -629,19 +705,21 @@ def _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools, block_table,
     out = torch.zeros_like(q)
     lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
                      device=dev)
-    if nseq <= 0:
+    if nseq <= 0 or total_q == 0 or (kv_pools is None
+                                     and table_args[-1] == 0):
         return out, lse
     strides = (_packed_strides(q, layout) + kv_strides[:3] + kv_strides[3:]
                + _packed_strides(out, layout))
     rc = _fwd_kernel()(
         q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _strides_arg(strides), cu_q.data_ptr(), _ptr(cu_k),
-        _ptr(used_q), _ptr(used_k), *table_args, nseq, int(max_seqlen_q),
+        _ptr(used_q), _ptr(used_k), *table_args, nseq, int(max_seqlen_q or 0),
         total_q, h, hk, d, _scale(d, softmax_scale), left, right,
         float(softcap), int(q.dtype == torch.float16), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_varlen_fwd launch failed: CUDA error {rc}")
-    flash_attention_varlen_fwd.launches += 1
+    owner.launches += 1
+    owner.launches_sm80 += sm80
     return out, lse
 
 

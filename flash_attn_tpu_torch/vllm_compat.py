@@ -159,9 +159,11 @@ def flash_attn_varlen_func(
     docstring). Returns out (total_q, h, d), and lse (h, total_q) fp32 with
     return_softmax_lse; `out`, when given, receives the result in place (as
     vLLM passes its output buffer) and is returned. A paged call makes no
-    host read: the grid comes from max_seqlen_q, or from the scheduler
-    metadata's plan when its lengths and masking match the call's (the very
-    tensors it was built from; otherwise the plan is not used)."""
+    host read: the forward's grid comes from the shapes alone, and on pools
+    whose page size is not a multiple of 8 (the sm80 route) from
+    max_seqlen_q, or from the scheduler metadata's plan when its lengths and
+    masking match the call's (the very tensors it was built from; otherwise
+    the plan is not used)."""
     del fa_version, num_splits, kwargs
     if q_v is not None:
         raise _unported("q_v", "queue 1, item 10 (MLA)")

@@ -14,12 +14,19 @@ csrc/block_sparse_bwd.cu, csrc/flash_sparse_fwd.cu and
 csrc/flash_sparse_bwd.cu are then timed through this checkout's wrappers
 (whose C interface the base must share) on chip_smoke.py's "gpt2m" and
 "mistral-window" shapes (1-3), its "gpt2m-packed" documents (6-8), its
-"doc10", "prefix" and "softcap30-fp16-d64" block-sparse cases (9-11, over
-this checkout's execution lists), its "prefill-8k" sparse case (12-15)
-and its "tinyllama-d64-noncausal" one (12-15 at d 64, non-causal), the
+Mistral paged prefill at page 16 ("mistral-paged-prefill-page16", kernel
+6 on vLLM "phd" pools) and vLLM's mixed step ("vllm-mixed-step": a
+2041-token chunk and seven decode rows, page 16), its "doc10", "prefix"
+and "softcap30-fp16-d64" block-sparse cases (9-11, over this checkout's
+execution lists), its "prefill-8k" sparse case (12-15), its
+"tinyllama-d64-noncausal" one (12-15 at d 64, non-causal) and the vLLM
+prefill at 32768 tokens ("vllm-prefill-32k", kernel 15 alone), the
 builds in turns (base, tree, tree,
 base per round), each time the median of 20 CUDA-event times; each case
-takes all its rounds before the next one starts. Kernels 4
+takes all its rounds before the next one starts. Every turn also runs each
+timed call once more and compares its answer with this checkout's first:
+the last line counts, per build and call, the turns whose bits differ and
+their largest difference. Kernels 4
 and 5, whose C interfaces may differ between checkouts, are timed through
 each checkout's own wrappers: tools/ab_decode_worker.py runs once per
 checkout (its inputs built once), and each turn asks the checkout's worker
@@ -56,8 +63,17 @@ from flash_attn_tpu_torch.kernels import (  # noqa: E402
 
 SOURCES = ("flash_fwd", "flash_bwd", "block_sparse_fwd", "block_sparse_bwd",
            "flash_sparse_fwd", "flash_sparse_bwd")
-CASES = ("gpt2m", "mistral-window", "gpt2m-packed", "doc10", "prefix",
-         "softcap30-fp16-d64", "prefill-8k", "tinyllama-d64-noncausal")
+CASES = ("gpt2m", "mistral-window", "gpt2m-packed",
+         "mistral-paged-prefill-page16", "vllm-mixed-step", "doc10", "prefix",
+         "softcap30-fp16-d64", "prefill-8k", "tinyllama-d64-noncausal",
+         "vllm-prefill-32k")
+# Kernel 6 on vLLM pools at Mistral-7B widths, page 16: (query lengths,
+# contexts).
+PAGED_CASES = {
+    "mistral-paged-prefill-page16": (chip_smoke.PAGED_QLENS,
+                                     chip_smoke.PAGED_CONTEXTS),
+    "vllm-mixed-step": (chip_smoke.MIXED_QLENS, chip_smoke.MIXED_CONTEXTS),
+}
 OUT_DIR = os.path.join(REPO, "build", "ab")
 
 
@@ -157,11 +173,21 @@ def varlen_inputs(name, seed):
             q, k, v, do, lse, cu, cu, **kw, **mq))
 
 
+def paged_inputs(name, seed):
+    """PAGED_CASES' `name`: kernel 6 reading "phd" pool views through the
+    page table (page 16), as chip_smoke's paged cases call it."""
+    qlens, contexts = PAGED_CASES[name]
+    st = chip_smoke.paged_step(qlens, contexts, 16, seed)
+    return dict(varlen_paged_fwd=lambda: chip_smoke.paged_fwd(st))
+
+
 def sparse_inputs(name, seed):
     """chip_smoke.SPARSE_CASES' `name` on its seeded metadata: kernels 12
     and 15 (each over its planner's lists, planners outside the timing),
-    14 and 13."""
+    14 and 13; a forward-only case (the vLLM prefill) times kernel 15
+    alone."""
     b, h, hk, sq, sk, d, causal, dtype = chip_smoke.SPARSE_CASES[name][:8]
+    bwd = chip_smoke.SPARSE_CASES[name][-1]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev, dtype=dtype)
@@ -171,6 +197,12 @@ def sparse_inputs(name, seed):
     meta = chip_smoke.vs_metadata(b, h, sq, sk, chip_smoke.MINF_HEADS, causal,
                                   seed)
     plans = dict(seqlen_q=sq, seqlen_k=sk, causal=causal)
+    if not bwd:
+        gplan = flash_sparse_gather.plan_gather(*meta, **plans)
+        return dict(
+            sparse_gather_fwd=lambda: (
+                flash_sparse_gather.flash_attention_sparse_gather_fwd(
+                    q, k, v, *meta, plan=gplan, causal=causal)))
     plan = flash_sparse.plan_sparse(*meta, keep_table=True, **plans)
     gplan = flash_sparse_gather.plan_gather(*meta, **plans)
     inverse = flash_sparse.plan_inverse(plan.table, hk)
@@ -223,6 +255,8 @@ def inputs(name, seed):
     shapes for kernels 1-3, else the varlen, block-sparse or sparse case."""
     if name in chip_smoke.VARLEN_CASES:
         return varlen_inputs(name, seed)
+    if name in PAGED_CASES:
+        return paged_inputs(name, seed)
     if name in chip_smoke.BS_CASES:
         return blocksparse_inputs(name, seed)
     if name in chip_smoke.SPARSE_CASES:
@@ -319,7 +353,15 @@ def main(argv=None):
     turns = [(case, fns) for case, fns in calls.items()]
     if workers:
         turns.append(("decode", None))
+    # Each turn also runs every timed call once more and compares what it
+    # returns with this checkout's first answer: bits equal, or the
+    # largest difference (a race, or a change of arithmetic, shows here).
+    outputs = {tag: {} for tag in trees}
     for case, fns in turns:
+        if fns is not None:
+            use("tree")
+            first = {kernel: [t.clone() for t in fn()]
+                     for kernel, fn in fns.items()}
         for r in range(args.rounds):
             for tag in ("base", "tree", "tree", "base"):
                 use(tag)
@@ -328,6 +370,21 @@ def main(argv=None):
                 else:
                     turn = {f"{case}/{kernel}": chip_smoke.cuda_ms(fn)
                             for kernel, fn in fns.items()}
+                    for kernel, fn in fns.items():
+                        got = fn()
+                        seen = outputs[tag].setdefault(
+                            f"{case}/{kernel}",
+                            dict(turns=0, differ=0, max_abs_diff=0.0))
+                        seen["turns"] += 1
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, first[kernel]))
+                        seen["differ"] += not same
+                        if not same:
+                            seen["max_abs_diff"] = max(
+                                seen["max_abs_diff"],
+                                *(float((a.float() - b.float()).nan_to_num()
+                                        .abs().max())
+                                  for a, b in zip(got, first[kernel])))
                     torch.cuda.synchronize()
                 for key, ms in turn.items():
                     times[tag].setdefault(key, []).append(ms)
@@ -342,7 +399,8 @@ def main(argv=None):
         m["tree_over_base"] = m["tree"] / m["base"]
     print(json.dumps(dict(phase="medians", rounds=args.rounds,
                           turns_per_build=2 * args.rounds, card=chip_smoke.smi(),
-                          ms=medians)), flush=True)
+                          ms=medians, outputs_against_tree_first=outputs)),
+          flush=True)
     return 0
 
 
