@@ -130,6 +130,7 @@ from flash_attn_tpu_torch.kernels.block_sparsity import (  # noqa: E402
     prepare_lists,
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
+    BLOCK_ROWS as BWD_BLOCK_ROWS,
     _bwd_dkv_ref,
     _bwd_dq_ref,
     flash_attention_bwd,
@@ -984,8 +985,8 @@ def varlen_compare(name, seed, fault=False):
                   and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all())
     del ref_out
     args = (q, k, v, do, ref_lse)
-    dq, delta = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **maxes)
-    dq2, delta2 = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **maxes)
+    dq, delta = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw)
+    dq2, delta2 = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw)
     ref_dq, ref_delta = _varlen_dq_ref(*up, ref_lse, cu_q, cu_k, **kw)
     kmax = dict(max_seqlen_k=max(lens_k))
     dk, dv = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k, **kw,
@@ -1004,14 +1005,14 @@ def varlen_compare(name, seed, fault=False):
                   dk=held(rows(dk), rows(ref_dk)), dv=held(rows(dv), rows(ref_dv)))
     grads_finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
     # A grid sized for 64-row sequences loops over the longer ones' tiles:
-    # the same tiles, the same bits.
+    # the same tiles, the same bits (the forward and dK/dV; the dQ kernel's
+    # flat schedule takes no max_seqlen_q).
     short = dict(max_seqlen_q=64)
     out_s, _ = flash_attention_varlen_fwd(q, k, v, cu_q, kcu_k, **kw, **short)
-    dq_s, _ = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw, **short)
     dk_s, dv_s = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k,
                                                 **kw, max_seqlen_k=64)
     short_grid_equal = all(torch.equal(x, y) for x, y in (
-        (out_s, out), (dq_s, dq), (dk_s, dk), (dv_s, dv)))
+        (out_s, out), (dk_s, dk), (dv_s, dv)))
     result.update(
         short_grid_equal=short_grid_equal,
         fwd_ok=fwd_ok,
@@ -1033,7 +1034,6 @@ def varlen_case(name, seed):
     cu_q, cu_k = t["cu"]
     kw, maxes = t["kw"], t["maxes"]
     fwd_kw = dict(kw, max_seqlen_q=maxes["max_seqlen_q"])
-    dq_kw = dict(kw, max_seqlen_q=maxes["max_seqlen_q"])
     dkv_kw = dict(kw, max_seqlen_k=maxes["max_seqlen_k"])
     result = dict(
         phase="varlen_kernels", case=name, nseq=len(lens_q), total_q=sum(lens_q),
@@ -1051,7 +1051,7 @@ def varlen_case(name, seed):
         fwd_ms=cuda_ms(lambda: flash_attention_varlen_fwd(q, k, v, cu_q, cu_k,
                                                           **fwd_kw)),
         dq_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dq(
-            q, k, v, do, lse, cu_q, cu_k, **dq_kw)),
+            q, k, v, do, lse, cu_q, cu_k, **kw)),
         dkv_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dkv(
             q, k, v, do, lse, t["delta"], cu_q, cu_k, **dkv_kw)),
         fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
@@ -1070,10 +1070,56 @@ def varlen_case(name, seed):
     if layout == "thd" and used_q is None and used_k is None:
         (result["library_fwd_ms"], result["library_fwd_bwd_ms"],
          result["library"]) = library_packed(q, k, v, do, cu_q, causal)
+    result["dq_schedule"] = dq_schedule(t, lens_q, used_q, h)
     emit(result)
     check(result["ok"], f"varlen_kernels case {name} disagrees with its plain "
                         "version or is not deterministic")
+    sch = result["dq_schedule"]
+    check(sch["blocks_launched"] == sch["grid"][0] * h > 0
+          and sch["grid"][0] == sch["grid_host"] and sch["row_tiles_each_once"],
+          f"varlen_kernels case {name}: kernel 8's trace misses a block or a "
+          "row tile, or visits one twice")
     return result
+
+
+def dq_schedule(t, lens_q, used_q, h):
+    """Kernel 8's flat schedule as the kernel ran it on a case's inputs
+    (`t` from varlen_compare): its trace (each launched block's sequence
+    and first row, -1 past the last row tile) against the 128-row tiles the
+    lengths give, per head; the blocks it launched and that exited."""
+    q = t["args"][0]
+    cu_q, cu_k = t["cu"]
+    bm, nseq = BWD_BLOCK_ROWS, len(lens_q)
+    rows = [min(n, n if used_q is None else used_q[j])
+            for j, n in enumerate(lens_q)]
+    grid_host = (sum(lens_q) + nseq * (bm - 1)) // bm
+    trace = torch.full((4 * grid_host * h + 4,), -2, dtype=torch.int32,
+                       device=q.device)
+    trace_schedule(trace, kernel="dq")
+    try:
+        flash_attention_varlen_bwd_dq(*t["args"], cu_q, cu_k, **t["kw"])
+        torch.cuda.synchronize()
+    finally:
+        trace_schedule(None, kernel="dq")
+    rec = trace.view(-1, 4).cpu().numpy()
+    rec = rec[rec[:, 0] != -2]
+    want = sorted((j, m * bm) for j, n in enumerate(rows)
+                  for m in range(-(-max(n, 0) // bm)))
+    live = rec[rec[:, 2] >= 0]
+    return dict(
+        schedule="read from the kernel's trace",
+        grid=[int(rec[:, 0].max()) + 1 if len(rec) else 0, h],
+        grid_host=grid_host, blocks_launched=len(rec),
+        blocks_exited=int((rec[:, 2] < 0).sum()),
+        blocks_with_rows=len(live),
+        row_tiles_each_once=all(
+            sorted(map(tuple, live[live[:, 1] == y][:, 2:].tolist())) == want
+            for y in range(h)),
+        # Each sequence's last row tile first: blockIdx.x falls as the row
+        # rises inside a sequence.
+        last_tile_first=all(
+            (np.diff(live[(live[:, 1] == 0) & (live[:, 2] == j)][:, 3]) < 0)
+            .all() for j in range(nseq)))
 
 
 def paged_step(qlens, contexts, page, seed, h=H, hk=HK, d=D):
@@ -1341,6 +1387,25 @@ def varlen_fault_phase():
               ok=not passed))
     check(not passed, "varlen_fault: the mixed step with a cu_seqlens_q "
                       "boundary moved passes the tolerance")
+    # Kernel 8's flat schedule: the dQ kernel alone handed gpt2m-packed's
+    # cu_seqlens_q with the first document's end moved one row into the
+    # second's, against the plain dQ on the true boundaries.
+    _, t = varlen_compare("gpt2m-packed", seed=72)
+    cu_q, cu_k = t["cu"]
+    bad = cu_q.clone()
+    bad[1] -= 1
+    dq, delta = flash_attention_varlen_bwd_dq(*t["args"], bad, cu_k, **t["kw"])
+    torch.cuda.synchronize()
+    up = tuple(x.float() for x in t["args"][:4])
+    ref_dq, ref_delta = _varlen_dq_ref(*up, t["args"][4], cu_q, cu_k, **t["kw"])
+    worst = {"dq": held(dq.float(), ref_dq)["err_over_limit"],
+             "delta": held(delta, ref_delta)["err_over_limit"]}
+    caught = max(worst.values()) > 1
+    emit(dict(phase="varlen_fault", case="dq-scheduler",
+              moved="cu_seqlens_q[1] - 1 (kernel 8 only)",
+              err_over_limit=worst, caught={"dq": caught}, ok=caught))
+    check(caught, "varlen_fault: kernel 8 with a cu_seqlens_q boundary moved "
+                  "passes the tolerance")
 
 
 # -- phase: varlen_train (packed training attention through autograd) --------
@@ -1368,22 +1433,25 @@ def varlen_train_phase(layers=24, seed=50):
     step()  # warm-up
     torch.cuda.synchronize()
     _zero_varlen_counts()
+    flash_attention_varlen_bwd_dq.tma_copies = 0
     t0 = time.perf_counter()
     step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = _varlen_counts()
+    dq_copies = flash_attention_varlen_bwd_dq.tma_copies
     want = dict(flash_varlen_fwd=layers, flash_varlen_bwd_dkv=layers,
                 flash_varlen_bwd_dq=layers)
     grads_finite = all(bool(torch.isfinite(x.grad).all()) for x in qkv)
-    ok = counts == want and grads_finite
+    ok = counts == want and grads_finite and dq_copies == 0
     result = dict(phase="varlen_train", layers=layers, docs=len(GPT2M_DOCS),
                   tokens=tq, h=h, d=d, causal=True, step_wall_ms=wall_ms,
                   step_ms_by_events=cuda_ms(step, reps=5, warmup=1),
                   launches=counts, launches_expected=want,
-                  grads_finite=grads_finite, ok=ok)
+                  dq_tma_copies=dq_copies, grads_finite=grads_finite, ok=ok)
     emit(result)
-    check(ok, "varlen_train: launches off the count or non-finite gradients")
+    check(ok, "varlen_train: launches off the count, a TMA copy of kernel "
+              "8's inputs, or non-finite gradients")
     return result
 
 
@@ -3546,6 +3614,7 @@ def _bs_counts():
 def _zero_bs_counts():
     flash_attention_blocksparse_fwd.launches = 0
     flash_attention_blocksparse_fwd.tma_copies = 0
+    flash_attention_blocksparse_bwd_dq.tma_copies = 0
     flash_attention_blocksparse_bwd_dkv.launches = 0
     flash_attention_blocksparse_bwd_dq.launches = 0
 
@@ -3712,6 +3781,7 @@ def bs_case(name, seed):
         options=dict(opts), **got,
         tolerance=ATTN_TOLERANCE, empty_rows=empty, launches=launches,
         fwd_tma_copies=flash_attention_blocksparse_fwd.tma_copies,
+        dq_tma_copies=flash_attention_blocksparse_bwd_dq.tma_copies,
         plan_ms=plan_ms, kept_pairs=pairs, density=pairs / (b * h * s * s),
         sub_tiles=int(lists.counts.sum()), word_groups=int(lists.words.shape[0]),
         words_mb=lists.words.numel() * 8 / 1e6,
@@ -3758,6 +3828,8 @@ def bs_case(name, seed):
                         "plain version or is not deterministic")
     check(result["fwd_tma_copies"] == 0, f"blocksparse_kernels case {name}: "
                                          "the forward copied an input")
+    check(result["dq_tma_copies"] == 0, f"blocksparse_kernels case {name}: "
+                                        "kernel 11 copied an input")
     for fault in faults:
         emit(fault)
         check(fault["ok"], f"blocksparse_fault: {fault['planted']} in case "
@@ -3940,9 +4012,11 @@ def blocksparse_phases(vtrain=None):
 def blocksparse_kernel_entries(bsr, logs):
     """Kernels 9-11 for the kernels line: times at `doc10` (b 1, h 16, s
     8192, d 128, tile 512), launches from `blocksparse_train`; for kernel 9
-    also at `prefix` and `doc5` beside SDPA's, its ptxas registers and
-    spills and SASS counts. Fails if one of them never launched there, or
-    if kernel 9's SASS has no wgmma or TMA load, or has atomics."""
+    also at `prefix` and `doc5` beside SDPA's, for kernel 11 at `prefix`
+    and `softcap30-fp16-d64`; for both their ptxas registers and spills and
+    SASS counts. Fails if one of them never launched there, or if kernel
+    9's or 11's SASS has no wgmma or TMA load (11: or bulk copy), or has
+    atomics."""
     at, launches = bsr["cases"]["doc10"], bsr["train"]["launches"]
     entries = []
     for name, key, source, replaces, tensors in (
@@ -3970,6 +4044,33 @@ def blocksparse_kernel_entries(bsr, logs):
             # SDPA's backward alone: its forward+backward less its forward.
             entry["library_bwd_ms"] = (at["library_fwd_bwd_ms"]
                                        - at["library_fwd_ms"])
+        if key == "dq":
+            # Kernel 11 at prefix and softcap30-fp16-d64 too, and its
+            # instructions: UBLKCP are the bulk copies of the mode-2 words.
+            for other in ("prefix", "softcap30-fp16-d64"):
+                c = bsr["cases"][other]
+                entry[other] = dict(
+                    ms=c["dq_ms"], plain_ms=c["dq_plain_ms"],
+                    bound_ms=c["dq_bound_ms"], bound_by=c["dq_bound_by"],
+                    shape=(f"{other}: b={c['b']} h={c['h']} s={c['s']} "
+                           f"d={c['d']} tile {c['tile']}, kept density "
+                           f"{c['density']:.4f}"))
+            kernel = "bs_dq_sm90_kernel"
+            entry.update(
+                design="wgmma+tma, two 64-row blocks' lists merged per block, "
+                       "walked twice, mode-2 words by bulk copy",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("block_sparse_bwd"),
+                                 ("HGMMA", "UTMALDG", "UBLKCP", "ATOM", "RED",
+                                  "LDL", "STL"), kernel),
+                tma_copies=sum(c["dq_tma_copies"]
+                               for c in bsr["cases"].values()))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["UBLKCP"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma, TMA or bulk loads, or atomics, in its "
+                  "SASS")
         if key == "fwd":
             for other in ("prefix", "doc5"):
                 c = bsr["cases"][other]
@@ -4275,6 +4376,27 @@ def main(argv=None):
             # SDPA's backward alone: its forward+backward less its forward.
             entry["library_bwd_ms"] = (gpt2m_v["library_fwd_bwd_ms"]
                                        - gpt2m_v["library_fwd_ms"])
+        if key == "dq":
+            # The Hopper kernel's instructions alone (no atomics: ATOM and
+            # RED must be 0; LDL and STL are spill loads and stores), and
+            # its flat schedule at gpt2m-packed from its own trace.
+            kernel = "varlen_dq_sm90_kernel"
+            sch = gpt2m_v["dq_schedule"]
+            entry.update(
+                design="wgmma+tma, kernel 3's dQ on a flat tile schedule",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("flash_bwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=dict(varlen_train=vtrain["dq_tma_copies"]),
+                schedule=dict(
+                    blocks_from="the kernel's schedule trace",
+                    grid=sch["grid"], blocks_launched=sch["blocks_launched"],
+                    blocks_exited=sch["blocks_exited"]))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
         if key == "fwd":
             entry["max_abs_err"] = max(err, *(r["out"]["max_abs_err"]
                                               for r in paged.values()

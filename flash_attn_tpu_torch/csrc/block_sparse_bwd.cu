@@ -1,10 +1,11 @@
 // Block-sparse attention backward: kernel 11 (dQ and delta, Q-stationary,
-// over the forward's lists) and kernel 10 (dK/dV, KV-stationary, over the
-// inverse lists), from Q, K, V, dO and the forward's log-sum-exp.
+// over the forward's lists; its function, bound and design are in
+// csrc/block_sparse_bwd_sm90.cuh) and kernel 10 (dK/dV, KV-stationary, over
+// the inverse lists), from Q, K, V, dO and the forward's log-sum-exp.
 //
-// Replaces the TPU kernels flash_attn_tpu/kernels/block_sparsity.py:906
-// (_bs_dq_kernel, launched at :1169) and :807 (_bs_dkv_kernel, launched at
-// :1094), both by flash_attention_blocksparse_bwd :996, restricted to the
+// Kernel 10 replaces the TPU kernel
+// flash_attn_tpu/kernels/block_sparsity.py:807 (_bs_dkv_kernel, launched at
+// :1094 by flash_attention_blocksparse_bwd :996), restricted to the
 // forward's features (csrc/block_sparse_fwd.cu): mask_mod plans, scale,
 // softcap, GQA/MQA, head dim 64 or 128, bf16/fp16. The TPU schedule
 // (transposed host worklists with chain flags, per-query-head dK/dV
@@ -23,28 +24,22 @@
 // of dk and dv, is written.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): per kept
-// (query head, row, column) triple, dK/dV 8 * d flops (S, dP, dV, dK), dQ
-// 6 * d (S, dP, dQ), against each kernel's inputs read and outputs written
-// once; the larger of the two.
+// (query head, row, column) triple, dK/dV 8 * d flops (S, dP, dV, dK)
+// against its inputs read and outputs written once; the larger of the two.
 //
-// Design (simple first), the dense backward's tile steps
-// (csrc/flash_bwd_tile.cuh) written out on their own. Deterministic: no
-// atomics; every output element is summed by one thread in a fixed order.
-//  * dQ: one block of 4 warps per (64 query rows, query head, batch row);
-//    Q and dO in registers as A fragments; the block walks its listed key
-//    tiles twice (K and V double-buffered), the first pass summing delta,
-//    the second accumulating dQ in fp32 registers. Each thread reads its
-//    two rows' words per tile.
-//  * dK/dV: one block of 4 warps per (64 key rows, kv head, batch row); K
-//    and V stay in shared memory; the block walks, for each query head of
-//    the group in turn, that head's inverse list of 64-row blocks, with Q,
-//    dO, lse, delta and the rows' words double-buffered; dK and dV
-//    accumulate in fp32 registers and are written once.
-// At head dim 128 the walked tiles are 32 wide (two halves of a 64-wide
-// sub-tile, each with its half of the words) to keep the accumulators in
-// registers.
+// Design of kernel 10 (simple first), the dense backward's tile step
+// written out on its own. Deterministic: no atomics; every output element
+// is summed by one thread in a fixed order. One block of 4 warps per (64
+// key rows, kv head, batch row); K and V stay in shared memory; the block
+// walks, for each query head of the group in turn, that head's inverse list
+// of 64-row blocks, with Q, dO, lse, delta and the rows' words
+// double-buffered; dK and dV accumulate in fp32 registers and are written
+// once. At head dim 128 the walked tiles are 32 wide (two halves of a
+// 64-wide sub-tile, each with its half of the words) to keep the
+// accumulators in registers.
 
 #include "block_sparse.cuh"
+#include "block_sparse_bwd_sm90.cuh"
 
 namespace {
 
@@ -52,7 +47,7 @@ using namespace fa;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = bs::kSub;  // key rows (dK/dV) or query rows (dQ)
+constexpr int kTileRows = bs::kSub;  // key rows
 
 template <int D>
 struct Tiles {
@@ -65,21 +60,18 @@ struct Params {
   const void* v;     // (b, hk, sk, d)
   const void* dout;  // (b, h, sq, d)
   const float* lse;  // (b, h, sq), natural log
-  float* delta;      // (b, h, sq): written by dQ, read by dK/dV
-  void* dq;          // (b, h, sq, d)
+  const float* delta;  // (b, h, sq), from the dQ kernel
   void* dk;          // (b, hk, sk, d)
   void* dv;          // (b, hk, sk, d)
   // Element strides (batch, head, seq).
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, do_b, do_h, do_s;
-  long long dq_b, dq_h, dq_s, dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
+  long long dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
   int h, group, sq, sk, nqb, nkb;
   float scale;
   // Score in base 2 as in the forward.
   float score_mul, cap_log2;
-  // dQ: the forward's lists, per (b, head, 64-row block) at row
-  // (b * h + head) * nqb + block. dK/dV: the inverse lists, per (b, query
-  // head, 64-key block) at row (b * h + head) * nkb + block. list_len
-  // entries a row, counts[row] used.
+  // The inverse lists, per (b, query head, 64-key block) at row (b * h +
+  // head) * nkb + block, list_len entries a row, counts[row] used.
   const int* counts;
   const int* entries;
   const int* wofs;
@@ -118,200 +110,6 @@ __device__ __forceinline__ void load_rows(T* dst, const T* base,
     const long long src = static_cast<long long>(max(min(r, limit - 1), 0));
     cp_async_16(dst + row * (D + 8) + part * 8,
                 base + src * row_stride + part * 8, r < limit ? 16 : 0);
-  }
-}
-
-template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads) block_sparse_dq_kernel(
-    const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kBN = Tiles<D>::kInner;
-  constexpr int kSub = kTileRows / kBN;  // walked tiles per listed sub-tile
-  constexpr int kStride = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kNTiles = kBN / 8;
-  constexpr int kDTiles = D / 8;
-  constexpr unsigned long long kAll = ~0ull >> (64 - kBN);
-  T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kBN][kStride]
-  T* sV = sK + 2 * kBN * kStride;          // [2][kBN][kStride]
-
-  const int m_block = blockIdx.x;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = head / p.group;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int row0 = m_block * kTileRows;
-
-  const long long lrow =
-      (static_cast<long long>(b) * p.h + head) * p.nqb + m_block;
-  const long long lbase = lrow * p.list_len;
-  const int n_tiles = p.counts[lrow] * kSub;
-  // Walked tile x: half x % kSub of the (x / kSub)-th listed sub-tile.
-  auto tile_at = [&](int x) {
-    return (__ldg(p.entries + lbase + x / kSub) >> 2) * kSub + x % kSub;
-  };
-
-  int r_local[2], row[2];
-  bool row_ok[2];
-  float lse2[2];
-  float dlt[2] = {0.f, 0.f};   // delta, summed in the first pass
-  float dsum[2] = {0.f, 0.f};  // this thread's partial sums of P * dP
-  long long li[2];
-  const T* qrow[2];
-  const T* dorow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    r_local[i] = warp * 16 + gid + 8 * i;
-    row[i] = row0 + r_local[i];
-    row_ok[i] = row[i] < p.sq;
-    qrow[i] = static_cast<const T*>(p.q) + b * p.q_b + head * p.q_h +
-              static_cast<long long>(row[i]) * p.q_s;
-    dorow[i] = static_cast<const T*>(p.dout) + b * p.do_b + head * p.do_h +
-               static_cast<long long>(row[i]) * p.do_s;
-    li[i] = (static_cast<long long>(b) * p.h + head) * p.sq + row[i];
-    lse2[i] = row_ok[i] ? p.lse[li[i]] * kLog2e : -INFINITY;
-  }
-
-  uint32_t qf[kKSteps][4];
-  uint32_t df[kKSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = ks * 16 + tig * 2 + (j >> 1) * 8;
-      qf[ks][j] = row_ok[j & 1] ? ld_u32(qrow[j & 1] + col) : 0u;
-      df[ks][j] = row_ok[j & 1] ? ld_u32(dorow[j & 1] + col) : 0u;
-    }
-  }
-
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-    dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
-  }
-
-  const T* kbase = static_cast<const T*>(p.k) + b * p.k_b + g * p.k_h;
-  const T* vbase = static_cast<const T*>(p.v) + b * p.v_b + g * p.v_h;
-  auto load_tile = [&](int tile, int stage) {
-    load_rows<T, D>(sK + stage * kBN * kStride, kbase, p.k_s, tile * kBN, kBN,
-                    p.sk, tid);
-    load_rows<T, D>(sV + stage * kBN * kStride, vbase, p.v_s, tile * kBN, kBN,
-                    p.sk, tid);
-  };
-
-  // Two passes over the walked tiles: iterations [0, n_tiles) sum delta,
-  // [n_tiles, 2 n_tiles) accumulate dQ; the copies run on across the
-  // boundary.
-  const int n_iter = 2 * n_tiles;
-  if (n_iter > 0) load_tile(tile_at(0), 0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) load_tile(tile_at((it + 1) % n_tiles), stage ^ 1);
-    cp_async_commit();
-    const int x = it % n_tiles;
-    const int ent = __ldg(p.entries + lbase + x / kSub);
-    const int col0 = (ent >> 2) * kTileRows;
-    unsigned long long w[2];  // this half's bits, bit c for column c
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      w[i] = (bs::row_word(ent & 3, __ldg(p.wofs + lbase + x / kSub), row[i],
-                           r_local[i], col0, p.sq, p.sk, p.words) >>
-              ((x % kSub) * kBN)) & kAll;
-    }
-    cp_async_wait_1();
-    __syncthreads();
-    if (it == n_tiles) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) dlt[i] = quad_sum(dsum[i]);
-    }
-
-    const T* k_t = sK + stage * kBN * kStride;
-    const T* v_t = sV + stage * kBN * kStride;
-
-    // S = Q K^T and dP = dO V^T of this warp's 16 rows.
-    float s[kNTiles][4];
-    float dp[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-      const T* krow = k_t + (nt * 8 + gid) * kStride + tig * 2;
-      const T* vrow = v_t + (nt * 8 + gid) * kStride + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < kKSteps; ++ks) {
-        Mma<T>::run(s[nt], qf[ks], ld_u32(krow + ks * 16),
-                    ld_u32(krow + ks * 16 + 8));
-        Mma<T>::run(dp[nt], df[ks], ld_u32(vrow + ks * 16),
-                    ld_u32(vrow + ks * 16 + 8));
-      }
-    }
-    auto kept = [&](int nt, int e) {
-      const int c = nt * 8 + tig * 2 + (e & 1);
-      return ((w[e >> 1] >> c) & 1ull) && lse2[e >> 1] > -INFINITY;
-    };
-
-    // The two passes are separate branches around whole tiles, so neither
-    // pays for the other's arithmetic.
-    if (it < n_tiles) {
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float dmul;
-          dsum[e >> 1] += prob_of<kSoftcap>(p, s[nt][e], lse2[e >> 1],
-                                            kept(nt, e), dmul) * dp[nt][e];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float dmul;
-          const float prob = prob_of<kSoftcap>(p, s[nt][e], lse2[e >> 1],
-                                               kept(nt, e), dmul);
-          s[nt][e] = prob * (dp[nt][e] - dlt[e >> 1]) * dmul;
-        }
-      }
-      // dQ += dS K (dS already carries the scale).
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                               Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                               Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const T* kr = k_t + (kk * 16 + tig * 2) * kStride + gid;
-#pragma unroll
-        for (int nt = 0; nt < kDTiles; ++nt) {
-          const T* kc = kr + nt * 8;
-          Mma<T>::run(dq[nt], a, pack_u16(kc, kc + kStride),
-                      pack_u16(kc + 8 * kStride, kc + 9 * kStride));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row_ok[i] && tig == 0) p.delta[li[i]] = dlt[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    T* dqr = static_cast<T*>(p.dq) + b * p.dq_b + head * p.dq_h +
-             static_cast<long long>(row[i]) * p.dq_s;
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-      *reinterpret_cast<uint32_t*>(dqr + nt * 8 + tig * 2) =
-          Mma<T>::pack(dq[nt][2 * i], dq[nt][2 * i + 1]);
-    }
   }
 }
 
@@ -514,17 +312,14 @@ __global__ void __launch_bounds__(kThreads) block_sparse_dkv_kernel(
   }
 }
 
-template <bool kDkv, typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap>
 int launch(const Params& p, int n_blocks, int heads, int batch,
            cudaStream_t stream) {
   constexpr int kInner = Tiles<D>::kInner;
-  const size_t smem =
-      kDkv ? (2 * kTileRows + 4 * kInner) * (D + 8) * sizeof(T) +
-                 4 * kInner * sizeof(float) +
-                 2 * kInner * sizeof(unsigned long long)
-           : 4 * kInner * (D + 8) * sizeof(T);
-  const auto kernel = kDkv ? block_sparse_dkv_kernel<T, D, kSoftcap>
-                           : block_sparse_dq_kernel<T, D, kSoftcap>;
+  const size_t smem = (2 * kTileRows + 4 * kInner) * (D + 8) * sizeof(T) +
+                      4 * kInner * sizeof(float) +
+                      2 * kInner * sizeof(unsigned long long);
+  const auto kernel = block_sparse_dkv_kernel<T, D, kSoftcap>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -533,34 +328,33 @@ int launch(const Params& p, int n_blocks, int heads, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The softcap is a template parameter, as in the forward. kDkv picks the
-// kernel; n_blocks and heads are the grid's first two dimensions.
-template <bool kDkv>
+// The softcap is a template parameter, as in the forward; n_blocks and
+// heads are the grid's first two dimensions.
 int dispatch(const Params& p, bool softcap, int n_blocks, int heads,
              int batch, int d, int is_fp16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp16) {
     if (d == 64)
-      return softcap ? launch<kDkv, __half, 64, true>(p, n_blocks, heads, batch, s)
-                     : launch<kDkv, __half, 64, false>(p, n_blocks, heads, batch, s);
+      return softcap ? launch<__half, 64, true>(p, n_blocks, heads, batch, s)
+                     : launch<__half, 64, false>(p, n_blocks, heads, batch, s);
     if (d == 128)
-      return softcap ? launch<kDkv, __half, 128, true>(p, n_blocks, heads, batch, s)
-                     : launch<kDkv, __half, 128, false>(p, n_blocks, heads, batch, s);
+      return softcap ? launch<__half, 128, true>(p, n_blocks, heads, batch, s)
+                     : launch<__half, 128, false>(p, n_blocks, heads, batch, s);
   } else {
     if (d == 64)
       return softcap
-                 ? launch<kDkv, __nv_bfloat16, 64, true>(p, n_blocks, heads, batch, s)
-                 : launch<kDkv, __nv_bfloat16, 64, false>(p, n_blocks, heads, batch, s);
+                 ? launch<__nv_bfloat16, 64, true>(p, n_blocks, heads, batch, s)
+                 : launch<__nv_bfloat16, 64, false>(p, n_blocks, heads, batch, s);
     if (d == 128)
       return softcap
-                 ? launch<kDkv, __nv_bfloat16, 128, true>(p, n_blocks, heads, batch, s)
-                 : launch<kDkv, __nv_bfloat16, 128, false>(p, n_blocks, heads, batch, s);
+                 ? launch<__nv_bfloat16, 128, true>(p, n_blocks, heads, batch, s)
+                 : launch<__nv_bfloat16, 128, false>(p, n_blocks, heads, batch, s);
   }
   return -1;
 }
 
 Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, float* delta,
+                   const void* dout, const float* lse, const float* delta,
                    const long long* s, const int* counts, const int* entries,
                    const int* wofs, const unsigned long long* words,
                    long long list_len, int h, int hk, int sq, int sk,
@@ -605,11 +399,15 @@ Params make_params(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (b, h, sq, d), k and v (b, hk, sk, d), dout as q; strides: 15 element
-// strides (batch, head, seq) of q, k, v, dout, dq. lse (b, h, sq) fp32.
-// counts (b, h, cdiv(sq, 64)); tiles and wofs hold list_len entries per
-// count (the forward's lists); words the mode-2 groups. Writes dq and
-// delta (b, h, sq) fp32 = sum_j P dP, every row. Returns 0, a cudaError_t
-// from the launch, or -1 for an unsupported head dim.
+// strides (batch, head, seq) of q, k, v, dout, dq; those of q, k, v and
+// dout and the base pointers must be multiples of 16 bytes (TMA), those of
+// dq multiples of 2 elements. lse (b, h, sq) fp32. counts (b, h, cdiv(sq,
+// 64)); tiles and wofs hold list_len entries per count (the forward's
+// lists); words the mode-2 groups of 64 words, on a 16-byte aligned base.
+// Writes dq and delta (b, h, sq) fp32 = sum_j P dP, every row. Returns 0,
+// a cudaError_t from the launch, -1 for an unsupported head dim, or -2 if
+// cuTensorMapEncodeTiled refuses a tensor map. Launches on `stream`; does
+// not synchronise.
 extern "C" int block_sparse_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, float* delta, void* dq, const long long* strides,
@@ -617,14 +415,49 @@ extern "C" int block_sparse_bwd_dq(
     const unsigned long long* words, long long list_len, int batch, int h,
     int hk, int sq, int sk, int d, float scale, float softcap, int is_fp16,
     void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, strides, counts, tiles,
-                         wofs, words, list_len, h, hk, sq, sk, scale, softcap);
+  namespace f = fa::bsbwd90;
+  using fa::sm90::make_map;
+  if (d != 64 && d != 128) return -1;
+  CUtensorMap maps[4];
+  if (make_map(maps + 0, q, is_fp16, d, sq, h, batch, strides[2], strides[1],
+               strides[0], f::kBlockRows) ||
+      make_map(maps + 1, dout, is_fp16, d, sq, h, batch, strides[11],
+               strides[10], strides[9], f::kBlockRows) ||
+      make_map(maps + 2, k, is_fp16, d, sk, hk, batch, strides[5], strides[4],
+               strides[3], f::kTile) ||
+      make_map(maps + 3, v, is_fp16, d, sk, hk, batch, strides[8], strides[7],
+               strides[6], f::kTile)) {
+    return -2;
+  }
+  f::Params p = {};
+  p.lse = lse;
+  p.delta = delta;
   p.dq = dq;
   p.dq_b = strides[12];
   p.dq_h = strides[13];
   p.dq_s = strides[14];
-  return dispatch<false>(p, softcap > 0.f, p.nqb, h, batch, d, is_fp16,
-                         stream);
+  p.h = h;
+  p.group = h / hk;
+  p.sq = sq;
+  p.sk = sk;
+  p.nqb = (sq + f::kTile - 1) / f::kTile;
+  p.scale = scale;
+  const bool cap = softcap > 0.f;
+  p.score_mul = cap ? scale / softcap : scale * fa::kLog2e;
+  p.cap_log2 = softcap * fa::kLog2e;
+  p.counts = counts;
+  p.tiles = tiles;
+  p.wofs = wofs;
+  p.words = words;
+  p.list_len = list_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    return d == 64 ? f::launch_softcap<__half, 64>(maps, p, cap, batch, s)
+                   : f::launch_softcap<__half, 128>(maps, p, cap, batch, s);
+  }
+  return d == 64 ? f::launch_softcap<__nv_bfloat16, 64>(maps, p, cap, batch, s)
+                 : f::launch_softcap<__nv_bfloat16, 128>(maps, p, cap, batch,
+                                                         s);
 }
 
 // strides: 18 element strides (batch, head, seq) of q, k, v, dout, dk, dv.
@@ -651,6 +484,5 @@ extern "C" int block_sparse_bwd_dkv(
   p.dv_b = strides[15];
   p.dv_h = strides[16];
   p.dv_s = strides[17];
-  return dispatch<true>(p, softcap > 0.f, p.nkb, hk, batch, d, is_fp16,
-                        stream);
+  return dispatch(p, softcap > 0.f, p.nkb, hk, batch, d, is_fp16, stream);
 }

@@ -1,11 +1,12 @@
 // Flash-attention backward over dense batches or packed variable-length
 // sequences: the C entry points of kernels 2-3 (dense dK/dV and dQ) and 7-8
 // (varlen). The dense kernels, their function, bound and design are in
-// csrc/flash_bwd_sm90.cuh; the varlen tile steps are in
-// csrc/flash_bwd_tile.cuh.
+// csrc/flash_bwd_sm90.cuh, the varlen dQ in csrc/flash_varlen_bwd_sm90.cuh;
+// the varlen dK/dV tile step is in csrc/flash_bwd_tile.cuh.
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_bwd_tile.cuh"
+#include "flash_varlen_bwd_sm90.cuh"
 
 // strides: 18 element strides, (batch, head, seq) of q, k, v, dout, dk, dv;
 // those of q, k, v and dout and the base pointers must be multiples of 16
@@ -124,11 +125,32 @@ extern "C" int flash_varlen_bwd_dkv(
   set_dkv(p, dk, dv, strides);
   set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
   const int n_blocks = max((max_seqlen_k + kTileRows - 1) / kTileRows, 1);
-  return dispatch<true>(p, n_blocks, hk, nseq, d, is_fp16, stream);
+  return dispatch(p, n_blocks, hk, nseq, d, is_fp16, stream);
 }
 
-// Varlen dQ: strides 15, (unused, head, token) of q, k, v, dout, dq; writes
-// dq and delta (h, total_q). max_seqlen_q sizes the grid only.
+// The trace buffer of the varlen dQ kernel's schedule (see
+// fa::vbwd90::Params::trace) that later flash_varlen_bwd_dq launches write,
+// or none (trace null): for checks on the card.
+static int* g_dq_trace = nullptr;
+static long long g_dq_trace_len = 0;
+
+extern "C" void flash_varlen_bwd_dq_trace(int* trace, long long len) {
+  g_dq_trace = trace;
+  g_dq_trace_len = trace ? len : 0;
+}
+
+// Varlen dQ over nseq packed sequences: strides 15, (extent, head, token)
+// element strides of q, k, v, dout and dq, where the first of k's and of
+// v's is their packed token count (the extent of their tensor maps) and the
+// others' first is unused; those of q, k, v and dout and the base pointers
+// must be multiples of 16 bytes (TMA), those of dq multiples of 2
+// elements. Writes dq and delta (h, total_q) fp32 on the rows below each
+// sequence's used rows (the caller zero-fills the others); lse (h, total_q)
+// contiguous. used_q and used_k may be null. max_seqlen_q goes unread: the
+// flat schedule's grid comes from total_q and nseq. Returns 0, a
+// cudaError_t from the launch, -1 for an unsupported head dim, or -2 if
+// h * total_q passes 2^31 or cuTensorMapEncodeTiled refuses a tensor map.
+// Launches on `stream`; does not synchronise.
 extern "C" int flash_varlen_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, float* delta, void* dq, const long long* strides,
@@ -136,10 +158,53 @@ extern "C" int flash_varlen_bwd_dq(
     int nseq, int max_seqlen_q, int total_q, int h, int hk, int d,
     float scale, int window_left, int window_right, float softcap,
     int is_fp16, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, nullptr, strides, h, hk,
-                            scale, window_left, window_right, softcap);
-  set_dq(p, delta, dq, strides);
-  set_varlen(p, cu_q, cu_k, used_q, used_k, total_q);
-  const int n_blocks = max((max_seqlen_q + kTileRows - 1) / kTileRows, 1);
-  return dispatch<false>(p, n_blocks, hk, nseq, d, is_fp16, stream);
+  namespace f = fa::vbwd90;
+  (void)max_seqlen_q;
+  if (d != 64 && d != 128) return -1;
+  if (nseq <= 0 || total_q <= 0) return 0;
+  const int bn = f::walk_tile(d, softcap > 0.f);
+  CUtensorMap maps[4];
+  if (static_cast<long long>(h) * total_q > 0x7fffffffll ||
+      strides[3] > 0x7fffffffll || strides[6] > 0x7fffffffll ||
+      fa::sm90::make_map(maps + 0, q, is_fp16, d, total_q, h, 1, strides[2],
+                         strides[1], 0, f::kBlockRows) ||
+      fa::sm90::make_map(maps + 1, dout, is_fp16, d, total_q, h, 1,
+                         strides[11], strides[10], 0, f::kBlockRows) ||
+      fa::sm90::make_map(maps + 2, k, is_fp16, d,
+                         static_cast<int>(strides[3]), hk, 1, strides[5],
+                         strides[4], 0, bn) ||
+      fa::sm90::make_map(maps + 3, v, is_fp16, d,
+                         static_cast<int>(strides[6]), hk, 1, strides[8],
+                         strides[7], 0, bn)) {
+    return -2;
+  }
+  f::Params p = {};
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = dq;
+  p.dq_h = strides[13];
+  p.dq_s = strides[14];
+  p.total_q = total_q;
+  p.h = h;
+  p.group = h / hk;
+  p.nseq = nseq;
+  p.left = window_left;
+  p.right = window_right;
+  p.scale = scale;
+  const bool cap = softcap > 0.f;
+  p.score_mul = cap ? scale / softcap : scale * fa::kLog2e;
+  p.cap_log2 = softcap * fa::kLog2e;
+  p.cu_q = cu_q;
+  p.cu_k = cu_k;
+  p.used_q = used_q;
+  p.used_k = used_k;
+  p.trace = g_dq_trace;
+  p.trace_len = g_dq_trace_len;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) {
+    return d == 64 ? f::launch_softcap<__half, 64>(maps, p, cap, s)
+                   : f::launch_softcap<__half, 128>(maps, p, cap, s);
+  }
+  return d == 64 ? f::launch_softcap<__nv_bfloat16, 64>(maps, p, cap, s)
+                 : f::launch_softcap<__nv_bfloat16, 128>(maps, p, cap, s);
 }

@@ -7,8 +7,11 @@
 // flash_attention_bwd (:669), restricted to the forward's features
 // (csrc/flash_fwd_sm90.cuh): scale, bottom-right-aligned causal, sliding
 // window, GQA/MQA (dK and dV sum each kv head's group of query heads),
-// softcap, head dim 64 or 128, bf16/fp16. The varlen and sparse modes keep
-// their own steps (csrc/flash_bwd_tile.cuh).
+// softcap, head dim 64 or 128, bf16/fp16. The varlen dQ
+// (csrc/flash_varlen_bwd_sm90.cuh), the sparse backward
+// (csrc/flash_sparse_bwd_sm90.cuh) and the block-sparse dQ
+// (csrc/block_sparse_bwd_sm90.cuh) are built from these pieces; the varlen
+// dK/dV keeps its sm80 step (csrc/flash_bwd_tile.cuh).
 //
 // Function, as _recompute_p_and_ds (flash_bwd.py:107-230) with the port's
 // delta: with s = q . k,
@@ -153,9 +156,10 @@ __device__ __forceinline__ float lse_base2(float lse, bool ok) {
 }
 
 // P of score s given its row's LSE in base 2, and dS's factor dmul: the
-// scale, times 1 - t^2 under a softcap.
-template <bool kSoftcap>
-__device__ __forceinline__ float prob(const Params& p, float s, float lse2,
+// scale, times 1 - t^2 under a softcap. P is any parameter block with
+// scale, score_mul and cap_log2 (this header's, or the varlen dQ's).
+template <bool kSoftcap, typename P>
+__device__ __forceinline__ float prob(const P& p, float s, float lse2,
                                       float& dmul) {
   if constexpr (kSoftcap) {
     const float t = tanhf(s * p.score_mul);
@@ -198,6 +202,389 @@ __device__ __forceinline__ void store_rows(T* base, long long row_stride,
     }
   }
 }
+
+// The dQ consumer, shared by kernels 3, 8, 11 and 14: each warpgroup keeps
+// its 64 rows of Q and dO in shared memory (wgmma's A), and stage s of a
+// ring holds kBN keys of K and V, kTileBytes each (B, K-major; K also
+// N-major for dQ += dS K). Pass 1: S = Q K^T and dP = dO V^T, delta += P
+// dP. Pass 2: S and dP again, dS = P (dP - delta) dmul in registers, packed
+// to 16 bits as wgmma's register A operand (the accumulator layout is the A
+// layout), and dQ += dS K. dq_range_walk walks a range of tiles (kernels 3
+// and 8), dq_list_walk the merged lists of two 64-row blocks (kernels 11
+// and 14); the kernels' hooks give their lengths, masks and P. The walks
+// follow kernels 3's and 14's code step for step, which keeps ptxas's
+// registers for both, instance by instance: the same instructions in the
+// same order, the kernels' own thread indices passed in, the ring and the
+// hooks' values passed as arguments or held by reference. A hook that held
+// copies of kernel 14's lengths and diagonals, or the ring pointer, cost it
+// two registers in every instance.
+
+// A dQ block's shared memory: its 128 rows of Q and dO (sQ, sdO), the K
+// and V stages of its ring (sK, sV), and the barriers: q_full for Q and dO,
+// full and empty per stage.
+struct DqShared {
+  unsigned char* sQ;
+  unsigned char* sdO;
+  unsigned char* sK;
+  unsigned char* sV;
+  uint64_t* q_full;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// S = Q K^T and dP = dO V^T of stage s, issued and committed: A the
+// warpgroup's rows of Q and dO (q_desc, do_desc), B stage s of K and V
+// (k_desc, v_desc).
+template <typename T, int D, int kBN, int kTileBytes>
+__device__ __forceinline__ void dq_issue_sdp(float (&sc)[kBN / 2],
+                                             float (&dp)[kBN / 2],
+                                             uint64_t q_desc, uint64_t do_desc,
+                                             uint64_t k_desc, uint64_t v_desc,
+                                             int s) {
+  fence_regs(sc);
+  fence_regs(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: column block kk / 4, 32 bytes per step inside it.
+    const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+    const uint32_t kb =
+        (s * kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
+    wgmma_ss<T, kBN>(sc, q_desc + qa, k_desc + kb, kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+    const uint32_t kb =
+        (s * kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
+    wgmma_ss<T, kBN>(dp, do_desc + qa, v_desc + kb, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// dQ += dS K of stage s, issued and committed: dS in da, K N-major
+// (kn_desc).
+template <typename T, int D, int kBN, int kTileBytes>
+__device__ __forceinline__ void dq_issue_dq(float (&dq)[D / 2],
+                                            uint32_t (&da)[kBN / 16][4],
+                                            uint64_t kn_desc, int s) {
+  fence_regs(dq);
+  fence_regs(da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    wgmma_rs<T, D>(dq, da[kk],
+                   kn_desc + ((s * kTileBytes + kk * 16 * 128) >> 4), 1);
+  }
+  wgmma_commit();
+}
+
+// Pass 1's step over one tile: delta += P dP. Element e of sc and dp lies
+// in row (e >> 1) & 1 of the thread's two; pr(e, s, i, dmul) gives P of
+// score s in row i and dS's factor dmul, and with Bool<true> P is 0 where
+// visible(e) is false.
+template <int N, bool kMasked, class Pr, class Vis>
+__device__ __forceinline__ void dq_sum_step(Bool<kMasked>, const float (&sc)[N],
+                                            const float (&dp)[N],
+                                            float (&dsum)[2], const Pr& pr,
+                                            const Vis& visible) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int i = (e >> 1) & 1;
+    float dmul;
+    float p = pr(e, sc[e], i, dmul);
+    if constexpr (kMasked) {
+      if (!visible(e)) p = 0.f;
+    }
+    dsum[i] += p * dp[e];
+  }
+}
+
+// Pass 2's step over one tile: dS into sc.
+template <int N, bool kMasked, class Pr, class Vis>
+__device__ __forceinline__ void dq_ds_step(Bool<kMasked>, float (&sc)[N],
+                                           const float (&dp)[N],
+                                           const float (&delta)[2],
+                                           const Pr& pr, const Vis& visible) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int i = (e >> 1) & 1;
+    float dmul;
+    float p = pr(e, sc[e], i, dmul);
+    if constexpr (kMasked) {
+      if (!visible(e)) p = 0.f;
+    }
+    sc[e] = p * (dp[e] - delta[i]) * dmul;
+  }
+}
+
+// Both passes of one warpgroup (rows from wrow0, thread tid, lane, tig,
+// warpgroup cw) over its block's range of K/V tiles (kernels 3 and 8),
+// which thread 0 copies through the ring twice, step x into stage x %
+// C::kStages by load_kv(x): pass 1 (steps 0..n - 1) sums delta, pass 2
+// (steps n..2n - 1) accumulates dQ, the S and dP of tile i issued before
+// dQ of tile i - 1, so that dS of tile i is formed while the tensor cores
+// run that product. `r` gives the block's walk and lengths: tile_lo(),
+// n_tiles(), n_steps(), rows(), keys(), off(), and step_keys(masked), a
+// functor for the key bound of a step's mask (kernel 3 reads them from its
+// parameters, kernel 8 from shared memory); with R::kSkipEmpty a warpgroup
+// whose rows start at or past rows() only takes the stages and releases
+// them. Row i of the thread's two has diagonal diag[i] and LSE lse2[i] in
+// base 2.
+template <typename T, int D, bool kSoftcap, class C, class P, class R,
+          class L>
+__device__ __forceinline__ void dq_range_walk(
+    const P& p, const R& r, const L& load_kv, const DqShared& sh, int tid,
+    int lane, int tig, int cw, int wrow0, const int (&diag)[2],
+    const float (&lse2)[2], float (&dq)[D / 2], float (&delta)[2]) {
+  constexpr int kStages = C::kStages;
+  constexpr int kBN = C::kBN;
+  // Step x's stage is free for step x + kStages once both warpgroups are
+  // done with it; thread 0 refills the stage of step x - 1, which the other
+  // warpgroup has most likely released by then, so that warp 0 seldom
+  // waits.
+  auto release = [&](int x) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sh.empty + x % kStages);
+    if (tid == 0 && x >= 1 && x - 1 + kStages < r.n_steps()) {
+      load_kv(x - 1 + kStages);
+    }
+  };
+
+  if (R::kSkipEmpty && r.n_tiles() > 0 && wrow0 >= r.rows()) {
+    for (int x = 0; x < r.n_steps(); ++x) {
+      mbar_wait(sh.full + x % kStages, (x / kStages) & 1);
+      release(x);
+    }
+  } else if (r.n_tiles() > 0) {
+    // Descriptors: this warpgroup's Q and dO rows (A), K and V K-major (B of
+    // S and dP), K N-major (B of dQ += dS K).
+    const uint64_t q_desc = make_desc(sh.sQ + cw * 64 * 128, 16, 1024);
+    const uint64_t do_desc = make_desc(sh.sdO + cw * 64 * 128, 16, 1024);
+    const uint64_t k_desc = make_desc(sh.sK, 16, 1024);
+    const uint64_t v_desc = make_desc(sh.sV, 16, 1024);
+    const uint64_t kn_desc = make_desc(sh.sK, kBN * 128, 1024);
+    float sc[kBN / 2];
+    float dp[kBN / 2];
+    uint32_t da[kBN / 16][4];
+
+    auto issue_sdp = [&](int x) {
+      const int s = x % kStages;
+      mbar_wait(sh.full + s, (x / kStages) & 1);
+      dq_issue_sdp<T, D, kBN, C::kTileBytes>(sc, dp, q_desc, do_desc, k_desc,
+                                             v_desc, s);
+    };
+    auto issue_dq = [&](int x) {
+      dq_issue_dq<T, D, kBN, C::kTileBytes>(dq, da, kn_desc, x % kStages);
+    };
+    auto fence_sdp = [&] {
+      fence_regs(sc);
+      fence_regs(dp);
+    };
+
+    // Whether every row of this warpgroup sees every key of the tile: no
+    // row past rows(), no key past keys(), no diagonal or window edge.
+    auto tile_full = [&](int col0) {
+      const int off = r.off();
+      return wrow0 + 64 <= r.rows() && col0 + kBN <= r.keys() &&
+             in_window(col0, wrow0 + 63 + off, p.left, -1) &&
+             in_window(col0 + kBN - 1, wrow0 + off, -1, p.right);
+    };
+    auto pr = [&](int, float s, int i, float& dmul) {
+      return prob<kSoftcap>(p, s, lse2[i], dmul);
+    };
+    float dsum[2] = {0.f, 0.f};
+    // Tile col0's step of pass 1 or, with Bool<true> as pass2, pass 2.
+    auto step = [&](auto pass2, auto masked, int col0) {
+      const auto keys = r.step_keys(masked);
+      auto visible = [&](int e) {
+        const int i = (e >> 1) & 1;
+        const int col = col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+        return col < keys() && in_window(col, diag[i], p.left, p.right);
+      };
+      if constexpr (decltype(pass2)::value) {
+        dq_ds_step(masked, sc, dp, delta, pr, visible);
+      } else {
+        dq_sum_step(masked, sc, dp, dsum, pr, visible);
+      }
+    };
+    auto tile_step = [&](auto pass2, int it) {
+      const int col0 = (r.tile_lo() + it) * kBN;
+      if (tile_full(col0)) {
+        step(pass2, Bool<false>(), col0);
+      } else {
+        step(pass2, Bool<true>(), col0);
+      }
+    };
+
+    mbar_wait(sh.q_full, 0);
+    const int n_tiles = r.n_tiles();
+    for (int it = 0; it < n_tiles; ++it) {
+      issue_sdp(it);
+      wgmma_wait<0>();
+      fence_sdp();
+      release(it);
+      tile_step(Bool<false>(), it);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) delta[i] = quad_sum(dsum[i]);
+
+    // Pass 2, steps n_tiles.. of the ring.
+    issue_sdp(n_tiles);
+    wgmma_wait<0>();
+    fence_sdp();
+    tile_step(Bool<true>(), 0);
+    pack_a<T, kBN>(sc, da);
+    for (int it = 1; it < n_tiles; ++it) {
+      issue_sdp(n_tiles + it);
+      issue_dq(n_tiles + it - 1);
+      wgmma_wait<1>();  // S and dP of tile it (committed first) are done
+      fence_sdp();
+      tile_step(Bool<true>(), it);
+      wgmma_wait<0>();  // dQ of tile it - 1 is done
+      fence_regs(dq);
+      release(n_tiles + it - 1);
+      pack_a<T, kBN>(sc, da);
+    }
+    issue_dq(2 * n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(dq);
+    release(2 * n_tiles - 1);
+  }
+}
+
+// Both passes of one warpgroup (thread tid, lane, warpgroup cw) over a ring
+// of merged list steps (kernels 11 and 14), kBN = 64 keys a step: thread 0
+// fills item y into stage y % kStages, each pass's steps ended by a
+// sentinel (tile -1), and refill(x), called by thread 0 once item x is
+// released, fills the stage of item x - 1, which the other warpgroup has
+// most likely released by then. The hooks `h` read slot ring[s] of stage s,
+// read(ring[s], s, it) (the item's key tile and this warpgroup's part `it`,
+// of type H::Item), and give on(it) (whether this warpgroup takes the step;
+// if not, it only releases the stage), unmasked(col0, it) and mask(col0,
+// it) for the tile's first key col0, and prob(m, e, s, lse2, dmul) and
+// visible(m, e) under mask m. Pass 2 forms dS
+// and then runs dQ += dS K, step by step: pipelined as kernel 3 is, kernel
+// 14 read 1.29x slower at prefill-8k, with a fifth stage so that the step
+// held back cost no prefetch; the two warpgroups already overlap each
+// other's products.
+template <typename T, int D, int kBN, int kStages, int kTileBytes, class H,
+          class S, class F>
+__device__ __forceinline__ void dq_list_walk(
+    const H& h, const S* ring, const F& refill, const DqShared& sh, int tid,
+    int lane, int cw, const float (&lse2)[2], float (&dq)[D / 2],
+    float (&delta)[2]) {
+  using Item = typename H::Item;
+  // Descriptors: this warpgroup's Q and dO rows (A), K and V K-major (B of
+  // S and dP), K N-major (B of dQ += dS K).
+  const uint64_t q_desc = make_desc(sh.sQ + cw * 64 * 128, 16, 1024);
+  const uint64_t do_desc = make_desc(sh.sdO + cw * 64 * 128, 16, 1024);
+  const uint64_t k_desc = make_desc(sh.sK, 16, 1024);
+  const uint64_t v_desc = make_desc(sh.sV, 16, 1024);
+  const uint64_t kn_desc = make_desc(sh.sK, kBN * 128, 1024);
+  float sc[kBN / 2];
+  float dp[kBN / 2];
+  uint32_t da[kBN / 16][4];
+
+  auto issue_sdp = [&](int s) {
+    dq_issue_sdp<T, D, kBN, kTileBytes>(sc, dp, q_desc, do_desc, k_desc,
+                                        v_desc, s);
+  };
+  auto fence_sdp = [&] {
+    fence_regs(sc);
+    fence_regs(dp);
+  };
+  auto issue_dq = [&](int s) {
+    dq_issue_dq<T, D, kBN, kTileBytes>(dq, da, kn_desc, s);
+  };
+
+  int x = 0;  // the consumers' ring position
+  auto wait_step = [&](Item& it) {
+    const int s = x % kStages;
+    mbar_wait(sh.full + s, (x / kStages) & 1);
+    return h.read(ring[s], s, it);
+  };
+  auto release = [&] {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sh.empty + x % kStages);
+    if (tid == 0) refill(x);
+  };
+  float dsum[2] = {0.f, 0.f};
+  // A tile's step of pass 1 or, with Bool<true> as pass2, pass 2.
+  auto step = [&](auto pass2, int col0, const Item& it) {
+    const auto m = h.mask(col0, it);
+    auto pr = [&](int e, float s, int i, float& dmul) {
+      return h.prob(m, e, s, lse2[i], dmul);
+    };
+    auto visible = [&](int e) { return h.visible(m, e); };
+    auto run = [&](auto masked) {
+      if constexpr (decltype(pass2)::value) {
+        dq_ds_step(masked, sc, dp, delta, pr, visible);
+      } else {
+        dq_sum_step(masked, sc, dp, dsum, pr, visible);
+      }
+    };
+    if (h.unmasked(col0, it)) {
+      run(Bool<false>());
+    } else {
+      run(Bool<true>());
+    }
+  };
+
+  mbar_wait(sh.q_full, 0);
+  for (;; ++x) {
+    Item it;
+    const int tile = wait_step(it);
+    if (h.on(it) && tile >= 0) {
+      issue_sdp(x % kStages);
+      wgmma_wait<0>();
+      fence_sdp();
+    }
+    release();
+    if (tile < 0) break;
+    if (h.on(it)) step(Bool<false>(), tile * kBN, it);
+  }
+  ++x;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) delta[i] = quad_sum(dsum[i]);
+
+  for (;; ++x) {
+    Item it;
+    const int tile = wait_step(it);
+    if (tile < 0) break;  // the last item: nothing follows it
+    if (h.on(it)) {
+      const int s = x % kStages;
+      const int col0 = tile * kBN;
+      issue_sdp(s);
+      wgmma_wait<0>();
+      fence_sdp();
+      step(Bool<true>(), col0, it);
+      pack_a<T, kBN>(sc, da);
+      issue_dq(s);
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    release();
+  }
+}
+
+// Kernel 3's block for dq_range_walk: its tile range, and the lengths read
+// from its parameters where they are used.
+struct DenseRange {
+  static constexpr bool kSkipEmpty = false;
+  const Params& p;
+  int lo, n, n2, off_;
+  __device__ __forceinline__ int tile_lo() const { return lo; }
+  __device__ __forceinline__ int n_tiles() const { return n; }
+  __device__ __forceinline__ int n_steps() const { return n2; }
+  __device__ __forceinline__ int rows() const { return p.sq; }
+  __device__ __forceinline__ int keys() const { return p.sk; }
+  __device__ __forceinline__ int off() const { return off_; }
+  template <class M>
+  __device__ __forceinline__ auto step_keys(M) const {
+    return [this] { return p.sk; };
+  }
+};
 
 template <typename T, int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -296,157 +683,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
   float delta[2] = {0.f, 0.f};
 
-  if (n_tiles > 0) {
-    // Descriptors: this warpgroup's Q and dO rows (A), K and V K-major (B of
-    // S and dP), K N-major (B of dQ += dS K).
-    const uint64_t q_desc = make_desc(sQ + cw * 64 * 128, 16, 1024);
-    const uint64_t do_desc = make_desc(sdO + cw * 64 * 128, 16, 1024);
-    const uint64_t k_desc = make_desc(sK, 16, 1024);
-    const uint64_t v_desc = make_desc(sV, 16, 1024);
-    const uint64_t kn_desc = make_desc(sK, kBN * 128, 1024);
-    float sc[kBN / 2];
-    float dp[kBN / 2];
-    uint32_t da[kBN / 16][4];
-
-    // S = Q K^T and dP = dO V^T of step x, issued and committed.
-    auto issue_sdp = [&](int x) {
-      const int s = x % kStages;
-      mbar_wait(full + s, (x / kStages) & 1);
-      fence_regs(sc);
-      fence_regs(dp);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // k16 step kk: column block kk / 4, 32 bytes per step inside it.
-        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t kb =
-            (s * C::kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kBN>(sc, q_desc + qa, k_desc + kb, kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t kb =
-            (s * C::kTileBytes + (kk >> 2) * kBN * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kBN>(dp, do_desc + qa, v_desc + kb, kk > 0);
-      }
-      wgmma_commit();
-    };
-    // dQ += dS K of step x, issued and committed.
-    auto issue_dq = [&](int x) {
-      const int s = x % kStages;
-      fence_regs(dq);
-      fence_regs(da);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        wgmma_rs<T, D>(dq, da[kk],
-                       kn_desc + ((s * C::kTileBytes + kk * 16 * 128) >> 4), 1);
-      }
-      wgmma_commit();
-    };
-    auto fence_sdp = [&] {
-      fence_regs(sc);
-      fence_regs(dp);
-    };
-    // Step x's stage is free for step x + kStages once both warpgroups
-    // are done with it; thread 0 refills the stage of step x - 1, which the
-    // other warpgroup has most likely released by then, so that warp 0
-    // seldom waits.
-    auto release = [&](int x) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + x % kStages);
-      if (tid == 0 && x >= 1 && x - 1 + kStages < n_steps) {
-        load_kv(x - 1 + kStages);
-      }
-    };
-
-    // Whether every row of this warpgroup sees every key of the tile.
-    auto tile_full = [&](int col0) {
-      return wrow0 + 64 <= p.sq && col0 + kBN <= p.sk &&
-             in_window(col0, wrow0 + 63 + off, p.left, -1) &&
-             in_window(col0 + kBN - 1, wrow0 + off, -1, p.right);
-    };
-    auto visible = [&](int col0, int x) {
-      const int i = (x >> 1) & 1;
-      const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
-      return col < p.sk && in_window(col, diag[i], p.left, p.right);
-    };
-    // Pass 1's step: delta += P dP.
-    float dsum[2] = {0.f, 0.f};
-    auto sum_step = [&](auto masked, int col0) {
-#pragma unroll
-      for (int x = 0; x < kBN / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        float dmul;
-        float pr = prob<kSoftcap>(p, sc[x], lse2[i], dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!visible(col0, x)) pr = 0.f;
-        }
-        dsum[i] += pr * dp[x];
-      }
-    };
-    // Pass 2's step: dS into sc.
-    auto ds_step = [&](auto masked, int col0) {
-#pragma unroll
-      for (int x = 0; x < kBN / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        float dmul;
-        float pr = prob<kSoftcap>(p, sc[x], lse2[i], dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!visible(col0, x)) pr = 0.f;
-        }
-        sc[x] = pr * (dp[x] - delta[i]) * dmul;
-      }
-    };
-    auto form_ds = [&](int it) {
-      const int col0 = (tile_lo + it) * kBN;
-      if (tile_full(col0)) {
-        ds_step(Bool<false>(), col0);
-      } else {
-        ds_step(Bool<true>(), col0);
-      }
-    };
-
-    mbar_wait(q_full, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      issue_sdp(it);
-      wgmma_wait<0>();
-      fence_sdp();
-      release(it);
-      const int col0 = (tile_lo + it) * kBN;
-      if (tile_full(col0)) {
-        sum_step(Bool<false>(), col0);
-      } else {
-        sum_step(Bool<true>(), col0);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) delta[i] = quad_sum(dsum[i]);
-
-    // Pass 2, steps n_tiles.. of the ring: dS of tile it is formed while
-    // the tensor cores run dQ += dS K of tile it - 1.
-    issue_sdp(n_tiles);
-    wgmma_wait<0>();
-    fence_sdp();
-    form_ds(0);
-    pack_a<T, kBN>(sc, da);
-    for (int it = 1; it < n_tiles; ++it) {
-      issue_sdp(n_tiles + it);
-      issue_dq(n_tiles + it - 1);
-      wgmma_wait<1>();  // S and dP of tile it (committed first) are done
-      fence_sdp();
-      form_ds(it);
-      wgmma_wait<0>();  // dQ of tile it - 1 is done
-      fence_regs(dq);
-      release(n_tiles + it - 1);
-      pack_a<T, kBN>(sc, da);
-    }
-    issue_dq(2 * n_tiles - 1);
-    wgmma_wait<0>();
-    fence_regs(dq);
-    release(2 * n_tiles - 1);
-  }
+  dq_range_walk<T, D, kSoftcap, C>(
+      p, DenseRange{p, tile_lo, n_tiles, n_steps, off}, load_kv,
+      DqShared{sQ, sdO, sK, sV, q_full, full, empty}, tid, lane, tig, cw,
+      wrow0, diag, lse2, dq, delta);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

@@ -39,7 +39,8 @@
 //    head, batch row), the last blocks first; each warpgroup owns one of
 //    the two and its list. The block walks the ascending merge of the two
 //    lists, so each listed K/V tile of 64 keys is loaded once, twice in all
-//    (pass 1 sums delta, pass 2 accumulates dQ).
+//    (pass 1 sums delta, pass 2 accumulates dQ). Its consumer is
+//    dq_list_walk (csrc/flash_bwd_sm90.cuh), which kernel 11 shares.
 //  * dK/dV (kernel 13): one block per (two 64-key tiles 2t and 2t + 1, kv
 //    head, batch row), the first tiles first; each warpgroup owns one tile
 //    and its inverse list of (head in group * nqb + block) entries. The
@@ -79,6 +80,8 @@ namespace sparse90 {
 
 using namespace fa::sm90;
 using fa::bwd90::Bool;
+using fa::bwd90::dq_list_walk;
+using fa::bwd90::DqShared;
 using fa::bwd90::kBlockRows;
 using fa::bwd90::kThreads;
 using fa::bwd90::kWarpgroups;
@@ -237,6 +240,66 @@ __device__ __forceinline__ float prob(const Params& p, float s, float lse2,
   return exp2_approx(x);
 }
 
+// A dQ step's mask, one word per row of this thread, bit j for column col0
+// + 2 tig + j: the tile word's bits, under the used keys and, with causal
+// masking, at or left of the row's diagonal; so that element e (column
+// offset col_of(e) below) tests one bit. `diag`: each row's diagonal
+// relative to col0 + 2 tig, for ALiBi.
+struct Cut {
+  unsigned long long row[2];
+  int diag[2];
+};
+
+// Element e's column offset from col0 + 2 tig.
+__device__ __forceinline__ int col_of(int e) { return (e >> 2) * 8 + (e & 1); }
+
+// The dQ kernel's hooks for dq_list_walk (csrc/flash_bwd_sm90.cuh): a ring
+// item is a key tile and each warpgroup's word (0: not on its list).
+template <bool kSoftcap, bool kAlibi>
+struct DqItems {
+  struct Item {
+    unsigned long long w;
+  };
+  const Params& p;
+  const Lens& ln;
+  int cw, tig, wrow0;
+  const int (&dg)[2];  // each row's causal diagonal
+  float slope2;  // ALiBi slope in base 2
+
+  __device__ __forceinline__ int read(const Step& st, int, Item& it) const {
+    it.w = st.word[cw];
+    return st.at;
+  }
+  __device__ __forceinline__ bool on(const Item& it) const { return it.w; }
+  // Whether every row of this warpgroup sees every key of the tile.
+  __device__ __forceinline__ bool unmasked(int col0, const Item& it) const {
+    return it.w == ~0ull && col0 + kTile <= ln.keys &&
+           (!p.causal || col0 + kTile - 1 <= wrow0 + ln.off);
+  }
+  __device__ __forceinline__ Cut mask(int col0, const Item& it) const {
+    const int c0 = col0 + tig * 2;
+    const unsigned long long m = (it.w >> (tig * 2)) & low_bits(ln.keys - c0);
+    Cut k;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      k.diag[i] = dg[i] - c0;
+      k.row[i] = p.causal ? m & low_bits(k.diag[i] + 1) : m;
+    }
+    return k;
+  }
+  __device__ __forceinline__ float prob(const Cut& k, int e, float s,
+                                        float lse2, float& dmul) const {
+    const float bias =
+        kAlibi ? slope2 * fabsf(static_cast<float>(col_of(e) -
+                                                   k.diag[(e >> 1) & 1]))
+               : 0.f;
+    return sparse90::prob<kSoftcap, kAlibi>(p, s, lse2, bias, dmul);
+  }
+  __device__ __forceinline__ bool visible(const Cut& k, int e) const {
+    return (k.row[(e >> 1) & 1] >> col_of(e)) & 1ull;
+  }
+};
+
 template <typename T, int D, bool kSoftcap, bool kAlibi>
 __global__ void __launch_bounds__(kThreads, 1)
     sparse_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -358,190 +421,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     float slope2 = 0.f;  // ALiBi slope in base 2
     if constexpr (kAlibi) slope2 = p.alibi[b * p.alibi_b + head] * kLog2e;
 
-    // Descriptors: this warpgroup's Q and dO rows (A), K and V K-major (B of
-    // S and dP), K N-major (B of dQ += dS K).
-    const uint64_t q_desc = make_desc(sQ + cw * 64 * 128, 16, 1024);
-    const uint64_t do_desc = make_desc(sdO + cw * 64 * 128, 16, 1024);
-    const uint64_t k_desc = make_desc(sK, 16, 1024);
-    const uint64_t v_desc = make_desc(sV, 16, 1024);
-    const uint64_t kn_desc = make_desc(sK, kTile * 128, 1024);
-    float sc[kTile / 2];
-    float dp[kTile / 2];
-    uint32_t da[kTile / 16][4];
-
-    // S = Q K^T and dP = dO V^T of stage s, issued and committed.
-    auto issue_sdp = [&](int s) {
-      fence_regs(sc);
-      fence_regs(dp);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // k16 step kk: column block kk / 4, 32 bytes per step inside it.
-        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t kb =
-            (s * C::kTileBytes + (kk >> 2) * kTile * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kTile>(sc, q_desc + qa, k_desc + kb, kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t qa = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t kb =
-            (s * C::kTileBytes + (kk >> 2) * kTile * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kTile>(dp, do_desc + qa, v_desc + kb, kk > 0);
-      }
-      wgmma_commit();
-    };
-    auto fence_sdp = [&] {
-      fence_regs(sc);
-      fence_regs(dp);
-    };
-    // dQ += dS K of stage s, issued and committed.
-    auto issue_dq = [&](int s) {
-      fence_regs(dq);
-      fence_regs(da);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        wgmma_rs<T, D>(dq, da[kk],
-                       kn_desc + ((s * C::kTileBytes + kk * 16 * 128) >> 4), 1);
-      }
-      wgmma_commit();
-    };
-
-    // The consumers' ring position x. Item y's stage is free for item y +
-    // kStages once both warpgroups have released it; thread 0 then fills
-    // the stage of item x - 1, which the other warpgroup has most likely
-    // released by then, so that warp 0 seldom waits.
-    int x = 0;
-    auto wait_step = [&](unsigned long long& w) {
-      const int s = x % kStages;
-      mbar_wait(full + s, (x / kStages) & 1);
-      w = ring[s].word[cw];
-      return ring[s].at;
-    };
-    auto release = [&] {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + x % kStages);
-      if (tid == 0 && mg->pass < 2 && mg->produced <= x - 1 + kStages) {
-        produce();
-      }
-    };
-
-    // Whether every row of this warpgroup sees every key of the tile.
-    auto tile_full = [&](int col0, unsigned long long w) {
-      return w == ~0ull && col0 + kTile <= ln.keys &&
-             (!p.causal || col0 + kTile - 1 <= wrow0 + ln.off);
-    };
-    // A step's mask as one word per row of this thread, bit j for column
-    // col0 + 2 tig + j: the tile word's bits, under the used keys and, with
-    // causal masking, at or left of the row's diagonal; so that element e
-    // (column offset col(e) below) tests one bit. `diag`: each row's
-    // diagonal relative to col0 + 2 tig, for ALiBi.
-    struct Cut {
-      unsigned long long row[2];
-      int diag[2];
-    };
-    auto cut_of = [&](int col0, unsigned long long w) {
-      const int c0 = col0 + tig * 2;
-      const unsigned long long m = (w >> (tig * 2)) & low_bits(ln.keys - c0);
-      Cut k;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        k.diag[i] = dg[i] - c0;
-        k.row[i] = p.causal ? m & low_bits(k.diag[i] + 1) : m;
-      }
-      return k;
-    };
-    auto col = [](int e) { return (e >> 2) * 8 + (e & 1); };
-    auto visible = [&](const Cut& k, int e) {
-      return (k.row[(e >> 1) & 1] >> col(e)) & 1ull;
-    };
-    auto bias = [&](const Cut& k, int e) {
-      return kAlibi ? slope2 * fabsf(static_cast<float>(
-                                   col(e) - k.diag[(e >> 1) & 1]))
-                    : 0.f;
-    };
-    // Pass 1's step: delta += P dP.
-    float dsum[2] = {0.f, 0.f};
-    auto sum_step = [&](auto masked, const Cut& k) {
-#pragma unroll
-      for (int e = 0; e < kTile / 2; ++e) {
-        const int i = (e >> 1) & 1;
-        float dmul;
-        float pr = prob<kSoftcap, kAlibi>(p, sc[e], lse2[i], bias(k, e), dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!visible(k, e)) pr = 0.f;
-        }
-        dsum[i] += pr * dp[e];
-      }
-    };
-    // Pass 2's step: dS into sc.
-    auto ds_step = [&](auto masked, const Cut& k) {
-#pragma unroll
-      for (int e = 0; e < kTile / 2; ++e) {
-        const int i = (e >> 1) & 1;
-        float dmul;
-        float pr = prob<kSoftcap, kAlibi>(p, sc[e], lse2[i], bias(k, e), dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!visible(k, e)) pr = 0.f;
-        }
-        sc[e] = pr * (dp[e] - delta[i]) * dmul;
-      }
-    };
-
-    mbar_wait(q_full, 0);
-    for (;; ++x) {
-      unsigned long long w;
-      const int tile = wait_step(w);
-      if (w && tile >= 0) {
-        issue_sdp(x % kStages);
-        wgmma_wait<0>();
-        fence_sdp();
-      }
-      release();
-      if (tile < 0) break;
-      if (w) {
-        const int col0 = tile * kTile;
-        const Cut k = cut_of(col0, w);
-        if (tile_full(col0, w)) {
-          sum_step(Bool<false>(), k);
-        } else {
-          sum_step(Bool<true>(), k);
-        }
-      }
-    }
-    ++x;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) delta[i] = quad_sum(dsum[i]);
-
-    // Pass 2: dS, then dQ += dS K, on this warpgroup's tiles. Forming dS
-    // while the tensor cores run the dQ product of the step before, as
-    // kernel 3 does, made this kernel 1.29x slower at prefill-8k, with a
-    // fifth stage so that the step held back cost no prefetch; the two
-    // warpgroups already overlap each other's products.
-    for (;; ++x) {
-      unsigned long long w;
-      const int tile = wait_step(w);
-      if (tile < 0) break;  // the last item: nothing follows it
-      if (w) {
-        const int s = x % kStages;
-        const int col0 = tile * kTile;
-        issue_sdp(s);
-        wgmma_wait<0>();
-        fence_sdp();
-        const Cut k = cut_of(col0, w);
-        if (tile_full(col0, w)) {
-          ds_step(Bool<false>(), k);
-        } else {
-          ds_step(Bool<true>(), k);
-        }
-        pack_a<T, kTile>(sc, da);
-        issue_dq(s);
-        wgmma_wait<0>();
-        fence_regs(dq);
-      }
-      release();
-    }
+    const DqItems<kSoftcap, kAlibi> items{
+        p, ln, cw, tig, wrow0, dg, slope2};
+    dq_list_walk<T, D, kTile, kStages, C::kTileBytes>(
+        items, ring,
+        [&](int x) {
+          if (mg->pass < 2 && mg->produced <= x - 1 + kStages) produce();
+        },
+        DqShared{sQ, sdO, sK, sV, q_full, full, empty}, tid, lane, cw, lse2,
+        dq, delta);
   }
 
 #pragma unroll

@@ -1,0 +1,298 @@
+// Packed variable-length flash-attention dQ for Hopper (kernel 8): dq and
+// delta = sum_j P dP for nseq sequences packed along one token axis, from
+// q, dO (total_q, h, d) or (h, total_q, d), k, v (total_k, hk, d) as q,
+// and the forward's log-sum-exp (h, total_q).
+//
+// Replaces the TPU kernel flash_attn_tpu/kernels/flash_varlen.py:1005
+// (_varlen_dq_kernel, launched at :1821 by flash_attention_varlen_bwd
+// :1508), restricted to the forward's features (csrc/flash_varlen_fwd_sm90
+// .cuh): scale, bottom-right-aligned causal and sliding window per sequence
+// (off = used_k - used_q), GQA/MQA, softcap, seqused_q/k, thd and hsd
+// layouts, head dim 64 or 128, bf16/fp16.
+//
+// Function, kernel 3's (csrc/flash_bwd_sm90.cuh) per sequence: query row i
+// of sequence b (rows from cu_q[b], rows = min(used_q, length)) sees key j
+// of its keys (from cu_k[b], keys = min(used_k, length)) iff, with diag =
+// i + off, j >= diag - left (left >= 0) and j <= diag + right (right >= 0).
+// P is recomputed from Q, K and the LSE (0 on rows whose LSE is -inf), dP
+// = dO V^T, delta = sum_j P dP in fp32, dS = P (dP - delta) scale [(1 -
+// t^2) with a softcap], dQ = sum dS K. Rows below `rows` are written (zeros
+// for a row that sees no key); the others are not (the wrapper zero-fills
+// dq and delta). delta is read unchanged by kernel 7.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 6 d flops per
+// visible (query head, row, key) triple (S, dP, dQ) against q, dO, k, v,
+// the LSE and the outputs moved once; this kernel does 10 d (S and dP
+// twice). At training lengths it is bound by operations.
+//
+// Design: kernel 3's block and walk (dq_range_walk of
+// csrc/flash_bwd_sm90.cuh, both kernels' code) on kernel 6's flat tile
+// schedule.
+//  * Block: two 64-row consumer warpgroups (wgmma m64), 128 query rows,
+//    256 threads; thread 0 issues every TMA copy into a K/V ring of
+//    kStages stages with full and empty mbarriers (no producer warp: see
+//    csrc/flash_bwd_sm90.cuh). Walked tiles are walk_tile(d, softcap) keys.
+//    Pass 1: S = Q K^T and dP = dO V^T from shared memory, delta += P dP.
+//    Pass 2: S and dP again, then dQ += dS K with dS as the register A
+//    operand and K read N-major; S and dP of tile i are issued before dQ
+//    of tile i - 1. A warpgroup whose 64 rows lie past the sequence's end
+//    only takes the stages and releases them.
+//  * Schedule (csrc/varlen_schedule.cuh, shared with kernel 6): grid.x =
+//    (total_q + nseq * 127) / 128 row tiles per query head, each block
+//    finding its sequence and row tile by a block-wide scan of cu_q /
+//    used_q before the warpgroups split, the sequence's last row tile
+//    first; a block past the last tile exits. No host read.
+//  * Inputs: Q, dO, K and V by TMA (4-D maps over (d, token, head) through
+//    the callers' strides) at token cu_q[b] + row0 and cu_k[b] + key0.
+//    Rows past a sequence's end are the next sequence's rows and keys past
+//    its used keys are its own or the next one's, not TMA's zeros (those
+//    only cover the tensor's end): rows past `rows` take lse +inf (P = 0),
+//    every tile that holds the sequence's last key takes the mask, and dq
+//    and delta go out by per-row guarded stores (a whole-tile store would
+//    overwrite the neighbour's rows).
+// Deterministic: no atomics; every dq and delta element is summed by one
+// thread in a fixed order and written once.
+
+#pragma once
+
+#include "flash_bwd_sm90.cuh"
+#include "varlen_schedule.cuh"
+
+namespace fa {
+namespace vbwd90 {
+
+using namespace fa::sm90;
+using fa::bwd90::dq_range_walk;
+using fa::bwd90::DqShared;
+using fa::bwd90::kBlockRows;
+using fa::bwd90::kThreads;
+using fa::bwd90::kWarpgroups;
+using fa::bwd90::lse_base2;
+using fa::bwd90::set_smem;
+using fa::bwd90::store_rows;
+using fa::bwd90::walk_tile;
+
+// The block's sequence and walk, in shared memory (see the kernel).
+enum Slot { kQ0, kK0, kRows, kKeys, kOff, kTileLo, kNTiles, kSlots };
+
+// The block for dq_range_walk: its walk and lengths, read from the slots
+// where they are used. A warpgroup whose rows start past the sequence's
+// end (the tail of its last row tile; never the warpgroup of thread 0)
+// only takes the stages and releases them. Keys past `keys` are the next
+// sequence's, so every tile that holds the last key takes the mask.
+struct SeqRange {
+  static constexpr bool kSkipEmpty = true;
+  volatile int* blk;
+  __device__ __forceinline__ int tile_lo() const { return blk[kTileLo]; }
+  __device__ __forceinline__ int n_tiles() const { return blk[kNTiles]; }
+  __device__ __forceinline__ int n_steps() const { return 2 * blk[kNTiles]; }
+  __device__ __forceinline__ int rows() const { return blk[kRows]; }
+  __device__ __forceinline__ int keys() const { return blk[kKeys]; }
+  __device__ __forceinline__ int off() const { return blk[kOff]; }
+  // A masked step reads the key bound once.
+  template <class M>
+  __device__ __forceinline__ auto step_keys(M) const {
+    const int keys = M::value ? blk[kKeys] : 0;
+    return [keys] { return keys; };
+  }
+};
+
+// Kernel 3's shared memory, the schedule's scan and the block's slots.
+template <int D, bool kSoftcap>
+struct Cfg {
+  using Dq = fa::bwd90::DqCfg<D, kSoftcap>;
+  static constexpr int kScanInts = kThreads / 32 + 3;
+  static constexpr size_t kSmem = Dq::kSmem + 4 * (kScanInts + kSlots);
+};
+
+struct Params {
+  const float* lse;  // (h, total_q) contiguous, natural log
+  float* delta;      // (h, total_q) contiguous
+  void* dq;          // packed as q: element strides dq_h (head), dq_s (token)
+  long long dq_h, dq_s;
+  long long total_q;
+  int h, group, nseq;
+  int left, right;  // normalised window; negative = unbounded
+  float scale;
+  // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
+  // with a softcap.
+  float score_mul, cap_log2;
+  const int* cu_q;    // nseq + 1
+  const int* cu_k;    // nseq + 1
+  const int* used_q;  // nseq or null
+  const int* used_k;  // nseq or null
+  // The schedule's trace (csrc/varlen_schedule.cuh), null but in checks.
+  int* trace;
+  long long trace_len;
+};
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    varlen_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Params p) {
+  using C = typename Cfg<D, kSoftcap>::Dq;
+  constexpr int kStages = C::kStages;
+  constexpr int kBN = C::kBN;
+  constexpr int kBlocksD = D / 64;  // 128-byte column blocks of a row
+  extern __shared__ unsigned char smem_vbwd90[];
+  unsigned char* sQ =
+      smem_vbwd90 + ((1024 - (smem_u32(smem_vbwd90) & 1023)) & 1023);
+  unsigned char* sdO = sQ + C::kQBytes;
+  unsigned char* sK = sdO + C::kQBytes;
+  unsigned char* sV = sK + kStages * C::kTileBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * C::kTileBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  int* scan = reinterpret_cast<int*>(empty + kStages);
+  // The block's sequence and walk (Slot), written by thread 0 and read
+  // where they are used, through a volatile pointer: kernel 3 reads its
+  // lengths from the parameters, which ptxas reloads instead of holding a
+  // register through the walk. Held in registers, these spilled 192 bytes
+  // at d 64 without a softcap; read here, 148 (kernel 3 spills 16). Reading
+  // the rows and diagonals from here too spilled nothing but ran 1.09-1.10x
+  // slower (PERF.md §6).
+  volatile int* blk = scan + Cfg<D, kSoftcap>::kScanInts;
+
+  // The block's sequence and row tile, before the warpgroups split.
+  const int seq = vsched::find_tile<kThreads, kBlockRows>(
+      p.cu_q, p.used_q, p.nseq, blockIdx.x, scan);
+  if (seq < 0) {  // past the last row tile: the whole block leaves
+    if (threadIdx.x == 0) vsched::trace_block(p.trace, p.trace_len, -1, -1);
+    return;
+  }
+  const int* found = scan + kThreads / 32;
+  const int row0 = (found[2] - 1 - found[1]) * kBlockRows;
+  const int head = blockIdx.y;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    const int q0 = __ldg(p.cu_q + seq);
+    const int len_q = __ldg(p.cu_q + seq + 1) - q0;
+    const int uq = p.used_q ? __ldg(p.used_q + seq) : len_q;
+    const int rows = max(min(uq, len_q), 0);
+    const int k0 = __ldg(p.cu_k + seq);
+    const int len_k = __ldg(p.cu_k + seq + 1) - k0;
+    const int uk = p.used_k ? __ldg(p.used_k + seq) : len_k;
+    const int keys = max(min(uk, len_k), 0);
+    const int off = uk - uq;
+    const int row_last = min(row0 + kBlockRows, rows) - 1;
+    const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+    const int col_hi =
+        p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
+    blk[kQ0] = q0;
+    blk[kK0] = k0;
+    blk[kRows] = rows;
+    blk[kKeys] = keys;
+    blk[kOff] = off;
+    blk[kTileLo] = col_lo / kBN;
+    blk[kNTiles] = col_hi >= col_lo ? col_hi / kBN - col_lo / kBN + 1 : 0;
+    vsched::trace_block(p.trace, p.trace_len, seq, row0);
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kWarpgroups);  // lane 0 of each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The copies, all issued by thread 0: Q and dO once, then the visible
+  // K/V tiles twice (pass 1 sums delta, pass 2 accumulates dQ), step x
+  // into stage x % kStages once every warp has released step x - kStages.
+  auto load_kv = [&](int x) {
+    const int s = x % kStages;
+    const int key0 = blk[kK0] + (blk[kTileLo] + x % blk[kNTiles]) * kBN;
+    const int g = head / p.group;
+    mbar_wait(empty + s, ((x / kStages) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::kTileBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sK + s * C::kTileBytes + cb * kBN * 128, &tk, full + s,
+                  cb * 64, key0, g, 0);
+      tma_load_4d(sV + s * C::kTileBytes + cb * kBN * 128, &tv, full + s,
+                  cb * 64, key0, g, 0);
+    }
+  };
+  if (tid == 0 && blk[kNTiles] > 0) {
+    const int r0 = blk[kQ0] + row0;
+    mbar_expect_tx(q_full, 2 * C::kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sQ + cb * kBlockRows * 128, &tq, q_full, cb * 64, r0, head,
+                  0);
+      tma_load_4d(sdO + cb * kBlockRows * 128, &tdo, q_full, cb * 64, r0,
+                  head, 0);
+    }
+    for (int x = 0; x < min(kStages, 2 * blk[kNTiles]); ++x) load_kv(x);
+  }
+
+  const int cw = tid >> 7;  // warpgroup: rows 64 cw..
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int wrow0 = row0 + cw * 64;
+  // The rows' LSE and delta, at head * total_q + q0 + row.
+  auto stat_row = [&] {
+    return static_cast<long long>(head) * p.total_q + blk[kQ0];
+  };
+
+  int row[2], diag[2];
+  float lse2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = wrow0 + warp * 16 + gid + 8 * i;
+    diag[i] = row[i] + blk[kOff];
+    const bool ok = row[i] < blk[kRows];
+    lse2[i] = lse_base2(ok ? p.lse[stat_row() + row[i]] : 0.f, ok);
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+  float delta[2] = {0.f, 0.f};
+
+  dq_range_walk<T, D, kSoftcap, C>(
+      p, SeqRange{blk}, load_kv, DqShared{sQ, sdO, sK, sV, q_full, full, empty},
+      tid, lane, tig, cw, wrow0, diag, lse2, dq, delta);
+
+  // Per-row guarded stores: rows below `rows` only.
+  const int rows = blk[kRows];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (tig == 0 && row[i] < rows) p.delta[stat_row() + row[i]] = delta[i];
+  }
+  store_rows<T, D>(static_cast<T*>(p.dq) + head * p.dq_h +
+                       static_cast<long long>(blk[kQ0]) * p.dq_s,
+                   p.dq_s, row, rows, tig, dq);
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+           const CUtensorMap& tv, const Params& p, cudaStream_t stream) {
+  const long long tiles = vsched::grid_tiles(p.total_q, p.nseq, kBlockRows);
+  if (tiles <= 0) return 0;
+  const size_t smem = Cfg<D, kSoftcap>::kSmem;
+  if (const int err = set_smem(varlen_dq_sm90_kernel<T, D, kSoftcap>, smem)) {
+    return err;
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), p.h);
+  varlen_dq_sm90_kernel<T, D, kSoftcap>
+      <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_softcap(const CUtensorMap* maps, const Params& p, bool softcap,
+                   cudaStream_t s) {
+  return softcap ? launch<T, D, true>(maps[0], maps[1], maps[2], maps[3], p, s)
+                 : launch<T, D, false>(maps[0], maps[1], maps[2], maps[3], p,
+                                       s);
+}
+
+}  // namespace vbwd90
+}  // namespace fa

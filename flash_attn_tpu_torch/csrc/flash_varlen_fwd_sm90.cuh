@@ -36,7 +36,8 @@
 //    by a block-wide scan of the tile counts from cu_q / used_q, the
 //    sequence's last row tile (its longest causal rows) first, and a block
 //    past the last tile exits. No host read, and no block for the empty
-//    row tiles that a max_seqlen_q x nseq grid launches;
+//    row tiles that a max_seqlen_q x nseq grid launches
+//    (csrc/varlen_schedule.cuh, shared with kernel 8's dQ);
 //  * packed Q, K and V by TMA over (d, token, head) with the caller's
 //    strides, at token cu_q[b] + row0 and cu_k[b] + key0. Rows past a
 //    sequence's end are the next sequence's real data, not TMA's zeros:
@@ -57,6 +58,7 @@
 
 #include "mma_utils.cuh"
 #include "sm90_utils.cuh"
+#include "varlen_schedule.cuh"
 
 namespace fa {
 namespace vfwd90 {
@@ -131,72 +133,6 @@ struct Params {
   long long trace_len;
 };
 
-// Rows of sequence j: min(used_q, length), at least 0.
-__device__ __forceinline__ int seq_rows(const Params& p, int j) {
-  const int q0 = __ldg(p.cu_q + j);
-  const int len = __ldg(p.cu_q + j + 1) - q0;
-  const int uq = p.used_q ? __ldg(p.used_q + j) : len;
-  return max(min(uq, len), 0);
-}
-
-// The flat schedule lists the row tiles of every sequence in order,
-// cdiv(rows_j, kBlockM) for sequence j. Finds tile t's sequence and its
-// index there by a block-wide scan of the counts, kThreads sequences at a
-// time (warp scans, then the warps' totals in `scan`). Returns the
-// sequence, or -1 past the last tile, with the tile's index in it and the
-// sequence's tile count in found[1], found[2].
-template <int kThreads, int kBlockM>
-__device__ __forceinline__ int find_tile(const Params& p, int t, int* scan) {
-  constexpr int kWarps = kThreads / 32;
-  int* found = scan + kWarps;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (p.nseq <= 0) return -1;
-  if (tid == 0) found[0] = -1;
-  int before = 0;  // tiles of the sequences before this chunk
-  for (int j0 = 0; j0 < p.nseq; j0 += kThreads) {
-    const int j = j0 + tid;
-    const int n = j < p.nseq ? (seq_rows(p, j) + kBlockM - 1) / kBlockM : 0;
-    int incl = n;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) scan[warp] = incl;
-    __syncthreads();
-    int first = before + incl - n, chunk = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) first += scan[w];
-      chunk += scan[w];
-    }
-    if (n > 0 && t >= first && t < first + n) {
-      found[0] = j;
-      found[1] = t - first;
-      found[2] = n;
-    }
-    __syncthreads();
-    if (found[0] >= 0) break;
-    before += chunk;
-  }
-  return found[0];
-}
-
-// Writes this block's entry of the schedule's trace, if one is asked for.
-__device__ __forceinline__ void trace_block(const Params& p, int seq,
-                                            int row0) {
-  if (p.trace == nullptr) return;
-  const long long at =
-      4ll * (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x);
-  if (at + 4 > p.trace_len) return;
-  p.trace[at] = blockIdx.x;
-  p.trace[at + 1] = blockIdx.y;
-  p.trace[at + 2] = seq;
-  p.trace[at + 3] = row0;
-}
-
 template <typename T, int D, bool kSoftcap, bool kPaged>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     varlen_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -218,9 +154,10 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   uint64_t* v_empty = k_empty + kStages;
   int* scan = reinterpret_cast<int*>(v_empty + kStages);
 
-  const int b = find_tile<C::kThreads, kBlockM>(p, blockIdx.x, scan);
+  const int b = vsched::find_tile<C::kThreads, kBlockM>(
+      p.cu_q, p.used_q, p.nseq, blockIdx.x, scan);
   if (b < 0) {  // past the last row tile: the whole block leaves
-    if (threadIdx.x == 0) trace_block(p, -1, -1);
+    if (threadIdx.x == 0) vsched::trace_block(p.trace, p.trace_len, -1, -1);
     return;
   }
   const int head = blockIdx.y;
@@ -267,7 +204,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     // Producer. The branches never meet again, as setmaxnreg requires.
     setmaxnreg_dec<C::kProducerRegs>();
     // In the producer, so that the consumers' registers do not see it.
-    if (tid == 0) trace_block(p, b, row0);
+    if (tid == 0) vsched::trace_block(p.trace, p.trace_len, b, row0);
     const int g = head / p.group;
     if constexpr (kPaged) {
       // Warp 0: lane j < pieces loads piece j of every tile, its page id

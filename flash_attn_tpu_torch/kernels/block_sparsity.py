@@ -42,8 +42,11 @@ the wrapper takes for CPU tensors:
     mirror of its walks, each block merging the lists of two 64-row blocks;
     an input its TMA tensor maps cannot take as it is is copied first,
     counted in `flash_attention_blocksparse_fwd.tma_copies`;
-  * `flash_attention_blocksparse_bwd_dq` (kernel 11, `csrc/block_sparse_bwd.cu`;
-    plain `_blocksparse_dq_ref`): dQ and delta = sum_j P dP;
+  * `flash_attention_blocksparse_bwd_dq` (kernel 11, `csrc/block_sparse_bwd.cu`
+    on wgmma, TMA and mbarriers, `csrc/block_sparse_bwd_sm90.cuh`, walking
+    the forward's merged lists twice; plain `_blocksparse_dq_ref`): dQ and
+    delta = sum_j P dP; inputs its TMA tensor maps cannot take are copied
+    first, counted in `flash_attention_blocksparse_bwd_dq.tma_copies`;
   * `flash_attention_blocksparse_bwd_dkv` (kernel 10; plain
     `_blocksparse_dkv_ref`): dK/dV over the inverse lists, the GQA group
     summed in-kernel.
@@ -970,8 +973,9 @@ def flash_attention_blocksparse_bwd_dq(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 11: (dq in q's dtype, delta (b, h, sq) fp32 = sum_j P dP).
     CUDA tensors launch block_sparse_bwd_dq over the forward's lists
-    (counted in `flash_attention_blocksparse_bwd_dq.launches`); CPU tensors
-    take `_blocksparse_dq_ref`."""
+    (counted in `flash_attention_blocksparse_bwd_dq.launches`; inputs its
+    TMA tensor maps cannot take are copied first, counted in
+    `.tma_copies`); CPU tensors take `_blocksparse_dq_ref`."""
     check_score_mod(score_mod)
     plan = as_plan(block_sparse)
     b, h, sq, d = q.shape
@@ -981,10 +985,15 @@ def flash_attention_blocksparse_bwd_dq(
               softcap=softcap)
     if q.device.type == "cpu":
         return _blocksparse_dq_ref(q, k, v, do, lse, plan, **kw)
+    owner = flash_attention_blocksparse_bwd_dq
+    q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     _check_cuda(q, k, v, plan)
     _check_bwd(q, do, dict(lse=lse))
     lists = _call_lists(q, k, v, plan, mask_mod, aux_tensors, aux_scalars,
                         lists)
+    if lists.words.data_ptr() % 16:
+        raise ValueError("the execution lists' words must start on a 16-byte "
+                         "boundary (the kernel's bulk copies)")
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _bwd_kernels().block_sparse_bwd_dq(
@@ -995,13 +1004,17 @@ def flash_attention_blocksparse_bwd_dq(
         lists.tiles.shape[-1], b, h, k.shape[1], sq, k.shape[2], d,
         _scale(d, softmax_scale), float(softcap), int(q.dtype == torch.float16),
         _stream(q))
+    if rc == -2:
+        raise RuntimeError("block_sparse_bwd_dq: cuTensorMapEncodeTiled "
+                           "refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"block_sparse_bwd_dq launch failed: CUDA error {rc}")
-    flash_attention_blocksparse_bwd_dq.launches += 1
+    owner.launches += 1
     return dq, delta
 
 
 flash_attention_blocksparse_bwd_dq.launches = 0
+flash_attention_blocksparse_bwd_dq.tma_copies = 0
 
 
 def flash_attention_blocksparse_bwd_dkv(

@@ -20,18 +20,20 @@ that the wrapper takes for CPU tensors:
     `trace_schedule` lets a check on the card read the blocks of its flat
     tile schedule;
   * `flash_attention_varlen_bwd_dq` (`csrc/flash_bwd.cu`
-    flash_varlen_bwd_dq; plain `_varlen_dq_ref`), which also returns
-    delta = sum_j P dP per row, as the dense dQ kernel does;
+    flash_varlen_bwd_dq, the Hopper kernel of
+    `csrc/flash_varlen_bwd_sm90.cuh`; plain `_varlen_dq_ref`), which also
+    returns delta = sum_j P dP per row, as the dense dQ kernel does;
+    `trace_schedule(..., kernel="dq")` reads its flat tile schedule;
   * `flash_attention_varlen_bwd_dkv` (flash_varlen_bwd_dkv; plain
     `_varlen_dkv_ref`), GQA groups summed in-kernel.
 
-The forward's grid comes from the shapes alone (the packed row count and
-the sequence count); the backward grids, and the forward's on pools whose
-page size is not a multiple of 8 (the sm80 route, `launches_sm80`), are
-sized by the longest sequence (`max_seqlen_q`/`_k`), from the caller, from
-a `VarlenPlan`, or else from one host read of cu_seqlens. Those kernels
-cover every tile of every sequence whatever that size, so a wrong size
-costs time, never the answer. The TPU worklist (`build_worklist`, page ids
+The forward's and the dQ kernel's grids come from the shapes alone (the
+packed row count and the sequence count); the dK/dV grid, and the
+forward's on pools whose page size is not a multiple of 8 (the sm80 route,
+`launches_sm80`), are sized by the longest sequence (`max_seqlen_q`/`_k`),
+from the caller, from a `VarlenPlan`, or else from one host read of
+cu_seqlens. Those kernels cover every tile of every sequence whatever that
+size, so a wrong size costs time, never the answer. The TPU worklist (`build_worklist`, page ids
 in its flags) is a Mosaic grid device and is not ported.
 """
 
@@ -530,16 +532,20 @@ def _fwd_kernel():
     return fn
 
 
-def trace_schedule(trace: Optional[torch.Tensor]) -> None:
-    """Makes the Hopper forward's later launches write their schedule
-    into `trace` (int32 on the card, four ints a block at 4 (blockIdx.y
-    grid.x + blockIdx.x): blockIdx.x, blockIdx.y (the head), the block's
-    sequence and first row, the last two -1 for a block past the last row
-    tile; blocks past its end write nothing), or stops it (None). Hold on
-    to `trace` until it is stopped."""
+def trace_schedule(trace: Optional[torch.Tensor], kernel: str = "fwd"
+                   ) -> None:
+    """Makes the later launches of a Hopper kernel with the flat schedule,
+    the forward (kernel 6, `kernel="fwd"`) or the dQ (kernel 8, "dq"),
+    write their schedule into `trace` (int32 on the card, four ints a block
+    at 4 (blockIdx.y grid.x + blockIdx.x): blockIdx.x, blockIdx.y (the
+    head), the block's sequence and first row, the last two -1 for a block
+    past the last row tile; blocks past its end write nothing), or stops it
+    (None). Hold on to `trace` until it is stopped."""
     from flash_attn_tpu_torch.kernels._build import load_library
 
-    fn = load_library("flash_fwd").flash_varlen_fwd_trace
+    lib, name = {"fwd": ("flash_fwd", "flash_varlen_fwd_trace"),
+                 "dq": ("flash_bwd", "flash_varlen_bwd_dq_trace")}[kernel]
+    fn = getattr(load_library(lib), name)
     fn.restype = None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
     if trace is None:
@@ -742,23 +748,25 @@ def _bwd_prepare(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, seqused_q,
 def flash_attention_varlen_bwd_dq(
     q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, *, seqused_q=None,
     seqused_k=None, softmax_scale=None, causal=False, window_size=(-1, -1),
-    softcap=0.0, layout="thd", max_seqlen_q=None,
+    softcap=0.0, layout="thd",
 ):
     """(dq in q's layout and dtype, delta (h, total_q) fp32). CUDA tensors
     launch flash_varlen_bwd_dq (counted in
-    `flash_attention_varlen_bwd_dq.launches`); CPU tensors take
-    `_varlen_dq_ref`."""
+    `flash_attention_varlen_bwd_dq.launches`; inputs its TMA tensor maps
+    cannot take are copied first, counted in `.tma_copies`), whose flat
+    schedule needs no max_seqlen_q (its C argument is passed as 0); CPU
+    tensors take `_varlen_dq_ref`."""
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
     if q.device.type == "cpu":
         return _varlen_dq_ref(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k,
                               **kw)
+    owner = flash_attention_varlen_bwd_dq
+    q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     total_q, h, d, hk, ints = _bwd_prepare(
         q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
         layout)
-    max_seqlen_q, _ = resolve_max_seqlens(cu_seqlens_q, None, max_seqlen_q,
-                                          None, None)
     dq = torch.zeros_like(q)
     delta = torch.zeros((h, total_q), dtype=torch.float32, device=q.device)
     nseq = ints[0].numel() - 1
@@ -766,19 +774,27 @@ def flash_attention_varlen_bwd_dq(
         return dq, delta
     left, right = varlen_window(window_size, causal)
     strides = sum((_packed_strides(x, layout) for x in (q, k, v, do, dq)), [])
+    # k's and v's first entries carry their token counts: the extents of
+    # the kernel's K/V tensor maps.
+    strides[3] = strides[6] = _thd(k, layout).shape[0]
     rc = _bwd_kernels().flash_varlen_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides_arg(strides), *(_ptr(t) for t in ints), nseq,
-        int(max_seqlen_q), total_q, h, hk, d, _scale(d, softmax_scale), left,
-        right, float(softcap), int(q.dtype == torch.float16), _stream(q))
+        0, total_q, h, hk, d, _scale(d, softmax_scale),
+        left, right, float(softcap), int(q.dtype == torch.float16),
+        _stream(q))
+    if rc == -2:
+        raise RuntimeError("flash_varlen_bwd_dq: h * total_q passes 2^31 or "
+                           "cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"flash_varlen_bwd_dq launch failed: CUDA error {rc}")
-    flash_attention_varlen_bwd_dq.launches += 1
+    owner.launches += 1
     return dq, delta
 
 
 flash_attention_varlen_bwd_dq.launches = 0
+flash_attention_varlen_bwd_dq.tma_copies = 0
 
 
 def flash_attention_varlen_bwd_dkv(
@@ -838,8 +854,9 @@ def flash_attention_varlen_bwd(
     """Packed varlen backward: (dq, dk, dv) in the inputs' layout. `out` is
     taken for the reference's signature and not read: delta = sum_j P dP
     comes from the dQ kernel, not from rowsum(dO * O)
-    (flash_varlen.py:1586; see csrc/flash_bwd.cu)."""
-    del out, dropout_seed, block_q, block_kv
+    (flash_varlen.py:1586; see csrc/flash_bwd.cu). max_seqlen_q is not
+    read: the dQ kernel's flat schedule needs none."""
+    del out, dropout_seed, block_q, block_kv, max_seqlen_q
     check_unported(qv=qv, alibi_slopes=alibi_slopes,
                    attention_chunk=attention_chunk, dropout_p=dropout_p,
                    attn_bias=attn_bias, bias_grad=bias_grad,
@@ -849,11 +866,10 @@ def flash_attention_varlen_bwd(
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
     if q.device.type != "cpu":
-        max_seqlen_q, max_seqlen_k = resolve_max_seqlens(
-            cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, None)
+        _, max_seqlen_k = resolve_max_seqlens(None, cu_seqlens_k, None,
+                                              max_seqlen_k, None)
     dq, delta = flash_attention_varlen_bwd_dq(
-        q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k,
-        max_seqlen_q=max_seqlen_q, **kw)
+        q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, **kw)
     dk, dv = flash_attention_varlen_bwd_dkv(
         q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
         max_seqlen_k=max_seqlen_k, **kw)

@@ -148,6 +148,32 @@ def use(tag):
         loader.cache_clear()
 
 
+class _DqGrid:
+    """A kernels library whose flash_varlen_bwd_dq gets `max_q` as its
+    max_seqlen_q argument (the 14th): the wrapper passes 0, which the flat
+    schedule ignores, while a base whose dQ kernel sizes its grid by
+    max_seqlen_q needs the longest sequence there."""
+
+    def __init__(self, lib, max_q):
+        self.lib, self.max_q = lib, max_q
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def flash_varlen_bwd_dq(self, *args):
+        return self.lib.flash_varlen_bwd_dq(*args[:13], self.max_q, *args[14:])
+
+
+def varlen_dq(max_q, *args, **kw):
+    """flash_attention_varlen_bwd_dq through _DqGrid."""
+    loader = flash_varlen._bwd_kernels
+    flash_varlen._bwd_kernels = lambda: _DqGrid(loader(), max_q)
+    try:
+        return flash_varlen.flash_attention_varlen_bwd_dq(*args, **kw)
+    finally:
+        flash_varlen._bwd_kernels = loader
+
+
 def varlen_inputs(name, seed):
     """chip_smoke.VARLEN_CASES' `name` (thd, no seqused): kernels 6-8."""
     lens, _, _, _, h, hk, d, causal, window, _, _ = chip_smoke.VARLEN_CASES[name]
@@ -162,15 +188,13 @@ def varlen_inputs(name, seed):
     kw = dict(causal=causal, window_size=window)
     mq, mk = dict(max_seqlen_q=max(lens)), dict(max_seqlen_k=max(lens))
     _, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, cu, cu, **kw, **mq)
-    _, delta = flash_varlen.flash_attention_varlen_bwd_dq(q, k, v, do, lse, cu,
-                                                          cu, **kw, **mq)
+    _, delta = varlen_dq(max(lens), q, k, v, do, lse, cu, cu, **kw)
     return dict(
         varlen_fwd=lambda: flash_varlen.flash_attention_varlen_fwd(
             q, k, v, cu, cu, **kw, **mq),
         varlen_dkv=lambda: flash_varlen.flash_attention_varlen_bwd_dkv(
             q, k, v, do, lse, delta, cu, cu, **kw, **mk),
-        varlen_dq=lambda: flash_varlen.flash_attention_varlen_bwd_dq(
-            q, k, v, do, lse, cu, cu, **kw, **mq))
+        varlen_dq=lambda: varlen_dq(max(lens), q, k, v, do, lse, cu, cu, **kw))
 
 
 def paged_inputs(name, seed):
