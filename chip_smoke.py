@@ -17,14 +17,17 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
   3. attn_kernels  the flash forward, dK/dV and dQ kernels likewise, at the
               GPT-2-medium training shape, the Mistral-7B shape (GQA, window
               4095), a short window (127), a softcap, rows that see nothing,
-              and lengths off the forward's tiles; the backward twice for
+              lengths off the forward's tiles, and sq not a multiple of 4
+              (LSE rows off a 16-byte boundary); the backward twice for
               equal bits; attn_tma_copy: the forward and the backward on
               inputs their tensor maps cannot take as they are (copied,
               counted) and on (b, s, h, d) views (taken as they are); then
               attn_fault: the window cases with the kernels handed a window
               one column wider, which every kernel's check must catch;
      varlen_kernels, varlen_fault, varlen_train, vllm: kernels 6-8 and
-              vLLM's per-layer calls (see each function);
+              vLLM's per-layer calls (see each function); kernels 6, 7 and
+              8 each with its flat schedule read from its own trace, and
+              each with one boundary moved that its check must catch;
      decode_kernels  the general decode kernel (kernel 5) against its plain
               version at Mistral-7B widths: decode, generate's 4500-token
               prefill, batch index, leftpad with a window, ALiBi, sinks,
@@ -42,7 +45,7 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               on MInference-style metadata (the 32768-token Mistral-width
               prefill, 8192 forward and backward, d 64, ALiBi + softcap
               fp16, padded lengths, overlaps and garbage, empty blocks, odd
-              block counts at d 64),
+              block counts at d 64, sq not a multiple of 4),
               each with a slash offset moved by one column that every check
               must catch; sparse_attn_func's autograd with launches
               counted; sparse against dense over contexts, densities and
@@ -56,9 +59,10 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               benchmarks/benchmark_blocksparse.py, doc10 at Mistral-7B
               widths, d 64 fp16 with a softcap and a broadcast single-head
               plan, fast sampling, no full blocks, a plan with no mod, rows
-              that keep nothing, each kernel run twice for equal bits; a
-              row's word shifted and a sub-tile dropped, which every check
-              must catch; GPT-2-medium's packed
+              that keep nothing, s not a multiple of 4 under GQA, each
+              kernel run twice for equal bits; a row's word shifted and a
+              sub-tile dropped, which the checks of kernels 9, 10 and 11
+              must each catch; GPT-2-medium's packed
               documents through 24 layers of flash_attn_func fwd+bwd with
               one plan per step, host syncs made errors, held against
               kernels 6-8; and flash_attn_varlen_func over a varlen plan;
@@ -596,6 +600,10 @@ ATTN_CASES = [
     # Neither length a multiple of kernel 1's 128-row and 128-key tiles.
     ("causal-d128-fp16-sq1000-sk1100", 2, 8, 4, 1000, 1100, 128, True,
      (-1, -1), 0.0, torch.float16),
+    # sq not a multiple of 4: most heads' LSE and delta rows start off a
+    # 16-byte boundary, where kernel 2's 1-D TMA copies must not start.
+    ("causal-gqa-sq1001", 1, 8, 2, 1001, 1001, 64, True, (-1, -1), 0.0,
+     torch.bfloat16),
 ]
 # Kernel vs plain fp32 on the same bf16/fp16 inputs, element by element:
 #   |x - ref| <= RTOL |ref| + ROW_ATOL rms(ref's row) + FLOOR max|ref|,
@@ -988,11 +996,9 @@ def varlen_compare(name, seed, fault=False):
     dq, delta = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw)
     dq2, delta2 = flash_attention_varlen_bwd_dq(*args, cu_q, kcu_k, **kw)
     ref_dq, ref_delta = _varlen_dq_ref(*up, ref_lse, cu_q, cu_k, **kw)
-    kmax = dict(max_seqlen_k=max(lens_k))
-    dk, dv = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k, **kw,
-                                            **kmax)
+    dk, dv = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k, **kw)
     dk2, dv2 = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k,
-                                              **kw, **kmax)
+                                              **kw)
     torch.cuda.synchronize()
     deterministic = all(torch.equal(x, y) for x, y in
                         ((dk, dk2), (dv, dv2), (dq, dq2), (delta, delta2)))
@@ -1004,15 +1010,11 @@ def varlen_compare(name, seed, fault=False):
     result.update(dq=held(rows(dq), rows(ref_dq)), delta=held(delta, ref_delta),
                   dk=held(rows(dk), rows(ref_dk)), dv=held(rows(dv), rows(ref_dv)))
     grads_finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
-    # A grid sized for 64-row sequences loops over the longer ones' tiles:
-    # the same tiles, the same bits (the forward and dK/dV; the dQ kernel's
-    # flat schedule takes no max_seqlen_q).
+    # The forward handed a max_seqlen_q of 64: the same tiles, the same bits
+    # (its flat schedule, like the dQ and dK/dV kernels', reads none).
     short = dict(max_seqlen_q=64)
     out_s, _ = flash_attention_varlen_fwd(q, k, v, cu_q, kcu_k, **kw, **short)
-    dk_s, dv_s = flash_attention_varlen_bwd_dkv(*args, ref_delta, cu_q, kcu_k,
-                                                **kw, max_seqlen_k=64)
-    short_grid_equal = all(torch.equal(x, y) for x, y in (
-        (out_s, out), (dk_s, dk), (dv_s, dv)))
+    short_grid_equal = torch.equal(out_s, out)
     result.update(
         short_grid_equal=short_grid_equal,
         fwd_ok=fwd_ok,
@@ -1022,7 +1024,7 @@ def varlen_compare(name, seed, fault=False):
                    result["dv"]["err_over_limit"]) <= 1,
         bwd_bitwise_deterministic=deterministic, grads_finite=grads_finite)
     tensors = dict(args=args, delta=ref_delta, cu=(cu_q, cu_k), kw=kw,
-                   maxes=dict(maxes, **kmax))
+                   maxes=maxes)
     return result, tensors
 
 
@@ -1034,7 +1036,6 @@ def varlen_case(name, seed):
     cu_q, cu_k = t["cu"]
     kw, maxes = t["kw"], t["maxes"]
     fwd_kw = dict(kw, max_seqlen_q=maxes["max_seqlen_q"])
-    dkv_kw = dict(kw, max_seqlen_k=maxes["max_seqlen_k"])
     result = dict(
         phase="varlen_kernels", case=name, nseq=len(lens_q), total_q=sum(lens_q),
         total_k=sum(lens_k), max_seqlen_q=max(lens_q), h=h, hk=hk, d=d,
@@ -1053,7 +1054,7 @@ def varlen_case(name, seed):
         dq_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dq(
             q, k, v, do, lse, cu_q, cu_k, **kw)),
         dkv_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dkv(
-            q, k, v, do, lse, t["delta"], cu_q, cu_k, **dkv_kw)),
+            q, k, v, do, lse, t["delta"], cu_q, cu_k, **kw)),
         fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
             q, k, v, cu_q, cu_k, **kw), reps=5, warmup=1),
         dq_plain_ms=cuda_ms(lambda: _varlen_dq_ref(
@@ -1071,6 +1072,7 @@ def varlen_case(name, seed):
         (result["library_fwd_ms"], result["library_fwd_bwd_ms"],
          result["library"]) = library_packed(q, k, v, do, cu_q, causal)
     result["dq_schedule"] = dq_schedule(t, lens_q, used_q, h)
+    result["dkv_schedule"] = dkv_schedule(t, lens_k, used_k, hk)
     emit(result)
     check(result["ok"], f"varlen_kernels case {name} disagrees with its plain "
                         "version or is not deterministic")
@@ -1079,6 +1081,11 @@ def varlen_case(name, seed):
           and sch["grid"][0] == sch["grid_host"] and sch["row_tiles_each_once"],
           f"varlen_kernels case {name}: kernel 8's trace misses a block or a "
           "row tile, or visits one twice")
+    sch = result["dkv_schedule"]
+    check(sch["blocks_launched"] == sch["grid"][0] * hk > 0
+          and sch["grid"][0] == sch["grid_host"] and sch["key_tiles_each_once"],
+          f"varlen_kernels case {name}: kernel 7's trace misses a block or a "
+          "key tile, or visits one twice")
     return result
 
 
@@ -1119,6 +1126,48 @@ def dq_schedule(t, lens_q, used_q, h):
         # rises inside a sequence.
         last_tile_first=all(
             (np.diff(live[(live[:, 1] == 0) & (live[:, 2] == j)][:, 3]) < 0)
+            .all() for j in range(nseq)))
+
+
+def dkv_schedule(t, lens_k, used_k, hk):
+    """Kernel 7's flat schedule as the kernel ran it on a case's inputs
+    (`t` from varlen_compare): its trace (each launched block's sequence
+    and first key, -1 past the last key tile) against the 128-key tiles the
+    used key counts give, per kv head; the blocks it launched and that
+    exited."""
+    q = t["args"][0]
+    cu_q, cu_k = t["cu"]
+    bm, nseq = BWD_BLOCK_ROWS, len(lens_k)
+    keys = [min(n, n if used_k is None else used_k[j])
+            for j, n in enumerate(lens_k)]
+    grid_host = (sum(lens_k) + nseq * (bm - 1)) // bm
+    trace = torch.full((4 * grid_host * hk + 4,), -2, dtype=torch.int32,
+                       device=q.device)
+    trace_schedule(trace, kernel="dkv")
+    try:
+        flash_attention_varlen_bwd_dkv(*t["args"], t["delta"], cu_q, cu_k,
+                                       **t["kw"])
+        torch.cuda.synchronize()
+    finally:
+        trace_schedule(None, kernel="dkv")
+    rec = trace.view(-1, 4).cpu().numpy()
+    rec = rec[rec[:, 0] != -2]
+    want = sorted((j, m * bm) for j, n in enumerate(keys)
+                  for m in range(-(-max(n, 0) // bm)))
+    live = rec[rec[:, 2] >= 0]
+    return dict(
+        schedule="read from the kernel's trace",
+        grid=[int(rec[:, 0].max()) + 1 if len(rec) else 0, hk],
+        grid_host=grid_host, blocks_launched=len(rec),
+        blocks_exited=int((rec[:, 2] < 0).sum()),
+        blocks_with_keys=len(live),
+        key_tiles_each_once=all(
+            sorted(map(tuple, live[live[:, 1] == y][:, 2:].tolist())) == want
+            for y in range(hk)),
+        # Each sequence's first key tile (the longest causal walk) first:
+        # blockIdx.x rises with the key inside a sequence.
+        first_tile_first=all(
+            (np.diff(live[(live[:, 1] == 0) & (live[:, 2] == j)][:, 3]) > 0)
             .all() for j in range(nseq)))
 
 
@@ -1406,6 +1455,24 @@ def varlen_fault_phase():
               err_over_limit=worst, caught={"dq": caught}, ok=caught))
     check(caught, "varlen_fault: kernel 8 with a cu_seqlens_q boundary moved "
                   "passes the tolerance")
+    # Kernel 7's flat schedule of key tiles: the dK/dV kernel alone handed
+    # cu_seqlens_k with the first document's end moved one key into the
+    # second's, against the plain dK/dV on the true boundaries.
+    bad = cu_k.clone()
+    bad[1] += 1
+    dk, dv = flash_attention_varlen_bwd_dkv(*t["args"], t["delta"], cu_q, bad,
+                                            **t["kw"])
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = _varlen_dkv_ref(*up, t["args"][4], t["delta"], cu_q, cu_k,
+                                     **t["kw"])
+    worst = {"dk": held(dk.float(), ref_dk)["err_over_limit"],
+             "dv": held(dv.float(), ref_dv)["err_over_limit"]}
+    caught = max(worst.values()) > 1
+    emit(dict(phase="varlen_fault", case="dkv-scheduler",
+              moved="cu_seqlens_k[1] + 1 (kernel 7 only)",
+              err_over_limit=worst, caught={"dkv": caught}, ok=caught))
+    check(caught, "varlen_fault: kernel 7 with a cu_seqlens_k boundary moved "
+                  "passes the tolerance")
 
 
 # -- phase: varlen_train (packed training attention through autograd) --------
@@ -1434,24 +1501,27 @@ def varlen_train_phase(layers=24, seed=50):
     torch.cuda.synchronize()
     _zero_varlen_counts()
     flash_attention_varlen_bwd_dq.tma_copies = 0
+    flash_attention_varlen_bwd_dkv.tma_copies = 0
     t0 = time.perf_counter()
     step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = _varlen_counts()
     dq_copies = flash_attention_varlen_bwd_dq.tma_copies
+    dkv_copies = flash_attention_varlen_bwd_dkv.tma_copies
     want = dict(flash_varlen_fwd=layers, flash_varlen_bwd_dkv=layers,
                 flash_varlen_bwd_dq=layers)
     grads_finite = all(bool(torch.isfinite(x.grad).all()) for x in qkv)
-    ok = counts == want and grads_finite and dq_copies == 0
+    ok = counts == want and grads_finite and dq_copies == dkv_copies == 0
     result = dict(phase="varlen_train", layers=layers, docs=len(GPT2M_DOCS),
                   tokens=tq, h=h, d=d, causal=True, step_wall_ms=wall_ms,
                   step_ms_by_events=cuda_ms(step, reps=5, warmup=1),
                   launches=counts, launches_expected=want,
-                  dq_tma_copies=dq_copies, grads_finite=grads_finite, ok=ok)
+                  dq_tma_copies=dq_copies, dkv_tma_copies=dkv_copies,
+                  grads_finite=grads_finite, ok=ok)
     emit(result)
     check(ok, "varlen_train: launches off the count, a TMA copy of kernel "
-              "8's inputs, or non-finite gradients")
+              "7's or 8's inputs, or non-finite gradients")
     return result
 
 
@@ -2869,6 +2939,10 @@ SPARSE_CASES = {
     # 64-row block or key tile, its second warpgroup none.
     "odd-blocks-d64": (1, 8, 2, 1300, 1950, 64, True, torch.bfloat16, 0.0,
                        False, None, None, True),
+    # sq not a multiple of 4: kernel 13's LSE and delta rows start off a
+    # 16-byte boundary.
+    "odd-lengths-d64": (1, 8, 2, 1001, 1503, 64, True, torch.bfloat16, 0.0,
+                        False, None, None, True),
 }
 # The largest boolean mask handed to SDPA as the library yardstick.
 SDPA_MASK_BYTES = 4 << 30
@@ -3601,6 +3675,10 @@ BS_CASES = {
                          dict(blockmask=True)),
     "empty-rows": (1, 16, 16, 4096, 128, BF16, 0.0, 512, rows_gap_mod, None,
                    {}),
+    # s not a multiple of 4: kernel 10's LSE and delta rows start off a
+    # 16-byte boundary; GQA.
+    "doc-aux-odd-length": (1, 4, 2, 2001, 64, BF16, 0.0, 128, doc_aux_mod,
+                           (2001, 3), {}),
 }
 BS_FAULT_CASES = ("doc_aux_2k", "mistral-doc10", "softcap30-fp16-d64")
 
@@ -3615,6 +3693,7 @@ def _zero_bs_counts():
     flash_attention_blocksparse_fwd.launches = 0
     flash_attention_blocksparse_fwd.tma_copies = 0
     flash_attention_blocksparse_bwd_dq.tma_copies = 0
+    flash_attention_blocksparse_bwd_dkv.tma_copies = 0
     flash_attention_blocksparse_bwd_dkv.launches = 0
     flash_attention_blocksparse_bwd_dq.launches = 0
 
@@ -3782,6 +3861,7 @@ def bs_case(name, seed):
         tolerance=ATTN_TOLERANCE, empty_rows=empty, launches=launches,
         fwd_tma_copies=flash_attention_blocksparse_fwd.tma_copies,
         dq_tma_copies=flash_attention_blocksparse_bwd_dq.tma_copies,
+        dkv_tma_copies=flash_attention_blocksparse_bwd_dkv.tma_copies,
         plan_ms=plan_ms, kept_pairs=pairs, density=pairs / (b * h * s * s),
         sub_tiles=int(lists.counts.sum()), word_groups=int(lists.words.shape[0]),
         words_mb=lists.words.numel() * 8 / 1e6,
@@ -3830,10 +3910,15 @@ def bs_case(name, seed):
                                          "the forward copied an input")
     check(result["dq_tma_copies"] == 0, f"blocksparse_kernels case {name}: "
                                         "kernel 11 copied an input")
+    check(result["dkv_tma_copies"] == 0, f"blocksparse_kernels case {name}: "
+                                         "kernel 10 copied an input")
     for fault in faults:
         emit(fault)
+        # Each planted fault must be caught by every kernel: 9 (fwd), 11
+        # (dq) and 10 (dkv).
         check(fault["ok"], f"blocksparse_fault: {fault['planted']} in case "
-                           f"{name} passes a check")
+                           f"{name} passes the check of kernel(s) "
+                           f"{[k for k, c in fault['caught'].items() if not c]}")
     return result
 
 
@@ -3883,6 +3968,7 @@ def blocksparse_train_phase(vtrain, layers=24, seed=140):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = _bs_counts()
+    dkv_copies = flash_attention_blocksparse_bwd_dkv.tma_copies
     builds = build_execution_lists.builds - builds
     want = dict(block_sparse_fwd=layers, block_sparse_bwd_dkv=layers,
                 block_sparse_bwd_dq=layers)
@@ -3897,7 +3983,8 @@ def blocksparse_train_phase(vtrain, layers=24, seed=140):
         versus[name] = held(qkv[0].grad[i, 0], ref_grad[i])
     grads_finite = all(bool(torch.isfinite(y.grad).all()) for y in qkv)
     agree = max(r["err_over_limit"] for r in versus.values()) <= 1
-    ok = counts == want and builds == 1 and grads_finite and agree
+    ok = (counts == want and builds == 1 and grads_finite and agree
+          and dkv_copies == 0)
     t0 = time.perf_counter()
     compute_block_sparsity(doc_aux_mod, batch_size=1, num_heads=h,
                            seqlen_q=tq, seqlen_k=tq, aux_tensors=(ids,))
@@ -3913,12 +4000,14 @@ def blocksparse_train_phase(vtrain, layers=24, seed=140):
         plan_and_lists_ms=plan_ms,
         varlen_train_step_ms=vtrain["step_ms_by_events"] if vtrain else None,
         launches=counts, launches_expected=want, plan_and_list_builds=builds,
+        dkv_tma_copies=dkv_copies,
         host_syncs_in_layer_calls="none (set_sync_debug_mode error)",
         layer0_vs_kernels_6_8=versus, tolerance=ATTN_TOLERANCE,
         grads_finite=grads_finite, ok=ok)
     emit(result)
-    check(ok, "blocksparse_train: launches or builds off the count, "
-              "non-finite gradients, or layer 0 disagrees with kernels 6-8")
+    check(ok, "blocksparse_train: launches or builds off the count, a TMA "
+              "copy of kernel 10's inputs, non-finite gradients, or layer 0 "
+              "disagrees with kernels 6-8")
     return result
 
 
@@ -4012,11 +4101,11 @@ def blocksparse_phases(vtrain=None):
 def blocksparse_kernel_entries(bsr, logs):
     """Kernels 9-11 for the kernels line: times at `doc10` (b 1, h 16, s
     8192, d 128, tile 512), launches from `blocksparse_train`; for kernel 9
-    also at `prefix` and `doc5` beside SDPA's, for kernel 11 at `prefix`
-    and `softcap30-fp16-d64`; for both their ptxas registers and spills and
-    SASS counts. Fails if one of them never launched there, or if kernel
-    9's or 11's SASS has no wgmma or TMA load (11: or bulk copy), or has
-    atomics."""
+    also at `prefix` and `doc5` beside SDPA's, for kernels 10 and 11 at
+    `prefix` and `softcap30-fp16-d64`; for all three their ptxas registers
+    and spills and SASS counts. Fails if one of them never launched there,
+    or if a kernel's SASS has no wgmma or TMA load (10 and 11: or bulk
+    copy), or has atomics."""
     at, launches = bsr["cases"]["doc10"], bsr["train"]["launches"]
     entries = []
     for name, key, source, replaces, tensors in (
@@ -4044,6 +4133,38 @@ def blocksparse_kernel_entries(bsr, logs):
             # SDPA's backward alone: its forward+backward less its forward.
             entry["library_bwd_ms"] = (at["library_fwd_bwd_ms"]
                                        - at["library_fwd_ms"])
+        if key == "dkv":
+            # Kernel 10 at prefix and softcap30-fp16-d64 too, and its
+            # instructions: UBLKCP are the bulk copies of the mode-2 words.
+            for other in ("prefix", "softcap30-fp16-d64"):
+                c = bsr["cases"][other]
+                entry[other] = dict(
+                    ms=c["dkv_ms"], plain_ms=c["dkv_plain_ms"],
+                    bound_ms=c["dkv_bound_ms"], bound_by=c["dkv_bound_by"],
+                    shape=(f"{other}: b={c['b']} h={c['h']} s={c['s']} "
+                           f"d={c['d']} tile {c['tile']}, kept density "
+                           f"{c['density']:.4f}"))
+            kernel = "bs_dkv_sm90_kernel"
+            entry.update(
+                design="wgmma+tma, two 64-key blocks' inverse lists merged "
+                       "per block, one query head of the group after "
+                       "another, mode-2 words by bulk copy",
+                ptxas=ptxas_of(logs, kernel),
+                sass=sass_counts(_build.library_path("block_sparse_bwd"),
+                                 ("HGMMA", "UTMALDG", "UBLKCP", "ATOM", "RED",
+                                  "LDL", "STL"), kernel),
+                tma_copies=dict(
+                    cases=sum(c["dkv_tma_copies"]
+                              for c in bsr["cases"].values()),
+                    blocksparse_train=bsr["train"]["dkv_tma_copies"]))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["UBLKCP"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma, TMA or bulk loads, or atomics, in its "
+                  "SASS")
+            check(all(r[0] <= 255 for r in entry["ptxas"]),
+                  f"{kernel}: more than 255 registers")
         if key == "dq":
             # Kernel 11 at prefix and softcap30-fp16-d64 too, and its
             # instructions: UBLKCP are the bulk copies of the mode-2 words.
@@ -4376,6 +4497,38 @@ def main(argv=None):
             # SDPA's backward alone: its forward+backward less its forward.
             entry["library_bwd_ms"] = (gpt2m_v["library_fwd_bwd_ms"]
                                        - gpt2m_v["library_fwd_ms"])
+        if key == "dkv":
+            # The Hopper kernel's instructions alone (no atomics: ATOM and
+            # RED must be 0; LDL and STL are spill loads and stores), its
+            # flat schedule of key tiles at gpt2m-packed from its own trace,
+            # and the main path's instance (bf16, d 64, no softcap) against
+            # the 148 bytes kernel 8's spills there; kernel 2, which shares
+            # its consumer (dkv_range_walk), beside it.
+            kernel = "varlen_dkv_sm90_kernel"
+            sch = gpt2m_v["dkv_schedule"]
+            main = ptxas_of(logs, kernel + "I13__nv_bfloat16Li64ELb0E")
+            entry.update(
+                design="wgmma+tma, kernel 2's dK/dV on a flat schedule of "
+                       "128-key tiles",
+                ptxas=ptxas_of(logs, kernel), ptxas_main_path=main,
+                main_path_spill_bytes_within_kernel8s=bool(
+                    main and main[0][1] <= 148),
+                ptxas_kernel2=ptxas_of(logs, "bwd_dkv_sm90_kernel"),
+                sass=sass_counts(_build.library_path("flash_bwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=dict(varlen_train=vtrain["dkv_tma_copies"]),
+                schedule=dict(
+                    blocks_from="the kernel's schedule trace",
+                    grid=sch["grid"], blocks_launched=sch["blocks_launched"],
+                    blocks_exited=sch["blocks_exited"],
+                    blocks_with_keys=sch["blocks_with_keys"]))
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
+            check(all(r[0] <= 255 for r in entry["ptxas"]),
+                  f"{kernel}: more than 255 registers")
         if key == "dq":
             # The Hopper kernel's instructions alone (no atomics: ATOM and
             # RED must be 0; LDL and STL are spill loads and stores), and

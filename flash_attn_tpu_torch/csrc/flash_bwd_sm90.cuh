@@ -7,11 +7,10 @@
 // flash_attention_bwd (:669), restricted to the forward's features
 // (csrc/flash_fwd_sm90.cuh): scale, bottom-right-aligned causal, sliding
 // window, GQA/MQA (dK and dV sum each kv head's group of query heads),
-// softcap, head dim 64 or 128, bf16/fp16. The varlen dQ
+// softcap, head dim 64 or 128, bf16/fp16. The varlen backward
 // (csrc/flash_varlen_bwd_sm90.cuh), the sparse backward
-// (csrc/flash_sparse_bwd_sm90.cuh) and the block-sparse dQ
-// (csrc/block_sparse_bwd_sm90.cuh) are built from these pieces; the varlen
-// dK/dV keeps its sm80 step (csrc/flash_bwd_tile.cuh).
+// (csrc/flash_sparse_bwd_sm90.cuh) and the block-sparse backward
+// (csrc/block_sparse_bwd_sm90.cuh) are built from these pieces.
 //
 // Function, as _recompute_p_and_ds (flash_bwd.py:107-230) with the port's
 // delta: with s = q . k,
@@ -123,12 +122,20 @@ struct DkvCfg {
   static constexpr int kKVBytes = kBlockRows * D * 2;  // the K or V tile
   static constexpr int kQBytes = kBQ * D * 2;          // one Q or dO tile
   static constexpr int kStatBytes = kBQ * 4;           // one LSE or delta tile
-  // Per stage: Q, dO, LSE, delta, and each warpgroup's copy of the LSE in
-  // base 2.
+  // A 1-D TMA copy faults on a box whose first value is not 16-byte
+  // aligned, and a tile's rows start anywhere in the LSE and delta rows
+  // (sq not a multiple of 4, or a packed sequence): each LSE or delta tile
+  // is kStatBox values from up to 3 rows before its first row, in a slot
+  // of kStatStride (128-byte aligned for TMA); stat_ofs(s) is where stage
+  // s's rows start.
+  static constexpr int kStatBox = kBQ + 4;
+  static constexpr int kStatStride = kBQ + 32;
+  // Per stage: Q, dO, LSE, delta, each warpgroup's copy of the LSE in base
+  // 2, and the rows' offset.
   static constexpr size_t kSmem =
       1024 + 2 * kKVBytes +
-      kStages * (2 * kQBytes + (2 + kWarpgroups) * kStatBytes) +
-      8 * (1 + 2 * kStages);
+      kStages * (2 * kQBytes + 2 * 4 * kStatStride + kWarpgroups * kStatBytes) +
+      8 * (1 + 2 * kStages) + 4 * kStages;
 };
 
 struct Params {
@@ -568,6 +575,194 @@ __device__ __forceinline__ void dq_list_walk(
   }
 }
 
+// The dK/dV consumer of kernels 2 and 7 (dkv_range_walk; kernel 10 runs
+// kernel 13's steps in a walk of its own, csrc/block_sparse_bwd_sm90.cuh):
+// each warpgroup keeps its 64 keys of K and V in shared memory (wgmma's A),
+// and stage s of a ring holds kBQ query rows of Q and dO (B, K-major for S^T
+// = K Q^T and dP^T = V dO^T, N-major for dV += P^T dO and dK += dS^T Q)
+// with the rows' LSE and delta. P^T and dS^T are formed in registers and
+// packed to 16 bits as the register A operands; dK and dV sum in fp32 over
+// the walk. While S^T and dP^T run, each warpgroup copies the stage's LSE
+// into base 2 (+inf for a row past the end or one that sees no key), so
+// that each score takes one FFMA before its exponential. The walk follows
+// kernel 2's code step for step, as the dQ walks do, with the kernels' own
+// thread indices passed in and the hooks' values held by reference; every
+// instance of kernel 2 keeps its registers.
+
+// A dK/dV block's shared memory: its 128 keys of K and V (sK, sV), the Q
+// and dO stages of its ring (sQ, sdO), the stages' LSE and delta (sL, sD)
+// and each warpgroup's base-2 copy of the LSE (sL2, [kWarpgroups][kStages]
+// rows), and the barriers: kv_full for K and V, full and empty per stage.
+struct DkvShared {
+  unsigned char* sK;
+  unsigned char* sV;
+  unsigned char* sQ;
+  unsigned char* sdO;
+  float* sL;
+  float* sD;
+  float* sL2;
+  uint64_t* kv_full;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// One warpgroup's walk (keys from wkey0, thread tid, t = tid % 128, lane,
+// tig, warpgroup cw; this thread's two keys key[]) over its block's range
+// of query tiles (kernels 2 and 7), which thread 0 copies through the ring,
+// step it into stage it % C::kStages by load_q(it). `r` gives the block's
+// walk and lengths: qt_lo(), n_qt(), n_iter() (n_qt() tiles for each query
+// head of the group), rows(), keys(), off() (kernel 2 reads them from its
+// parameters, kernel 7 from shared memory or, for keys() and off(), which
+// each masked element reads, its registers), and stat_ofs(s), where stage
+// s's LSE and delta rows start in their tiles of C::kStatStride floats
+// (read from a 16-byte aligned start, which a 1-D TMA copy needs). The two
+// warpgroups take turns to issue their products (named barriers 1 and 2 in
+// a ring): one's products run while the other forms P^T and dS^T (0.91x at
+// d 128 for kernel 2; 0.99x, no gain, for kernel 7 on gpt2m-packed's short
+// documents, kept for one code path).
+template <typename T, int D, bool kSoftcap, class C, class P, class R,
+          class L>
+__device__ __forceinline__ void dkv_range_walk(
+    const P& p, const R& r, const L& load_q, const DkvShared& sh, int tid,
+    int t, int lane, int tig, int cw, int wkey0, const int (&key)[2],
+    float (&dk)[D / 2], float (&dv)[D / 2]) {
+  constexpr int kStages = C::kStages;
+  constexpr int kBQ = C::kBQ;
+  if (r.n_iter() > 0) {
+    // Descriptors: this warpgroup's K and V rows (A); Q and dO K-major (B
+    // of S^T and dP^T) and N-major (B of dK and dV).
+    const uint64_t k_desc = make_desc(sh.sK + cw * 64 * 128, 16, 1024);
+    const uint64_t v_desc = make_desc(sh.sV + cw * 64 * 128, 16, 1024);
+    const uint64_t q_desc = make_desc(sh.sQ, 16, 1024);
+    const uint64_t do_desc = make_desc(sh.sdO, 16, 1024);
+    const uint64_t qn_desc = make_desc(sh.sQ, kBQ * 128, 1024);
+    const uint64_t don_desc = make_desc(sh.sdO, kBQ * 128, 1024);
+    float st[kBQ / 2];   // S^T, then P^T
+    float dpt[kBQ / 2];  // dP^T, then dS^T
+    uint32_t pa[kBQ / 16][4];
+    uint32_t da[kBQ / 16][4];
+
+    // P^T and dS^T of step s's tile (query rows rb.., their delta from
+    // row o of the stage's tile) in place.
+    auto p_ds_step = [&](auto masked, int s, int rb, int o) {
+      const float* lse2 = sh.sL2 + (cw * kStages + s) * kBQ;
+      const float* dlt = sh.sD + s * C::kStatStride + o;
+#pragma unroll
+      for (int x = 0; x < kBQ / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
+        const int row = rb + c;
+        float dmul;
+        float pr = prob<kSoftcap>(p, st[x], lse2[c], dmul);
+        if constexpr (decltype(masked)::value) {
+          if (!(key[i] < r.keys() &&
+                in_window(key[i], row + r.off(), p.left, p.right))) {
+            pr = 0.f;
+          }
+        }
+        st[x] = pr;
+        dpt[x] = pr * (dpt[x] - dlt[c]) * dmul;
+      }
+    };
+
+    auto turn_begin = [&] { named_barrier(1 + cw, 256); };
+    auto turn_end = [&] { named_arrive(1 + (cw ^ 1), 256); };
+    mbar_wait(sh.kv_full, 0);
+    if (cw == 1) named_arrive(1, 256);
+    for (int it = 0; it < r.n_iter(); ++it) {
+      const int s = it % kStages;
+      const int rb = (r.qt_lo() + it % r.n_qt()) * kBQ;
+      turn_begin();
+      mbar_wait(sh.full + s, (it / kStages) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t qb =
+            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBQ>(st, k_desc + ka, q_desc + qb, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
+        const uint32_t qb =
+            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
+        wgmma_ss<T, kBQ>(dpt, v_desc + ka, do_desc + qb, kk > 0);
+      }
+      wgmma_commit();
+      turn_end();
+      // While the products run: this warpgroup's copy of the tile's LSE in
+      // base 2.
+      const int o = r.stat_ofs(s);
+      for (int c = t; c < kBQ; c += 128) {
+        sh.sL2[(cw * kStages + s) * kBQ + c] =
+            lse_base2(sh.sL[s * C::kStatStride + o + c], rb + c < r.rows());
+      }
+      named_barrier(3 + cw, 128);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool full_tile =
+          rb + kBQ <= r.rows() && wkey0 + 64 <= r.keys() &&
+          in_window(wkey0, rb + kBQ - 1 + r.off(), p.left, -1) &&
+          in_window(wkey0 + 63, rb + r.off(), -1, p.right);
+      if (full_tile) {
+        p_ds_step(Bool<false>(), s, rb, o);
+      } else {
+        p_ds_step(Bool<true>(), s, rb, o);
+      }
+      pack_a<T, kBQ>(st, pa);
+      pack_a<T, kBQ>(dpt, da);
+
+      // dV += P^T dO and dK += dS^T Q (dS already carries the scale).
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
+        wgmma_rs<T, D>(dv, pa[kk], don_desc + step, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
+        wgmma_rs<T, D>(dk, da[kk], qn_desc + step, 1);
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sh.empty + s);
+      if (tid == 0 && it >= 1 && it - 1 + kStages < r.n_iter()) {
+        load_q(it - 1 + kStages);
+      }
+    }
+  }
+}
+
+// Kernel 2's block for dkv_range_walk: its tile range, the lengths read
+// from its parameters where they are used, and the stages' row offsets.
+struct DenseDkvRange {
+  const Params& p;
+  volatile int* sofs;
+  int lo, n, n_it, off_;
+  __device__ __forceinline__ int qt_lo() const { return lo; }
+  __device__ __forceinline__ int n_qt() const { return n; }
+  __device__ __forceinline__ int n_iter() const { return n_it; }
+  __device__ __forceinline__ int rows() const { return p.sq; }
+  __device__ __forceinline__ int keys() const { return p.sk; }
+  __device__ __forceinline__ int off() const { return off_; }
+  __device__ __forceinline__ int stat_ofs(int s) const { return sofs[s]; }
+};
+
 // Kernel 3's block for dq_range_walk: its tile range, and the lengths read
 // from its parameters where they are used.
 struct DenseRange {
@@ -716,12 +911,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sQ = sV + C::kKVBytes;  // [kStages] tiles
   unsigned char* sdO = sQ + kStages * C::kQBytes;
   float* sL = reinterpret_cast<float*>(sdO + kStages * C::kQBytes);
-  float* sD = sL + kStages * kBQ;
-  float* sL2 = sD + kStages * kBQ;  // [kWarpgroups][kStages][kBQ]
+  float* sD = sL + kStages * C::kStatStride;
+  float* sL2 = sD + kStages * C::kStatStride;  // [kWarpgroups][kStages][kBQ]
   uint64_t* kv_full =
       reinterpret_cast<uint64_t*>(sL2 + kWarpgroups * kStages * kBQ);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
+  volatile int* sofs = reinterpret_cast<int*>(empty + kStages);  // [kStages]
 
   const int g = blockIdx.y;
   const int b = blockIdx.z;
@@ -757,8 +953,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = it % kStages;
     const int head = g * p.group + it / n_qt;
     const int rb = (qt_lo + it % n_qt) * kBQ;
+    const int li = (b * p.h + head) * p.sq + rb;
     mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
-    mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * C::kStatBytes);
+    sofs[s] = li & 3;
+    mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * 4 * C::kStatBox);
 #pragma unroll
     for (int cb = 0; cb < kBlocksD; ++cb) {
       tma_load_4d(sQ + s * C::kQBytes + cb * kBQ * 128, &tq, full + s, cb * 64,
@@ -766,9 +964,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_load_4d(sdO + s * C::kQBytes + cb * kBQ * 128, &tdo, full + s,
                   cb * 64, rb, head, b);
     }
-    const int li = (b * p.h + head) * p.sq + rb;
-    tma_load_1d(sL + s * kBQ, &tlse, full + s, li);
-    tma_load_1d(sD + s * kBQ, &tdelta, full + s, li);
+    tma_load_1d(sL + s * C::kStatStride, &tlse, full + s, li & ~3);
+    tma_load_1d(sD + s * C::kStatStride, &tdelta, full + s, li & ~3);
   };
   if (tid == 0 && n_iter > 0) {
     mbar_expect_tx(kv_full, 2 * C::kKVBytes);
@@ -797,125 +994,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
 
-  if (n_iter > 0) {
-    // Descriptors: this warpgroup's K and V rows (A); Q and dO K-major (B
-    // of S^T and dP^T) and N-major (B of dK and dV).
-    const uint64_t k_desc = make_desc(sK + cw * 64 * 128, 16, 1024);
-    const uint64_t v_desc = make_desc(sV + cw * 64 * 128, 16, 1024);
-    const uint64_t q_desc = make_desc(sQ, 16, 1024);
-    const uint64_t do_desc = make_desc(sdO, 16, 1024);
-    const uint64_t qn_desc = make_desc(sQ, kBQ * 128, 1024);
-    const uint64_t don_desc = make_desc(sdO, kBQ * 128, 1024);
-    float st[kBQ / 2];   // S^T, then P^T
-    float dpt[kBQ / 2];  // dP^T, then dS^T
-    uint32_t pa[kBQ / 16][4];
-    uint32_t da[kBQ / 16][4];
-
-    // P^T and dS^T of step s's tile (query rows rb..) in place.
-    auto p_ds_step = [&](auto masked, int s, int rb) {
-      const float* lse2 = sL2 + (cw * kStages + s) * kBQ;
-      const float* dlt = sD + s * kBQ;
-#pragma unroll
-      for (int x = 0; x < kBQ / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
-        const int r = rb + c;
-        float dmul;
-        float pr = prob<kSoftcap>(p, st[x], lse2[c], dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!(key[i] < p.sk && in_window(key[i], r + off, p.left, p.right))) {
-            pr = 0.f;
-          }
-        }
-        st[x] = pr;
-        dpt[x] = pr * (dpt[x] - dlt[c]) * dmul;
-      }
-    };
-
-    // The two warpgroups take turns to issue their wgmma (named barriers 1
-    // and 2 in a ring): one's products run while the other forms P^T and
-    // dS^T.
-    auto turn_begin = [&] { named_barrier(1 + cw, 256); };
-    auto turn_end = [&] { named_arrive(1 + (cw ^ 1), 256); };
-    mbar_wait(kv_full, 0);
-    if (cw == 1) named_arrive(1, 256);
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % kStages;
-      const int rb = (qt_lo + it % n_qt) * kBQ;
-      turn_begin();
-      mbar_wait(full + s, (it / kStages) & 1);
-      fence_regs(st);
-      fence_regs(dpt);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t qb =
-            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kBQ>(st, k_desc + ka, q_desc + qb, kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t ka = ((kk >> 2) * kBlockRows * 128 + (kk & 3) * 32) >> 4;
-        const uint32_t qb =
-            (s * C::kQBytes + (kk >> 2) * kBQ * 128 + (kk & 3) * 32) >> 4;
-        wgmma_ss<T, kBQ>(dpt, v_desc + ka, do_desc + qb, kk > 0);
-      }
-      wgmma_commit();
-      turn_end();
-      // While the products run: this warpgroup's copy of the tile's LSE in
-      // base 2 (+inf past sq or for rows that see nothing), so that each
-      // score takes one FFMA before its exponential.
-      for (int c = t; c < kBQ; c += 128) {
-        sL2[(cw * kStages + s) * kBQ + c] =
-            lse_base2(sL[s * kBQ + c], rb + c < p.sq);
-      }
-      named_barrier(3 + cw, 128);
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-
-      const bool full_tile =
-          rb + kBQ <= p.sq && wkey0 + 64 <= p.sk &&
-          in_window(wkey0, rb + kBQ - 1 + off, p.left, -1) &&
-          in_window(wkey0 + 63, rb + off, -1, p.right);
-      if (full_tile) {
-        p_ds_step(Bool<false>(), s, rb);
-      } else {
-        p_ds_step(Bool<true>(), s, rb);
-      }
-      pack_a<T, kBQ>(st, pa);
-      pack_a<T, kBQ>(dpt, da);
-
-      // dV += P^T dO and dK += dS^T Q (dS already carries the scale).
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_regs(pa);
-      fence_regs(da);
-      turn_begin();
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk) {
-        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
-        wgmma_rs<T, D>(dv, pa[kk], don_desc + step, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk) {
-        const uint32_t step = (s * C::kQBytes + kk * 16 * 128) >> 4;
-        wgmma_rs<T, D>(dk, da[kk], qn_desc + step, 1);
-      }
-      wgmma_commit();
-      turn_end();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + s);
-      if (tid == 0 && it >= 1 && it - 1 + kStages < n_iter) {
-        load_q(it - 1 + kStages);
-      }
-    }
-  }
+  dkv_range_walk<T, D, kSoftcap, C>(
+      p, DenseDkvRange{p, sofs, qt_lo, n_qt, n_iter, off}, load_q,
+      DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty}, tid, t,
+      lane, tig, cw, wkey0, key, dk, dv);
 
   store_rows<T, D>(static_cast<T*>(p.dk) + b * p.dk_b + g * p.dk_h, p.dk_s,
                    key, p.sk, tig, dk);

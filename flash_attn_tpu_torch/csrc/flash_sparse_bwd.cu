@@ -115,8 +115,8 @@ extern "C" int flash_sparse_bwd_dkv(
   if (stats > 0x7fffffffll ||  // TMA coordinates are 32-bit
       make_maps(maps, q, k, v, dout, strides, is_fp16, batch, h, hk, sq, sk,
                 d, f::kTile, fa::bwd90::kBlockRows) ||
-      fa::sm90::make_map_1d(maps + 4, lse, stats, f::kTile) ||
-      fa::sm90::make_map_1d(maps + 5, delta, stats, f::kTile)) {
+      fa::sm90::make_map_1d(maps + 4, lse, stats, f::kTile + 4) ||
+      fa::sm90::make_map_1d(maps + 5, delta, stats, f::kTile + 4)) {
     return -2;
   }
   f::Params p = make_params(seqlens_q, seqlens_k, alibi, alibi_b, h, hk, sq,

@@ -47,7 +47,10 @@
 //    block walks the ascending merge of the two lists and loads one Q, dO,
 //    LSE and delta tile of 64 rows per merged entry. The warpgroups do not
 //    take turns to issue their products as kernel 2's do (the turns made
-//    this kernel 1.22x slower).
+//    this kernel 1.22x slower). Kernel 10's dK/dV
+//    (csrc/block_sparse_bwd_sm90.cuh) runs this consumer's steps on its own
+//    lists; sharing the code moved this kernel's registers (-1 and -2 in
+//    four of its sixteen instances), so it keeps its own.
 // Thread 0 merges the two lists with two pointers. The merge's state lives
 // in shared memory, so that it holds none of the consumers' registers, and
 // each list's next entry and word are copied there by cp.async when the one
@@ -166,12 +169,18 @@ struct DkvCfg {
   static constexpr int kKVBytes = kBlockRows * D * 2;  // the K or V tile
   static constexpr int kQBytes = kTile * D * 2;        // one Q or dO tile
   static constexpr int kStatBytes = kTile * 4;         // one LSE or delta tile
-  // Per stage: Q, dO, LSE, delta, and each warpgroup's copy of the LSE in
-  // base 2.
+  // LSE and delta tiles from a 16-byte aligned start, as kernel 2's
+  // (csrc/flash_bwd_sm90.cuh DkvCfg): kStatBox values from up to 3 rows
+  // before the tile's first row, in a slot of kStatStride.
+  static constexpr int kStatBox = kTile + 4;
+  static constexpr int kStatStride = kTile + 32;
+  // Per stage: Q, dO, LSE, delta, each warpgroup's copy of the LSE in base
+  // 2, and the rows' offset.
   static constexpr size_t kSmem =
       1024 + 2 * kKVBytes +
-      kStages * (2 * kQBytes + (2 + kWarpgroups) * kStatBytes) +
-      8 * (1 + 2 * kStages) + kStages * sizeof(Step) + sizeof(Merge);
+      kStages * (2 * kQBytes + 2 * 4 * kStatStride + kWarpgroups * kStatBytes) +
+      8 * (1 + 2 * kStages) + kStages * sizeof(Step) + sizeof(Merge) +
+      4 * kStages;
 };
 
 struct Params {
@@ -458,14 +467,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* sQ = sV + C::kKVBytes;  // [kStages] tiles
   unsigned char* sdO = sQ + kStages * C::kQBytes;
   float* sL = reinterpret_cast<float*>(sdO + kStages * C::kQBytes);
-  float* sD = sL + kStages * kTile;
-  float* sL2 = sD + kStages * kTile;  // [kWarpgroups][kStages][kTile]
+  float* sD = sL + kStages * C::kStatStride;
+  float* sL2 = sD + kStages * C::kStatStride;  // [kWarpgroups][kStages][kTile]
   uint64_t* kv_full =
       reinterpret_cast<uint64_t*>(sL2 + kWarpgroups * kStages * kTile);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
   Step* ring = reinterpret_cast<Step*>(empty + kStages);
   Merge* mg = reinterpret_cast<Merge*>(ring + kStages);
+  volatile int* sofs = reinterpret_cast<int*>(mg + 1);  // [kStages]
 
   const int g = blockIdx.x;
   const int b = blockIdx.z;
@@ -523,7 +533,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         st.word[1] = w[1];
         const int head = g * p.group + e / p.nqb;
         const int rb = (e % p.nqb) * kTile;
-        mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * C::kStatBytes);
+        const int li = (b * p.h + head) * p.sq + rb;
+        sofs[s] = li & 3;
+        mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * 4 * C::kStatBox);
 #pragma unroll
         for (int cb = 0; cb < kBlocksD; ++cb) {
           tma_load_4d(sQ + s * C::kQBytes + cb * kTile * 128, &tq, full + s,
@@ -531,9 +543,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load_4d(sdO + s * C::kQBytes + cb * kTile * 128, &tdo, full + s,
                       cb * 64, rb, head, b);
         }
-        const int li = (b * p.h + head) * p.sq + rb;
-        tma_load_1d(sL + s * kTile, &tlse, full + s, li);
-        tma_load_1d(sD + s * kTile, &tdelta, full + s, li);
+        tma_load_1d(sL + s * C::kStatStride, &tlse, full + s, li & ~3);
+        tma_load_1d(sD + s * C::kStatStride, &tdelta, full + s, li & ~3);
       }
       mg->produced = y + 1;
     };
@@ -570,16 +581,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kTile / 16][4];
     uint32_t da[kTile / 16][4];
 
-    // P^T and dS^T of stage s's tile (query rows rb..) in place. Element
-    // e's query row is rb + 2 tig + col(e); `kr`: each of this thread's two
-    // keys less the diagonal of row rb + 2 tig (for ALiBi); `rows`: for
-    // each key, bit j set when row rb + 2 tig + j sees it (the key is on
-    // the word and used and, with causal masking, kr <= j).
+    // P^T and dS^T of stage s's tile (query rows rb.., their delta from
+    // row o of the stage's tile) in place. Element e's query row is rb + 2
+    // tig + col(e); `kr`: each of this thread's two keys less the diagonal
+    // of row rb + 2 tig (for ALiBi); `rows`: for each key, bit j set when
+    // row rb + 2 tig + j sees it (the key is on the word and used and, with
+    // causal masking, kr <= j).
     auto col = [](int e) { return (e >> 2) * 8 + (e & 1); };
-    auto p_ds_step = [&](auto masked, int s, const int (&kr)[2],
+    auto p_ds_step = [&](auto masked, int s, int o, const int (&kr)[2],
                          const unsigned long long (&rows)[2], float slope2) {
       const float* lse2 = sL2 + (cw * kStages + s) * kTile + tig * 2;
-      const float* dlt = sD + s * kTile + tig * 2;
+      const float* dlt = sD + s * C::kStatStride + o + tig * 2;
 #pragma unroll
       for (int e = 0; e < kTile / 2; ++e) {
         const int i = (e >> 1) & 1;
@@ -633,9 +645,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         // While the products run: this warpgroup's copy of the tile's LSE
         // in base 2 (+inf past the used rows or for rows that see nothing).
+        const int o = sofs[s];
         for (int c = t; c < kTile; c += 128) {
           sL2[(cw * kStages + s) * kTile + c] =
-              lse_base2(sL[s * kTile + c], rb + c < ln.rows);
+              lse_base2(sL[s * C::kStatStride + o + c], rb + c < ln.rows);
         }
         named_barrier(3 + cw, 128);
         wgmma_wait<0>();
@@ -655,9 +668,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             w == ~0ull && wkey0 + 64 <= ln.keys &&
             (!p.causal || wkey0 + 63 <= rb + ln.off);
         if (full_tile) {
-          p_ds_step(Bool<false>(), s, kr, rows, slope2);
+          p_ds_step(Bool<false>(), s, o, kr, rows, slope2);
         } else {
-          p_ds_step(Bool<true>(), s, kr, rows, slope2);
+          p_ds_step(Bool<true>(), s, o, kr, rows, slope2);
         }
         pack_a<T, kTile>(st, pa);
         pack_a<T, kTile>(dpt, da);

@@ -1,57 +1,74 @@
-// Packed variable-length flash-attention dQ for Hopper (kernel 8): dq and
-// delta = sum_j P dP for nseq sequences packed along one token axis, from
-// q, dO (total_q, h, d) or (h, total_q, d), k, v (total_k, hk, d) as q,
-// and the forward's log-sum-exp (h, total_q).
+// Packed variable-length flash-attention backward for Hopper (kernels 7 and
+// 8): dk, dv (kernel 7) and dq with delta = sum_j P dP (kernel 8) for nseq
+// sequences packed along one token axis, from q, dO (total_q, h, d) or (h,
+// total_q, d), k, v (total_k, hk, d) as q, and the forward's log-sum-exp
+// (h, total_q).
 //
-// Replaces the TPU kernel flash_attn_tpu/kernels/flash_varlen.py:1005
-// (_varlen_dq_kernel, launched at :1821 by flash_attention_varlen_bwd
-// :1508), restricted to the forward's features (csrc/flash_varlen_fwd_sm90
-// .cuh): scale, bottom-right-aligned causal and sliding window per sequence
-// (off = used_k - used_q), GQA/MQA, softcap, seqused_q/k, thd and hsd
-// layouts, head dim 64 or 128, bf16/fp16.
+// Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:883
+// (_varlen_dkv_kernel, launched at :1739) and :1005 (_varlen_dq_kernel,
+// launched at :1821), both called by flash_attention_varlen_bwd (:1508),
+// restricted to the forward's features (csrc/flash_varlen_fwd_sm90.cuh):
+// scale, bottom-right-aligned causal and sliding window per sequence (off =
+// used_k - used_q), GQA/MQA, softcap, seqused_q/k, thd and hsd layouts, head
+// dim 64 or 128, bf16/fp16.
 //
-// Function, kernel 3's (csrc/flash_bwd_sm90.cuh) per sequence: query row i
-// of sequence b (rows from cu_q[b], rows = min(used_q, length)) sees key j
-// of its keys (from cu_k[b], keys = min(used_k, length)) iff, with diag =
-// i + off, j >= diag - left (left >= 0) and j <= diag + right (right >= 0).
-// P is recomputed from Q, K and the LSE (0 on rows whose LSE is -inf), dP
-// = dO V^T, delta = sum_j P dP in fp32, dS = P (dP - delta) scale [(1 -
-// t^2) with a softcap], dQ = sum dS K. Rows below `rows` are written (zeros
-// for a row that sees no key); the others are not (the wrapper zero-fills
-// dq and delta). delta is read unchanged by kernel 7.
+// Function, kernels 2's and 3's (csrc/flash_bwd_sm90.cuh) per sequence:
+// query row i of sequence b (rows from cu_q[b], rows = min(used_q, length))
+// sees key j of its keys (from cu_k[b], keys = min(used_k, length)) iff,
+// with diag = i + off, j >= diag - left (left >= 0) and j <= diag + right
+// (right >= 0). P is recomputed from Q, K and the LSE (0 on rows whose LSE
+// is -inf), dP = dO V^T, delta = sum_j P dP in fp32, dS = P (dP - delta)
+// scale [(1 - t^2) with a softcap], dQ = sum dS K, dV = sum P^T dO, dK =
+// sum dS^T Q (dK and dV summed over each kv head's group of query heads).
+// Kernel 8 writes the rows below `rows` (zeros for a row that sees no key),
+// kernel 7 the keys below `keys` of every key tile that some row sees; the
+// others are not written (the wrapper zero-fills dq, delta, dk and dv).
+// Kernel 7 reads kernel 8's delta unchanged.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 6 d flops per
-// visible (query head, row, key) triple (S, dP, dQ) against q, dO, k, v,
-// the LSE and the outputs moved once; this kernel does 10 d (S and dP
-// twice). At training lengths it is bound by operations.
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): dK/dV 8 d
+// flops per visible (query head, row, key) triple (S, dP, dV, dK), dQ 6 d
+// (S, dP, dQ), against q, dO, k, v, the LSE (and delta) and the outputs
+// moved once; kernel 8 does 10 d (S and dP twice). At training lengths both
+// are bound by operations.
 //
-// Design: kernel 3's block and walk (dq_range_walk of
-// csrc/flash_bwd_sm90.cuh, both kernels' code) on kernel 6's flat tile
-// schedule.
-//  * Block: two 64-row consumer warpgroups (wgmma m64), 128 query rows,
-//    256 threads; thread 0 issues every TMA copy into a K/V ring of
-//    kStages stages with full and empty mbarriers (no producer warp: see
-//    csrc/flash_bwd_sm90.cuh). Walked tiles are walk_tile(d, softcap) keys.
-//    Pass 1: S = Q K^T and dP = dO V^T from shared memory, delta += P dP.
-//    Pass 2: S and dP again, then dQ += dS K with dS as the register A
-//    operand and K read N-major; S and dP of tile i are issued before dQ
-//    of tile i - 1. A warpgroup whose 64 rows lie past the sequence's end
-//    only takes the stages and releases them.
+// Design: kernels 2's and 3's blocks and walks (dkv_range_walk and
+// dq_range_walk of csrc/flash_bwd_sm90.cuh) on kernel 6's flat tile
+// schedule (csrc/varlen_schedule.cuh), 128 keys or rows a tile.
+//  * Blocks: two 64-row (kernel 8) or 64-key (kernel 7) wgmma warpgroups,
+//    256 threads; thread 0 issues every TMA copy into a ring of kStages
+//    stages with full and empty mbarriers (no producer warp: see
+//    csrc/flash_bwd_sm90.cuh). Walked tiles are walk_tile(d, softcap) keys
+//    (kernel 8) or query rows (kernel 7).
+//  * Kernel 8: pass 1, S = Q K^T and dP = dO V^T from shared memory, delta
+//    += P dP; pass 2, S and dP again, then dQ += dS K with dS as the
+//    register A operand and K read N-major; S and dP of tile i are issued
+//    before dQ of tile i - 1. A warpgroup whose 64 rows lie past the
+//    sequence's end only takes the stages and releases them.
+//  * Kernel 7: K and V of the 128-key tile loaded once; for each query head
+//    of the kv head's group, the query tiles of this sequence that see
+//    these keys, Q, dO, LSE and delta (1-D maps over the contiguous (h,
+//    total_q) rows) through the ring; S^T = K Q^T and dP^T = V dO^T from
+//    shared memory, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+//    register A operands; dK and dV sum the group in fp32. The warpgroups
+//    take turns to issue their products, as kernel 2's do.
 //  * Schedule (csrc/varlen_schedule.cuh, shared with kernel 6): grid.x =
-//    (total_q + nseq * 127) / 128 row tiles per query head, each block
-//    finding its sequence and row tile by a block-wide scan of cu_q /
-//    used_q before the warpgroups split, the sequence's last row tile
-//    first; a block past the last tile exits. No host read.
+//    (total + nseq * 127) / 128 tiles per head (query heads for kernel 8,
+//    kv heads for kernel 7), each block finding its sequence and tile by a
+//    block-wide scan of cu_q / used_q (kernel 8: the sequence's last row
+//    tile first) or cu_k / used_k (kernel 7: its first key tile, the longest
+//    causal walk, first) before the warpgroups split; a block past the last
+//    tile exits. No host read.
 //  * Inputs: Q, dO, K and V by TMA (4-D maps over (d, token, head) through
-//    the callers' strides) at token cu_q[b] + row0 and cu_k[b] + key0.
-//    Rows past a sequence's end are the next sequence's rows and keys past
-//    its used keys are its own or the next one's, not TMA's zeros (those
-//    only cover the tensor's end): rows past `rows` take lse +inf (P = 0),
-//    every tile that holds the sequence's last key takes the mask, and dq
-//    and delta go out by per-row guarded stores (a whole-tile store would
-//    overwrite the neighbour's rows).
-// Deterministic: no atomics; every dq and delta element is summed by one
-// thread in a fixed order and written once.
+//    the callers' strides) at token cu_q[b] + row and cu_k[b] + key. Rows
+//    past a sequence's end are the next sequence's rows and keys past its
+//    used keys are its own or the next one's, not TMA's zeros (those only
+//    cover the tensor's end): rows past `rows` take lse +inf (P = 0), every
+//    tile that holds the sequence's last key or row takes the mask, and the
+//    outputs go out by per-row guarded stores (a whole-tile store would
+//    overwrite the neighbour's rows). A key tile that no row sees (a window,
+//    sk > sq, rows 0) issues nothing and stores nothing.
+// Deterministic: no atomics; every output element is summed by one thread
+// in a fixed order and written once.
 
 #pragma once
 
@@ -62,6 +79,8 @@ namespace fa {
 namespace vbwd90 {
 
 using namespace fa::sm90;
+using fa::bwd90::dkv_range_walk;
+using fa::bwd90::DkvShared;
 using fa::bwd90::dq_range_walk;
 using fa::bwd90::DqShared;
 using fa::bwd90::kBlockRows;
@@ -292,6 +311,227 @@ int launch_softcap(const CUtensorMap* maps, const Params& p, bool softcap,
   return softcap ? launch<T, D, true>(maps[0], maps[1], maps[2], maps[3], p, s)
                  : launch<T, D, false>(maps[0], maps[1], maps[2], maps[3], p,
                                        s);
+}
+
+// Kernel 7's block: its sequence and walk, in shared memory, written by
+// thread 0 and read where used through a volatile pointer (see kernel 8).
+enum DkvSlot { kVQ0, kVK0, kVRows, kVKeys, kVOff, kVQtLo, kVNQt, kVNIter,
+               kDkvSlots };
+
+// Kernel 7's block for dkv_range_walk: its walk and lengths, read from the
+// slots where they are used, but for the key bound and the diagonal offset,
+// which every masked element reads, held in registers. Keys past `keys`
+// are the next sequence's (or the tensor's end) and are masked; they are
+// never stored. Stage s's LSE and delta rows start at row sofs[s] of their
+// tiles.
+struct SeqDkvRange {
+  volatile int* blk;
+  volatile int* sofs;
+  int keys_, off_;
+  __device__ __forceinline__ int qt_lo() const { return blk[kVQtLo]; }
+  __device__ __forceinline__ int n_qt() const { return blk[kVNQt]; }
+  __device__ __forceinline__ int n_iter() const { return blk[kVNIter]; }
+  __device__ __forceinline__ int rows() const { return blk[kVRows]; }
+  __device__ __forceinline__ int keys() const { return keys_; }
+  __device__ __forceinline__ int off() const { return off_; }
+  __device__ __forceinline__ int stat_ofs(int s) const { return sofs[s]; }
+};
+
+// Kernel 2's shared memory, then the schedule's scan and the block's slots
+// (kernel 2's stage row offsets follow them here).
+template <int D, bool kSoftcap>
+struct DkvCfg {
+  using Dkv = fa::bwd90::DkvCfg<D, kSoftcap>;
+  static constexpr int kScanInts = kThreads / 32 + 3;
+  static constexpr size_t kSmem = Dkv::kSmem + 4 * (kScanInts + kDkvSlots);
+};
+
+struct DkvParams {
+  void* dk;  // packed as k: element strides dk_h (head), dk_s (token)
+  void* dv;  // packed as v
+  long long dk_h, dk_s, dv_h, dv_s;
+  long long total_q;  // the LSE and delta rows per head
+  int h, group, nseq;
+  int left, right;  // normalised window; negative = unbounded
+  float scale;
+  // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
+  // with a softcap.
+  float score_mul, cap_log2;
+  const int* cu_q;    // nseq + 1
+  const int* cu_k;    // nseq + 1
+  const int* used_q;  // nseq or null
+  const int* used_k;  // nseq or null
+  // The schedule's trace (csrc/varlen_schedule.cuh; the first key of the
+  // block's tile for its first row), null but in checks.
+  int* trace;
+  long long trace_len;
+};
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    varlen_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tlse,
+                           const __grid_constant__ CUtensorMap tdelta,
+                           const DkvParams p) {
+  using C = typename DkvCfg<D, kSoftcap>::Dkv;
+  constexpr int kStages = C::kStages;
+  constexpr int kBQ = C::kBQ;
+  constexpr int kBlocksD = D / 64;  // 128-byte column blocks of a row
+  extern __shared__ unsigned char smem_vdkv90[];
+  unsigned char* sK =
+      smem_vdkv90 + ((1024 - (smem_u32(smem_vdkv90) & 1023)) & 1023);
+  unsigned char* sV = sK + C::kKVBytes;
+  unsigned char* sQ = sV + C::kKVBytes;  // [kStages] tiles
+  unsigned char* sdO = sQ + kStages * C::kQBytes;
+  float* sL = reinterpret_cast<float*>(sdO + kStages * C::kQBytes);
+  float* sD = sL + kStages * C::kStatStride;
+  float* sL2 = sD + kStages * C::kStatStride;  // [kWarpgroups][kStages][kBQ]
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(sL2 + kWarpgroups * kStages * kBQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  int* scan = reinterpret_cast<int*>(empty + kStages);
+  volatile int* blk = scan + DkvCfg<D, kSoftcap>::kScanInts;
+  volatile int* sofs = blk + kDkvSlots;  // [kStages]
+
+  // The block's sequence and key tile, before the warpgroups split.
+  const int seq = vsched::find_tile<kThreads, kBlockRows>(
+      p.cu_k, p.used_k, p.nseq, blockIdx.x, scan);
+  if (seq < 0) {  // past the last key tile: the whole block leaves
+    if (threadIdx.x == 0) vsched::trace_block(p.trace, p.trace_len, -1, -1);
+    return;
+  }
+  const int key0 = scan[kThreads / 32 + 1] * kBlockRows;
+  const int g = blockIdx.y;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    const int q0 = __ldg(p.cu_q + seq);
+    const int len_q = __ldg(p.cu_q + seq + 1) - q0;
+    const int uq = p.used_q ? __ldg(p.used_q + seq) : len_q;
+    const int rows = max(min(uq, len_q), 0);
+    const int k0 = __ldg(p.cu_k + seq);
+    const int len_k = __ldg(p.cu_k + seq + 1) - k0;
+    const int uk = p.used_k ? __ldg(p.used_k + seq) : len_k;
+    const int keys = max(min(uk, len_k), 0);
+    const int off = uk - uq;
+    // Query rows that see any key of the tile, in tiles of kBQ, for each
+    // query head of the group: step it reads query head g * group + it /
+    // n_qt, rows (qt_lo + it % n_qt) * kBQ..
+    const int key_last = min(key0 + kBlockRows, keys) - 1;
+    const int q_lo = p.right >= 0 ? max(key0 - off - p.right, 0) : 0;
+    const int q_hi =
+        p.left >= 0 ? min(key_last - off + p.left, rows - 1) : rows - 1;
+    const int n_qt = q_hi >= q_lo ? q_hi / kBQ - q_lo / kBQ + 1 : 0;
+    blk[kVQ0] = q0;
+    blk[kVK0] = k0;
+    blk[kVRows] = rows;
+    blk[kVKeys] = keys;
+    blk[kVOff] = off;
+    blk[kVQtLo] = q_lo / kBQ;
+    blk[kVNQt] = n_qt;
+    blk[kVNIter] = n_qt * p.group;
+    vsched::trace_block(p.trace, p.trace_len, seq, key0);
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kWarpgroups);  // lane 0 of each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (blk[kVNIter] == 0) return;  // no row sees these keys
+
+  // The copies, all issued by thread 0: K and V once, then per step a Q,
+  // dO, LSE and delta tile, step it into stage it % kStages once every
+  // warp has released step it - kStages.
+  auto load_q = [&](int it) {
+    const int s = it % kStages;
+    const int n_qt = blk[kVNQt];
+    const int head = g * p.group + it / n_qt;
+    const int r0 = blk[kVQ0] + (blk[kVQtLo] + it % n_qt) * kBQ;
+    const int li = head * static_cast<int>(p.total_q) + r0;
+    mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+    sofs[s] = li & 3;
+    mbar_expect_tx(full + s, 2 * C::kQBytes + 2 * 4 * C::kStatBox);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sQ + s * C::kQBytes + cb * kBQ * 128, &tq, full + s, cb * 64,
+                  r0, head, 0);
+      tma_load_4d(sdO + s * C::kQBytes + cb * kBQ * 128, &tdo, full + s,
+                  cb * 64, r0, head, 0);
+    }
+    tma_load_1d(sL + s * C::kStatStride, &tlse, full + s, li & ~3);
+    tma_load_1d(sD + s * C::kStatStride, &tdelta, full + s, li & ~3);
+  };
+  if (tid == 0) {
+    const int k_at = blk[kVK0] + key0;
+    mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocksD; ++cb) {
+      tma_load_4d(sK + cb * kBlockRows * 128, &tk, kv_full, cb * 64, k_at, g,
+                  0);
+      tma_load_4d(sV + cb * kBlockRows * 128, &tv, kv_full, cb * 64, k_at, g,
+                  0);
+    }
+    const int n_iter = blk[kVNIter];
+    for (int it = 0; it < min(kStages, n_iter); ++it) load_q(it);
+  }
+
+  const int cw = tid >> 7;  // warpgroup: keys 64 cw..
+  const int t = tid & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int wkey0 = key0 + cw * 64;
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = wkey0 + warp * 16 + gid + 8 * i;
+  float dk[D / 2];
+  float dv[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+
+  dkv_range_walk<T, D, kSoftcap, C>(
+      p, SeqDkvRange{blk, sofs, blk[kVKeys], blk[kVOff]}, load_q,
+      DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty}, tid, t,
+      lane, tig, cw, wkey0, key, dk, dv);
+
+  // Per-row guarded stores: keys below `keys` only.
+  const int keys = blk[kVKeys];
+  const long long k0 = blk[kVK0];
+  store_rows<T, D>(static_cast<T*>(p.dk) + g * p.dk_h + k0 * p.dk_s, p.dk_s,
+                   key, keys, tig, dk);
+  store_rows<T, D>(static_cast<T*>(p.dv) + g * p.dv_h + k0 * p.dv_s, p.dv_s,
+                   key, keys, tig, dv);
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch_dkv(const CUtensorMap* maps, const DkvParams& p, long long total_k,
+               int hk, cudaStream_t stream) {
+  const long long tiles = vsched::grid_tiles(total_k, p.nseq, kBlockRows);
+  if (tiles <= 0) return 0;
+  const size_t smem = DkvCfg<D, kSoftcap>::kSmem;
+  if (const int err = set_smem(varlen_dkv_sm90_kernel<T, D, kSoftcap>, smem)) {
+    return err;
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), hk);
+  varlen_dkv_sm90_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv_softcap(const CUtensorMap* maps, const DkvParams& p,
+                       bool softcap, long long total_k, int hk,
+                       cudaStream_t s) {
+  return softcap ? launch_dkv<T, D, true>(maps, p, total_k, hk, s)
+                 : launch_dkv<T, D, false>(maps, p, total_k, hk, s);
 }
 
 }  // namespace vbwd90

@@ -47,9 +47,12 @@ the wrapper takes for CPU tensors:
     the forward's merged lists twice; plain `_blocksparse_dq_ref`): dQ and
     delta = sum_j P dP; inputs its TMA tensor maps cannot take are copied
     first, counted in `flash_attention_blocksparse_bwd_dq.tma_copies`;
-  * `flash_attention_blocksparse_bwd_dkv` (kernel 10; plain
-    `_blocksparse_dkv_ref`): dK/dV over the inverse lists, the GQA group
-    summed in-kernel.
+  * `flash_attention_blocksparse_bwd_dkv` (kernel 10, `csrc/block_sparse_bwd.cu`
+    on wgmma, TMA and mbarriers, `csrc/block_sparse_bwd_sm90.cuh`, each
+    block merging the inverse lists of two 64-key blocks, one query head
+    of the group after another; plain `_blocksparse_dkv_ref`): dK/dV, the
+    GQA group summed in-kernel; inputs its TMA tensor maps cannot take are
+    copied first, counted in `flash_attention_blocksparse_bwd_dkv.tma_copies`.
 
 The plain versions compute dense fp32 attention under the expanded
 keep-mask (`keep_chunks`), a head and a band of rows at a time.
@@ -77,6 +80,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     check_kernel_inputs,
     check_shapes,
     scores,
+    stats_ready,
     strides_arg,
     tma_ready,
 )
@@ -1024,8 +1028,10 @@ def flash_attention_blocksparse_bwd_dkv(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 10: (dk, dv) in k's dtype, each GQA group summed in-kernel.
     CUDA tensors launch block_sparse_bwd_dkv over the inverse lists
-    (counted in `flash_attention_blocksparse_bwd_dkv.launches`); CPU tensors
-    take `_blocksparse_dkv_ref`."""
+    (counted in `flash_attention_blocksparse_bwd_dkv.launches`; inputs its
+    TMA tensor maps cannot take, q, k, v, dO, the LSE or delta, are copied
+    first, counted in `.tma_copies`); CPU tensors take
+    `_blocksparse_dkv_ref`."""
     check_score_mod(score_mod)
     plan = as_plan(block_sparse)
     b, h, sq, d = q.shape
@@ -1035,10 +1041,16 @@ def flash_attention_blocksparse_bwd_dkv(
               softcap=softcap)
     if q.device.type == "cpu":
         return _blocksparse_dkv_ref(q, k, v, do, lse, delta, plan, **kw)
+    owner = flash_attention_blocksparse_bwd_dkv
+    q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     _check_cuda(q, k, v, plan)
     _check_bwd(q, do, dict(lse=lse, delta=delta))
+    lse, delta = stats_ready(lse, owner), stats_ready(delta, owner)
     lists = _call_lists(q, k, v, plan, mask_mod, aux_tensors, aux_scalars,
                         lists)
+    if lists.words.data_ptr() % 16:
+        raise ValueError("the execution lists' words must start on a 16-byte "
+                         "boundary (the kernel's bulk copies)")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_kernels().block_sparse_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -1048,13 +1060,17 @@ def flash_attention_blocksparse_bwd_dkv(
         lists.words.data_ptr(), lists.inv_rows.shape[-1], b, h, k.shape[1],
         sq, k.shape[2], d, _scale(d, softmax_scale), float(softcap),
         int(q.dtype == torch.float16), _stream(q))
+    if rc == -2:
+        raise RuntimeError("block_sparse_bwd_dkv: b * h * sq passes 2^31 or "
+                           "cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"block_sparse_bwd_dkv launch failed: CUDA error {rc}")
-    flash_attention_blocksparse_bwd_dkv.launches += 1
+    owner.launches += 1
     return dk, dv
 
 
 flash_attention_blocksparse_bwd_dkv.launches = 0
+flash_attention_blocksparse_bwd_dkv.tma_copies = 0
 
 
 def flash_attention_blocksparse_bwd(

@@ -24,16 +24,18 @@ that the wrapper takes for CPU tensors:
     `csrc/flash_varlen_bwd_sm90.cuh`; plain `_varlen_dq_ref`), which also
     returns delta = sum_j P dP per row, as the dense dQ kernel does;
     `trace_schedule(..., kernel="dq")` reads its flat tile schedule;
-  * `flash_attention_varlen_bwd_dkv` (flash_varlen_bwd_dkv; plain
-    `_varlen_dkv_ref`), GQA groups summed in-kernel.
+  * `flash_attention_varlen_bwd_dkv` (flash_varlen_bwd_dkv, the Hopper
+    kernel of `csrc/flash_varlen_bwd_sm90.cuh`; plain `_varlen_dkv_ref`),
+    GQA groups summed in-kernel; `trace_schedule(..., kernel="dkv")` reads
+    its flat schedule of key tiles.
 
-The forward's and the dQ kernel's grids come from the shapes alone (the
-packed row count and the sequence count); the dK/dV grid, and the
-forward's on pools whose page size is not a multiple of 8 (the sm80 route,
-`launches_sm80`), are sized by the longest sequence (`max_seqlen_q`/`_k`),
-from the caller, from a `VarlenPlan`, or else from one host read of
-cu_seqlens. Those kernels cover every tile of every sequence whatever that
-size, so a wrong size costs time, never the answer. The TPU worklist (`build_worklist`, page ids
+The three Hopper kernels' grids come from the shapes alone (the packed
+row or key count and the sequence count). Only the forward on pools whose
+page size is not a multiple of 8 (the sm80 route, `launches_sm80`) is sized
+by the longest sequence (`max_seqlen_q`), from the caller, from a
+`VarlenPlan`, or else from one host read of cu_seqlens_q; that kernel
+covers every tile of every sequence whatever that size, so a wrong size
+costs time, never the answer. The TPU worklist (`build_worklist`, page ids
 in its flags) is a Mosaic grid device and is not ported.
 """
 
@@ -55,6 +57,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     _scale,
     check_kernel_inputs,
     flash_attention_fwd_ref,
+    stats_ready,
     tma_ready,
 )
 
@@ -535,16 +538,18 @@ def _fwd_kernel():
 def trace_schedule(trace: Optional[torch.Tensor], kernel: str = "fwd"
                    ) -> None:
     """Makes the later launches of a Hopper kernel with the flat schedule,
-    the forward (kernel 6, `kernel="fwd"`) or the dQ (kernel 8, "dq"),
-    write their schedule into `trace` (int32 on the card, four ints a block
-    at 4 (blockIdx.y grid.x + blockIdx.x): blockIdx.x, blockIdx.y (the
-    head), the block's sequence and first row, the last two -1 for a block
-    past the last row tile; blocks past its end write nothing), or stops it
-    (None). Hold on to `trace` until it is stopped."""
+    the forward (kernel 6, `kernel="fwd"`), the dQ (kernel 8, "dq") or the
+    dK/dV (kernel 7, "dkv"), write their schedule into `trace` (int32 on the
+    card, four ints a block at 4 (blockIdx.y grid.x + blockIdx.x):
+    blockIdx.x, blockIdx.y (the query head, or the kv head for "dkv"), the
+    block's sequence and its tile's first row (key for "dkv"), the last two
+    -1 for a block past the last tile; blocks past its end write nothing),
+    or stops it (None). Hold on to `trace` until it is stopped."""
     from flash_attn_tpu_torch.kernels._build import load_library
 
     lib, name = {"fwd": ("flash_fwd", "flash_varlen_fwd_trace"),
-                 "dq": ("flash_bwd", "flash_varlen_bwd_dq_trace")}[kernel]
+                 "dq": ("flash_bwd", "flash_varlen_bwd_dq_trace"),
+                 "dkv": ("flash_bwd", "flash_varlen_bwd_dkv_trace")}[kernel]
     fn = getattr(load_library(lib), name)
     fn.restype = None
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
@@ -800,46 +805,58 @@ flash_attention_varlen_bwd_dq.tma_copies = 0
 def flash_attention_varlen_bwd_dkv(
     q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, *, seqused_q=None,
     seqused_k=None, softmax_scale=None, causal=False, window_size=(-1, -1),
-    softcap=0.0, layout="thd", max_seqlen_k=None,
+    softcap=0.0, layout="thd",
 ):
     """(dk, dv) in k's layout and dtype, GQA groups summed, from the dQ
     kernel's delta (h, total_q). CUDA tensors launch flash_varlen_bwd_dkv
-    (counted in `flash_attention_varlen_bwd_dkv.launches`); CPU tensors take
-    `_varlen_dkv_ref`."""
+    (counted in `flash_attention_varlen_bwd_dkv.launches`; inputs its TMA
+    tensor maps cannot take, q, k, v, dO, the LSE or delta, are copied
+    first, counted in `.tma_copies`),
+    whose flat schedule of key tiles needs no max_seqlen_k (its C argument
+    is passed as 0); CPU tensors take `_varlen_dkv_ref`."""
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
     if q.device.type == "cpu":
         return _varlen_dkv_ref(q, k, v, do, lse, delta, cu_seqlens_q,
                                cu_seqlens_k, **kw)
+    owner = flash_attention_varlen_bwd_dkv
+    q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     total_q, h, d, hk, ints = _bwd_prepare(
         q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
         layout)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or \
-            not delta.is_contiguous():
+            not delta.is_contiguous() or delta.device != q.device:
         raise ValueError("delta must be contiguous fp32 (h, total_q)")
-    _, max_seqlen_k = resolve_max_seqlens(None, cu_seqlens_k, None,
-                                          max_seqlen_k, None)
+    lse, delta = stats_ready(lse, owner), stats_ready(delta, owner)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     nseq = ints[0].numel() - 1
-    if nseq <= 0:
+    total_k = _thd(k, layout).shape[0]
+    if nseq <= 0 or total_k == 0:
         return dk, dv
     left, right = varlen_window(window_size, causal)
     strides = sum((_packed_strides(x, layout) for x in (q, k, v, do, dk, dv)),
                   [])
+    # k's and v's first entries carry their token counts: the extents of
+    # the kernel's K/V tensor maps.
+    strides[3] = strides[6] = total_k
     rc = _bwd_kernels().flash_varlen_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides_arg(strides), *(_ptr(t) for t in ints), nseq,
-        int(max_seqlen_k), total_q, h, hk, d, _scale(d, softmax_scale), left,
-        right, float(softcap), int(q.dtype == torch.float16), _stream(q))
+        _strides_arg(strides), *(_ptr(t) for t in ints), nseq, 0, total_q, h,
+        hk, d, _scale(d, softmax_scale), left, right, float(softcap),
+        int(q.dtype == torch.float16), _stream(q))
+    if rc == -2:
+        raise RuntimeError("flash_varlen_bwd_dkv: h * total_q passes 2^31 or "
+                           "cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"flash_varlen_bwd_dkv launch failed: CUDA error {rc}")
-    flash_attention_varlen_bwd_dkv.launches += 1
+    owner.launches += 1
     return dk, dv
 
 
 flash_attention_varlen_bwd_dkv.launches = 0
+flash_attention_varlen_bwd_dkv.tma_copies = 0
 
 
 def flash_attention_varlen_bwd(
@@ -854,9 +871,10 @@ def flash_attention_varlen_bwd(
     """Packed varlen backward: (dq, dk, dv) in the inputs' layout. `out` is
     taken for the reference's signature and not read: delta = sum_j P dP
     comes from the dQ kernel, not from rowsum(dO * O)
-    (flash_varlen.py:1586; see csrc/flash_bwd.cu). max_seqlen_q is not
-    read: the dQ kernel's flat schedule needs none."""
-    del out, dropout_seed, block_q, block_kv, max_seqlen_q
+    (flash_varlen.py:1586; see csrc/flash_bwd.cu). max_seqlen_q and
+    max_seqlen_k are not read: the dQ and dK/dV kernels' flat schedules
+    need none."""
+    del out, dropout_seed, block_q, block_kv, max_seqlen_q, max_seqlen_k
     check_unported(qv=qv, alibi_slopes=alibi_slopes,
                    attention_chunk=attention_chunk, dropout_p=dropout_p,
                    attn_bias=attn_bias, bias_grad=bias_grad,
@@ -865,12 +883,8 @@ def flash_attention_varlen_bwd(
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
-    if q.device.type != "cpu":
-        _, max_seqlen_k = resolve_max_seqlens(None, cu_seqlens_k, None,
-                                              max_seqlen_k, None)
     dq, delta = flash_attention_varlen_bwd_dq(
         q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, **kw)
     dk, dv = flash_attention_varlen_bwd_dkv(
-        q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k,
-        max_seqlen_k=max_seqlen_k, **kw)
+        q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, **kw)
     return dq, dk, dv

@@ -148,28 +148,34 @@ def use(tag):
         loader.cache_clear()
 
 
-class _DqGrid:
-    """A kernels library whose flash_varlen_bwd_dq gets `max_q` as its
-    max_seqlen_q argument (the 14th): the wrapper passes 0, which the flat
-    schedule ignores, while a base whose dQ kernel sizes its grid by
-    max_seqlen_q needs the longest sequence there."""
+class _VarlenGrid:
+    """A kernels library whose flash_varlen_bwd_dq gets `max_len` as its
+    max_seqlen_q argument (the 14th) and whose flash_varlen_bwd_dkv gets it
+    as its max_seqlen_k (the 15th): the wrappers pass 0, which the flat
+    schedules ignore, while a base whose dQ or dK/dV kernel sizes its grid
+    by the longest sequence needs it there."""
 
-    def __init__(self, lib, max_q):
-        self.lib, self.max_q = lib, max_q
+    def __init__(self, lib, max_len):
+        self.lib, self.max_len = lib, max_len
 
     def __getattr__(self, name):
         return getattr(self.lib, name)
 
     def flash_varlen_bwd_dq(self, *args):
-        return self.lib.flash_varlen_bwd_dq(*args[:13], self.max_q, *args[14:])
+        return self.lib.flash_varlen_bwd_dq(*args[:13], self.max_len,
+                                            *args[14:])
+
+    def flash_varlen_bwd_dkv(self, *args):
+        return self.lib.flash_varlen_bwd_dkv(*args[:14], self.max_len,
+                                             *args[15:])
 
 
-def varlen_dq(max_q, *args, **kw):
-    """flash_attention_varlen_bwd_dq through _DqGrid."""
+def varlen_call(fn, max_len, *args, **kw):
+    """The varlen backward wrapper `fn` through _VarlenGrid."""
     loader = flash_varlen._bwd_kernels
-    flash_varlen._bwd_kernels = lambda: _DqGrid(loader(), max_q)
+    flash_varlen._bwd_kernels = lambda: _VarlenGrid(loader(), max_len)
     try:
-        return flash_varlen.flash_attention_varlen_bwd_dq(*args, **kw)
+        return fn(*args, **kw)
     finally:
         flash_varlen._bwd_kernels = loader
 
@@ -186,15 +192,18 @@ def varlen_inputs(name, seed):
                         dtype=torch.bfloat16) for _ in range(2))
     cu = chip_smoke._dev_int(chip_smoke._cu_of(lens))
     kw = dict(causal=causal, window_size=window)
-    mq, mk = dict(max_seqlen_q=max(lens)), dict(max_seqlen_k=max(lens))
+    mq, top = dict(max_seqlen_q=max(lens)), max(lens)
+    dq_fn = flash_varlen.flash_attention_varlen_bwd_dq
+    dkv_fn = flash_varlen.flash_attention_varlen_bwd_dkv
     _, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, cu, cu, **kw, **mq)
-    _, delta = varlen_dq(max(lens), q, k, v, do, lse, cu, cu, **kw)
+    _, delta = varlen_call(dq_fn, top, q, k, v, do, lse, cu, cu, **kw)
     return dict(
         varlen_fwd=lambda: flash_varlen.flash_attention_varlen_fwd(
             q, k, v, cu, cu, **kw, **mq),
-        varlen_dkv=lambda: flash_varlen.flash_attention_varlen_bwd_dkv(
-            q, k, v, do, lse, delta, cu, cu, **kw, **mk),
-        varlen_dq=lambda: varlen_dq(max(lens), q, k, v, do, lse, cu, cu, **kw))
+        varlen_dkv=lambda: varlen_call(dkv_fn, top, q, k, v, do, lse, delta,
+                                       cu, cu, **kw),
+        varlen_dq=lambda: varlen_call(dq_fn, top, q, k, v, do, lse, cu, cu,
+                                      **kw))
 
 
 def paged_inputs(name, seed):
