@@ -3030,13 +3030,20 @@ def sparse_compare(name, seed):
     del up
 
     def run(m):
-        """Both forward routes and the backward kernels on metadata m."""
+        """Both forward routes (kernel 12 twice, for equal bits, its TMA
+        copies counted) and the backward kernels on metadata m."""
         plan = plan_sparse(*m, keep_table=bwd, **plans)
         gplan = plan_gather(*m, **plans)
-        got = {}
+        flash_attention_sparse_tiles_fwd.tma_copies = 0
+        tiles, tiles2 = (flash_attention_sparse_tiles_fwd(
+            q, k, v, *m, plan=plan, **kw) for _ in range(2))
+        got = dict(
+            fwd_tiles_bitwise_deterministic=all(
+                torch.equal(x, y) for x, y in zip(tiles, tiles2)),
+            fwd_tiles_tma_copies=flash_attention_sparse_tiles_fwd.tma_copies)
+        del tiles2
         for route, (out, lse) in (
-                ("tiles", flash_attention_sparse_tiles_fwd(
-                    q, k, v, *m, plan=plan, **kw)),
+                ("tiles", tiles),
                 ("gather", flash_attention_sparse_gather_fwd(
                     q, k, v, *m, plan=gplan, **kw))):
             lse_err = (float((lse - ref_lse)[finite].abs().max())
@@ -3081,7 +3088,9 @@ def sparse_compare(name, seed):
         return got, plan, gplan
 
     got, plan, gplan = run(meta)
-    ok = got["tiles"]["ok"] and got["gather"]["ok"]
+    ok = (got["tiles"]["ok"] and got["gather"]["ok"]
+          and got["fwd_tiles_bitwise_deterministic"]
+          and got["fwd_tiles_tma_copies"] == 0)
     if bwd:
         ok = ok and (got["dq_ok"] and got["dkv_ok"]
                      and got["bwd_bitwise_deterministic"]
@@ -3146,6 +3155,11 @@ def sparse_case(name, seed):
     qb, kvb, stats = b * h * sq * d * el, b * hk * sk * d * el, b * h * sq * 4
     result["visible_pairs"] = pairs
     result["visible_share"] = pairs / (b * h * sq * sk)
+    # Kernel 12 computes whole listed 64 x 64 tiles: their 4 d flops per
+    # element at the card's bf16 rate, beside the visible pairs' bound.
+    result["listed_tiles"] = int(plan.counts.sum())
+    result["fwd_listed_bound_ms"] = (result["listed_tiles"] * 64 * 64 * 4 * d
+                                     / BF16_FLOPS_PER_S * 1e3)
     for key, per_d, nbytes in (("fwd", 4, 2 * qb + 2 * kvb + stats),
                                ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
                                ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
@@ -3197,7 +3211,8 @@ def sparse_case(name, seed):
     emit(result)
     emit(fault)
     check(result["ok"], f"sparse_kernels case {name} disagrees with its "
-                        "plain version or is not deterministic")
+                        "plain version, is not deterministic or copied "
+                        "kernel 12's inputs")
     check(fault["ok"], f"sparse_fault: a slash offset moved by one column in "
                        f"case {name} passes the tolerance")
     del t
@@ -3239,11 +3254,13 @@ def sparse_autograd_phase(seed=111, s=8192, heads=MINF_HEADS):
     _zero_sparse_counts()
     dispatch_counts.clear()
     flash_attention_sparse_bwd.tma_copies = 0
+    flash_attention_sparse_tiles_fwd.tma_copies = 0
     out = sparse_attn_func(*leaves, *meta, causal=True)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     launches = _sparse_counts()
     tma_copies = flash_attention_sparse_bwd.tma_copies
+    fwd_copies = flash_attention_sparse_tiles_fwd.tma_copies
     routes = {f"{k_}/{r}": n for (k_, r), n in dispatch_counts.items()}
     route = sparse_route(meta[1].shape[-1], meta[3].shape[-1], sk)
     fwd_name = ("flash_sparse_fwd" if route == "tiles"
@@ -3262,16 +3279,17 @@ def sparse_autograd_phase(seed=111, s=8192, heads=MINF_HEADS):
                   dq=held(grads[0].transpose(1, 2), ref_dq),
                   dk=held(grads[1].transpose(1, 2), ref_dk),
                   dv=held(grads[2].transpose(1, 2), ref_dv))
-    ok = launches == want and all(c["err_over_limit"] <= 1
-                                  for c in checks.values())
+    ok = (launches == want and fwd_copies == 0
+          and all(c["err_over_limit"] <= 1 for c in checks.values()))
     result = dict(phase="sparse_autograd", b=b, h=h, hk=hk, s=sq, d=d,
                   layout="bshd", route=route, launches=launches,
                   launches_expected=want, routes=routes,
-                  bwd_tma_copies=tma_copies, **checks,
+                  fwd_tma_copies=fwd_copies, bwd_tma_copies=tma_copies,
+                  **checks,
                   tolerance=ATTN_TOLERANCE, ok=ok)
     emit(result)
-    check(ok, "sparse_autograd: launches off the count or a gradient outside "
-              "the tolerance")
+    check(ok, "sparse_autograd: launches off the count, a copy of kernel 12's "
+              "inputs, or a gradient outside the tolerance")
     return result
 
 
@@ -3493,10 +3511,10 @@ def sparse_kernel_entries(sparse, logs):
     """Kernels 12-15 for the kernels line: times at the vLLM prefill shape
     (forward) and the prefill-8k case (backward; forward there too),
     launches on the slice's two paths (`sparse_vllm`, `sparse_autograd`),
-    each counted from zero; for the backward's Hopper kernels, their
-    ptxas registers and spills and SASS counts. Fails if one of them never
-    launched there, or if a backward kernel's SASS has no wgmma or TMA
-    load, or has atomics."""
+    each counted from zero; their ptxas registers and spills and SASS
+    counts (kernel 12 also its listed tiles' bound). Fails if one of them
+    never launched there, or if a kernel's SASS lacks wgmma or its loads
+    (TMA; cp.async for kernel 15), or has atomics."""
     cases = sparse["cases"]
     p32, p8 = cases["vllm-prefill-32k"], cases["prefill-8k"]
     runs = sparse["autograd"]
@@ -3534,6 +3552,31 @@ def sparse_kernel_entries(sparse, logs):
                 ms=p8[ms_key], plain_ms=p8["fwd_plain_ms"],
                 bound_ms=p8["fwd_bound_ms"], bound_by=p8["fwd_bound_by"],
                 library_ms=p8["library_fwd_ms"])
+        if route == "tiles":
+            # Kernel 12's Hopper kernel alone: wgmma and TMA loads, no
+            # atomics; LDL and STL are spill loads and stores. Beside the
+            # visible pairs' bound, that of the listed tiles it computes.
+            kernel = "sparse_fwd_sm90_kernel"
+            main = ptxas_of(logs, kernel + "I13__nv_bfloat16Li128ELb0ELb0E")
+            entry.update(
+                design="wgmma+tma, two 64-row warpgroups merging their tile "
+                       "lists, K/V once per merged step, two blocks per SM",
+                ptxas=ptxas_of(logs, kernel), ptxas_main_path=main,
+                sass=sass_counts(_build.library_path("flash_sparse_fwd"),
+                                 ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
+                                  "STL"), kernel),
+                tma_copies=sum(a["fwd_tma_copies"] for a in runs),
+                listed_tiles=at["listed_tiles"],
+                listed_tiles_bound_ms=at["fwd_listed_bound_ms"])
+            entry["prefill_8k"].update(
+                listed_tiles=p8["listed_tiles"],
+                listed_tiles_bound_ms=p8["fwd_listed_bound_ms"])
+            sass = entry["sass"]
+            check(sass is None or (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                                   and sass["ATOM"] == sass["RED"] == 0),
+                  f"{kernel}: no wgmma or TMA loads, or atomics, in its SASS")
+            check(bool(entry["ptxas"]), f"{kernel}: not in the build's ptxas "
+                                        "output")
         if route == "gather":
             # Kernel 15's Hopper kernel alone: wgmma, cp.async gathers
             # (LDGSTS), no atomics; LDL and STL are spill loads and stores.
@@ -4425,7 +4468,7 @@ def main(argv=None):
         if key == "fwd":
             design = dict(
                 design="wgmma+tma",
-                ptxas=ptxas_of(logs, "fwd_sm90_kernel"),
+                ptxas=ptxas_of(logs, "15fwd_sm90_kernel"),
                 sass=sass_counts(_build.library_path("flash_fwd"),
                                  ("HGMMA", "UTMALDG")),
                 tma_copies=tma_copies["fwd"])

@@ -109,7 +109,7 @@ extern "C" int flash_varlen_fwd(
       while ((1 << p.page_shift) < page) ++p.page_shift;
     }
     const int m_blocks = max((max_seqlen_q + kTileM - 1) / kTileM, 1);
-    return dispatch<kPaged>(p, m_blocks, nseq, d, is_fp16, s);
+    return dispatch(p, m_blocks, nseq, d, is_fp16, s);
   }
   // Q over (d, token, head); packed K/V likewise over their npages tokens;
   // pools over (d, slot, head, page) with boxes of one page piece.

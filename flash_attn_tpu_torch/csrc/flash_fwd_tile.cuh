@@ -1,74 +1,53 @@
-// Flash-attention forward tile step of kernel 12 (csrc/flash_sparse_fwd.cu,
-// vertical-slash sparse tile lists) and of the paged route of kernel 6
+// Flash-attention forward tile step of the paged route of kernel 6
 // (csrc/flash_fwd.cu) for pools whose page size is not a multiple of 8,
 // which the Hopper kernel's TMA page boxes do not take: out = softmax(scale
-// * Q K^T [masked]) V and the fp32 log-sum-exp of every query row. Kernel
-// 1 has its own Hopper kernel (csrc/flash_fwd_sm90.cuh), kernel 6 on packed
-// K/V and on other pools too (csrc/flash_varlen_fwd_sm90.cuh), and kernel
-// 15 (csrc/flash_sparse_gather_sm90.cuh).
+// * Q K^T [masked]) V and the fp32 log-sum-exp of every query row. Kernel 6
+// on packed K/V and on other pools has its own Hopper kernel
+// (csrc/flash_varlen_fwd_sm90.cuh).
 //
-// Replaces the TPU kernel flash_attn_tpu/kernels/flash_sparse.py:130
-// (_sparse_fwd_kernel, launched at :453 by flash_attention_sparse_fwd
-// :273), and on that paged route flash_attn_tpu/kernels/flash_varlen.py:542
-// (_varlen_fwd_kernel, launched at :1485 by flash_attention_varlen_fwd
-// :1160), restricted to the features the serving and sparse paths use:
-// scale, bottom-right-aligned causal, sliding window (left, right),
-// GQA/MQA, softcap, seqused_q/k, ALiBi (sparse mode), head dim 64 or 128,
-// bf16/fp16 inputs. The TPU schedule (clamped index maps, folded causal
-// grid, exact tile worklist with page ids in its flags, 128-lane LSE
-// padding, lane-replicated m/l scratch, 128-row sparse super-blocks,
-// 512-wide sparse KV tiles, int8 bitmap rows, DMA semaphores) is not
-// carried over.
+// Replaces, on that paged route, the TPU kernel
+// flash_attn_tpu/kernels/flash_varlen.py:542 (_varlen_fwd_kernel, launched
+// at :1485 by flash_attention_varlen_fwd :1160), restricted to the features
+// the serving path uses: scale, bottom-right-aligned causal, sliding window
+// (left, right), GQA/MQA, softcap, seqused_q/k, head dim 64 or 128,
+// bf16/fp16 inputs. The TPU schedule (clamped index maps, exact tile
+// worklist with page ids in its flags, 128-lane LSE padding,
+// lane-replicated m/l scratch, DMA semaphores) is not carried over.
 //
-// Function. Within one sequence (the batch row of a sparse call;
-// sequence b of a paged call, whose rows start at cu_q[b] and keys lie in
-// the pages of table row b), query row i of head hq sees key column j of
-// kv head hq / (h / hk) iff i < rows, j < keys and, with
+// Function. Within sequence b, whose rows start at cu_q[b] and whose keys
+// lie in the pages of table row b, query row i of head hq sees key column j
+// of kv head hq / (h / hk) iff i < rows, j < keys and, with
 // diag = i + used_k - used_q, j >= diag - left (left >= 0) and
-// j <= diag + right (right >= 0); in the sparse mode also iff j is in the
-// attended set of i's 64-row block (below). Sparse: used_q = seqlens_q[b]
-// (else sq), rows = min(used_q, sq); used_k likewise. Paged: used_q =
-// seqused_q[b] (else the sequence's length), rows = min(used_q, length);
-// keys = used_k. Scores are s * scale, or tanh(s * scale / softcap) *
-// softcap, then minus slope * |j - diag| with ALiBi. Online softmax in fp32
-// (base 2). out = acc / l in q's type; lse = m + ln(l) in fp32, natural
-// log; a row that sees no column gives out 0, lse -inf. Rows past `rows`
-// are not written (the wrappers zero-fill out and set lse to -inf
+// j <= diag + right (right >= 0); used_q = seqused_q[b] (else the
+// sequence's length), rows = min(used_q, length); keys = used_k. Scores
+// are s * scale, or tanh(s * scale / softcap) * softcap. Online softmax in
+// fp32 (base 2). out = acc / l in q's type; lse = m + ln(l) in fp32,
+// natural log; a row that sees no column gives out 0, lse -inf. Rows past
+// `rows` are not written (the wrapper zero-fills out and sets lse to -inf
 // beforehand where such rows exist).
-//
-// Sparse mode (kSparse). The planner (kernels/flash_sparse.py) turns the
-// vertical-slash metadata into, per (batch row, query head, 64-row block),
-// the ascending list of 64-wide key tiles that hold an attended column,
-// with one 64-bit membership word per tile (bit c: column 64 * tile + c is
-// attended); it already drops columns that no row of the block sees (past
-// the keys, or right of the block's last row under causal masking).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 * d flops
 // for every visible (query head, row, column) triple against q, k, v and
-// out moved once, at these shapes bound by operations. kSparse computes
-// whole 64 x 64 tiles of which only the member columns count.
+// out moved once, at these shapes bound by operations.
 //
 // Design (the sm80 step: no wgmma/TMA). One block of 4 warps per
 // (64 query rows, query head, sequence); each warp owns 16 rows, and blocks
-// of the last rows (the longest causal rows) launch first. A paged grid is
+// of the last rows (the longest causal rows) launch first. The grid is
 // sized by the longest sequence; a block past its sequence's rows returns
 // at once, and a grid too short for a sequence loops over its remaining row
 // tiles, so the answer never depends on the max_seqlen it was given. Q stays
 // in registers as mma.sync A fragments. The block walks only the key tiles
-// (64 columns each) that the causal/window range makes visible to its rows,
-// or its listed tiles (kSparse); K and V tiles are copied with 16-byte
-// cp.async, double-buffered, so the next tile loads while this one
-// computes. In paged mode each 64-key tile is gathered page by page through
-// the page table, with pages outside the pool zero-filled; each key row's
-// offsets are computed from the page table into shared memory one tile
-// ahead, so the copy loop is the packed one with the row offset read from
-// shared memory. S = Q K^T and O += P V run on mma.sync.m16n8k16 with fp32
-// accumulation; P is re-packed to 16 bits from the S accumulators in
-// registers. Tiles wholly inside every row's visible range (and, in
-// kSparse, with a full membership word) skip the per-element mask. Inputs
-// are read through their strides, so (b, s, h, d) tensors viewed as (b, h,
-// s, d), thd and hsd packed tensors, and "phd" pools viewed head-major are
-// taken without a copy.
+// (64 columns each) that the causal/window range makes visible to its rows;
+// each 64-key tile is gathered page by page through the page table by
+// 16-byte cp.async, double-buffered, so the next tile loads while this one
+// computes, with pages outside the pool zero-filled; each key row's offsets
+// are computed from the page table into shared memory one tile ahead, so
+// the copy loop reads the row offset from shared memory. S = Q K^T and O +=
+// P V run on mma.sync.m16n8k16 with fp32 accumulation; P is re-packed to 16
+// bits from the S accumulators in registers. Tiles wholly inside every
+// row's visible range skip the per-element mask. Inputs are read through
+// their strides, so thd and hsd packed queries and "phd" pools viewed
+// head-major are taken without a copy.
 
 #pragma once
 
@@ -83,85 +62,61 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileM = kWarps * 16;  // query rows per block
 constexpr int kTileN = 64;           // key columns per shared-memory tile
 
-enum Mode { kPaged = 2, kSparse = 3 };
-
 struct FwdParams {
-  const void* q;  // sparse (b, h, sq, d); paged (total_q, h, d) or (h, total_q, d)
-  const void* k;  // sparse (b, hk, sk, d); paged: a pool
+  const void* q;  // (total_q, h, d) or (h, total_q, d)
+  const void* k;  // a pool
   const void* v;
   void* out;      // as q
-  float* lse;     // sparse (b, h, sq); paged (h, total_q); contiguous
-  // Element strides (batch, head, seq). Paged: q's and out's batch unused,
-  // K/V's (page, head, slot) of the pool.
+  float* lse;     // (h, total_q) contiguous
+  // Element strides (batch, head, seq): q's and out's batch unused, K/V's
+  // (page, head, slot) of the pool.
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
-  long long lse_h;  // lse stride per head: sparse sq, paged total_q
-  int h, group, sq, sk;  // sq, sk: sparse only
+  long long lse_h;  // lse stride per head: total_q
+  int h, group;
+  // Unused: keeps the fields below at the offsets they had beside the
+  // removed sparse mode's fields. ptxas allocates the d-64 instances by
+  // them: 134 and 133 registers here, 128 and 136 without the pad.
+  int pad[2];
   int left, right;  // normalised window; negative = unbounded
   // Score in base 2: x * score_mul, or tanh(x * score_mul) * cap_log2
   // with a softcap (score_mul = scale / softcap, cap_log2 = softcap*log2 e).
   float score_mul, cap_log2;
   bool has_softcap;
-  // Paged: sequence starts (nseq + 1), optional used lengths (nseq).
-  // Sparse: used_q / used_k are the optional per-row seqlens_q / seqlens_k.
+  // Sequence starts (nseq + 1), optional used lengths (nseq).
   const int* cu_q;
   const int* used_q;
-  const int* used_k;  // required in paged mode
-  // Paged: page table (nseq, max_pages) with row stride table_row.
+  const int* used_k;  // required
+  // Page table (nseq, max_pages) with row stride table_row.
   const int* table;
   long long table_row;
   int page, max_pages, npages;
   int page_shift;  // log2(page) for a power-of-two page, else -1
-  // Sparse: lists of `list_len` entries per (b, head, 64-row block), at row
-  // (b * h + head) * nqb + block; counts[row] tiles are used.
-  const int* counts;
-  const int* tiles;
-  const unsigned long long* words;
-  long long list_len;
-  int nqb;
-  // ALiBi (sparse modes): slope of (b, head) at alibi[b * alibi_b + head].
-  const float* alibi;
-  int alibi_b;
 };
 
 // One sequence of the call: element offsets of its first row (head 0) in
-// each tensor, its row and key counts and its diagonal offset.
+// q, out and lse, its row and key counts and its diagonal offset.
 struct Seq {
-  long long q, k, v, o, lse;
+  long long q, o, lse;
   int rows, keys, off;
 };
 
-template <int kMode>
 __device__ __forceinline__ Seq seq_of(const FwdParams& p, int b) {
   Seq s;
-  if constexpr (kMode == kSparse) {
-    s.q = b * p.q_b;
-    s.k = b * p.k_b;
-    s.v = b * p.v_b;
-    s.o = b * p.o_b;
-    s.lse = static_cast<long long>(b) * p.h * p.sq;
-    const int uq = p.used_q ? p.used_q[b] : p.sq;
-    const int uk = p.used_k ? p.used_k[b] : p.sk;
-    s.rows = max(min(uq, p.sq), 0);
-    s.keys = max(min(uk, p.sk), 0);
-    s.off = uk - uq;
-  } else {
-    const int q0 = p.cu_q[b];
-    const int len_q = p.cu_q[b + 1] - q0;
-    const int uq = p.used_q ? p.used_q[b] : len_q;
-    const int uk = p.used_k[b];
-    const int keys = min(uk, p.max_pages * p.page);
-    s.k = s.v = 0;
-    s.q = q0 * p.q_s;
-    s.o = q0 * p.o_s;
-    s.lse = q0;
-    s.rows = max(min(uq, len_q), 0);
-    s.keys = max(keys, 0);
-    s.off = uk - uq;
-  }
+  const int q0 = p.cu_q[b];
+  const int len_q = p.cu_q[b + 1] - q0;
+  const int uq = p.used_q ? p.used_q[b] : len_q;
+  const int uk = p.used_k[b];
+  const int keys = min(uk, p.max_pages * p.page);
+  s.q = q0 * p.q_s;
+  s.o = q0 * p.o_s;
+  s.lse = q0;
+  s.rows = max(min(uq, len_q), 0);
+  s.keys = max(keys, 0);
+  s.off = uk - uq;
   return s;
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
                                          int m_block, int head, int b,
                                          unsigned char* smem_raw) {
@@ -169,8 +124,6 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   constexpr int kKSteps = D / 16;
   constexpr int kNTiles = kTileN / 8;
   constexpr int kOTiles = D / 8;
-  // Key-row offsets come from shared memory (page table).
-  constexpr bool kOfsInSmem = kMode == kPaged;
   T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kTileN][kStride]
   T* sV = sK + 2 * kTileN * kStride;       // [2][kTileN][kStride]
 
@@ -187,28 +140,12 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   const int row_last = min(row0 + kTileM, rows) - 1;
 
   // The walk: n_tiles steps; step x reads key tile tile_lo + x (the tiles
-  // visible to any row of this block) or the x-th listed tile (kSparse).
-  int tile_lo = 0, n_tiles;
-  long long lbase = 0;
-  if constexpr (kMode == kSparse) {
-    const long long lrow =
-        (static_cast<long long>(b) * p.h + head) * p.nqb + m_block;
-    lbase = lrow * p.list_len;
-    n_tiles = p.counts[lrow];
-  } else {
-    const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
-    const int col_hi =
-        p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
-    tile_lo = col_lo / kTileN;
-    n_tiles = col_hi >= col_lo ? col_hi / kTileN - tile_lo + 1 : 0;
-  }
-  auto tile_at = [&](int x) {
-    if constexpr (kMode == kSparse) {
-      return __ldg(p.tiles + lbase + x);
-    } else {
-      return tile_lo + x;
-    }
-  };
+  // visible to any row of this block).
+  const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+  const int col_hi =
+      p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
+  const int tile_lo = col_lo / kTileN;
+  const int n_tiles = col_hi >= col_lo ? col_hi / kTileN - tile_lo + 1 : 0;
 
   // This thread's two rows: gid and gid + 8 of the warp's 16.
   int diag[2];
@@ -222,8 +159,6 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
     qrow[i] = static_cast<const T*>(p.q) + sq_.q + head * p.q_h +
               static_cast<long long>(r) * p.q_s;
   }
-  float slope2 = 0.f;  // ALiBi slope, base 2
-  if constexpr (kAlibi) slope2 = p.alibi[b * p.alibi_b + head] * kLog2e;
 
   uint32_t qf[kKSteps][4];
 #pragma unroll
@@ -243,51 +178,38 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   float m[2] = {kMask, kMask};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  const T* kbase = static_cast<const T*>(p.k) + sq_.k + g * p.k_h;
-  const T* vbase = static_cast<const T*>(p.v) + sq_.v + g * p.v_h;
+  const T* kbase = static_cast<const T*>(p.k) + g * p.k_h;
+  const T* vbase = static_cast<const T*>(p.v) + g * p.v_h;
 
-  // Paged mode: the K and V element offsets of each key row of a tile, from
-  // the page table, computed by one thread per key one tile ahead of the
+  // The K and V element offsets of each key row of a tile, from the page
+  // table, computed by one thread per key one tile ahead of the
   // tile's copies, so the copies neither wait on the table nor redo the
   // page arithmetic per chunk. Kept in shared memory after the K/V stages,
   // [2 slots][K, V][kTileN]; tile tile_lo + j uses slot j & 1; -1 marks a
   // row to zero-fill (past the keys, or a page outside the pool).
   long long* sOfs = reinterpret_cast<long long*>(sV + 2 * kTileN * kStride);
   auto fetch_offsets = [&](int tile, int slot) {
-    if constexpr (kMode == kPaged) {
-      if (tid < kTileN) {
-        const int col = tile * kTileN + tid;
-        const int pidx =
-            p.page_shift >= 0 ? col >> p.page_shift : col / p.page;
-        const int id = col < keys ? __ldg(p.table + b * p.table_row + pidx) : -1;
-        const long long in_page =
-            p.page_shift >= 0 ? col & (p.page - 1) : col % p.page;
-        const bool ok = id >= 0 && id < p.npages;
-        long long* dst = sOfs + slot * 2 * kTileN + tid;
-        dst[0] = ok ? id * p.k_b + in_page * p.k_s : -1;
-        dst[kTileN] = ok ? id * p.v_b + in_page * p.v_s : -1;
-      }
+    if (tid < kTileN) {
+      const int col = tile * kTileN + tid;
+      const int pidx = p.page_shift >= 0 ? col >> p.page_shift : col / p.page;
+      const int id = col < keys ? __ldg(p.table + b * p.table_row + pidx) : -1;
+      const long long in_page =
+          p.page_shift >= 0 ? col & (p.page - 1) : col % p.page;
+      const bool ok = id >= 0 && id < p.npages;
+      long long* dst = sOfs + slot * 2 * kTileN + tid;
+      dst[0] = ok ? id * p.k_b + in_page * p.k_s : -1;
+      dst[kTileN] = ok ? id * p.v_b + in_page * p.v_s : -1;
     }
   };
-  // Copies the 16-byte chunk `ofs` of key row `tok` of `tile` into smem
-  // stage `stage`; rows past the keys, and pages outside the pool, are
-  // zero-filled.
-  auto copy_chunk = [&](int tile, int stage, int slot, int tok, int ofs) {
-    long long kofs, vofs;
-    int bytes;
-    if constexpr (kOfsInSmem) {
-      kofs = sOfs[slot * 2 * kTileN + tok];
-      vofs = sOfs[slot * 2 * kTileN + kTileN + tok];
-      bytes = kofs >= 0 ? 16 : 0;
-      kofs = max(kofs, 0ll);
-      vofs = max(vofs, 0ll);
-    } else {
-      const int col = tile * kTileN + tok;
-      const long long src = max(min(col, keys - 1), 0);
-      bytes = col < keys ? 16 : 0;
-      kofs = src * p.k_s;
-      vofs = src * p.v_s;
-    }
+  // Copies the 16-byte chunk `ofs` of key row `tok` of the tile in offset
+  // slot `slot` into smem stage `stage`; rows past the keys, and pages
+  // outside the pool, are zero-filled.
+  auto copy_chunk = [&](int stage, int slot, int tok, int ofs) {
+    long long kofs = sOfs[slot * 2 * kTileN + tok];
+    long long vofs = sOfs[slot * 2 * kTileN + kTileN + tok];
+    const int bytes = kofs >= 0 ? 16 : 0;
+    kofs = max(kofs, 0ll);
+    vofs = max(vofs, 0ll);
     cp_async_16(sK + (stage * kTileN + tok) * kStride + ofs, kbase + kofs + ofs,
                 bytes);
     cp_async_16(sV + (stage * kTileN + tok) * kStride + ofs, vbase + vofs + ofs,
@@ -298,38 +220,37 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
   // unrolled one holds more addresses live beside the 128-wide
   // accumulators and ran the forward slower.
   constexpr int kChunksPerRow = D / 8;
-  auto load_tile = [&](int tile, int stage, int slot) {
+  auto load_tile = [&](int stage, int slot) {
     if constexpr (D == 128) {
       for (int c = tid; c < kTileN * kChunksPerRow; c += kThreads) {
-        copy_chunk(tile, stage, slot, c / kChunksPerRow,
-                   (c % kChunksPerRow) * 8);
+        copy_chunk(stage, slot, c / kChunksPerRow, (c % kChunksPerRow) * 8);
       }
     } else {
       constexpr int kRowsPerPass = kThreads / kChunksPerRow;
 #pragma unroll
       for (int i = 0; i < kTileN / kRowsPerPass; ++i) {
-        copy_chunk(tile, stage, slot, tid / kChunksPerRow + i * kRowsPerPass,
+        copy_chunk(stage, slot, tid / kChunksPerRow + i * kRowsPerPass,
                    (tid % kChunksPerRow) * 8);
       }
     }
   };
 
   if (n_tiles > 0) {
-    fetch_offsets(tile_at(0), 0);
-    if constexpr (kOfsInSmem) __syncthreads();
-    load_tile(tile_at(0), 0, 0);
-    if (n_tiles > 1) fetch_offsets(tile_at(1), 1);
-    if constexpr (kOfsInSmem) __syncthreads();
+    fetch_offsets(tile_lo, 0);
+    __syncthreads();
+    load_tile(0, 0);
+    if (n_tiles > 1) fetch_offsets(tile_lo + 1, 1);
+    __syncthreads();
   }
   cp_async_commit();
 
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile(tile_at(it + 1), stage ^ 1, (it + 1) & 1);
+      load_tile(stage ^ 1, (it + 1) & 1);
       // Slot it & 1 last served tile it, whose copies every thread issued
       // before the previous iteration's barrier.
-      if (it + 2 < n_tiles) fetch_offsets(tile_at(it + 2), it & 1);
+      if (it + 2 < n_tiles) fetch_offsets(tile_lo + it + 2, it & 1);
     }
     cp_async_commit();
     cp_async_wait_1();
@@ -337,16 +258,11 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
 
     const T* ks_ptr = sK + stage * kTileN * kStride;
     const T* vs_ptr = sV + stage * kTileN * kStride;
-    const int col0 = tile_at(it) * kTileN;
+    const int col0 = (tile_lo + it) * kTileN;
     // Every column of the tile visible to every row of the block?
-    bool full = row0 + kTileM <= rows && col0 + kTileN <= keys &&
-                in_window(col0, row0 + kTileM - 1 + off, p.left, -1) &&
-                in_window(col0 + kTileN - 1, row0 + off, -1, p.right);
-    unsigned long long word = 0;
-    if constexpr (kMode == kSparse) {
-      word = __ldg(p.words + lbase + it);
-      full = full && word == ~0ull;
-    }
+    const bool full = row0 + kTileM <= rows && col0 + kTileN <= keys &&
+                      in_window(col0, row0 + kTileM - 1 + off, p.left, -1) &&
+                      in_window(col0 + kTileN - 1, row0 + off, -1, p.right);
 
     float s[kNTiles][4];
 #pragma unroll
@@ -360,7 +276,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
       }
     }
 
-    // Scale (base 2), softcap, ALiBi, mask; visibility kept as bits.
+    // Scale (base 2), softcap, mask; visibility kept as bits.
     uint32_t vis = 0;
     float tmax[2] = {kMask, kMask};
 #pragma unroll
@@ -372,17 +288,8 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
         const int col = col0 + c;
         float x = s[nt][e];
         x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
-        if constexpr (kAlibi) {
-          x -= slope2 * fabsf(static_cast<float>(col - diag[i]));
-        }
-        bool ok;
-        if constexpr (kMode == kSparse) {
-          ok = full || (((word >> c) & 1ull) && row_ok[i] && col < keys &&
-                        in_window(col, diag[i], p.left, p.right));
-        } else {
-          ok = full || (row_ok[i] && col < keys &&
-                        in_window(col, diag[i], p.left, p.right));
-        }
+        const bool ok = full || (row_ok[i] && col < keys &&
+                                 in_window(col, diag[i], p.left, p.right));
         if (ok) {
           vis |= 1u << (nt * 4 + e);
           tmax[i] = fmaxf(tmax[i], x);
@@ -457,60 +364,50 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p, const Seq& sq_,
 }
 
 // The second bound, the blocks per SM asked of ptxas, is 0: its own choice.
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 0)
     flash_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int head = blockIdx.y;
   const int b = blockIdx.z;
-  const Seq s = seq_of<kMode>(p, b);
+  const Seq s = seq_of(p, b);
   const int n_m = (s.rows + kTileM - 1) / kTileM;
   for (int mb = blockIdx.x; mb < n_m; mb += gridDim.x) {
-    fwd_tile<T, D, kSoftcap, kMode, kAlibi>(p, s, n_m - 1 - mb, head, b,
-                                            smem_raw);
+    fwd_tile<T, D, kSoftcap>(p, s, n_m - 1 - mb, head, b, smem_raw);
   }
 }
 
-template <typename T, int D, bool kSoftcap, int kMode, bool kAlibi>
+template <typename T, int D, bool kSoftcap>
 int launch_kernel(const FwdParams& p, int m_blocks, int batch,
                   cudaStream_t stream) {
   const size_t smem = 2 * 2 * kTileN * (D + 8) * sizeof(T) +
-                      (kMode == kPaged ? 4 * kTileN * sizeof(long long) : 0);
+                      4 * kTileN * sizeof(long long);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kSoftcap, kMode, kAlibi>,
+      flash_fwd_kernel<T, D, kSoftcap>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(m_blocks, p.h, batch);
-  flash_fwd_kernel<T, D, kSoftcap, kMode, kAlibi>
-      <<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The softcap, and in the sparse mode ALiBi, are template parameters, so a
-// kernel without one carries no tanh (or bias) in its score loop.
-template <typename T, int D, int kMode>
+// The softcap is a template parameter, so a kernel without one carries no
+// tanh in its score loop.
+template <typename T, int D>
 int launch(const FwdParams& p, int m_blocks, int batch, cudaStream_t stream) {
-  if constexpr (kMode == kSparse) {
-    if (p.alibi) {
-      return p.has_softcap
-                 ? launch_kernel<T, D, true, kMode, true>(p, m_blocks, batch, stream)
-                 : launch_kernel<T, D, false, kMode, true>(p, m_blocks, batch, stream);
-    }
-  }
   return p.has_softcap
-             ? launch_kernel<T, D, true, kMode, false>(p, m_blocks, batch, stream)
-             : launch_kernel<T, D, false, kMode, false>(p, m_blocks, batch, stream);
+             ? launch_kernel<T, D, true>(p, m_blocks, batch, stream)
+             : launch_kernel<T, D, false>(p, m_blocks, batch, stream);
 }
 
-template <int kMode>
 int dispatch(const FwdParams& p, int m_blocks, int batch, int d, int is_fp16,
              cudaStream_t s) {
   if (is_fp16) {
-    if (d == 64) return launch<__half, 64, kMode>(p, m_blocks, batch, s);
-    if (d == 128) return launch<__half, 128, kMode>(p, m_blocks, batch, s);
+    if (d == 64) return launch<__half, 64>(p, m_blocks, batch, s);
+    if (d == 128) return launch<__half, 128>(p, m_blocks, batch, s);
   } else {
-    if (d == 64) return launch<__nv_bfloat16, 64, kMode>(p, m_blocks, batch, s);
-    if (d == 128) return launch<__nv_bfloat16, 128, kMode>(p, m_blocks, batch, s);
+    if (d == 64) return launch<__nv_bfloat16, 64>(p, m_blocks, batch, s);
+    if (d == 128) return launch<__nv_bfloat16, 128>(p, m_blocks, batch, s);
   }
   return -1;
 }

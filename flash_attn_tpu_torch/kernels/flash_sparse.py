@@ -27,7 +27,8 @@ block can see. Kernels, each with a `.launches` count and a plain PyTorch
 version that the wrapper takes for CPU tensors:
 
   * `flash_attention_sparse_tiles_fwd` (kernel 12, `csrc/flash_sparse_fwd.cu`
-    over `csrc/flash_fwd_tile.cuh`): walks the tile lists;
+    over the Hopper kernel of `csrc/flash_sparse_fwd_sm90.cuh`): walks the
+    tile lists, each block merging the lists of two 64-row blocks;
   * `flash_attention_sparse_gather_fwd` (kernel 15, in
     `kernels/flash_sparse_gather.py`): the same function over compact
     column lists;
@@ -40,7 +41,9 @@ version that the wrapper takes for CPU tensors:
 Each backward block merges the lists of two neighbouring 64-row blocks (dQ)
 or 64-key tiles (dK/dV); `sparse_bwd_walks` is a plain mirror of those
 walks. A q, k, v or dout that the kernels' TMA tensor maps cannot take as
-it is is copied first, counted in `flash_attention_sparse_bwd.tma_copies`.
+it is is copied first, counted in the `tma_copies` of
+`flash_attention_sparse_tiles_fwd` (kernel 12) or of
+`flash_attention_sparse_bwd` (kernels 13-14).
 
 The plain versions build the dense membership mask from the metadata
 itself (not from the planner), a few query blocks at a time, so they run at
@@ -573,9 +576,20 @@ def launch_fwd(q, k, v, lens_q, lens_k, slopes, alibi_b, counts, tiles,
         _ptr(lens_k), _ptr(slopes), alibi_b, b, h, hk, sq, sk, d,
         _scale(d, softmax_scale), int(causal), float(softcap),
         int(q.dtype == torch.float16), _stream(q))
+    if rc == -2:
+        raise RuntimeError("flash_sparse_fwd: cuTensorMapEncodeTiled refused "
+                           "a tensor map")
     if rc != 0:
         raise RuntimeError(f"flash_sparse_fwd launch failed: CUDA error {rc}")
     return out, lse
+
+
+def tiles_ready(q, k, v):
+    """q, k, v as kernel 12's TMA tensor maps take them: each itself, or a
+    contiguous copy (`tma_ready`), counted in
+    `flash_attention_sparse_tiles_fwd.tma_copies`."""
+    return tuple(tma_ready(x, flash_attention_sparse_tiles_fwd)
+                 for x in (q, k, v))
 
 
 def flash_attention_sparse_tiles_fwd(
@@ -586,14 +600,15 @@ def flash_attention_sparse_tiles_fwd(
     """Kernel 12: the sparse forward over the planner's key-tile lists.
     Returns (out (b, h, sq, d) in q's dtype, lse (b, h, sq) fp32). CUDA
     tensors launch csrc/flash_sparse_fwd.cu (counted in
-    `flash_attention_sparse_tiles_fwd.launches`), with `plan` when given;
-    CPU tensors take `flash_attention_sparse_fwd_ref`."""
+    `flash_attention_sparse_tiles_fwd.launches`), with `plan` when given,
+    after `tiles_ready`; CPU tensors take `flash_attention_sparse_fwd_ref`."""
     meta = (block_count, block_offset, column_count, column_index)
     kw = dict(softmax_scale=softmax_scale, causal=causal, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_sparse_fwd_ref(
             q, k, v, *meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
             seqlens_k=seqlens_k, **kw)
+    q, k, v = tiles_ready(q, k, v)
     lens_q, lens_k, slopes, alibi_b = kernel_args(
         q, k, v, meta, alibi_slopes=alibi_slopes, seqlens_q=seqlens_q,
         seqlens_k=seqlens_k)
@@ -601,6 +616,8 @@ def flash_attention_sparse_tiles_fwd(
         plan = plan_sparse(*meta, seqlen_q=q.shape[2], seqlen_k=k.shape[2],
                            causal=causal,
                            seqlens_q=lens_q, seqlens_k=lens_k)
+    if plan.words.data_ptr() % 16:
+        raise ValueError("the plan's words must start on a 16-byte boundary")
     res = launch_fwd(q, k, v, lens_q, lens_k, slopes, alibi_b, plan.counts,
                      plan.tiles, plan.words, None, **kw)
     flash_attention_sparse_tiles_fwd.launches += 1
@@ -608,6 +625,7 @@ def flash_attention_sparse_tiles_fwd(
 
 
 flash_attention_sparse_tiles_fwd.launches = 0
+flash_attention_sparse_tiles_fwd.tma_copies = 0
 
 
 def sparse_route(nnz_s: int, nnz_v: int, seqlen_k: int) -> str:

@@ -20,7 +20,7 @@ Mistral paged prefill at page 16 ("mistral-paged-prefill-page16", kernel
 and "softcap30-fp16-d64" block-sparse cases (9-11, over this checkout's
 execution lists), its "prefill-8k" sparse case (12-15), its
 "tinyllama-d64-noncausal" one (12-15 at d 64, non-causal) and the vLLM
-prefill at 32768 tokens ("vllm-prefill-32k", kernel 15 alone), the
+prefill at 32768 tokens ("vllm-prefill-32k", kernels 12 and 15), the
 builds in turns (base, tree, tree,
 base per round), each time the median of 20 CUDA-event times; each case
 takes all its rounds before the next one starts. Every turn also runs each
@@ -217,8 +217,8 @@ def paged_inputs(name, seed):
 def sparse_inputs(name, seed):
     """chip_smoke.SPARSE_CASES' `name` on its seeded metadata: kernels 12
     and 15 (each over its planner's lists, planners outside the timing),
-    14 and 13; a forward-only case (the vLLM prefill) times kernel 15
-    alone."""
+    14 and 13; a forward-only case (the vLLM prefill) times kernels 12 and
+    15 alone."""
     b, h, hk, sq, sk, d, causal, dtype = chip_smoke.SPARSE_CASES[name][:8]
     bwd = chip_smoke.SPARSE_CASES[name][-1]
     dev = torch.device("cuda")
@@ -231,8 +231,12 @@ def sparse_inputs(name, seed):
                                   seed)
     plans = dict(seqlen_q=sq, seqlen_k=sk, causal=causal)
     if not bwd:
+        plan = flash_sparse.plan_sparse(*meta, **plans)
         gplan = flash_sparse_gather.plan_gather(*meta, **plans)
         return dict(
+            sparse_tiles_fwd=lambda: (
+                flash_sparse.flash_attention_sparse_tiles_fwd(
+                    q, k, v, *meta, plan=plan, causal=causal)),
             sparse_gather_fwd=lambda: (
                 flash_sparse_gather.flash_attention_sparse_gather_fwd(
                     q, k, v, *meta, plan=gplan, causal=causal)))
