@@ -23,6 +23,13 @@
 // 4 * sq * ctx * h * d, and is bound by the larger of its bytes at
 // 3.35 TB/s and those flops at 989 TFLOP/s.
 //
+// A 1-byte pool (int8 or e4m3, decode_tile.cuh) is read at half the bytes
+// and upcast to q's type fragment by fragment; its per-kv-head (or per
+// batch row and kv head) K descale folds into the score multiplier and its
+// V descale into the output scale, as the TPU kernel does
+// (flash_decode_multipage.py:268 and :315-316); a split multiplies its own
+// partial, the combine nothing. Bound: hk * (d + dv) bytes per token.
+//
 // Design. One block of 4 warps per (64 packed rows, kv head, batch row);
 // each warp owns 16 rows. Q stays in registers as mma.sync A fragments.
 // The block walks the visible KV range of its rows (from the window's first
@@ -87,18 +94,21 @@ struct Params {
   float score_mul, cap_log2;
   bool has_softcap;
   int window_left;
+  Descales ds;  // a 1-byte pool's (read only by the 1-byte instances)
 };
 
-template <typename T, int D>
+template <typename T, int D, typename KV>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
+  // padded smem row: conflict-free fragments
+  constexpr int kStride = row_stride<D>(sizeof(KV));
   constexpr int kKSteps = D / 16;
   constexpr int kOTiles = D / 8;
   constexpr int kNTiles = kTileN / 8;
+  constexpr bool kQuant = sizeof(KV) == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);  // [2][kTileN][kStride]
-  T* sV = sK + 2 * kTileN * kStride;       // [2][kTileN][kStride]
+  KV* sK = reinterpret_cast<KV*>(smem_raw);  // [2][kTileN][kStride]
+  KV* sV = sK + 2 * kTileN * kStride;        // [2][kTileN][kStride]
 
   const int g = blockIdx.y;
   const int b = blockIdx.z;
@@ -152,6 +162,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   float m[2] = {kMask, kMask};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
+  const Fold<kQuant> fold(p.ds, p.score_mul, b, g);  // a 1-byte pool's
 
   auto page_of = [&](int pidx) {
     return __ldg(p.pool.table + static_cast<long long>(b) * p.pool.max_pages +
@@ -160,16 +171,19 @@ __global__ void __launch_bounds__(kThreads)
   walk_kv<T, D>(
       p.pool, g, page_of, seqlen, p.k, p.v, sK, sV, n_tiles,
       [&](int it) { return tile_lo + it; }, warp_active,
-      [&](const T* ks_ptr, const T* vs_ptr, int col0) {
+      [&](const auto* ks_ptr, const auto* vs_ptr, int col0) {
+        // The tile's elements: KV, or T upcast from a 1-byte pool.
+        using E = std::remove_cv_t<std::remove_pointer_t<decltype(ks_ptr)>>;
+        constexpr int kTS = row_stride<D>(sizeof(E));
         float s[kNTiles][4];
 #pragma unroll
         for (int nt = 0; nt < kNTiles; ++nt) {
           s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-          const T* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
+          const E* krow = ks_ptr + (nt * 8 + gid) * kTS + tig * 2;
 #pragma unroll
           for (int ks = 0; ks < kKSteps; ++ks) {
-            const uint32_t b0 = ld_u32(krow + ks * 16);
-            const uint32_t b1 = ld_u32(krow + ks * 16 + 8);
+            const uint32_t b0 = Frag<T, E>::k2(krow + ks * 16);
+            const uint32_t b1 = Frag<T, E>::k2(krow + ks * 16 + 8);
             Mma<T>::run(s[nt], qf[ks], b0, b1);
           }
         }
@@ -184,8 +198,8 @@ __global__ void __launch_bounds__(kThreads)
             const int i = e >> 1;
             const int col = col0 + nt * 8 + tig * 2 + (e & 1);
             float x = s[nt][e];
-            x = p.has_softcap ? tanhf(x * p.score_mul) * p.cap_log2
-                              : x * p.score_mul;
+            x = p.has_softcap ? tanhf(x * fold.mul(p.score_mul)) * p.cap_log2
+                              : x * fold.mul(p.score_mul);
             const bool ok = col < seqlen && col <= pos[i] &&
                             (p.window_left < 0 || col >= pos[i] - p.window_left);
             if (ok) {
@@ -230,12 +244,13 @@ __global__ void __launch_bounds__(kThreads)
           a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
           a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
           a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          const T* vrow = vs_ptr + (kk * 16 + tig * 2) * kStride + gid;
+          const E* vrow = vs_ptr + (kk * 16 + tig * 2) * kTS + gid;
 #pragma unroll
           for (int nt = 0; nt < kOTiles; ++nt) {
-            const T* vc = vrow + nt * 8;
-            const uint32_t b0 = pack_u16(vc, vc + kStride);
-            const uint32_t b1 = pack_u16(vc + 8 * kStride, vc + 9 * kStride);
+            const E* vc = vrow + nt * 8;
+            const uint32_t b0 = Frag<T, E>::v2(vc, vc + kTS);
+            const uint32_t b1 =
+                Frag<T, E>::v2(vc + 8 * kTS, vc + 9 * kTS);
             Mma<T>::run(o[nt], a, b0, b1);
           }
         }
@@ -247,8 +262,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     const float lsum = quad_sum(l[i]);
     if (orow[i] < 0) continue;
-    store_row<T, D>(static_cast<T*>(p.out) + orow[i], o, i,
-                    lsum > 0.f ? 1.f / lsum : 0.f, tig);
+    float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    fold.scale(inv);
+    store_row<T, D>(static_cast<T*>(p.out) + orow[i], o, i, inv, tig);
     if (tig == 0) {
       p.lse[lse_idx[i]] =
           lsum > 0.f ? (m[i] + log2f(lsum)) * kLn2 : -INFINITY;
@@ -276,15 +292,17 @@ __device__ __forceinline__ int split_start(int s, int n, int n_tiles) {
   return static_cast<int>(static_cast<long long>(s) * n_tiles / n);
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, typename KV>
 __global__ void __launch_bounds__(kThreads)
     paged_split_kernel(const Params p, const Splits sp) {
-  constexpr int kStride = D + 8;  // padded smem row: conflict-free fragments
+  // padded smem row: conflict-free fragments
+  constexpr int kStride = row_stride<D>(sizeof(KV));
   constexpr int kKSteps = D / 16;
   constexpr int kOTiles = D / 8;
+  constexpr bool kQuant = sizeof(KV) == 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);           // [3][kTileN][kStride]
-  T* sV = sK + kSplitStages * kTileN * kStride;     // [3][kTileN][kStride]
+  KV* sK = reinterpret_cast<KV*>(smem_raw);         // [3][kTileN][kStride]
+  KV* sV = sK + kSplitStages * kTileN * kStride;    // [3][kTileN][kStride]
 
   const int split = blockIdx.x;
   const int g = blockIdx.y;
@@ -335,9 +353,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   float m[2] = {kMask, kMask};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
+  // A 1-byte pool's descales; V's scales this split's output.
+  const Fold<kQuant> fold(p.ds, p.score_mul, b, g);
 
-  const T* kbase = static_cast<const T*>(p.k) + g * p.pool.k_head;
-  const T* vbase = static_cast<const T*>(p.v) + g * p.pool.v_head;
+  const KV* kbase = static_cast<const KV*>(p.k) + g * p.pool.k_head;
+  const KV* vbase = static_cast<const KV*>(p.v) + g * p.pool.v_head;
   auto page_of = [&](int pidx) {
     return __ldg(p.pool.table + static_cast<long long>(b) * p.pool.max_pages +
                  pidx);
@@ -355,8 +375,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_1();  // tile it has landed (it + 1 may be in flight)
     __syncthreads();    // ... for every thread; stage (it + 2) % 3 is free
     load(it + 2);
-    const T* ks_ptr = sK + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
-    const T* vs_ptr = sV + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
+    const KV* ks_ptr = sK + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
+    const KV* vs_ptr = sV + (it % kSplitStages) * kTileN * kStride + warp * 16 * kStride;
     const int col0 = (first + it) * kTileN + warp * 16;
 
     // S: this warp's 16 keys of the tile.
@@ -364,11 +384,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
+      const KV* krow = ks_ptr + (nt * 8 + gid) * kStride + tig * 2;
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
-        Mma<T>::run(s[nt], qf[ks], ld_u32(krow + ks * 16),
-                    ld_u32(krow + ks * 16 + 8));
+        Mma<T>::run(s[nt], qf[ks], Frag<T, KV>::k2(krow + ks * 16),
+                    Frag<T, KV>::k2(krow + ks * 16 + 8));
       }
     }
     // Scale (base 2), softcap, mask; visibility kept as bits.
@@ -381,7 +401,8 @@ __global__ void __launch_bounds__(kThreads)
         const int i = e >> 1;
         const int col = col0 + nt * 8 + tig * 2 + (e & 1);
         float x = s[nt][e];
-        x = kSoftcap ? tanhf(x * p.score_mul) * p.cap_log2 : x * p.score_mul;
+        x = kSoftcap ? tanhf(x * fold.mul(p.score_mul)) * p.cap_log2
+                 : x * fold.mul(p.score_mul);
         const bool ok = col < seqlen && col <= pos[i] &&
                         (p.window_left < 0 || col >= pos[i] - p.window_left);
         if (ok) {
@@ -423,12 +444,12 @@ __global__ void __launch_bounds__(kThreads)
     a[1] = Mma<T>::pack(s[0][2], s[0][3]);
     a[2] = Mma<T>::pack(s[1][0], s[1][1]);
     a[3] = Mma<T>::pack(s[1][2], s[1][3]);
-    const T* vrow = vs_ptr + tig * 2 * kStride + gid;
+    const KV* vrow = vs_ptr + tig * 2 * kStride + gid;
 #pragma unroll
     for (int nt = 0; nt < kOTiles; ++nt) {
-      const T* vc = vrow + nt * 8;
-      Mma<T>::run(o[nt], a, pack_u16(vc, vc + kStride),
-                  pack_u16(vc + 8 * kStride, vc + 9 * kStride));
+      const KV* vc = vrow + nt * 8;
+      Mma<T>::run(o[nt], a, Frag<T, KV>::v2(vc, vc + kStride),
+                  Frag<T, KV>::v2(vc + 8 * kStride, vc + 9 * kStride));
     }
   }
 
@@ -484,7 +505,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long orow_r =
       ((static_cast<long long>(b) * p.sq + t) * p.h + head) * D + c0;
   const int lrow = (b * p.h + head) * p.sq + t;
-  const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+  float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+  fold.scale(inv);
   const float lse = lsum > 0.f ? (mx + log2f(lsum)) * kLn2 : -INFINITY;
   if (sp.num == 1) {
     T* out = static_cast<T*>(p.out) + orow_r;
@@ -548,30 +570,67 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) lse[lrow] = den > 0.f ? mx + logf(den) : -INFINITY;
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, typename KV>
 int launch_split(const Params& p, const Splits& sp, int batch,
                  cudaStream_t stream) {
-  const size_t smem = kSplitStages * 2 * kTileN * (D + 8) * sizeof(T);
+  const size_t smem =
+      kSplitStages * 2 * kTileN * row_stride<D>(sizeof(KV)) * sizeof(KV);
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D, kSoftcap>,
+      paged_split_kernel<T, D, kSoftcap, KV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(sp.num, p.hk, batch);
-  paged_split_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(p, sp);
+  paged_split_kernel<T, D, kSoftcap, KV>
+      <<<grid, kThreads, smem, stream>>>(p, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename KV>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(sizeof(T));
+  const size_t smem = smem_bytes<D>(sizeof(KV));
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      paged_decode_kernel<T, D, KV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq * p.group + kRowsPerBlock - 1) / kRowsPerBlock, p.hk,
                   batch);
-  paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  paged_decode_kernel<T, D, KV><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One instantiation's q type, head dim and pool element type, as a type.
+template <typename T_, int D_, typename KV_>
+struct Inst {
+  using T = T_;
+  using KV = KV_;
+  static constexpr int D = D_;
+};
+
+template <typename T, int D, typename F>
+int with_kv(int kv_code, F f) {
+  switch (kv_code) {
+    case kKvSame:
+      return f(Inst<T, D, T>());
+    case kKvInt8:
+      return f(Inst<T, D, int8_t>());
+    case kKvE4m3:
+      return f(Inst<T, D, __nv_fp8_e4m3>());
+    default:
+      return -4;
+  }
+}
+
+// f(Inst<T, D, KV>()) for the call's q type, head dim and pool kind; -1 for
+// an unsupported head dim, -4 for an unknown pool kind.
+template <typename F>
+int dispatch(int is_fp16, int d, int kv_code, F f) {
+  if (d != 64 && d != 128) return -1;
+  if (is_fp16) {
+    return d == 64 ? with_kv<__half, 64>(kv_code, f)
+                   : with_kv<__half, 128>(kv_code, f);
+  }
+  return d == 64 ? with_kv<__nv_bfloat16, 64>(kv_code, f)
+                 : with_kv<__nv_bfloat16, 128>(kv_code, f);
 }
 
 }  // namespace
@@ -581,9 +640,13 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // with sq * (h / hk) <= 16 packed rows run the split-KV kernel over
 // num_splits splits: with one it writes out and lse, with more o_part
 // (num_splits, b, sq, h, d) and lse_part (num_splits, b, h, sq), fp32, for
-// paged_decode_combine. Other calls take num_splits == 1. Returns 0, a
-// cudaError_t from the launch, -1 for an unsupported head dim, or -3 for
-// splits the call cannot take. Launches on `stream`; does not synchronise.
+// paged_decode_combine. Other calls take num_splits == 1. kv_code: the
+// pools hold q's type (0), int8 (1) or e4m3 (2); a 1-byte pool takes its
+// K and V dequant scales, (hk,) with scale_bstride 0 or (b, hk) with
+// scale_bstride hk. Returns 0, a cudaError_t from the launch, -1 for an
+// unsupported head dim, -3 for splits the call cannot take, or -4 for an
+// unknown pool kind or a 1-byte pool without scales. Launches on
+// `stream`; does not synchronise.
 extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
                                 void* out, float* lse, const int* seqlens,
                                 const int* table, int batch, int sq, int h,
@@ -591,7 +654,9 @@ extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
                                 int npages, const long long* pool_strides,
                                 float scale, int window_left, float softcap,
                                 int is_fp16, float* o_part, float* lse_part,
-                                int num_splits, void* stream) {
+                                int num_splits, int kv_code,
+                                const float* k_scale, const float* v_scale,
+                                int scale_bstride, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -608,34 +673,24 @@ extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v,
   p.score_mul = p.has_softcap ? scale / softcap : scale * kLog2e;
   p.cap_log2 = softcap * kLog2e;
   p.window_left = window_left;
+  p.ds = Descales{k_scale, v_scale, scale_bstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Splits sp = {o_part, lse_part, num_splits};
-  if (d != 64 && d != 128) return -1;
-  if (sq * p.group <= kSplitRows) {
+  if (kv_code != kKvSame && (!k_scale || !v_scale)) return -4;
+  const bool split = sq * p.group <= kSplitRows;
+  if (split) {
     if (num_splits < 1 || (num_splits > 1 && (!o_part || !lse_part))) return -3;
-    const bool cap = p.has_softcap;
-    if (is_fp16) {
-      if (d == 64) {
-        return cap ? launch_split<__half, 64, true>(p, sp, batch, s)
-                   : launch_split<__half, 64, false>(p, sp, batch, s);
-      }
-      return cap ? launch_split<__half, 128, true>(p, sp, batch, s)
-                 : launch_split<__half, 128, false>(p, sp, batch, s);
-    }
-    if (d == 64) {
-      return cap ? launch_split<__nv_bfloat16, 64, true>(p, sp, batch, s)
-                 : launch_split<__nv_bfloat16, 64, false>(p, sp, batch, s);
-    }
-    return cap ? launch_split<__nv_bfloat16, 128, true>(p, sp, batch, s)
-               : launch_split<__nv_bfloat16, 128, false>(p, sp, batch, s);
+  } else if (num_splits != 1) {
+    return -3;
   }
-  if (num_splits != 1) return -3;
-  if (is_fp16) {
-    if (d == 64) return launch<__half, 64>(p, batch, s);
-    return launch<__half, 128>(p, batch, s);
-  }
-  if (d == 64) return launch<__nv_bfloat16, 64>(p, batch, s);
-  return launch<__nv_bfloat16, 128>(p, batch, s);
+  return dispatch(is_fp16, d, kv_code, [&](auto c) {
+    using C = decltype(c);
+    using T = typename C::T;
+    using KV = typename C::KV;
+    if (!split) return launch<T, C::D, KV>(p, batch, s);
+    return p.has_softcap ? launch_split<T, C::D, true, KV>(p, sp, batch, s)
+                         : launch_split<T, C::D, false, KV>(p, sp, batch, s);
+  });
 }
 
 // Merges paged_decode_fwd's partials: o_part (num_splits, b, sq, h, d) and

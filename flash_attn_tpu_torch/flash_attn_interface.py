@@ -331,6 +331,10 @@ def flash_attn_with_kvcache(
     (`runtime.kv_cache.update_kv_cache`, rows picked by cache_batch_idx, or
     `update_paged_kv_cache`; through head-major views of bshd caches), and
     attention runs through `kernels.flash_decode.flash_attention_decode`.
+    A 1-byte (int8 / float8_e4m3fn) cache takes its dequant scales
+    `k_scale`/`v_scale`, (hk,) or (b, hk), and appended k/v are cast to its
+    dtype (as the JAX function writes them; the engine quantizes with
+    `runtime.kv_cache.quantize_to_cache_dtype`).
     Returns out[, lse][, (k_cache, v_cache)] as the JAX function does; the
     returned caches are the given tensors. `num_splits` and `block_kv` are
     taken for the JAX signature and not read."""

@@ -142,18 +142,21 @@ def raise_unported(table, extras) -> None:
 
 
 def rows_readable(t: torch.Tensor) -> bool:
-    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
+    unit = 16 // t.element_size()  # elements of 16 bytes
+    return (t.stride(-1) == 1 and not any(s % unit for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
 
 
 def check_rows_dense(name: str, t: torch.Tensor) -> None:
     """Raise unless `t` can be read by the kernels' 16-byte row copies:
-    last dim dense, every other stride a multiple of 8 elements, and the
-    base 16-byte aligned."""
+    last dim dense, every other stride a multiple of 16 bytes (8 elements
+    of a 16-bit tensor, 16 of a 1-byte one), and the base 16-byte
+    aligned."""
     if not rows_readable(t):
         raise ValueError(
             f"{name} must have a dense last dim, strides that are multiples "
-            f"of 8 and a 16-byte aligned base; got strides {t.stride()}"
+            f"of 16 bytes and a 16-byte aligned base; got strides "
+            f"{t.stride()}"
         )
 
 
@@ -161,3 +164,49 @@ def rows_dense(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when `check_rows_dense` accepts it, else a contiguous
     copy."""
     return t if rows_readable(t) else t.contiguous()
+
+
+# 1-byte KV-cache element types: int8, or fp8 e4m3 (the JAX package's
+# float8_e4m3fn). The kernels take a pool of either beside q's 16-bit type.
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def upcast_e4m3_bits(x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's integer-domain e4m3 -> bf16 upcast, on the bytes:
+    a normal e4m3 s.eeee.mmm is the fp32 sign << 31 | (e + 120) << 23 |
+    m << 20, a subnormal (e == 0) m * 2^-9. Exact for every e4m3 value;
+    the NaN pattern 0x7F / 0xFF decodes to 480 here, where torch and the
+    hardware give NaN (a cache written by `quantize_to_cache_dtype` never
+    holds it)."""
+    b = x.view(torch.uint8).to(torch.int32)
+    sign = (b & 0x80) << 24
+    expman = b & 0x7F
+    bits = sign | ((expman << 20) + (120 << 23))
+    sub = (expman.float() * 2.0**-9).view(torch.int32) | sign
+    bits = torch.where(expman < 8, sub, bits)
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
+def upcast_quant_tile(x: torch.Tensor) -> torch.Tensor:
+    """bf16 view of a 1-byte (int8 / e4m3) tile, exact; 16-bit tiles as
+    they are."""
+    if x.element_size() >= 2:
+        return x
+    if x.dtype == torch.int8:
+        return x.to(torch.bfloat16)
+    return x.float().to(torch.bfloat16)
+
+
+def descale_of(scale: Optional[torch.Tensor], b: int, hk: int,
+               device) -> torch.Tensor:
+    """A k/v descale as (b, hk) fp32: None is 1, (hk,) is broadcast over the
+    batch, (b, hk) as it is."""
+    if scale is None:
+        return torch.ones(b, hk, dtype=torch.float32, device=device)
+    s = scale.to(device, torch.float32)
+    if s.numel() == hk and s.shape[-1:] == (hk,):
+        return s.reshape(1, hk).expand(b, hk)
+    if s.shape != (b, hk):
+        raise ValueError(f"a descale must be ({hk},) or ({b}, {hk}), got "
+                         f"{tuple(s.shape)}")
+    return s

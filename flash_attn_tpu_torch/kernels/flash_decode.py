@@ -18,6 +18,16 @@ kernel merges the partials with the sink.
 `flash_attention_decode_general_split_ref` is the plain version of that
 schedule.
 
+Caches hold q's 16-bit type, or one byte (int8 or float8_e4m3fn). A 1-byte
+cache takes its dequant scales `k_scale`/`v_scale`, (hk,) or (b, hk): the
+kernels read it at half the bytes and upcast it exactly (as kernel 4
+does), K's descale folding into the softmax scale and V's into the output
+scale.
+A 16-bit cache may take descales too (kernel 5 only, as in the JAX
+package). Unlike the JAX wrapper, which upcasts a contiguous fp8 cache in
+one pass before its kernel (a TPU workaround for a slow convert), every
+1-byte cache is dequantized in-kernel here.
+
 `combine_partials` is the LSE-weighted merge of attention partials, plain
 torch as the JAX package leaves it to XLA.
 """
@@ -30,12 +40,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.kernels.common import check_rows_dense
+from flash_attn_tpu_torch.kernels.common import (
+    QUANT_DTYPES,
+    check_rows_dense,
+    descale_of,
+    upcast_quant_tile,
+)
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
     BLOCKS_PER_SM,
+    KV_CODES,
     MIN_SPLIT_TOKENS,
     SPLIT_ROWS,
     SPLIT_TILE,
+    check_quant,
+    descale_args,
     flash_attention_decode_multipage,
     sm_count,
 )
@@ -44,15 +62,7 @@ from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
 _WINDOW_CAP = 1 << 30
 
 
-def _check_unported(q, k_cache, v_cache, qv, k_scale, v_scale) -> None:
-    if qv is not None:
-        raise NotImplementedError(
-            "qv (MLA absorbed decode) is not ported yet: ROADMAP queue 1, "
-            "item 10 (MLA)")
-    if k_scale is not None or v_scale is not None or k_cache.element_size() == 1:
-        raise NotImplementedError(
-            "1-byte caches and k_scale/v_scale descales are not ported yet: "
-            "ROADMAP queue 2, kernels 4 and 5 (quantized caches)")
+def _check_unported(q, k_cache, v_cache) -> None:
     d = q.shape[-1]
     if d not in (64, 128):
         raise NotImplementedError(
@@ -91,13 +101,22 @@ def flash_attention_decode(
     (b, h, sq) fp32). Query token i of sq sits at position seqlen - sq + i;
     with causal it attends cache positions <= that."""
     paged = block_table is not None
+    quant = check_quant(q, k_cache, qv)
+    descaled = k_scale is not None or v_scale is not None
     multipage_covers = (
         paged and causal and sink is None and alibi_slopes is None
         and cache_leftpad is None and cache_batch_idx is None
-        and sink_token_length == 0 and attention_chunk == 0)
+        and sink_token_length == 0 and attention_chunk == 0
+        # descales on a 16-bit cache: kernel 5 only, as in the JAX package
+        and (quant or not descaled))
     kw = dict(softmax_scale=softmax_scale, window_left=window_left,
               softcap=softcap)
     if fused_kv_dim > 0:
+        if not quant and descaled:
+            raise ValueError(
+                "k_scale/v_scale are a 1-byte pool's dequant scales; a "
+                "16-bit fused pool takes none (fold them into "
+                "softmax_scale)")
         if not multipage_covers or v_cache is not None:
             raise ValueError(
                 "a fused K|V pool is paged, causal, takes v_cache=None and "
@@ -111,13 +130,14 @@ def flash_attention_decode(
         return flash_attention_decode_multipage(
             q, k_cache, v_cache, cache_seqlens, block_table, qv=qv,
             k_scale=k_scale, v_scale=v_scale, **kw)
-    _check_unported(q, k_cache, v_cache, qv, k_scale, v_scale)
+    _check_unported(q, k_cache, v_cache)
     return flash_attention_decode_general(
         q, k_cache, v_cache, cache_seqlens, block_table=block_table,
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
         alibi_slopes=alibi_slopes, sink=sink, causal=causal,
         attention_chunk=attention_chunk,
-        sink_token_length=sink_token_length, **kw)
+        sink_token_length=sink_token_length, k_scale=k_scale,
+        v_scale=v_scale, **kw)
 
 
 def flash_attention_decode_general(
@@ -137,11 +157,14 @@ def flash_attention_decode_general(
     attention_chunk: int = 0,
     sink_token_length: int = 0,
     softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 5. CUDA tensors launch `csrc/decode.cu` (and count the launch
-    in `flash_attention_decode_general.launches`, a split-KV call's combine
-    kernel in `.combine_launches`); CPU tensors take
-    `flash_attention_decode_ref`."""
+    """Kernel 5. CUDA tensors launch `csrc/decode.cu` (`decode_scaled.cu`,
+    `decode_int8.cu` or `decode_e4m3.cu` for a cache with descales, int8 or
+    e4m3; each launch counted in `flash_attention_decode_general.launches`,
+    a split-KV call's combine kernel in `.combine_launches`); CPU tensors
+    take `flash_attention_decode_ref`."""
     if block_table is not None and cache_batch_idx is not None:
         raise ValueError("cache_batch_idx picks rows of a contiguous cache; "
                          "a paged cache takes none")
@@ -149,7 +172,8 @@ def flash_attention_decode_general(
               cache_leftpad=cache_leftpad, alibi_slopes=alibi_slopes,
               sink=sink, softmax_scale=softmax_scale, causal=causal,
               window_left=window_left, attention_chunk=attention_chunk,
-              sink_token_length=sink_token_length, softcap=softcap)
+              sink_token_length=sink_token_length, softcap=softcap,
+              k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
         return flash_attention_decode_ref(q, k_cache, v_cache, cache_seqlens,
                                           **kw)
@@ -315,13 +339,16 @@ def flash_attention_decode_ref(
     softcap: float = 0.0,
     col_range: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     out_dtype: Optional[torch.dtype] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel 5, step by step in fp32, one batch row
     at a time: the row's K/V (its cache row, or its pages through the block
-    table; pages outside the pool read as zeros), scores, softcap, ALiBi,
-    mask, softmax with the sink in its denominator. Returns (out (b, sq, h,
-    dv) in `out_dtype` or q's dtype, lse (b, h, sq) fp32); a row that sees
-    nothing gives out 0 and lse -inf, or lse = sink with a sink.
+    table; pages outside the pool read as zeros; a 1-byte cache upcast
+    exactly), scores (times K's descale), softcap, ALiBi, mask, softmax with
+    the sink in its denominator, output (times V's descale). Returns (out
+    (b, sq, h, dv) in `out_dtype` or q's dtype, lse (b, h, sq) fp32); a row
+    that sees nothing gives out 0 and lse -inf, or lse = sink with a sink.
     `col_range` = (lo, hi), (b,) each, keeps only columns lo <= c < hi of
     each batch row (one split's chunk)."""
     b, sq, h, d = q.shape
@@ -339,6 +366,9 @@ def flash_attention_decode_ref(
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(dev, torch.float32).reshape(-1, h)
     sink_f = None if sink is None else sink.to(dev, torch.float32)
+    kd = descale_of(k_scale, b, hk, dev)  # (b, hk); ones when None
+    vd = descale_of(v_scale, b, hk, dev)
+    up = upcast_quant_tile
     out = torch.empty(b, sq, h, dv, dtype=out_dtype or q.dtype, device=dev)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
     for i in range(b):
@@ -347,16 +377,17 @@ def flash_attention_decode_ref(
             table = block_table[i].to(dev).long()
             valid = ((table >= 0) & (table < npages))[:, None, None, None]
             ids = table.clamp(0, npages - 1)
-            k = (k_cache[ids].float() * valid).permute(1, 0, 2, 3).reshape(
+            k = (up(k_cache[ids]).float() * valid).permute(1, 0, 2, 3).reshape(
                 hk, -1, d)
-            v = (v_cache[ids].float() * valid).permute(1, 0, 2, 3).reshape(
+            v = (up(v_cache[ids]).float() * valid).permute(1, 0, 2, 3).reshape(
                 hk, -1, dv)
         else:
             row = i if cache_batch_idx is None else int(cache_batch_idx[i])
-            k, v = k_cache[row].float(), v_cache[row].float()
+            k, v = up(k_cache[row]).float(), up(v_cache[row]).float()
         ncols = k.shape[1]
         qf = q[i].float().reshape(sq, hk, group, d)
-        s = torch.einsum("tkgd,kcd->ktgc", qf, k) * softmax_scale
+        s = (torch.einsum("tkgd,kcd->ktgc", qf, k)
+             * (softmax_scale * kd[i]).reshape(hk, 1, 1, 1))
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
         pos = (seqlens[i] - sq + torch.arange(sq, device=dev)).reshape(
@@ -385,7 +416,7 @@ def flash_attention_decode_ref(
         l = p.sum(dim=-1, keepdim=True)
         if sink_f is not None:
             l = l + torch.exp(sk - m)
-        o = torch.einsum("ktgc,kcd->tkgd", p, v)
+        o = torch.einsum("ktgc,kcd->tkgd", p, v) * vd[i].reshape(1, hk, 1, 1)
         lt = l.permute(1, 0, 2, 3)  # (sq, hk, group, 1)
         o = torch.where(lt > 0, o / lt.clamp_min(1e-37), torch.zeros_like(o))
         out[i] = o.reshape(sq, h, dv).to(out.dtype)
@@ -395,15 +426,22 @@ def flash_attention_decode_ref(
     return out, lse
 
 
+# The source of each cache kind (KV_CODES' code, descales given): each
+# builds its own instantiations of csrc/decode_kernel.cuh.
+SOURCES = {(0, False): "decode", (0, True): "decode_scaled",
+           (1, True): "decode_int8", (2, True): "decode_e4m3"}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels() -> ctypes.CDLL:
+def _kernels(source: str = "decode") -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
 
-    lib = load_library("decode")
+    lib = load_library(source)
     args = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
             + [ctypes.c_int] * 8
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
     lib.decode_fwd.argtypes = args + [ctypes.c_void_p]
     lib.decode_split_fwd.argtypes = args + [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_void_p]
@@ -427,7 +465,8 @@ def _ptr(t):
 
 def _run(q, k_cache, v_cache, cache_seqlens, num_splits, *, block_table,
          cache_batch_idx, cache_leftpad, alibi_slopes, sink, softmax_scale,
-         causal, window_left, attention_chunk, sink_token_length, softcap):
+         causal, window_left, attention_chunk, sink_token_length, softcap,
+         k_scale=None, v_scale=None):
     """Launches kernel 5 once and returns (out, lse): the split-KV kernel
     for calls of at most SPLIT_ROWS packed rows or more than one split
     (with more, its combine kernel in the same C call), else the kernel
@@ -444,8 +483,10 @@ def _run(q, k_cache, v_cache, cache_seqlens, num_splits, *, block_table,
     if v_cache.shape != k_cache.shape:
         raise ValueError(f"k_cache {tuple(k_cache.shape)} and v_cache "
                          f"{tuple(v_cache.shape)} differ")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError("q and the caches must share one dtype")
+    if v_cache.dtype != k_cache.dtype or (k_cache.dtype != q.dtype and
+                                          k_cache.dtype not in QUANT_DTYPES):
+        raise ValueError("the caches hold q's dtype, or both int8 or both "
+                         "float8_e4m3fn")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_seqlens", cache_seqlens)):
         if t.device != dev:
@@ -507,10 +548,17 @@ def _run(q, k_cache, v_cache, cache_seqlens, num_splits, *, block_table,
         int(bool(causal)), int(min(window_left, _WINDOW_CAP)),
         int(attention_chunk), int(sink_token_length), float(softcap),
         int(q.dtype == torch.float16))
+    kv_code = KV_CODES.get(k_cache.dtype, 0)
+    scaled = kv_code > 0 or k_scale is not None or v_scale is not None
+    if scaled:  # kd and vd stay alive through the launch
+        kd, vd, bstride = descale_args(k_scale, v_scale, b, hk, dev)
+        args += (kv_code, kd.data_ptr(), vd.data_ptr(), bstride)
+    else:
+        args += (kv_code, None, None, 0)
     # The raw stream without torch.cuda.current_stream's Python wrapping,
     # which costs an eager decode step several microseconds.
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    lib = _kernels()
+    lib = _kernels(SOURCES[kv_code, scaled])
     if split:
         rc = lib.decode_split_fwd(*args, *parts, int(num_splits), stream)
     else:

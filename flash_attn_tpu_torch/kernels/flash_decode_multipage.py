@@ -15,6 +15,16 @@ The kernel reads pools through their strides, so a view such as vLLM's
 (num_blocks, page, hk, d) pool transposed to (num_blocks, hk, page, d) goes
 in without a copy.
 
+Pools hold q's 16-bit type, or one byte (int8 or float8_e4m3fn) with
+per-kv-head dequant scales `k_scale`/`v_scale` of shape (hk,) or (b, hk):
+x = x_q * scale. The kernel copies the 1-byte tiles as they are and
+upcasts them exactly (the split-KV kernel fragment by fragment in
+registers, the rows kernel tile by tile in shared memory); K's descale
+folds into the softmax scale and V's into the output scale, as the JAX
+kernel does. The JAX wrapper takes (hk,)
+descales only; (b, hk) is what vLLM passes (one scale per layer, expanded
+over its sequences), and is held to the exact oracle (ROADMAP §3).
+
 Decode steps (sq * group <= 16 packed rows) run split-KV: `num_splits_for`
 picks the number of splits on the host, from shapes alone (no read of
 cache_seqlens, so a vLLM layer call stays free of host syncs); the kernel
@@ -32,7 +42,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.kernels.common import check_rows_dense, round_up
+from flash_attn_tpu_torch.kernels.common import (
+    QUANT_DTYPES,
+    check_rows_dense,
+    descale_of,
+    round_up,
+    upcast_quant_tile,
+)
 
 _LANES = 128  # section padding of the fused K|V pool (runtime/kv_cache.py)
 
@@ -49,17 +65,30 @@ def _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v):
     return k_pages[..., :fused_kv_dim], k_pages[..., kpad : kpad + dv], dv
 
 
-def _check_unported(qv, k_scale, v_scale, k_pages):
+def check_quant(q, k_pages, qv=None) -> bool:
+    """Whether the pool is 1-byte (int8 / e4m3); raises on what the kernels
+    do not take: 1-byte queries, another 1-byte type, and qv (MLA)."""
+    if q.element_size() == 1:
+        raise NotImplementedError(
+            "1-byte (fp8) queries are not ported yet: ROADMAP queue 2, "
+            "kernels 1 and 6 (fp8 queries and descales)")
+    quant = k_pages.element_size() == 1
+    if quant and k_pages.dtype not in QUANT_DTYPES:
+        raise ValueError(f"a 1-byte pool holds int8 or float8_e4m3fn, not "
+                         f"{k_pages.dtype}")
     if qv is not None:
         raise NotImplementedError(
-            "qv (MLA absorbed decode) is not ported yet: ROADMAP queue 2, "
-            "kernel 4 (qv path)"
-        )
-    if k_scale is not None or v_scale is not None or k_pages.element_size() == 1:
-        raise NotImplementedError(
-            "1-byte (int8/fp8) pools with descales are not ported yet: "
-            "ROADMAP queue 2, kernel 4 (quantized pools)"
-        )
+            "qv (MLA absorbed decode) is not ported yet: ROADMAP queue 1, "
+            "item 10 (MLA)")
+    return quant
+
+
+def _check_descales(quant, k_scale, v_scale):
+    if not quant and (k_scale is not None or v_scale is not None):
+        raise ValueError(
+            "k_scale/v_scale are the dequant scales of a 1-byte pool; a "
+            "16-bit pool takes none here (the general decode kernel takes "
+            "them)")
 
 
 def flash_attention_decode_multipage_ref(
@@ -76,15 +105,20 @@ def flash_attention_decode_multipage_ref(
     softcap: float = 0.0,
     col_range: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     out_dtype: Optional[torch.dtype] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, step by step in fp32: gather the
-    pages through the block table, scores, mask, softmax. Returns
+    pages through the block table (a 1-byte pool upcast exactly), scores
+    (times K's descale), mask, softmax, output (times V's descale). Returns
     (out (b, sq, h, dv) in `out_dtype` (default q's), lse (b, h, sq) fp32).
     `col_range`, two (b,) tensors (lo, hi), keeps only columns lo <= c < hi
     of each batch row visible (one split's chunk)."""
     b, sq, h, d = q.shape
     npages, hk, page, _ = k_pages.shape
     group = h // hk
+    kd = descale_of(k_scale, b, hk, q.device)  # (b, hk); ones when None
+    vd = descale_of(v_scale, b, hk, q.device)
     if fused_kv_dim > 0:
         k_pool, v_pool, dv = _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v)
     else:
@@ -97,7 +131,7 @@ def flash_attention_decode_multipage_ref(
     ids = table.clamp(0, npages - 1)
 
     def gather(pool, width):
-        x = pool[ids].float() * valid[:, :, None, None, None]
+        x = upcast_quant_tile(pool[ids]).float() * valid[:, :, None, None, None]
         # (b, max_pages, hk, page, w) -> (b, hk, max_pages * page, w)
         return x.permute(0, 2, 1, 3, 4).reshape(b, hk, -1, width)
 
@@ -105,7 +139,8 @@ def flash_attention_decode_multipage_ref(
     v = gather(v_pool, dv)
     ncols = k.shape[2]
     qf = q.float().reshape(b, sq, hk, group, d)
-    s = torch.einsum("btkgd,bkcd->bktgc", qf, k) * softmax_scale
+    s = (torch.einsum("btkgd,bkcd->bktgc", qf, k)
+         * (softmax_scale * kd).reshape(b, hk, 1, 1, 1))
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     seqlen = cache_seqlens.long().reshape(b, 1, 1)
@@ -123,7 +158,7 @@ def flash_attention_decode_multipage_ref(
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)  # exp(-inf) = 0 on masked columns
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bktgc,bkcd->btkgd", p, v)
+    out = torch.einsum("bktgc,bkcd->btkgd", p, v) * vd.reshape(b, 1, hk, 1, 1)
     out = out / l.permute(0, 2, 1, 3, 4).clamp_min(1e-37)
     out = torch.where(
         l.permute(0, 2, 1, 3, 4) > 0, out, torch.zeros_like(out)
@@ -224,15 +259,17 @@ def flash_attention_decode_multipage(
     softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paged decode. Returns (out (b, sq, h, dv), lse (b, h, sq) fp32).
+    A 1-byte pool takes its descales `k_scale`/`v_scale`, (hk,) or (b, hk)
+    fp32 (1 where None).
 
     CUDA tensors launch `csrc/paged_decode.cu` (and count the launch in
     `flash_attention_decode_multipage.launches`; a split-KV call's combine
     in `.combine_launches`); CPU tensors take
     `flash_attention_decode_multipage_ref`."""
-    _check_unported(qv, k_scale, v_scale, k_pages)
+    _check_descales(check_quant(q, k_pages, qv), k_scale, v_scale)
     kw = dict(fused_kv_dim=fused_kv_dim, fused_kv_dim_v=fused_kv_dim_v,
               softmax_scale=softmax_scale, window_left=window_left,
-              softcap=softcap)
+              softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
         return flash_attention_decode_multipage_ref(
             q, k_pages, v_pages, cache_seqlens, block_table, **kw
@@ -255,7 +292,8 @@ def _kernels():
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     combine = lib.paged_decode_combine
     combine.restype = ctypes.c_int
     combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -308,8 +346,10 @@ def _check(q, k_pages, v_pages, cache_seqlens, block_table, fused_kv_dim,
             raise ValueError(f"{name} must be contiguous")
     check_rows_dense("k_pages", k_view)
     check_rows_dense("v_pages", v_view)
-    if k_pages.dtype != q.dtype or v_view.dtype != q.dtype:
-        raise ValueError("q and the pools must share one dtype")
+    if v_view.dtype != k_pages.dtype or (k_pages.dtype != q.dtype
+                                        and k_pages.dtype not in QUANT_DTYPES):
+        raise ValueError("the pools hold q's dtype, or both int8 or both "
+                         "float8_e4m3fn")
     if cache_seqlens.dtype != torch.int32 or block_table.dtype != torch.int32:
         raise ValueError("cache_seqlens and block_table must be int32")
     if cache_seqlens.shape != (b,) or block_table.shape[0] != b:
@@ -322,15 +362,45 @@ def _check(q, k_pages, v_pages, cache_seqlens, block_table, fused_kv_dim,
     return k_view, v_view
 
 
+# The C entries' codes of the pool's element kinds: q's own type, int8 and
+# e4m3 (csrc/decode_tile.cuh KvKind).
+KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def descale_args(k_scale, v_scale, b, hk, dev):
+    """The kernels' descale arguments: (k, v, bstride), fp32 contiguous on
+    `dev`, both (hk,) with bstride 0 when neither varies over the batch,
+    else both (b, hk) with bstride hk; None is 1."""
+    def flat(x):
+        return (torch.ones(hk, dtype=torch.float32, device=dev) if x is None
+                else x.to(dev, torch.float32))
+
+    # One scale per kv head expanded over the batch (vLLM's (nseq, hk) of
+    # a per-layer scale, a stride-0 view) is (hk,) as it is.
+    ks, vs = (x[0] if x.dim() == 2 and x.stride(0) == 0 else x
+              for x in (flat(k_scale), flat(v_scale)))
+    if ks.numel() == hk and vs.numel() == hk:
+        return ks.reshape(hk).contiguous(), vs.reshape(hk).contiguous(), 0
+    return (descale_of(ks, b, hk, dev).contiguous(),
+            descale_of(vs, b, hk, dev).contiguous(), hk)
+
+
 def _run(q, k_pages, v_pages, cache_seqlens, block_table, num_splits, *,
          fused_kv_dim=0, fused_kv_dim_v=0, softmax_scale=None,
-         window_left=-1, softcap=0.0):
+         window_left=-1, softcap=0.0, k_scale=None, v_scale=None):
     """Launches kernel 4 once. One split: returns (out, lse). More: returns
     the fp32 partials (o_part (n, b, sq, h, d), lse_part (n, b, h, sq))."""
     b, sq, h, d = q.shape
     npages, hk, page, _ = k_pages.shape
     k_view, v_view = _check(q, k_pages, v_pages, cache_seqlens, block_table,
                             fused_kv_dim, fused_kv_dim_v)
+    kv_code = KV_CODES.get(k_pages.dtype, 0)
+    kd = vd = None  # the descales, kept alive through the launch
+    kptr = vptr = None
+    bstride = 0
+    if kv_code:
+        kd, vd, bstride = descale_args(k_scale, v_scale, b, hk, q.device)
+        kptr, vptr = kd.data_ptr(), vd.data_ptr()
     if softmax_scale is None:
         softmax_scale = d**-0.5
     if num_splits > 1:
@@ -350,7 +420,7 @@ def _run(q, k_pages, v_pages, cache_seqlens, block_table, num_splits, *,
         b, sq, h, hk, d, page, block_table.shape[1], npages,
         (ctypes.c_longlong * 6)(*pool_strides), float(softmax_scale),
         int(window_left), float(softcap), int(q.dtype == torch.float16),
-        outs[2], outs[3], int(num_splits),
+        outs[2], outs[3], int(num_splits), kv_code, kptr, vptr, bstride,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

@@ -6,8 +6,10 @@ causal flash attention (`flash_attn_func`: the flash forward and backward
 kernels). With a cache, `_decode_step` appends the new K/V to the layer's
 cache in place, a contiguous (b, hk, smax, d) pair (`generate`) or a paged
 pool (`LLMEngine`), and runs `flash_attention_decode` over it (kernel 5 for
-contiguous caches and ALiBi, kernel 4 for the engine's paged pools). ALiBi
-without a cache, dwconv, attention dropout and quantized pools raise
+contiguous caches and ALiBi, kernel 4 for the engine's paged pools). A
+quantized engine layer (`QuantPagedKV`, a 1-byte pool and its per-head
+descales) quantizes the new K/V on write and decodes with the descales.
+ALiBi without a cache, dwconv and attention dropout raise
 NotImplementedError.
 """
 
@@ -26,6 +28,8 @@ from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
 from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
 from flash_attn_tpu_torch.runtime.kv_cache import (
+    QuantPagedKV,
+    quantize_to_cache_dtype,
     update_fused_paged_kv_cache,
     update_kv_cache,
     update_paged_kv_cache,
@@ -36,8 +40,10 @@ from flash_attn_tpu_torch.runtime.kv_cache import (
 class InferenceParams:
     """KV-cache state for a forward with a cache. `key_value_memory_dict`
     maps layer_idx to a (k_cache, v_cache) tuple, contiguous (b, hk, smax,
-    d) when `block_table` is None, else paged (npages, hk, page, d), or to a
-    fused K|V page pool (a tensor); `block_table` (b, max_pages) int32 maps
+    d) when `block_table` is None, else paged (npages, hk, page, d), to a
+    fused K|V page pool (a tensor), or to a `QuantPagedKV` (a 1-byte paged
+    pool, split or fused, and its descales); `block_table` (b, max_pages)
+    int32 maps
     positions to pages; `seqlen_offset` is an int or a (b,) int32 tensor of
     cache lengths before this call's tokens."""
 
@@ -168,6 +174,26 @@ class MHA(nn.Module):
         attn = dict(block_table=table, softmax_scale=self.softmax_scale,
                     causal=True, window_left=self.window_size[0],
                     softcap=self.softcap)
+        if isinstance(entry, QuantPagedKV):
+            # New K/V quantized on write with the pool's per-head descales;
+            # the decode kernels dequantize in-kernel.
+            if table is None or self.alibi_slopes is not None:
+                raise ValueError("a quantized cache is a paged engine pool "
+                                 "and takes no ALiBi")
+            pool = entry.k
+            k = quantize_to_cache_dtype(k, entry.k_scale, pool.dtype)
+            v = quantize_to_cache_dtype(v, entry.v_scale, pool.dtype)
+            scales = dict(k_scale=entry.k_scale, v_scale=entry.v_scale)
+            if entry.fused:
+                update_fused_paged_kv_cache(pool, k, v, offsets, table)
+                out, _ = flash_attention_decode(
+                    q, pool, None, offsets + s, fused_kv_dim=k.shape[-1],
+                    fused_kv_dim_v=v.shape[-1], **scales, **attn)
+            else:
+                update_paged_kv_cache(pool, entry.v, k, v, offsets, table)
+                out, _ = flash_attention_decode(
+                    q, pool, entry.v, offsets + s, **scales, **attn)
+            return out
         if isinstance(entry, tuple):
             if table is None:
                 update_kv_cache(entry[0], entry[1], k, v, offsets)

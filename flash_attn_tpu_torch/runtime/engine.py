@@ -16,6 +16,12 @@ writes full fixed-size chunks; garbage tail positions stay invisible because
 attention masks by true cache lengths, and each later token overwrites its
 slot before it becomes visible. One extra "trash" page absorbs the writes
 of padded chunk tails and padded batch rows.
+
+Quantized KV serving (`kv_cache_dtype` "int8", "fp8" or "fp8_e4m3"): every
+layer's pool holds 1-byte elements beside per-kv-head dequant scales
+(`kv_cache_scale`, a scalar or a {layer: scalar} dict), half the bytes of
+a bf16 pool; new K/V are quantized on write and the decode kernels
+dequantize in-kernel. Fused K|V pools are the default for them.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from flash_attn_tpu_torch.modules.mha import InferenceParams
 from flash_attn_tpu_torch.runtime.generation import sample_tokens
 from flash_attn_tpu_torch.runtime.kv_cache import (
+    QuantPagedKV,
     allocate_fused_paged_kv_cache,
     allocate_paged_kv_cache,
 )
@@ -40,8 +47,8 @@ from flash_attn_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX engine's fields and defaults; see flash_attn_tpu/runtime/
-    engine.py for each. speculative_k, kv_cache_dtype and device_put_fn are
-    not ported yet and must keep their defaults."""
+    engine.py for each. speculative_k and device_put_fn are not ported yet
+    and must keep their defaults."""
 
     max_batch_size: int = 8
     page_size: int = 128
@@ -77,14 +84,41 @@ def _check_ported(config: EngineConfig):
     unported = {
         "speculative_k > 0": (config.speculative_k > 0,
                               "ROADMAP queue 1, item 5 (speculative decoding)"),
-        "kv_cache_dtype": (config.kv_cache_dtype is not None,
-                           "ROADMAP queue 2, kernel 4 (quantized pools)"),
         "device_put_fn": (config.device_put_fn is not None,
                           "ROADMAP queue 1, item 12 (parallelism)"),
     }
     for name, (hit, item) in unported.items():
         if hit:
             raise NotImplementedError(f"EngineConfig {name} is not ported yet: {item}")
+
+
+# kv_cache_dtype's names and the pool dtypes they select.
+QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+                "fp8_e4m3": torch.float8_e4m3fn}
+
+
+def quant_dtype(config: EngineConfig, mc) -> Optional[torch.dtype]:
+    """The pools' 1-byte dtype, or None without kv_cache_dtype. Raises
+    ValueError, as the JAX engine does, for a name it does not know and for
+    a model the quantized pools cannot serve: MLA's latent caches, ALiBi
+    (the paged decode kernel's feature set excludes it) and a V head dim
+    other than the head dim."""
+    name = config.kv_cache_dtype
+    if name is None:
+        return None
+    if name not in QUANT_DTYPES:
+        raise ValueError(f"kv_cache_dtype {name!r} not in {list(QUANT_DTYPES)}")
+    if getattr(mc, "attn_type", "mha") == "mla":
+        raise ValueError("kv_cache_dtype is not supported with MLA latent "
+                         "caches (absorbed qv needs >= 16-bit V)")
+    if getattr(mc, "use_alibi", False):
+        raise ValueError("kv_cache_dtype requires the paged decode kernel, "
+                         "which excludes ALiBi")
+    dv = getattr(mc, "v_head_dim", None)
+    if dv is not None and dv != mc.resolved_head_dim:
+        raise ValueError("kv_cache_dtype with v_head_dim != head_dim is not "
+                         "supported")
+    return QUANT_DTYPES[name]
 
 
 class LLMEngine:
@@ -98,6 +132,7 @@ class LLMEngine:
     def __init__(self, model, config: EngineConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         _check_ported(config)
+        qdtype = quant_dtype(config, model.config)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine "
@@ -109,9 +144,26 @@ class LLMEngine:
         self._trash_page = config.num_pages
         fused = config.fused_kv_pages
         if fused is None:
-            fused = not mc.use_alibi and mc.dtype.itemsize >= 2
+            # One half-size copy per page for quantized pools.
+            fused = qdtype is not None or (not mc.use_alibi
+                                           and mc.dtype.itemsize >= 2)
         pool_args = (config.num_pages + 1, config.page_size, hk, d)
-        if fused:
+        if qdtype is not None:
+            self.caches = {}
+            for i in range(mc.n_layer):
+                scale = config.kv_cache_scale
+                if isinstance(scale, dict):
+                    scale = scale[i]
+                ks, vs = (torch.full((hk,), float(scale), dtype=torch.float32,
+                                     device=self.device) for _ in range(2))
+                if fused:
+                    pools = (allocate_fused_paged_kv_cache(
+                        *pool_args, dtype=qdtype, device=self.device), None)
+                else:
+                    pools = allocate_paged_kv_cache(*pool_args, dtype=qdtype,
+                                                    device=self.device)
+                self.caches[i] = QuantPagedKV(*pools, k_scale=ks, v_scale=vs)
+        elif fused:
             self.caches = {
                 i: allocate_fused_paged_kv_cache(*pool_args, dtype=mc.dtype,
                                                  device=self.device)

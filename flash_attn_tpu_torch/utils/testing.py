@@ -92,6 +92,9 @@ def attention_ref(
     key_padding_mask: Optional[torch.Tensor] = None,  # (b, sk) bool
     key_leftpad: Optional[torch.Tensor] = None,       # (b,)
     causal: bool = False,
+    q_descale: Optional[torch.Tensor] = None,         # (b, hk)
+    k_descale: Optional[torch.Tensor] = None,         # (b, hk)
+    v_descale: Optional[torch.Tensor] = None,         # (b, hk)
     window_size: Tuple[Optional[int], Optional[int]] = (None, None),
     attention_chunk: int = 0,
     sink_token_length: int = 0,
@@ -106,7 +109,10 @@ def attention_ref(
     softmax is computed in fp32 either way. Keys outside key_padding_mask
     are dropped; windows and chunks are aligned to each row's key count in
     leftpad-relative columns (the reference oracle's rules); a learnable
-    sink adds exp(sink) to each row's softmax denominator."""
+    sink adds exp(sink) to each row's softmax denominator. The descales
+    (the JAX oracle's) multiply q (per kv head of its group), k and v in
+    fp32 before anything else: a 1-byte cache is held to this oracle on its
+    dequantized values."""
     if causal:
         window_size = (window_size[0], 0)
     dtype_og = q.dtype
@@ -114,6 +120,13 @@ def attention_ref(
         q, k, v = q.float(), k.float(), v.float()
     b, seqlen_q, h, d = q.shape
     seqlen_k, hk = k.shape[1], k.shape[2]
+    if q_descale is not None:
+        qd = q_descale.float().repeat_interleave(h // hk, dim=-1)
+        q = (q.float() * qd.reshape(b, 1, h, 1)).to(q.dtype)
+    if k_descale is not None:
+        k = (k.float() * k_descale.float().reshape(b, 1, hk, 1)).to(k.dtype)
+    if v_descale is not None:
+        v = (v.float() * v_descale.float().reshape(b, 1, hk, 1)).to(v.dtype)
     k = k.repeat_interleave(h // hk, dim=2)
     v = v.repeat_interleave(h // hk, dim=2)
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)

@@ -23,7 +23,16 @@ module:
 
 Pools are vLLM's (num_blocks, page, hk, d) ["phd"], head-major (num_blocks,
 hk, page, d) ["hpd"], or a fused K|V pool ["hpd_fused"]; every route reads
-them in place, with no copy. The reference also has a gather route (one
+them in place, with no copy, but one: a 1-byte (int8 / fp8 e4m3) pool with
+k_descale/v_descale ((hk,) or (nseq, hk)). Its decode-only calls go to
+kernel 4 (kernel 5 with sinks), which dequantizes in-kernel; its mixed and
+prefill calls take the JAX module's route for 1-byte pools, a dequant pass
+and then the packed kernel: one pass over the pages the block table lists
+(`dequant_pages`: every entry, ids clamped, no host read) writes a bf16
+scratch pool with the descales applied, which kernel 6 reads through an
+identity table (in q's 16-bit type, bf16 for an fp32 q, as the JAX module
+writes it). q_descale folds into the K descale and takes the decode route,
+as in the JAX module. The reference also has a gather route (one
 copy of the used pages, then the packed kernel), taken below page 512 after
 a TPU measurement. The port does not keep it: on the H100 it measured 0-7%
 faster than reading pages in place, at page 16 and 512 alike, but it needs
@@ -45,6 +54,7 @@ from flash_attn_tpu_torch.flash_attn_interface import (
     flash_attn_with_kvcache,
     sparse_attn_func,
 )
+from flash_attn_tpu_torch.kernels.common import descale_of, upcast_quant_tile
 from flash_attn_tpu_torch.kernels.flash_decode import flash_attention_decode
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     VarlenPlan,
@@ -118,6 +128,26 @@ def get_scheduler_metadata(
                              plan=plan, page_size=page_size)
 
 
+def dequant_pages(pool: torch.Tensor, table: torch.Tensor,
+                  descale: Optional[torch.Tensor],
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The pages a block table lists, dequantized: a 1-byte head-major pool
+    (npages, hk, page, w) read at table (nseq, max_pages) (every entry, its
+    id clamped into the pool; no host read) into a contiguous (nseq *
+    max_pages, hk, page, w) pool in `dtype`, entry i holding page
+    table.flat[i] times its sequence's descale ((hk,) or (nseq, hk); 1 where
+    None), rounded once. Plain torch, as the JAX module's XLA glue:
+    gather, exact upcast, one scaled multiply."""
+    nseq, max_pages = table.shape
+    hk = pool.shape[1]
+    ids = table.reshape(-1).long().clamp(0, pool.shape[0] - 1)
+    pages = upcast_quant_tile(pool.view(torch.uint8)[ids].view(pool.dtype))
+    scale = descale_of(descale, nseq, hk, pool.device)
+    scale = scale.repeat_interleave(max_pages, dim=0).reshape(-1, hk, 1, 1)
+    return torch.mul(pages, scale, out=torch.empty(pages.shape, dtype=dtype,
+                                                   device=pool.device))
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"vllm_compat.flash_attn_varlen_func with {what} is not ported yet: "
@@ -171,14 +201,20 @@ def flash_attn_varlen_func(
         raise _unported("dropout", "queue 2, kernels 6-8 (dropout)")
     if alibi_slopes is not None:
         raise _unported("ALiBi", "queue 2, kernels 4 and 6-8 (ALiBi)")
-    if q_descale is not None or k_descale is not None or v_descale is not None:
-        raise _unported("descales", "queue 2, kernels 4 and 6 (1-byte pools "
-                                    "and descales)")
+    if q.element_size() == 1:
+        raise _unported("1-byte (fp8) queries", "queue 2, kernels 1 and 6 "
+                                                "(fp8 queries and descales)")
+    descaled = (q_descale is not None or k_descale is not None
+                or v_descale is not None)
     if cp_world_size > 1:
         raise _unported("cp_world_size > 1",
                         "queue 1, item 12 (context parallelism)")
 
     if block_table is None:
+        if descaled:
+            raise _unported("descales and no block table",
+                            "queue 2, kernels 1 and 6 (fp8 queries and "
+                            "descales)")
         if s_aux is not None:
             raise _unported("s_aux (sinks) and no block table",
                             "queue 2, kernels 6-8 (learnable sink)")
@@ -193,9 +229,6 @@ def flash_attn_varlen_func(
     if cu_seqlens_q is None or seqused_k is None or max_seqlen_q is None:
         raise ValueError("a block_table call needs cu_seqlens_q, seqused_k "
                          "and max_seqlen_q")
-    if k.element_size() == 1:
-        raise _unported("1-byte pools", "queue 2, kernels 4 and 6 (1-byte "
-                                        "pools and descales)")
     total_q, num_heads, head_dim = q.shape
     sm = scheduler_metadata
     if sm is not None and sm.num_heads_q != num_heads:
@@ -212,21 +245,47 @@ def flash_attn_varlen_func(
     fused = vc is None
     nseq = cu_seqlens_q.shape[0] - 1
     sq = int(max_seqlen_q)
+    quant = kc.element_size() == 1
+    if q_descale is not None:
+        # q's descale enters the scores multiplicatively: it folds exactly
+        # into the K descale (per sequence and kv head), on the decode route.
+        hk = kc.shape[1]
+        qd = q_descale.to(q.device, torch.float32).reshape(-1, hk)
+        kd = (torch.ones(1, hk, dtype=torch.float32, device=q.device)
+              if k_descale is None
+              else k_descale.to(q.device, torch.float32).reshape(-1, hk))
+        k_descale = kd * qd
 
-    if sq > _DECODE_MAX_Q and s_aux is None:
+    if (sq > _DECODE_MAX_Q and s_aux is None and q_descale is None
+            and (quant or (k_descale is None and v_descale is None))):
         plan = None
         if sm is not None and sm.plan is not None and plan_mismatch(
                 sm.plan, cu_seqlens_q=cu_seqlens_q, seqused_k=seqused_k,
                 causal=True, window_size=window_size, host_read=False) is None:
             plan = sm.plan
-        log_dispatch("varlen", route="paged-prefill-inkernel",
-                     page=kc.shape[2], nseq=nseq, total_q=total_q,
-                     fused=fused, plan=plan is not None)
+        pools, table = (kc, vc), block_table
+        if quant:
+            # The JAX module's route for 1-byte pools: the listed pages
+            # dequantized into a bf16 scratch pool, read through an
+            # identity table.
+            if fused:
+                kpad = -(-head_dim // 128) * 128
+                kc, vc = kc[..., :head_dim], kc[..., kpad:kpad + head_dim]
+            table = torch.arange(block_table.numel(), dtype=torch.int32,
+                                 device=q.device).reshape(block_table.shape)
+            dt = q.dtype if q.element_size() == 2 else torch.bfloat16
+            pools = (dequant_pages(kc, block_table, k_descale, dt),
+                     dequant_pages(vc, block_table, v_descale, dt))
+            fused = False
+        log_dispatch("varlen", route="paged-prefill-dequant" if quant
+                     else "paged-prefill-inkernel", page=kc.shape[2],
+                     nseq=nseq, total_q=total_q, fused=fused,
+                     plan=plan is not None)
         res, lse = flash_attention_varlen_fwd(
             q, None, None, cu_seqlens_q, None, seqused_k=seqused_k,
             softmax_scale=softmax_scale, causal=True,
-            window_size=window_size, softcap=softcap, kv_pools=(kc, vc),
-            block_table=block_table, head_dim_v=head_dim if fused else None,
+            window_size=window_size, softcap=softcap, kv_pools=pools,
+            block_table=table, head_dim_v=head_dim if fused else None,
             plan=plan, max_seqlen_q=None if plan is not None else sq)
         return _finish(res, lse, out, return_softmax_lse)
 
@@ -238,7 +297,8 @@ def flash_attn_varlen_func(
     decode_kw = dict(block_table=block_table.to(torch.int32).contiguous(),
                      softmax_scale=softmax_scale, causal=True,
                      window_left=int(window_size[0]), softcap=softcap,
-                     sink=s_aux, **fused_kw)
+                     sink=s_aux, k_scale=k_descale, v_scale=v_descale,
+                     **fused_kw)
     used = seqused_k.to(torch.int32).contiguous()
     if sq == 1 and total_q == nseq:
         # One row per sequence (vLLM's decode steps): the rows are already

@@ -223,8 +223,10 @@ def test_combine_matches_jax():
 def test_routes_and_unported_arguments():
     """Paged causal calls without extras go to kernel 4 (its plain version,
     bit for bit); a fused pool with an extra, and a batch index on a paged
-    cache, are refused; qv, descales, 1-byte caches and head dims other
-    than 64/128 raise NotImplementedError naming the ROADMAP item."""
+    cache, are refused; qv, 1-byte queries and head dims other than 64/128
+    raise NotImplementedError naming the ROADMAP item. Descales and 1-byte
+    caches are taken (kernel 5 here): unit descales change no bit, and an
+    int8 cache gives the answer of its values in q's dtype."""
     q, k, v, lens, kw = _inputs("paged-sink")
     t = torch.from_numpy
     table = t(kw["block_table"])
@@ -243,12 +245,19 @@ def test_routes_and_unported_arguments():
                                causal=False, cache_batch_idx=t(lens))
     qc, kc, vc, lens_c, _ = _inputs("contig-gqa-sq1")
     args = (t(qc), t(kc), t(vc), t(lens_c))
-    for extra in (dict(qv=t(qc)), dict(k_scale=torch.ones(HK))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attention_decode(*args, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_decode(args[0], args[1].to(torch.int8),
-                               args[2].to(torch.int8), args[3])
+        flash_attention_decode(*args, qv=t(qc))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention_decode(args[0].to(torch.float8_e4m3fn), *args[1:])
+    plain = flash_attention_decode(*args)
+    for g, w in zip(flash_attention_decode(*args, k_scale=torch.ones(HK),
+                                           v_scale=torch.ones(B, HK)), plain):
+        assert torch.equal(g, w)
+    k8, v8 = (x.mul(20).round().clamp(-127, 127) for x in args[1:3])
+    for g, w in zip(flash_attention_decode(args[0], k8.to(torch.int8),
+                                           v8.to(torch.int8), args[3]),
+                    flash_attention_decode(args[0], k8, v8, args[3])):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
     with pytest.raises(NotImplementedError, match="head dim"):
         flash_attention_decode(args[0][..., :32], args[1][..., :32],
                                args[2][..., :32], args[3])

@@ -163,7 +163,8 @@ def test_decode_speculative_matches_generate_and_jax(target, prompts):
         jax_caches(jax_draft), NEW, gamma=GAMMA)
 
     def caches(m):
-        return {i: allocate_kv_cache(1, slots, 1, 64, torch.float32)
+        return {i: allocate_kv_cache(1, slots, 1, 64, torch.float32,
+                                    device="cpu")
                 for i in range(m.config.n_layer)}
 
     got = decode_speculative(
@@ -216,7 +217,8 @@ def test_alibi_decode_matches_jax_mha():
         return out, jip.key_value_memory_dict
 
     jcache = {0: jax_alloc(b, smax, hk, 64, jnp.float32)}
-    cache = {0: allocate_kv_cache(b, smax, hk, 64, torch.float32)}
+    cache = {0: allocate_kv_cache(b, smax, hk, 64, torch.float32,
+                                   device="cpu")}
     offsets = np.array([0, 3], np.int32)
     for s in (5, 1):
         x = rng.standard_normal((b, s, embed)).astype(np.float32)

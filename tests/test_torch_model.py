@@ -79,7 +79,8 @@ def test_cached_forward_matches_jax_and_plain_forward(models):
     jax_caches = {i: jax_alloc_fused(NPAGES, PAGE, 2, 16, dtype=jnp.float32)
                   for i in range(2)}
     caches = {i: allocate_fused_paged_kv_cache(NPAGES, PAGE, 2, 16,
-                                               dtype=torch.float32)
+                                               dtype=torch.float32,
+                                               device="cpu")
               for i in range(2)}
 
     @jax.jit

@@ -232,12 +232,18 @@ def test_unported_arguments_raise():
     s = _step(7, **DECODE)
     t = torch.from_numpy
     for extra in (dict(q_v=t(s["q"])), dict(alibi_slopes=torch.ones(H)),
-                  dict(q_descale=torch.ones(1)), dict(k_descale=torch.ones(1)),
+                  dict(q_descale=torch.ones(1), block_table=None),
+                  dict(k_descale=torch.ones(1), block_table=None),
                   dict(s_aux=torch.ones(H), block_table=None),
-                  dict(cp_world_size=2), dict(dropout_p=0.1),
-                  dict(pools=(t(s["k"]).to(torch.int8), t(s["v"]).to(torch.int8)))):
+                  dict(cp_world_size=2), dict(dropout_p=0.1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_call(s, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attn_varlen_func(t(s["q"]).to(torch.float8_e4m3fn), t(s["k"]),
+                               t(s["v"]), max_seqlen_q=s["max_q"],
+                               cu_seqlens_q=t(s["cu_q"]),
+                               seqused_k=t(s["used"]),
+                               block_table=t(s["table"]))
     # The sparse entry points are ported; dropout is what they do not take.
     for fn in (vllm_compat.sparse_attn_func, vllm_compat.sparse_attn_varlen_func):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
