@@ -27,7 +27,9 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
      varlen_kernels, varlen_fault, varlen_train, vllm: kernels 6-8 and
               vLLM's per-layer calls (see each function); kernels 6, 7 and
               8 each with its flat schedule read from its own trace, and
-              each with one boundary moved that its check must catch;
+              each with one boundary moved that its check must catch; a
+              decode-only step's 32 layer calls replayed from a CUDA graph,
+              equal in bits to the eager step;
      decode_kernels  the general decode kernel (kernel 5) against its plain
               version at Mistral-7B widths: decode, generate's 4500-token
               prefill, batch index, leftpad with a window, ALiBi, sinks,
@@ -83,19 +85,34 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               32 layers): chunked prefill of a ~4500-token prompt and 8 decode
               steps through the engine's own forward, logits held against a
               plain fp32 forward under the 2x-bf16-eager contract;
-  5. serve    LLMEngine.generate on 8 requests, tokens/s, peak memory, and
-              proof that every attention call went through the kernel;
-     quant_serve  the same traffic on int8 pools (per-layer amax/127 scales
-              from the bf16 pools) and fp8 pools (scale 1.0): pool bytes
-              half of bf16's, decode tokens/s, launches, and the bf16
-              tokens teacher-forced through each (mean |d logprob| within
-              twice the JAX package's measured drift), the greedy-token
-              rule of the JAX tests reported;
+  5. serve    LLMEngine.generate on 8 requests through the eager engine
+              (cg=False) and then the default one, whose step programs
+              replay CUDA graphs: equal tokens, tokens/s of both, peak
+              memory, and proof that every attention call went through
+              kernel 4 (its launches per replay = layers x steps);
+     logits_graphed  the graphed engine's logits at every decode step of
+              that traffic against the eager engine's, equal in bits;
+     graph_fault  the decode graph replayed once over the step before's
+              offsets, which the token check must catch;
   6. profile  torch.profiler device time by kernel over the prefill and the
-              decode steps of 8 more requests, beside the host wall time;
-     generate the same model's generate() over contiguous caches (kernel 5):
-              batch 4, 4500-token prompts, 32 new tokens, scores held against
-              an fp32 forward, launches counted, tokens/s;
+              decode steps of 8 more requests through the graphed engine,
+              beside the host wall time (the decode idle share);
+     spec_serve  the serve traffic through LLMEngine with speculative_k 3
+              and a TinyLlama-1.1B-width draft, graphed: tokens equal to the
+              plain engine's up to near-ties, two held to an fp32 forward,
+              launches = target and draft layers x their forwards; then the
+              target as its own draft (at least half the drafts accepted);
+     quant_serve  the same traffic on int8 pools (per-layer amax/127 scales
+              from the bf16 pools) and fp8 pools (scale 1.0), graphed: pool
+              bytes half of bf16's, decode tokens/s beside bf16's, launches,
+              and the bf16 tokens teacher-forced through each (mean |d
+              logprob| within twice the JAX package's measured drift), the
+              greedy-token rule of the JAX tests reported;
+     generate the same model's generate() over contiguous caches (kernel 5),
+              its decode steps replayed from a CUDA graph: batch 4,
+              4500-token prompts, 32 new tokens, scores held against an fp32
+              forward, launches counted, cg=False equal in bits, tokens/s of
+              both;
      speculative  decode_speculative with a TinyLlama-1.1B-width draft,
               tokens equal to greedy generate's;
   7. train_grad  one loss and gradient of GPT-2-medium (configs/gpt2m-synth.yaml,
@@ -117,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1602,6 +1620,31 @@ class _SyncsRaise:
         torch.cuda.set_sync_debug_mode("default")
 
 
+def vllm_graph_step(calls, layers):
+    """A decode-only step's layer calls (`calls`, as vllm_phase makes them)
+    captured once in a CUDA graph and replayed, as vLLM runs its decode
+    batches: every layer's output against the eager step's in bits, and
+    the replayed step's CUDA-event ms beside the eager step's."""
+    every = tuple(range(layers))
+    eager = calls(keep=every)
+    eager_ms = cuda_ms(calls, reps=10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = calls(keep=every)
+    graph.replay()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(graphed[i], eager[i]) for i in every)
+    ms = cuda_ms(graph.replay, reps=10)
+    del graph
+    return dict(layers=layers, equal_bits=equal, replay_ms=ms,
+                eager_ms=eager_ms, replay_over_eager=ms / eager_ms)
+
+
 def vllm_phase(seed=2, layers=32, quant=None):
     """One scheduler loop in vLLM's calling convention at Mistral-7B
     widths: 32 layers, each with its own (num_blocks, 16, 8, 128) bf16 K
@@ -1746,7 +1789,10 @@ def vllm_phase(seed=2, layers=32, quant=None):
                 calls()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            # The profiled replay is not part of the scheduler loop's count.
+            graph = (vllm_graph_step(calls, layers)
+                     if kind == "decode" and quant is None else None)
+            # The profiled replay (and the graph's calls) is not part of
+            # the scheduler loop's count.
             flash_attention_varlen_fwd.launches = counts_before[0]
             flash_attention_decode_multipage.launches = counts_before[1]
             flash_attention_decode_multipage.combine_launches = counts_before[3]
@@ -1759,6 +1805,8 @@ def vllm_phase(seed=2, layers=32, quant=None):
                                   device_busy_ms=busy if busy > 0 else None,
                                   idle_share=1 - busy / wall if busy > 0 else None,
                                   top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
+            if graph is not None:
+                profiles[kind]["graph"] = graph
         del q, new_kv
     n_mixed, n_decode = kinds.count("mixed"), kinds.count("decode")
     launches = dict(flash_varlen_fwd=flash_attention_varlen_fwd.launches,
@@ -1777,7 +1825,9 @@ def vllm_phase(seed=2, layers=32, quant=None):
     decode_ms = [t for t, k in zip(attn_ms, kinds) if k == "decode"]
     ok = (launches == want and routes == want_routes and worst <= 1
           and n_mixed > 0 and n_decode > 0 and plan_reused == len(steps)
-          and flash_attention_varlen_fwd.launches_sm80 == 0)
+          and flash_attention_varlen_fwd.launches_sm80 == 0
+          and profiles["decode"].get("graph", dict(equal_bits=True))[
+              "equal_bits"])
     result = dict(
         phase="vllm" if quant is None else "quant_vllm",
         model="Mistral-7B-v0.1 attention widths", layers=layers,
@@ -1805,8 +1855,9 @@ def vllm_phase(seed=2, layers=32, quant=None):
                       dequant_share_of_mixed_step=dequant_ms / mixed_mean,
                       dequant_scratch_gb_per_mixed_call=scratch_gb)
     emit(result)
-    check(ok, f"{result['phase']}: launches or routes off the count, or a "
-              "layer's output outside the tolerance")
+    check(ok, f"{result['phase']}: launches or routes off the count, a "
+              "layer's output outside the tolerance, or the decode step "
+              "replayed from a graph not equal in bits to the eager step")
     del pools
     return result
 
@@ -2201,11 +2252,14 @@ def decode_split_fault_phase(seed=96, num_splits=3):
 
 class TimedEngine(LLMEngine):
     """LLMEngine whose steps are timed (host clock around a synchronised
-    step) by kind."""
+    step) by kind. With `record` set, each decode step's (request ids, fp32
+    logits rows) are kept in `decode_logits`."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.seconds = {"prefill": 0.0, "decode": 0.0}
+        self.record = False
+        self.decode_logits = []
 
     def step(self):
         p0 = self.prefill_steps
@@ -2215,7 +2269,14 @@ class TimedEngine(LLMEngine):
         torch.cuda.synchronize()
         kind = "prefill" if self.prefill_steps > p0 else "decode"
         self.seconds[kind] += time.perf_counter() - t0
+        if self.record and kind == "decode" and out:
+            self.decode_logits.append(([o.request_id for o in out],
+                                       self.last_logits[:len(out)].clone()))
         return out
+
+    def capture_s(self):
+        """Host seconds of the graphs' first calls (warm-up and capture)."""
+        return sum(g.capture_s for g in self.graphs.values())
 
 
 def logits_phase(engine, model, prompt_len=4500, decode_steps=8, seed=1):
@@ -2286,44 +2347,314 @@ def serve_prompt_lens(rng):
     return lens
 
 
-def serve_phase(engine, model, seed=2):
-    c = model.config
+def serve_prompts(vocab_size, seed=2):
+    """The serve phase's 8 prompts (seed 2) and their lengths."""
     rng = np.random.RandomState(seed)
     lens = serve_prompt_lens(rng)
-    prompts = [rng.randint(0, c.vocab_size, int(n)).tolist() for n in lens]
-    max_new = 32
+    return lens, [rng.randint(0, vocab_size, int(n)).tolist() for n in lens]
+
+
+SERVE_NEW = 32
+
+
+def warm_up(engine):
+    """One short request through the engine, so that each of its step
+    programs has run once (and, graphed, been captured) before a timed
+    run: the host seconds it took."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate([[1, 2, 3]], 2)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serve_run(engine, prompts, max_new=SERVE_NEW):
+    """engine.generate over `prompts`, after `warm_up`, with the step logits
+    recorded: (tokens, stats) with prefill and decode tokens/s, peak
+    memory, kernel 4's launches against layers x steps, the warm-up's and
+    the graphs' capture seconds, and the first request id."""
+    c = engine.model.config
+    warm_s = warm_up(engine)
     torch.cuda.reset_peak_memory_stats()
     p0, d0 = engine.prefill_steps, engine.decode_steps
+    s0 = dict(engine.seconds)
+    first_id = max(engine.outputs.keys(), default=-1) + 1
+    engine.record, engine.decode_logits = True, []
     flash_attention_decode_multipage.launches = 0
     flash_attention_decode_multipage.combine_launches = 0
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    engine.record = False
     launches = flash_attention_decode_multipage.launches
     steps = (engine.prefill_steps - p0) + (engine.decode_steps - d0)
-    prefill_tokens = int(sum(n - 1 for n in lens))
+    prefill_s = engine.seconds["prefill"] - s0["prefill"]
+    decode_s = engine.seconds["decode"] - s0["decode"]
+    prefill_tokens = int(sum(len(p) - 1 for p in prompts))
     decode_tokens = sum(len(o) for o in outs)
-    ok = (launches > 0 and launches == c.n_layer * steps
-          and all(len(o) == max_new for o in outs)
-          and all(0 <= t < c.vocab_size for o in outs for t in o))
-    result = dict(
-        phase="serve", requests=len(prompts), prompt_lens=lens.tolist(),
-        max_new_tokens=max_new, engine=vars(ENGINE) | {"device_put_fn": None},
+    decode_steps = engine.decode_steps - d0
+    return outs, dict(
+        graphed=bool(engine.graphs["prefill"].captured),
         prefill_steps=engine.prefill_steps - p0,
         decode_steps=engine.decode_steps - d0,
         prefill_tokens=prefill_tokens, decode_tokens=decode_tokens,
-        prefill_s=engine.seconds["prefill"], decode_s=engine.seconds["decode"],
-        prefill_tokens_per_s=prefill_tokens / engine.seconds["prefill"],
-        decode_tokens_per_s=decode_tokens / engine.seconds["decode"],
-        wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefill_s=prefill_s, decode_s=decode_s,
+        prefill_tokens_per_s=prefill_tokens / prefill_s,
+        decode_tokens_per_s=decode_tokens / decode_s,
+        decode_ms_per_step=1e3 * decode_s / max(decode_steps, 1),
+        warm_up_s=warm_s, capture_s=engine.capture_s(), wall_s=wall,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         kernel_launches=launches, layers_x_steps=c.n_layer * steps,
         combine_launches=flash_attention_decode_multipage.combine_launches,
-        ok=ok,
-    )
+        launches_ok=launches > 0 and launches == c.n_layer * steps,
+        first_request_id=first_id)
+
+
+def step_margins(engine, n_requests, base):
+    """Each request's top-2 logit margin at each of its decode steps, from
+    the steps `serve_run` recorded (requests base .. base + n - 1)."""
+    margins = [[] for _ in range(n_requests)]
+    for ids, rows in engine.decode_logits:
+        top2 = rows.topk(2, dim=-1).values
+        for rid, m in zip(ids, (top2[:, 0] - top2[:, 1]).tolist()):
+            margins[rid - base].append(m)
+    return margins
+
+
+def serve_phase(engine, model, eager):
+    """The serve traffic (8 prompts, 32 new tokens) through the graphed
+    engine (`engine`, step programs replayed from CUDA graphs), beside the
+    eager engine's run of the same traffic (`eager`: tokens, stats and
+    recorded logits from `serve_run` with cg=False): equal tokens, and on
+    both kernel 4's launches = layers x steps. Returns (result, tokens,
+    the graphed run's decode logits, each request's step margins)."""
+    c = model.config
+    lens, prompts = serve_prompts(c.vocab_size)
+    eager_outs, eager_stats, eager_logits = eager
+    outs, stats = serve_run(engine, prompts)
+    tokens_equal = outs == eager_outs
+    ok = (stats["launches_ok"] and eager_stats["launches_ok"] and tokens_equal
+          and all(len(o) == SERVE_NEW for o in outs)
+          and all(0 <= t < c.vocab_size for o in outs for t in o))
+    result = dict(
+        phase="serve", requests=len(prompts), prompt_lens=lens.tolist(),
+        max_new_tokens=SERVE_NEW, engine=vars(ENGINE) | {"device_put_fn": None},
+        **stats, eager=eager_stats, tokens_equal_to_eager=tokens_equal,
+        decode_tokens_per_s_over_eager=stats["decode_tokens_per_s"]
+        / eager_stats["decode_tokens_per_s"],
+        prefill_tokens_per_s_over_eager=stats["prefill_tokens_per_s"]
+        / eager_stats["prefill_tokens_per_s"], ok=ok)
     emit(result)
-    check(ok, "serve: launches != layers x steps, or malformed outputs")
+    check(ok, "serve: the graphed engine's tokens differ from the eager "
+              "engine's, launches != layers x steps, or malformed outputs")
+    return (result, outs, engine.decode_logits,
+            step_margins(engine, len(prompts), stats["first_request_id"]))
+
+
+def logits_graphed_phase(graphed_logits, eager_logits, logits_limit):
+    """The graphed engine's logits at every decode step of the serve
+    traffic against the eager engine's: equal bits (the same kernels on the
+    same inputs), else within the logits phase's limit."""
+    steps = len(graphed_logits)
+    same_rows = steps == len(eager_logits) and all(
+        a[0] == b[0] for a, b in zip(graphed_logits, eager_logits))
+    equal = diff = None
+    if same_rows:
+        equal = all(torch.equal(a[1], b[1])
+                    for a, b in zip(graphed_logits, eager_logits))
+        diff = max(float((a[1] - b[1]).abs().max())
+                   for a, b in zip(graphed_logits, eager_logits))
+    ok = bool(same_rows and (equal or diff <= logits_limit))
+    emit(dict(phase="logits_graphed", decode_steps=steps,
+              rows=sum(len(a[0]) for a in graphed_logits),
+              same_requests_per_step=same_rows, equal_bits=equal,
+              max_abs_diff=diff, limit_if_not_equal=logits_limit, ok=ok))
+    check(ok, "logits_graphed: the graphed engine's logits differ from the "
+              "eager engine's beyond the logits limit")
+
+
+def rotary_rebuild(model, max_seqlen):
+    """A plain forward one token longer than the engine's `max_seqlen`,
+    which makes every layer's rotary embedding build a longer table, then
+    as many tensors of a superseded table's size as there were tables,
+    filled with 1e4: the memory the rebuild freed, if it freed any, now
+    holds garbage. Returns (the filler, which the caller holds while it
+    replays the engine's graphs, and the table lengths before and
+    after)."""
+    rotary = model.transformer.layers[0].mixer.rotary
+    key = torch.device("cuda", torch.cuda.current_device())
+    before = rotary._cached[key][0]
+    ids = torch.zeros((1, max_seqlen + 1), dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        model(ids, num_last_tokens=1)
+    after = rotary._cached[key][0]
+    table = (before, rotary.dim // 2)
+    filler = [torch.full(table, 1e4, device="cuda")
+              for _ in range(4 * model.config.n_layer)]
+    torch.cuda.synchronize()
+    return filler, (before, after)
+
+
+def graph_fault_phase(engine, prompts, eager_outs, max_new=8):
+    """The serve check's power: two requests through the graphed engine,
+    once as they are (tokens equal to the eager engine's first `max_new`)
+    and once with the decode graph replayed at its second step over the
+    step before's offsets (tokens, tables and the rest refreshed): the
+    tokens must then differ from the eager engine's. Before them, a plain
+    forward longer than the engine's max_seqlen rebuilds the rotary tables
+    the captured graphs read (`rotary_rebuild`): the control run shows
+    that the graphs still read the tables they were captured over."""
+    filler, table_lens = rotary_rebuild(engine.model, engine.config.max_seqlen)
+    upload = engine._upload
+    runs = {}
+    for name in ("control", "stale_offsets"):
+        decodes = [0]
+
+        def upload_stale(start=0, name=name, decodes=decodes):
+            stale = engine._offsets.clone()  # the last step's offsets
+            upload(start)
+            if name == "stale_offsets" and start == engine._decode_start:
+                decodes[0] += 1
+                if decodes[0] == 2:  # put back after the upload
+                    engine._offsets.copy_(stale)
+
+        engine._upload = upload_stale
+        try:
+            runs[name] = engine.generate([prompts[i] for i in FAULT_PROMPTS],
+                                         max_new)
+        finally:
+            del engine._upload
+    del filler
+    want = [eager_outs[i][:max_new] for i in FAULT_PROMPTS]
+    ok = (runs["control"] == want and runs["stale_offsets"] != want
+          and table_lens[1] > table_lens[0])
+    emit(dict(phase="graph_fault", requests=list(FAULT_PROMPTS),
+              new_tokens=max_new, rotary_table_lens=table_lens,
+              control_equal=runs["control"] == want,
+              stale_offsets_equal=runs["stale_offsets"] == want,
+              stale_offsets_tokens=runs["stale_offsets"], eager_tokens=want,
+              ok=ok))
+    check(ok, "graph_fault: the control run after a rotary rebuild differs "
+              "from eager, or the replay over stale offsets passes the token "
+              "check")
+
+
+# The serve prompts of graph_fault and of spec_serve's held and
+# target-as-draft runs: the two shortest (689 and 1355 tokens).
+FAULT_PROMPTS = (5, 3)
+SPEC_K = 3
+
+
+def spec_serve_phase(model, logits_limit, plain_outs, plain_margins,
+                     plain_stats):
+    """LLMEngine with speculative_k 3 and a TinyLlama-1.1B-width draft
+    (random weights, seed 1) on the serve traffic, graphed: tokens equal to
+    the plain graphed engine's, except past a step whose top-2 margin there
+    is within the logits limit; two requests' tokens held to one fp32
+    forward each (`_tokens_held`); kernel 4's launches = target layers x
+    (prefill steps + rounds) + draft layers x (prefill steps + k x rounds).
+    Then the target as its own draft on two prompts, 16 new tokens: at
+    least half of the drafts accepted. Rounds, accepted drafts per round,
+    tokens/s beside the plain engine's, and kernel 4's route for the verify
+    (k + 1 rows x the group)."""
+    c = model.config
+    _, prompts = serve_prompts(c.vocab_size)
+    draft = GPTLMHeadModel(llama_config_to_gpt_config(TINYLLAMA_1B),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    config = dataclasses.replace(ENGINE, speculative_k=SPEC_K)
+    group = c.n_head // c.resolved_n_head_kv
+    result = dict(phase="spec_serve", target="Mistral-7B-v0.1 widths (seed 0)",
+                  draft="TinyLlama-1.1B widths, random weights (seed 1)",
+                  speculative_k=SPEC_K, requests=len(prompts),
+                  new_tokens=SERVE_NEW,
+                  verify_route=("split" if (SPEC_K + 1) * group
+                                <= fdm.SPLIT_ROWS else "rows"),
+                  verify_packed_rows=(SPEC_K + 1) * group)
+
+    def run(draft_model, ps, max_new):
+        eng = TimedEngine(model, config, device="cuda", draft_model=draft_model)
+        warm_s = warm_up(eng)
+        counts0 = (eng.prefill_steps, eng.spec_rounds, eng.spec_drafted,
+                   eng.spec_accepted)
+        eng.seconds = {"prefill": 0.0, "decode": 0.0}
+        flash_attention_decode_multipage.launches = 0
+        flash_attention_decode_multipage.combine_launches = 0
+        outs = eng.generate(ps, max_new)
+        torch.cuda.synchronize()
+        p, r, drafted, accepted = (
+            a - b for a, b in zip((eng.prefill_steps, eng.spec_rounds,
+                                   eng.spec_drafted, eng.spec_accepted),
+                                  counts0))
+        dl = draft_model.config.n_layer
+        want = c.n_layer * (p + r) + dl * (p + SPEC_K * r)
+        stats = dict(
+            prefill_steps=p, rounds=r, drafted=drafted, accepted=accepted,
+            accepted_per_round_per_row=accepted / max(drafted / SPEC_K, 1),
+            decode_tokens=sum(len(o) for o in outs),
+            decode_s=eng.seconds["decode"],
+            decode_tokens_per_s=sum(len(o) for o in outs)
+            / eng.seconds["decode"],
+            warm_up_s=warm_s, capture_s=eng.capture_s(),
+            launches=flash_attention_decode_multipage.launches,
+            launches_expected=want,
+            combine_launches=flash_attention_decode_multipage.combine_launches,
+            combine_launches_expected=(c.n_layer * r + dl * SPEC_K * r
+                                       if result["verify_route"] == "split"
+                                       else dl * SPEC_K * r),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        stats["launches_ok"] = (want == stats["launches"] and
+                                stats["combine_launches"]
+                                == stats["combine_launches_expected"])
+        del eng
+        torch.cuda.empty_cache()
+        return outs, stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, stats = run(draft, prompts, SERVE_NEW)
+    del draft
+    torch.cuda.empty_cache()
+    divergences = []
+    for i, (got, want) in enumerate(zip(outs, plain_outs)):
+        j = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is not None:
+            divergences.append(dict(request=i, step=j,
+                                    plain_top2_margin=plain_margins[i][j]))
+    near_ties_only = all(d["plain_top2_margin"] <= logits_limit
+                         for d in divergences)
+    held = {}
+    for i in FAULT_PROMPTS:
+        seq = torch.tensor([prompts[i] + outs[i]], device="cuda")
+        ok_i, worst, not_argmax = _tokens_held(model, seq, len(prompts[i]),
+                                               logits_limit)
+        held[i] = dict(ok=ok_i, worst_margin=worst,
+                       tokens_not_ref_argmax=not_argmax)
+    self_outs, self_stats = run(model, [prompts[i] for i in FAULT_PROMPTS],
+                                SPEC_SELF_NEW)
+    self_ok = (self_stats["launches_ok"]
+               and 2 * self_stats["accepted"] >= self_stats["drafted"]
+               and all(len(o) == SPEC_SELF_NEW for o in self_outs))
+    ok = (stats["launches_ok"] and near_ties_only
+          and all(h["ok"] for h in held.values())
+          and all(len(o) == SERVE_NEW for o in outs) and self_ok)
+    result.update(
+        **stats, equal_to_plain=not divergences, divergences=divergences,
+        margin_limit=logits_limit, near_ties_only=near_ties_only,
+        tokens_held=held, margin_limit_held=2 * logits_limit,
+        plain_decode_tokens_per_s=plain_stats["decode_tokens_per_s"],
+        decode_tokens_per_s_over_plain=stats["decode_tokens_per_s"]
+        / plain_stats["decode_tokens_per_s"],
+        self_draft=dict(self_stats, requests=list(FAULT_PROMPTS),
+                        new_tokens=SPEC_SELF_NEW, ok=self_ok),
+        ok=ok)
+    emit(result)
+    check(ok, "spec_serve: tokens differ from the plain engine's away from a "
+              "near-tie, a token off the plain forward, too few drafts "
+              "accepted with the target as its own draft, or launches off "
+              "the count")
     return result
 
 
@@ -2356,12 +2687,16 @@ def _timed(apply_fn, seconds):
 
 def generate_phase(model, logits_limit, seed=6):
     """`model.generate` (contiguous caches, kernel 5 for every attention
-    call) at batch 4 on 4500-token prompts, 32 new tokens, greedy, with
-    scores: the scores of every batch row at every step against an fp32
-    plain forward (one row at a time) under the 2x bf16-eager contract,
-    every token the argmax of its step's scores, launches = layers x
-    forward calls with no other attention kernel, peak memory; then the
-    same decode timed call by call for prefill and decode tokens/s."""
+    call; its decode steps replayed from a CUDA graph, cg=True) at batch 4
+    on 4500-token prompts, 32 new tokens, greedy, with scores: the scores
+    of every batch row at every step against an fp32 plain forward (one
+    row at a time) under the 2x bf16-eager contract, every token the
+    argmax of its step's scores, launches = layers x forward calls with no
+    other attention kernel, peak memory; cg=False in the same call, whose
+    sequences and scores must be equal in bits; decode tokens/s of both
+    (the walls of whole generates of 32 and 16 new tokens: their
+    difference is 16 steps); then the eager decode timed call by call
+    under the profiler."""
     c = model.config
     dev = model.device
     rng = np.random.RandomState(seed)
@@ -2402,6 +2737,41 @@ def generate_phase(model, logits_limit, seed=6):
     floor = LOGIT_FLOOR_FRACTION * ref_max
     scores_ok = (bool(torch.isfinite(scores).all())
                  and err_port <= 2 * err_bf16 + floor)
+    # cg=False: the same steps run eagerly, equal in bits.
+    eager = model.generate(ids, length, return_dict_in_generate=True,
+                           output_scores=True, cg=False)
+    cg_equal = (torch.equal(eager.sequences, seqs)
+                and torch.equal(eager.scores, scores))
+    del eager
+
+    def timed_generate(new, cg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(ids, GEN_PROMPT + new, cg=cg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # Whole generates of 32 and of 16 new tokens in turns: their walls'
+    # difference is 16 decode steps, with the prefill and (graphed) the
+    # warm-up and capture of the step in both.
+    half = GEN_NEW // 2
+    walls = {}
+    for cg in (True, False, False, True):
+        for new in (GEN_NEW, half):
+            walls.setdefault((cg, new), []).append(timed_generate(new, cg))
+    by_cg = {}
+    for cg, name in ((True, "graphed"), (False, "eager")):
+        step_s = (min(walls[cg, GEN_NEW]) - min(walls[cg, half])) / (
+            GEN_NEW - half)
+        by_cg[name] = dict(wall_s_32_new=walls[cg, GEN_NEW],
+                           wall_s_16_new=walls[cg, half],
+                           # a whole call: prefill, (graphed) warm-up and
+                           # capture, 31 decode steps
+                           whole_call_s=min(walls[cg, GEN_NEW]),
+                           decode_ms_per_step=1e3 * step_s,
+                           decode_tokens_per_s=GEN_BATCH / step_s)
+    by_cg["graphed_over_eager"] = (by_cg["graphed"]["decode_tokens_per_s"]
+                                   / by_cg["eager"]["decode_tokens_per_s"])
     # The same decode again, each forward timed, under torch.profiler
     # (device activity only).
     from torch.profiler import ProfilerActivity, profile
@@ -2425,7 +2795,7 @@ def generate_phase(model, logits_limit, seed=6):
         general_decode_share=k5 / busy if busy > 0 else None,
         top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
     ok = (argmax_ok and scores_ok and counts == want
-          and combines == combines_want)
+          and combines == combines_want and cg_equal)
     result = dict(
         phase="generate", model="Mistral-7B-v0.1 widths, random weights (seed 0)",
         layers=c.n_layer, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
@@ -2442,10 +2812,12 @@ def generate_phase(model, logits_limit, seed=6):
         prefill_tokens_per_s=GEN_BATCH * GEN_PROMPT / prefill_s,
         decode_steps=len(seconds) - 1, decode_s=decode_s,
         decode_tokens_per_s=GEN_BATCH * (len(seconds) - 1) / decode_s,
-        profile=profiled, logits_limit_of_logits_phase=logits_limit, ok=ok)
+        profile=profiled, logits_limit_of_logits_phase=logits_limit,
+        cg_equal_to_eager_bits=cg_equal, cg=by_cg, ok=ok)
     emit(result)
     check(ok, "generate: scores outside the 2x bf16-eager contract, a token "
-              "not the argmax of its step, or launches off the count")
+              "not the argmax of its step, launches off the count, or cg=True "
+              "not equal in bits to cg=False")
     return result
 
 
@@ -2590,67 +2962,130 @@ def speculative_phase(model, logits_limit, seed=7):
     return result
 
 
-def _device_ms_by_kernel(prof):
-    """{kernel name: device ms} from a torch.profiler run."""
+def _device_ms_by_kernel(prof, counts=False):
+    """{kernel name: device ms} from a torch.profiler run; with `counts`,
+    {kernel name: the number of its launches the profiler listed}."""
     from torch.autograd import DeviceType
 
-    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+    return {e.key: e.count if counts else e.self_device_time_total / 1e3
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0}
+
+
+# Kernel 4's kernels by the names the profiler lists: the ones that attend
+# (split-KV or warps on rows) and the split-KV combine.
+PAGED_ATTEND = ("paged_split_kernel", "paged_decode_kernel")
+PAGED_COMBINE = ("paged_combine_kernel",)
+
+
+def _listed(by_kernel, names):
+    return sum(v for k, v in by_kernel.items() if any(n in k for n in names))
 
 
 def profile_phase(engine, model, n_requests=8, prompt_len=2048, max_new=8,
                   seed=3):
     """Where a step's time goes: torch.profiler (device activity only, to
     keep its cost on the host small) over all prefill steps and then all
-    decode steps of a small batch, device time by kernel beside the
-    host-clock wall time. Reports, checks nothing."""
+    decode steps of a small batch through the graphed engine, device time
+    by kernel beside the host-clock wall time, and whether the profiler
+    listed the kernels of the replayed graphs one by one (kernel 4 among
+    them). The same traffic runs once before without the profiler: its
+    wall per step beside the profiled device time gives the idle share
+    without the profiler's own cost. Checks that the profiler listed kernel
+    4's launches from the replayed graphs one by one: layers x steps of
+    them, and as many combines as the wrappers' counters (which StepGraph
+    moves on each replay by what its capture launched) say."""
     from torch.profiler import ProfilerActivity, profile
 
     c = model.config
     rng = np.random.RandomState(seed)
-    base = max(engine.outputs.keys(), default=-1) + 1
-    ids = range(base, base + n_requests)
-    for rid in ids:
-        engine.add_request(rid,
-                           rng.randint(0, c.vocab_size, prompt_len).tolist(),
-                           max_new)
+    prompts = [rng.randint(0, c.vocab_size, prompt_len).tolist()
+               for _ in range(n_requests)]
     result = dict(phase="profile", requests=n_requests, prompt_len=prompt_len,
-                  max_new_tokens=max_new)
-    acts = [ProfilerActivity.CUDA]
+                  max_new_tokens=max_new, layers=c.n_layer)
+    for profiled in (False, True):
+        base = max(engine.outputs.keys(), default=-1) + 1
+        ids = range(base, base + n_requests)
+        for rid, prompt in zip(ids, prompts):
+            engine.add_request(rid, prompt, max_new)
+        for kind in ("prefill", "decode"):
+            steps, by_kernel, wall_ms, moved = _profiled_steps(
+                engine, ids, kind, profiled)
+            if not profiled:
+                result[kind] = dict(steps_unprofiled=steps,
+                                    wall_ms_unprofiled=wall_ms)
+                continue
+            _profile_entry(result[kind], engine, kind, steps, by_kernel,
+                           wall_ms, moved)
+    result["ok"] = all(result[kind]["launches_listed_ok"]
+                       for kind in ("prefill", "decode"))
+    emit(result)
+    check(result["ok"], "profile: the profiler did not list kernel 4's "
+                        "launches from the replayed graphs as layers x steps")
+    return result
+
+
+def _profiled_steps(engine, ids, kind, profiled):
+    """Runs the engine's prefill steps of requests `ids` (kind "prefill":
+    while any waits or prefills) or all its decode steps, under
+    torch.profiler (device activity only) when `profiled`: (steps,
+    {kernel: device ms} and {kernel: launches listed} or None, host wall
+    ms, kernel 4's launch and combine counters' moves)."""
+    from torch.profiler import ProfilerActivity, profile
+
     more = {
         # waiting or prefilling (scheduler states 0 and 1)
         "prefill": lambda: any(engine.sched.request_state(r) in (0, 1)
                                for r in ids),
         "decode": lambda: engine.sched.num_active() > 0,
-    }
-    for kind in ("prefill", "decode"):
-        steps = 0
-        with profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            while more[kind]():
-                engine.step()
-                steps += 1
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = _device_ms_by_kernel(prof)
-        busy = sum(by_kernel.values())
-        attn = sum(v for k, v in by_kernel.items()
-                   if any(n in k for n in ("paged_decode_kernel",
-                                           "paged_split_kernel",
-                                           "paged_combine_kernel")))
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        result[kind] = dict(
-            steps=steps, wall_ms=wall_ms,
-            device_busy_ms=busy if busy > 0 else None,
-            idle_share=1 - busy / wall_ms if busy > 0 else None,
-            paged_decode_ms=attn if busy > 0 else None,
-            paged_decode_share=attn / busy if busy > 0 else None,
-            top_kernels=[dict(name=k[:80], ms=v) for k, v in top],
-        )
-    emit(result)
-    return result
+    }[kind]
+    steps = 0
+    counters = (flash_attention_decode_multipage.launches,
+                flash_attention_decode_multipage.combine_launches)
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while more():
+            engine.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    moved = (flash_attention_decode_multipage.launches - counters[0],
+             flash_attention_decode_multipage.combine_launches - counters[1])
+    by_kernel = ((_device_ms_by_kernel(prof), _device_ms_by_kernel(prof, True))
+                 if profiled else None)
+    return steps, by_kernel, wall_ms, moved
+
+
+def _profile_entry(entry, engine, kind, steps, by_kernel, wall_ms, moved):
+    """profile_phase's numbers for one kind of step, into `entry`."""
+    by_kernel, listed = by_kernel
+    busy = sum(by_kernel.values())
+    attn = _listed(by_kernel, PAGED_ATTEND + PAGED_COMBINE)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    same_steps = steps == entry["steps_unprofiled"]
+    want = engine.model.config.n_layer * steps
+    attend, combine = _listed(listed, PAGED_ATTEND), _listed(listed,
+                                                             PAGED_COMBINE)
+    entry.update(
+        steps=steps, wall_ms=wall_ms,
+        device_busy_ms=busy if busy > 0 else None,
+        idle_share=1 - busy / wall_ms if busy > 0 else None,
+        idle_share_unprofiled=(1 - busy / entry["wall_ms_unprofiled"]
+                               if busy > 0 and same_steps else None),
+        paged_decode_ms=attn if busy > 0 else None,
+        paged_decode_share=attn / busy if busy > 0 else None,
+        top_kernels=[dict(name=k[:80], ms=v) for k, v in top],
+        graphed=engine.graphs[kind].captured,
+        # kernel 4 as the profiler listed it, and as the counters say
+        launches_listed=attend, combine_launches_listed=combine,
+        launches_counted=moved[0], combine_launches_counted=moved[1],
+        layers_x_steps=want,
+        launches_listed_ok=(attend == want == moved[0]
+                            and combine == moved[1]),
+    )
 
 
 # -- phases: train_grad, train, train profile (GPT-2-medium) -----------------
@@ -4694,25 +5129,31 @@ def quant_serve_phase(engine, model, seed=2, max_new=32):
     the bf16 engine run in this phase: the bf16 tokens teacher-forced
     through each engine, whose mean |Δ logprob| must stay within twice the
     JAX package's measured drift (QUANT_DRIFT); pool bytes half of bf16's;
-    launches = layers x steps; decode tokens/s. The JAX test's greedy-token
+    launches = layers x steps; decode tokens/s, every engine graphed (its
+    step programs replayed from CUDA graphs, captured by `warm_up` before
+    the timed run). Each quantized engine's tokens equal those of an eager
+    engine (cg=False) of its kind on the same traffic, and its decode
+    logits are compared with that engine's in bits. The JAX test's greedy-token
     rule (every sequence agrees for >= 2 tokens, the agreeing prefixes hold
     >= 60% of the tokens) is reported, not required: with random weights at
     these widths the top two logits of a step lie closer than the drift of
     either cache (one flipped token sends the rest of a greedy sequence
     elsewhere), so it measures the weights' near-ties, not the cache."""
     c = model.config
-    rng = np.random.RandomState(seed)
-    lens = serve_prompt_lens(rng)
-    prompts = [rng.randint(0, c.vocab_size, int(n)).tolist() for n in lens]
+    lens, prompts = serve_prompts(c.vocab_size, seed)
 
     def run(eng):
+        warm_up(eng)
         p0, d0 = eng.prefill_steps, eng.decode_steps
         s0 = dict(eng.seconds)
         flash_attention_decode_multipage.launches = 0
+        eng.record, eng.decode_logits = True, []
         outs = eng.generate(prompts, max_new)
+        eng.record = False
         steps = eng.prefill_steps - p0 + eng.decode_steps - d0
         decode_s = eng.seconds["decode"] - s0["decode"]
         return outs, dict(
+            graphed=eng.graphs["decode"].captured,
             decode_tokens_per_s=sum(len(o) for o in outs) / decode_s,
             prefill_s=eng.seconds["prefill"] - s0["prefill"],
             decode_s=decode_s, steps=steps,
@@ -4721,6 +5162,7 @@ def quant_serve_phase(engine, model, seed=2, max_new=32):
             == c.n_layer * steps)
 
     base, base_stats = run(engine)
+    engine.decode_logits = []
     base_lp, base_top1 = forced_logprobs(engine, prompts, base)
     scales = {i: max(float(pool.abs().amax()), 1e-6) / 127.0
               for i, pool in engine.caches.items()}
@@ -4730,11 +5172,23 @@ def quant_serve_phase(engine, model, seed=2, max_new=32):
                   int8_scales=[min(scales.values()), max(scales.values())])
     ok = base_stats["launches_ok"]
     for kind, scale in (("int8", scales), ("fp8", 1.0)):
+        config = dataclasses.replace(ENGINE, kv_cache_dtype=kind,
+                                     kv_cache_scale=scale)
+        eager = TimedEngine(model, config, device="cuda", cg=False)
+        eager_outs, eager_stats = run(eager)
+        eager_logits = eager.decode_logits
+        del eager
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        eng = TimedEngine(model, dataclasses.replace(
-            ENGINE, kv_cache_dtype=kind, kv_cache_scale=scale), device="cuda")
+        eng = TimedEngine(model, config, device="cuda")
         outs, stats = run(eng)
+        tokens_equal = outs == eager_outs
+        logits_equal = (len(eng.decode_logits) == len(eager_logits) and all(
+            a[0] == b[0] and torch.equal(a[1], b[1])
+            for a, b in zip(eng.decode_logits, eager_logits)))
+        del eager_logits
+        eng.decode_logits = []
         prefixes = []
         for gb, gq in zip(base, outs):
             n = 0
@@ -4748,7 +5202,12 @@ def quant_serve_phase(engine, model, seed=2, max_new=32):
         half = 2 * pool_bytes(eng.caches) == pool_bytes(engine.caches)
         drift_ok = float(drift.mean()) <= 2 * QUANT_DRIFT[kind]
         result[kind] = dict(
-            stats, pool_gb=pool_bytes(eng.caches) / 1e9, pools_half=half,
+            stats, tokens_equal_to_eager=tokens_equal,
+            logits_equal_to_eager_bits=logits_equal,
+            eager=eager_stats,
+            decode_tokens_per_s_over_eager=stats["decode_tokens_per_s"]
+            / eager_stats["decode_tokens_per_s"],
+            pool_gb=pool_bytes(eng.caches) / 1e9, pools_half=half,
             agreeing_prefixes=prefixes, tokens_rule=tokens_ok,
             teacher_forced_top1=float(top1.float().mean()),
             bf16_teacher_forced_top1=float(base_top1.float().mean()),
@@ -4759,14 +5218,15 @@ def quant_serve_phase(engine, model, seed=2, max_new=32):
             p99_abs_dlogprob=float(drift.flatten().quantile(0.99)),
             max_abs_dlogprob=float(drift.max()),
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-        ok = ok and drift_ok and half and stats["launches_ok"]
+        ok = (ok and drift_ok and half and stats["launches_ok"]
+              and eager_stats["launches_ok"] and tokens_equal)
         del eng
-        gc.collect()
         torch.cuda.empty_cache()
     result["ok"] = ok
     emit(result)
-    check(ok, "quant_serve: the logprob drift, the pools' bytes or the "
-              "launches failed")
+    check(ok, "quant_serve: the logprob drift, the pools' bytes, the "
+              "launches or the graphed engine's tokens against the eager "
+              "engine's failed")
     return result
 
 
@@ -4894,9 +5354,7 @@ def main(argv=None):
             model = GPTLMHeadModel(
                 llama_config_to_gpt_config(MISTRAL_7B), device="cuda",
                 generator=torch.Generator(device="cuda").manual_seed(0))
-            engine = TimedEngine(model, ENGINE, device="cuda")
-            serve_phase(engine, model)
-            quant_serve_phase(engine, model)
+            quant_serve_phase(TimedEngine(model, ENGINE, device="cuda"), model)
         print(smi(), flush=True)
         return 0
 
@@ -4936,15 +5394,36 @@ def main(argv=None):
     t0 = time.perf_counter()
     model = GPTLMHeadModel(config, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(0))
-    engine = TimedEngine(model, ENGINE, device="cuda")
+    # The eager engine (cg=False) first: the logits contract, then the
+    # serve traffic, whose tokens and logits the graphed engine must give.
+    eager = TimedEngine(model, ENGINE, device="cuda", cg=False)
     torch.cuda.synchronize()
     emit(dict(phase="model", layers=config.n_layer,
               params_b=sum(p.numel() for p in model.parameters()) / 1e9,
               init_s=time.perf_counter() - t0,
               memory_gb=torch.cuda.memory_allocated() / 1e9))
-    logits = logits_phase(engine, model)
-    serve = serve_phase(engine, model)
-    profile_phase(engine, model)
+    logits = logits_phase(eager, model)
+    _, prompts = serve_prompts(config.vocab_size)
+    eager_outs, eager_stats = serve_run(eager, prompts)
+    eager_logits = eager.decode_logits
+    # Dropping an engine frees its pools at once, with no cyclic GC.
+    pools, held = pool_bytes(eager.caches), torch.cuda.memory_allocated()
+    del eager
+    eager_stats.update(pool_gb=pools / 1e9, freed_on_del_gb=(
+        held - torch.cuda.memory_allocated()) / 1e9)
+    check(eager_stats["freed_on_del_gb"] >= eager_stats["pool_gb"],
+          "serve: dropping the eager engine did not free its pools")
+    torch.cuda.empty_cache()
+    engine = TimedEngine(model, ENGINE, device="cuda")
+    serve, serve_outs, graphed_logits, margins = serve_phase(
+        engine, model, (eager_outs, eager_stats, eager_logits))
+    logits_graphed_phase(graphed_logits, eager_logits, logits["limit"])
+    del graphed_logits, eager_logits
+    engine.decode_logits = []
+    graph_fault_phase(engine, prompts, eager_outs)
+    engine_profile = profile_phase(engine, model)
+    spec_serve = spec_serve_phase(model, logits["limit"], serve_outs, margins,
+                                  serve)
     qserve = quant_serve_phase(engine, model)
     del engine
     gc.collect()
@@ -4979,10 +5458,26 @@ def main(argv=None):
                                   ("combine", "paged_combine_kernel"),
                                   ("rows", "paged_decode_kernel"))},
         launches=serve["kernel_launches"],
+        # serve and spec_serve replay the engine's step programs from CUDA
+        # graphs; serve_eager runs them eagerly.
         launches_by_path=dict(serve=serve["kernel_launches"],
+                              serve_eager=serve["eager"]["kernel_launches"],
+                              spec_serve=spec_serve["launches"],
                               vllm=vllm["launches"]["paged_decode"]),
-        combine_launches_by_path=dict(serve=serve["combine_launches"],
-                                      vllm=vllm["combine_launches"]),
+        combine_launches_by_path=dict(
+            serve=serve["combine_launches"],
+            serve_eager=serve["eager"]["combine_launches"],
+            spec_serve=spec_serve["combine_launches"],
+            vllm=vllm["combine_launches"]),
+        serve_graphed=serve["graphed"],
+        # the profile phase's graphed steps: kernel 4's launches as the
+        # profiler listed them beside the wrapper's counter
+        graphed_launches_listed={
+            kind: dict((k, engine_profile[kind][k]) for k in (
+                "launches_listed", "launches_counted",
+                "combine_launches_listed", "combine_launches_counted"))
+            for kind in ("prefill", "decode")},
+        vllm_decode_step_graph=vllm["profile"]["decode"]["graph"],
         phd_view=dict({k: phd[k] for k in keys},
                       shape="decode on vLLM phd pools as views, split, "
                             "window 4095"),
@@ -5026,6 +5521,8 @@ def main(argv=None):
         combine_launches_by_path=dict(
             generate=gen["general_decode_combine_launches"],
             speculative=spec["launches"]["general_decode_combine"]),
+        # generate's decode steps replay one CUDA graph (cg=True).
+        generate_cg=gen["cg"],
         max_abs_err=general_err, max_err=general_err,
         **{k: dec[k] for k in keys},
         generate_decode=dict(

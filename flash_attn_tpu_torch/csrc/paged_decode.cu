@@ -726,3 +726,23 @@ extern "C" int paged_decode_combine(const float* o_part, const float* lse_part,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// paged_decode_fwd, then, for a call of more than one split, its partials
+// merged into out and lse by paged_decode_combine's kernel: a decode step
+// in one call (o_part and lse_part are the caller's workspace). Returns as
+// paged_decode_fwd does, or paged_decode_combine's code.
+extern "C" int paged_decode_fwd_merged(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    const int* seqlens, const int* table, int batch, int sq, int h, int hk,
+    int d, int page, int max_pages, int npages, const long long* pool_strides,
+    float scale, int window_left, float softcap, int is_fp16, float* o_part,
+    float* lse_part, int num_splits, int kv_code, const float* k_scale,
+    const float* v_scale, int scale_bstride, void* stream) {
+  const int rc = paged_decode_fwd(
+      q, k, v, out, lse, seqlens, table, batch, sq, h, hk, d, page, max_pages,
+      npages, pool_strides, scale, window_left, softcap, is_fp16, o_part,
+      lse_part, num_splits, kv_code, k_scale, v_scale, scale_bstride, stream);
+  if (rc != 0 || num_splits == 1) return rc;
+  return paged_decode_combine(o_part, lse_part, out, lse, num_splits, batch,
+                              sq, h, d, is_fp16, stream);
+}

@@ -28,8 +28,11 @@ over its sequences), and is held to the exact oracle (ROADMAP §3).
 Decode steps (sq * group <= 16 packed rows) run split-KV: `num_splits_for`
 picks the number of splits on the host, from shapes alone (no read of
 cache_seqlens, so a vLLM layer call stays free of host syncs); the kernel
-cuts each row's visible range as `split_ranges` does, writes fp32 partials,
-and a second kernel merges them as `combine_partials` does.
+cuts each row's visible range as `split_ranges` does, writes fp32 partials
+into one workspace, and a second kernel merges them as `combine_partials`
+does, both launched by one C call on the raw stream. The wrapper reads
+nothing on the device and allocates only on the caching allocator, so a
+step that calls it can be captured in a CUDA graph.
 `flash_attention_decode_multipage_split_ref` is the plain version of that
 schedule, split by split.
 """
@@ -282,23 +285,23 @@ flash_attention_decode_multipage.combine_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
+def _kernels() -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
 
     lib = load_library("paged_decode")
-    fn = lib.paged_decode_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    combine = lib.paged_decode_combine
-    combine.restype = ctypes.c_int
-    combine.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    return fn, combine
+    args = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    for fn in (lib.paged_decode_fwd, lib.paged_decode_fwd_merged):
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    lib.paged_decode_combine.restype = ctypes.c_int
+    lib.paged_decode_combine.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,12 +389,16 @@ def descale_args(k_scale, v_scale, b, hk, dev):
 
 
 def _run(q, k_pages, v_pages, cache_seqlens, block_table, num_splits, *,
-         fused_kv_dim=0, fused_kv_dim_v=0, softmax_scale=None,
+         merge=False, fused_kv_dim=0, fused_kv_dim_v=0, softmax_scale=None,
          window_left=-1, softcap=0.0, k_scale=None, v_scale=None):
-    """Launches kernel 4 once. One split: returns (out, lse). More: returns
-    the fp32 partials (o_part (n, b, sq, h, d), lse_part (n, b, h, sq))."""
+    """Launches kernel 4 once. One split, or `merge`: returns (out, lse),
+    the partials of more splits merged by the combine kernel in the same C
+    call (`paged_decode_fwd_merged`). More splits without `merge`: returns
+    the fp32 partials (o_part (n, b, sq, h, d), lse_part (n, b, h, sq)),
+    views of one workspace."""
     b, sq, h, d = q.shape
     npages, hk, page, _ = k_pages.shape
+    dev = q.device
     k_view, v_view = _check(q, k_pages, v_pages, cache_seqlens, block_table,
                             fused_kv_dim, fused_kv_dim_v)
     kv_code = KV_CODES.get(k_pages.dtype, 0)
@@ -399,34 +406,46 @@ def _run(q, k_pages, v_pages, cache_seqlens, block_table, num_splits, *,
     kptr = vptr = None
     bstride = 0
     if kv_code:
-        kd, vd, bstride = descale_args(k_scale, v_scale, b, hk, q.device)
+        kd, vd, bstride = descale_args(k_scale, v_scale, b, hk, dev)
         kptr, vptr = kd.data_ptr(), vd.data_ptr()
     if softmax_scale is None:
         softmax_scale = d**-0.5
+    parts, work = (None, None), None
+    rows = num_splits * b * sq * h
     if num_splits > 1:
-        first = torch.empty((num_splits, b, sq, h, d), dtype=torch.float32,
-                            device=q.device)
-        second = torch.empty((num_splits, b, h, sq), dtype=torch.float32,
-                             device=q.device)
-        outs = (0, 0, first.data_ptr(), second.data_ptr())
-    else:
-        first = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-        second = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        outs = (first.data_ptr(), second.data_ptr(), None, None)
+        # o_part and lse_part, fp32, in one allocation.
+        work = torch.empty(rows * (d + 1), dtype=torch.float32, device=dev)
+        parts = (work.data_ptr(), work.data_ptr() + rows * d * 4)
+    out = lse = None
+    if num_splits == 1 or merge:
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     pool_strides = [t.stride(i) for t in (k_view, v_view) for i in range(3)]
-    rc = _kernels()[0](
-        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(), outs[0], outs[1],
-        cache_seqlens.data_ptr(), block_table.data_ptr(),
+    lib = _kernels()
+    entry = lib.paged_decode_fwd_merged if merge else lib.paged_decode_fwd
+    rc = entry(
+        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(), _ptr(out),
+        _ptr(lse), cache_seqlens.data_ptr(), block_table.data_ptr(),
         b, sq, h, hk, d, page, block_table.shape[1], npages,
         (ctypes.c_longlong * 6)(*pool_strides), float(softmax_scale),
         int(window_left), float(softcap), int(q.dtype == torch.float16),
-        outs[2], outs[3], int(num_splits), kv_code, kptr, vptr, bstride,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *parts, int(num_splits), kv_code, kptr, vptr, bstride,
+        # The raw stream without torch.cuda.current_stream's Python
+        # wrapping, which costs an eager decode step several microseconds.
+        torch._C._cuda_getCurrentRawStream(dev.index),
     )
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {rc}")
     flash_attention_decode_multipage.launches += 1
-    return first, second
+    if out is not None:
+        flash_attention_decode_multipage.combine_launches += num_splits > 1
+        return out, lse
+    return (work[:rows * d].view(num_splits, b, sq, h, d),
+            work[rows * d:].view(num_splits, b, h, sq))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
@@ -442,10 +461,10 @@ def combine_splits(o_part: torch.Tensor, lse_part: torch.Tensor,
     o_part, lse_part = o_part.contiguous(), lse_part.contiguous()
     out = torch.empty((b, sq, h, d), dtype=dtype, device=o_part.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=o_part.device)
-    rc = _kernels()[1](
+    rc = _kernels().paged_decode_combine(
         o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
         n, b, sq, h, d, int(dtype == torch.float16),
-        torch.cuda.current_stream(o_part.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(o_part.device.index))
     if rc != 0:
         raise RuntimeError(f"paged_decode combine failed: CUDA error {rc}")
     flash_attention_decode_multipage.combine_launches += 1
@@ -462,8 +481,5 @@ def splits_of(q, k_pages, block_table, window_left) -> int:
 
 def _launch(q, k_pages, v_pages, cache_seqlens, block_table, **kw):
     n = splits_of(q, k_pages, block_table, kw["window_left"])
-    first, second = _run(q, k_pages, v_pages, cache_seqlens, block_table, n,
-                         **kw)
-    if n == 1:
-        return first, second
-    return combine_splits(first, second, q.dtype)
+    return _run(q, k_pages, v_pages, cache_seqlens, block_table, n,
+                merge=True, **kw)

@@ -2,11 +2,24 @@
 flash_attn_tpu/runtime/engine.py).
 
 The host loop is the JAX engine's: the scheduler admits requests, allocates
-pages and assembles batches; each step runs the model once on a fixed
-(max_batch, prefill_chunk) prefill batch or a (max_batch, 1) decode batch,
-and every attention call of that forward goes to the paged decode kernel.
-PyTorch runs eagerly, so there is no compiled step: the KV pools are
-updated in place where the JAX engine donates them.
+pages and assembles batches; each step runs one of the engine's step
+programs on a fixed (max_batch, prefill_chunk) prefill batch or a
+(max_batch, 1) decode batch, and every attention call of those forwards
+goes to the paged decode kernel (kernel 4). The programs mirror the JAX
+engine's jitted functions: prefill; decode, with `decode_depth` forwards
+and samplings unrolled in one program; and with `speculative_k` the
+speculative prefill (target, then draft, over one chunk) and round (k
+greedy draft steps, then one (max_batch, k + 1) target verify).
+
+Where the JAX engine compiles each program once (XLA jit), the port
+captures it once in a CUDA graph and replays it (`runtime.graphs.StepGraph`;
+the graphs share one memory pool). Every program reads static `tokens`,
+`offsets` and `tables` tensors, which the host writes in place through one
+pinned staging buffer; its results land in static outputs, and a decode or
+speculative step reads its sampled tokens to the host once, as the JAX
+engine's `np.asarray(nxt)` does. The KV pools are allocated once and are
+never replaced: prefix caching and window eviction change only what goes
+into `tables`. `cg=False` runs the same programs eagerly.
 
 Position accounting: the scheduler is fed `len(prompt) - 1` as the prompt
 length. Prefill appends prompt[:-1] to the cache, and decode always feeds
@@ -15,7 +28,9 @@ length always equals the scheduler's position counter. Chunked prefill
 writes full fixed-size chunks; garbage tail positions stay invisible because
 attention masks by true cache lengths, and each later token overwrites its
 slot before it becomes visible. One extra "trash" page absorbs the writes
-of padded chunk tails and padded batch rows.
+of padded chunk tails and padded batch rows. A speculative round writes all
+k + 1 tokens to the target's pools and k to the draft's; rejected ones lie
+past the kept length and are overwritten before they become visible.
 
 Quantized KV serving (`kv_cache_dtype` "int8", "fp8" or "fp8_e4m3"): every
 layer's pool holds 1-byte elements beside per-kv-head dequant scales
@@ -34,6 +49,7 @@ import torch
 
 from flash_attn_tpu_torch.modules.mha import InferenceParams
 from flash_attn_tpu_torch.runtime.generation import sample_tokens
+from flash_attn_tpu_torch.runtime.graphs import StepGraph
 from flash_attn_tpu_torch.runtime.kv_cache import (
     QuantPagedKV,
     allocate_fused_paged_kv_cache,
@@ -47,8 +63,8 @@ from flash_attn_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class EngineConfig:
     """The JAX engine's fields and defaults; see flash_attn_tpu/runtime/
-    engine.py for each. speculative_k and device_put_fn are not ported yet
-    and must keep their defaults."""
+    engine.py for each. device_put_fn is not ported yet and must keep its
+    default."""
 
     max_batch_size: int = 8
     page_size: int = 128
@@ -81,15 +97,9 @@ class RequestOutput:
 
 
 def _check_ported(config: EngineConfig):
-    unported = {
-        "speculative_k > 0": (config.speculative_k > 0,
-                              "ROADMAP queue 1, item 5 (speculative decoding)"),
-        "device_put_fn": (config.device_put_fn is not None,
-                          "ROADMAP queue 1, item 12 (parallelism)"),
-    }
-    for name, (hit, item) in unported.items():
-        if hit:
-            raise NotImplementedError(f"EngineConfig {name} is not ported yet: {item}")
+    if config.device_put_fn is not None:
+        raise NotImplementedError("EngineConfig device_put_fn is not ported "
+                                  "yet: ROADMAP queue 1, item 12 (parallelism)")
 
 
 # kv_cache_dtype's names and the pool dtypes they select.
@@ -126,55 +136,50 @@ class LLMEngine:
 
     Runs on `device` (CUDA unless named; the CPU only on request), which
     must be where the model's weights are. `generator` (a torch.Generator on
-    that device; seed 0 when None) drives non-greedy sampling.
-    `prefill_steps` and `decode_steps` count the model forwards run."""
+    that device; seed 0 when None) drives non-greedy sampling. With
+    `config.speculative_k` > 0, `draft_model` (a `GPTLMHeadModel` with its
+    own weights, on the same device) proposes that many greedy tokens a
+    round, in pools that mirror the target's pages. `cg` (the name of
+    `generate`'s argument): on CUDA each step program is captured once in a
+    CUDA graph and replayed; False runs the same programs eagerly.
+
+    `prefill_steps` counts prefill programs run, `decode_steps` decode
+    forwards; `spec_rounds`, `spec_drafted` and `spec_accepted` count
+    speculative rounds, the draft tokens they proposed for scheduled rows
+    and those the target's verify accepted. `last_logits` holds the fp32
+    logits of the newest decode forward, (max_batch, vocab)."""
 
     def __init__(self, model, config: EngineConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 draft_model=None, cg: bool = True):
         _check_ported(config)
+        k = config.speculative_k
+        if k > 0:
+            # The JAX engine's rules (engine.py:266-290).
+            if draft_model is None:
+                raise ValueError("speculative_k needs a draft_model")
+            if config.top_k != 1:
+                raise ValueError("engine speculative decoding is greedy-only "
+                                 "(top_k=1)")
+            if config.decode_depth > 1:
+                raise ValueError("speculative_k and decode_depth are exclusive")
         qdtype = quant_dtype(config, model.config)
+        if k > 0:
+            quant_dtype(config, draft_model.config)
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"the model is on {model.device}, the engine "
-                             f"on {self.device}")
+        for name, m in (("model", model), ("draft model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(f"the {name} is on {m.device}, the engine "
+                                 f"on {self.device}")
         self.model = model
         self.config = config
-        mc = model.config
-        hk, d = mc.resolved_n_head_kv, mc.resolved_head_dim
         self._trash_page = config.num_pages
-        fused = config.fused_kv_pages
-        if fused is None:
-            # One half-size copy per page for quantized pools.
-            fused = qdtype is not None or (not mc.use_alibi
-                                           and mc.dtype.itemsize >= 2)
-        pool_args = (config.num_pages + 1, config.page_size, hk, d)
-        if qdtype is not None:
-            self.caches = {}
-            for i in range(mc.n_layer):
-                scale = config.kv_cache_scale
-                if isinstance(scale, dict):
-                    scale = scale[i]
-                ks, vs = (torch.full((hk,), float(scale), dtype=torch.float32,
-                                     device=self.device) for _ in range(2))
-                if fused:
-                    pools = (allocate_fused_paged_kv_cache(
-                        *pool_args, dtype=qdtype, device=self.device), None)
-                else:
-                    pools = allocate_paged_kv_cache(*pool_args, dtype=qdtype,
-                                                    device=self.device)
-                self.caches[i] = QuantPagedKV(*pools, k_scale=ks, v_scale=vs)
-        elif fused:
-            self.caches = {
-                i: allocate_fused_paged_kv_cache(*pool_args, dtype=mc.dtype,
-                                                 device=self.device)
-                for i in range(mc.n_layer)
-            }
-        else:
-            self.caches = {
-                i: allocate_paged_kv_cache(*pool_args, dtype=mc.dtype,
-                                           device=self.device)
-                for i in range(mc.n_layer)
-            }
+        self.caches = self._allocate_pools(model.config, qdtype)
+        self.draft_model = draft_model if k > 0 else None
+        # Draft pools mirror the target's block tables: same page ids, a
+        # pool per draft layer.
+        self.draft_caches = (self._allocate_pools(draft_model.config, qdtype)
+                             if k > 0 else None)
         self.sched = make_scheduler(
             config.num_pages, config.page_size, config.max_batch_size,
             config.max_pages_per_seq, config.prefill_chunk,
@@ -188,6 +193,9 @@ class LLMEngine:
             self.prefix_cache = PrefixCache(config.page_size, budget)
         if config.decode_depth > 1:
             self.sched.set_decode_depth(config.decode_depth)
+        if k > 0:
+            # Page planning per round: k accepted drafts + the bonus token.
+            self.sched.set_decode_depth(k + 1)
         if config.kv_window_tokens > 0:
             self.sched.set_window(config.kv_window_tokens)
         self.outputs: Dict[int, RequestOutput] = {}
@@ -199,43 +207,179 @@ class LLMEngine:
         )
         self.prefill_steps = 0
         self.decode_steps = 0
+        self.spec_rounds = self.spec_drafted = self.spec_accepted = 0
+        self._make_buffers()
+        capture = dict(capture=cg, pool=(torch.cuda.graph_pool_handle()
+                                         if cg and self.device.type == "cuda"
+                                         else None))
+        self.graphs = {"prefill": StepGraph(self._prefill_program, self.device,
+                                            **capture)}
+        if k > 0:
+            self.graphs["round"] = StepGraph(self._round_program, self.device,
+                                             **capture)
+        else:
+            self.graphs["decode"] = StepGraph(
+                self._decode_program, self.device,
+                generators=[self._generator] if config.top_k != 1 else [],
+                **capture)
 
-    # -- model steps --------------------------------------------------------
+    def _allocate_pools(self, mc, qdtype) -> dict:
+        """Zeroed page pools for every layer of a model of config `mc`:
+        fused K|V pools unless `fused_kv_pages` says otherwise (or ALiBi or
+        a 1-byte model dtype rules them out), 1-byte `QuantPagedKV` pools
+        with `kv_cache_dtype`."""
+        config = self.config
+        hk, d = mc.resolved_n_head_kv, mc.resolved_head_dim
+        fused = config.fused_kv_pages
+        if fused is None:
+            # One half-size copy per page for quantized pools.
+            fused = qdtype is not None or (not mc.use_alibi
+                                           and mc.dtype.itemsize >= 2)
+        pool_args = (config.num_pages + 1, config.page_size, hk, d)
+        caches = {}
+        for i in range(mc.n_layer):
+            if qdtype is None and fused:
+                caches[i] = allocate_fused_paged_kv_cache(
+                    *pool_args, dtype=mc.dtype, device=self.device)
+            elif qdtype is None:
+                caches[i] = allocate_paged_kv_cache(*pool_args, dtype=mc.dtype,
+                                                    device=self.device)
+            else:
+                scale = config.kv_cache_scale
+                if isinstance(scale, dict):
+                    scale = scale[i]
+                ks, vs = (torch.full((hk,), float(scale), dtype=torch.float32,
+                                     device=self.device) for _ in range(2))
+                if fused:
+                    pools = (allocate_fused_paged_kv_cache(
+                        *pool_args, dtype=qdtype, device=self.device), None)
+                else:
+                    pools = allocate_paged_kv_cache(*pool_args, dtype=qdtype,
+                                                    device=self.device)
+                caches[i] = QuantPagedKV(*pools, k_scale=ks, v_scale=vs)
+        return caches
+
+    def _make_buffers(self):
+        """The programs' static tensors: one int32 device buffer holding the
+        prefill tokens (mb, chunk), the decode tokens (mb, 1), the offsets
+        (mb,) and the block tables (mb, max_pages), in that order, and its
+        staging twin on the host (pinned on CUDA), which the host writes
+        and copies over without a sync; the outputs; and the host buffer
+        that a step's one read lands in."""
+        cfg = self.config
+        mb, chunk, k = cfg.max_batch_size, cfg.prefill_chunk, cfg.speculative_k
+        sizes = (mb * chunk, mb, mb, mb * cfg.max_pages_per_seq)
+        ends = np.cumsum(sizes)
+        pinned = self.device.type == "cuda"
+        self._inputs = torch.zeros(int(ends[-1]), dtype=torch.int32,
+                                   device=self.device)
+        self._staging = torch.zeros(int(ends[-1]), dtype=torch.int32,
+                                    pin_memory=pinned)
+        self._decode_start = int(ends[0])
+        # The copy of the previous step's inputs, which must have run before
+        # the host writes the staging buffer again.
+        self._uploaded = torch.cuda.Event() if pinned else None
+
+        def views(buf):
+            parts = torch.split(buf, sizes)
+            return (parts[0].view(mb, chunk), parts[1].view(mb, 1), parts[2],
+                    parts[3].view(mb, cfg.max_pages_per_seq))
+
+        (self._prefill_tokens, self._decode_tokens, self._offsets,
+         self._tables) = views(self._inputs)
+        self._host = tuple(t.numpy() for t in views(self._staging))
+        width = 2 * k + 1 if k > 0 else cfg.decode_depth
+        self._sampled = torch.zeros((mb, width), dtype=torch.int32,
+                                    device=self.device)
+        self._read_back = torch.zeros((mb, width), dtype=torch.int32,
+                                      pin_memory=pinned)
+        self.last_logits = torch.zeros(
+            (mb, self.model.config.padded_vocab_size), dtype=torch.float32,
+            device=self.device)
+
+    # -- step programs --------------------------------------------------------
 
     @torch.no_grad()
-    def _apply(self, tokens, offsets, block_tables, *, num_last_tokens=1):
-        """One forward over (b, s) tokens at per-row cache offsets; appends
-        their K/V to the engine's pools in place. Returns the fp32 logits of
-        the last `num_last_tokens` positions."""
+    def _apply(self, tokens, offsets, block_tables, *, num_last_tokens=1,
+               model=None, caches=None):
+        """One forward of `model` (the target by default) over (b, s) tokens
+        at per-row cache offsets; appends their K/V to `caches` (the
+        target's pools by default) in place. Returns the fp32 logits of the
+        last `num_last_tokens` positions."""
+        model = self.model if model is None else model
         ip = InferenceParams(
             max_seqlen=self.config.max_seqlen,
             max_batch_size=tokens.shape[0],
             seqlen_offset=offsets,
-            key_value_memory_dict=self.caches,
+            key_value_memory_dict=self.caches if caches is None else caches,
             block_table=block_tables,
         )
-        logits = self.model(tokens, inference_params=ip,
-                            num_last_tokens=num_last_tokens)
+        logits = model(tokens, inference_params=ip,
+                       num_last_tokens=num_last_tokens)
         return logits.float()
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(array).to(self.device)
+    def _prefill_program(self):
+        """Appends a (mb, chunk) prefill batch to the pools (the target's,
+        then the draft's); the logits are not kept (the last prompt token
+        goes through decode)."""
+        args = (self._prefill_tokens, self._offsets, self._tables)
+        self._apply(*args)
+        if self.draft_model is not None:
+            self._apply(*args, model=self.draft_model,
+                        caches=self.draft_caches)
 
-    def _decode(self, tokens, offsets, tables) -> np.ndarray:
-        """decode_depth forwards, each feeding its samples to the next.
-        Returns (max_batch, decode_depth) tokens."""
+    def _decode_program(self):
+        """decode_depth forwards, each feeding its samples to the next, into
+        `_sampled` (mb, decode_depth)."""
         cfg = self.config
-        toks, offs = self._to_device(tokens), self._to_device(offsets)
-        tables = self._to_device(tables)
-        samples = []
-        for _ in range(cfg.decode_depth):
-            logits = self._apply(toks, offs, tables)
-            self.decode_steps += 1
-            nxt = sample_tokens(logits[:, -1], self._generator, top_k=cfg.top_k,
+        toks, offs = self._decode_tokens, self._offsets
+        for j in range(cfg.decode_depth):
+            logits = self._apply(toks, offs, self._tables)[:, -1]
+            nxt = sample_tokens(logits, self._generator, top_k=cfg.top_k,
                                 top_p=cfg.top_p, temperature=cfg.temperature)
-            samples.append(nxt)
+            self._sampled[:, j].copy_(nxt)
             toks, offs = nxt[:, None], offs + 1
-        return torch.stack(samples, dim=1).cpu().numpy()
+        self.last_logits.copy_(logits)
+
+    def _round_program(self):
+        """One speculative round: k greedy draft steps, then the target
+        verifies the newest known token and the k drafts in one forward.
+        Writes `_sampled` (mb, 2k + 1): the drafts, then the target's
+        argmax at each of the k + 1 positions."""
+        k = self.config.speculative_k
+        toks, offs = self._decode_tokens, self._offsets
+        for j in range(k):
+            logits = self._apply(toks, offs, self._tables,
+                                 model=self.draft_model,
+                                 caches=self.draft_caches)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            self._sampled[:, j].copy_(nxt)
+            toks, offs = nxt[:, None], offs + 1
+        seq = torch.cat([self._decode_tokens, self._sampled[:, :k]], dim=1)
+        logits = self._apply(seq, self._offsets, self._tables,
+                             num_last_tokens=k + 1)
+        self._sampled[:, k:].copy_(torch.argmax(logits, dim=-1))
+
+    # -- host side of a step ----------------------------------------------------
+
+    def _stage(self):
+        """The host's views of the staging buffer, (prefill tokens, decode
+        tokens, offsets, tables), once the copy of the last step's inputs
+        has run."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+        return self._host
+
+    def _upload(self, start: int = 0):
+        """Copies the staged inputs from element `start` on into the static
+        inputs, without a sync."""
+        self._inputs[start:].copy_(self._staging[start:], non_blocking=True)
+        if self._uploaded is not None:
+            self._uploaded.record()
+
+    def _read_sampled(self) -> np.ndarray:
+        """The step's one device-to-host read: the sampled tokens."""
+        return self._read_back.copy_(self._sampled).numpy()
 
     # -- public API ---------------------------------------------------------
 
@@ -277,21 +421,21 @@ class LLMEngine:
                 return touched
 
         n = len(batch.request_ids)
-        mb = cfg.max_batch_size
-        tables = np.full((mb, cfg.max_pages_per_seq), self._trash_page, np.int32)
+        prefill_tokens, decode_tokens, offsets, tables = self._stage()
+        tables.fill(self._trash_page)
         tables[:n] = np.where(batch.block_tables < 0, self._trash_page,
                               batch.block_tables)
+        offsets.fill(0)
         if batch.kind == 1:  # batched prefill chunks, fixed (mb, chunk) shape
-            tokens = np.zeros((mb, cfg.prefill_chunk), np.int32)
-            offsets = np.zeros(mb, np.int32)
+            prefill_tokens.fill(0)
             for i, rid in enumerate(batch.request_ids):
                 pos = int(batch.positions[i])
                 ln = int(batch.chunk_lens[i])
                 chunk = self._prompts[int(rid)][pos : pos + ln]
-                tokens[i, : len(chunk)] = chunk
+                prefill_tokens[i, : len(chunk)] = chunk
                 offsets[i] = pos
-            self._apply(self._to_device(tokens), self._to_device(offsets),
-                        self._to_device(tables))
+            self._upload()
+            self.graphs["prefill"]()
             self.prefill_steps += 1
             ids = list(map(int, batch.request_ids))
             self.sched.report(ids, [0] * n, [0] * n)
@@ -310,15 +454,32 @@ class LLMEngine:
             touched.extend(self.outputs[r] for r in ids)
             return touched
 
-        tokens = np.zeros((mb, 1), np.int32)
+        decode_tokens.fill(0)
         for i, rid in enumerate(batch.request_ids):
             out = self.outputs[int(rid)]
-            tokens[i, 0] = (
+            decode_tokens[i, 0] = (
                 out.tokens[-1] if out.tokens else self._prompts[int(rid)][-1]
             )
-        offsets = np.zeros(mb, np.int32)
         offsets[:n] = batch.positions
-        nxt = self._decode(tokens, offsets, tables)
+        self._upload(self._decode_start)
+        k = cfg.speculative_k
+        if k > 0:
+            self.graphs["round"]()
+            host = self._read_sampled()
+            self.spec_rounds += 1
+            cand = []
+            for i in range(n):
+                a = 0
+                while a < k and host[i, a] == host[i, k + a]:
+                    a += 1  # greedy acceptance: draft matches target pred
+                cand.append([int(t) for t in host[i, k : k + a + 1]])
+                self.spec_accepted += a
+            self.spec_drafted += k * n
+        else:
+            self.graphs["decode"]()
+            host = self._read_sampled()  # (mb, decode_depth)
+            self.decode_steps += cfg.decode_depth
+            cand = [[int(t) for t in host[i]] for i in range(n)]
         produced, done = [], []
         for i, rid in enumerate(batch.request_ids):
             rid = int(rid)
@@ -328,8 +489,7 @@ class LLMEngine:
             # tokens beyond that were written to invisible cache slots.
             kept = 0
             fin = False
-            for j in range(min(int(batch.chunk_lens[i]), nxt.shape[1])):
-                tok = int(nxt[i, j])
+            for tok in cand[i][: int(batch.chunk_lens[i])]:
                 out.tokens.append(tok)
                 kept += 1
                 if ((cfg.eos_token_id is not None and tok == cfg.eos_token_id)

@@ -4,7 +4,10 @@ over contiguous KV caches, and speculative decoding.
 
 Differences from the JAX module, by design:
   * The loops are Python loops where the JAX module runs `lax.scan` and
-    `lax.while_loop` on the device. `decode` makes no host read;
+    `lax.while_loop` on the device. `decode` makes no host read: with `cg`
+    on CUDA (`generate`'s default) it captures one (b, 1) step, sampling
+    and EOS masking included, in a CUDA graph (`runtime.graphs.StepGraph`)
+    and replays it, where the JAX module jits its step;
     `decode_speculative` reads each verify round's outcome to the host once
     (the JAX loop reads once per generation).
   * Randomness comes from an explicit `torch.Generator` (the JAX functions
@@ -21,6 +24,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from flash_attn_tpu_torch.modules.mha import InferenceParams
+from flash_attn_tpu_torch.runtime.graphs import StepGraph
 
 
 def sample_tokens(
@@ -33,29 +37,35 @@ def sample_tokens(
     temperature: float = 1.0,
 ) -> torch.Tensor:
     """top-k / top-p / min-p / temperature sampling; top_k=1 is greedy
-    (argmax, the first maximum on ties). Returns (b,) int32."""
+    (argmax, the first maximum on ties). Returns (b,) int32.
+
+    Reads nothing to the host, so a step that samples can be captured in a
+    CUDA graph: the draw is the one `torch.multinomial(probs, 1)` makes
+    (the argmax of probs / q, q ~ Exp(1) from `generator`), without its
+    checks of the probabilities, which read the device."""
     if top_k == 1:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits.float()
     if temperature != 1.0:
         logits = logits / temperature
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, neg_inf, logits)
+        logits = logits.masked_fill(logits < kth, neg_inf)
     if min_p > 0.0:
         probs = torch.softmax(logits, dim=-1)
         pmax = probs.amax(dim=-1, keepdim=True)
-        logits = torch.where(probs < min_p * pmax, neg_inf, logits)
+        logits = logits.masked_fill(probs < min_p * pmax, neg_inf)
     if 0.0 < top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
         # Keep the smallest set with cumulative probability >= top_p.
         cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, neg_inf, logits)
+        logits = logits.masked_fill(logits < cutoff, neg_inf)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -80,12 +90,19 @@ def decode(
     eos_token_id: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     return_scores: bool = False,
+    cg: bool = False,
 ) -> GenerationOutput:
     """Greedy or sampled autoregressive decode: a prefill of the prompt,
     then max_new_tokens - 1 one-token steps. As in the JAX function, the
     scores are the fp32 logits of those steps (step i's predicts new token
     i + 1; the prefill's are not kept), and once a row has sampled the eos
-    token every later token of it is eos."""
+    token every later token of it is eos.
+
+    With `cg`, the one-token step, its sampling and EOS masking run over
+    static token, offset and finished buffers and write their token and
+    scores at a step index on the device: on CUDA captured once in a CUDA
+    graph and replayed, with no host read; elsewhere run eagerly, the same
+    code. `apply_fn` must then update the caches in place."""
     b, prompt_len = input_ids.shape
     dev = input_ids.device
     sample = dict(top_k=top_k, top_p=top_p, min_p=min_p,
@@ -96,6 +113,10 @@ def decode(
     finished = (token == eos_token_id if eos_token_id is not None
                 else torch.zeros((b,), dtype=torch.bool, device=dev))
     offset = offsets + prompt_len
+    if cg:
+        return _decode_graphed(input_ids, apply_fn, caches, max_new_tokens,
+                               token, offset, finished, logits.shape[-1],
+                               sample, eos_token_id, generator, return_scores)
     tokens, scores = [], []
     for _ in range(max_new_tokens - 1):
         logits, caches = apply_fn(token[:, None], caches, offset, 1)
@@ -115,6 +136,41 @@ def decode(
                       else logits.new_zeros((b, 0, logits.shape[-1])))
     return GenerationOutput(sequences=torch.cat([input_ids, new], dim=1),
                             scores=out_scores)
+
+
+def _decode_graphed(input_ids, apply_fn, caches, max_new_tokens, token,
+                    offset, finished, vocab, sample, eos_token_id, generator,
+                    return_scores) -> GenerationOutput:
+    """`decode`'s one-token steps as one `StepGraph` over static buffers
+    (token, offset, finished, and the step index into the outputs)."""
+    b = input_ids.shape[0]
+    dev = input_ids.device
+    steps = max(max_new_tokens - 1, 0)
+    new = torch.empty((b, steps + 1), dtype=input_ids.dtype, device=dev)
+    scores = (torch.empty((b, steps, vocab), dtype=torch.float32, device=dev)
+              if return_scores else None)
+    step = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def one_step():
+        logits, _ = apply_fn(token[:, None], caches, offset, 1)
+        nxt = sample_tokens(logits[:, -1], generator, **sample)
+        if eos_token_id is not None:
+            nxt = nxt.masked_fill(finished, eos_token_id)
+            finished.logical_or_(nxt == eos_token_id)
+        if return_scores:
+            scores.index_copy_(1, step, logits[:, -1:].float())
+        new.index_copy_(1, step, token[:, None].to(new.dtype))
+        token.copy_(nxt)
+        offset.add_(1)
+        step.add_(1)
+
+    graph = StepGraph(one_step, dev,
+                      generators=[generator] if sample["top_k"] != 1 else [])
+    for _ in range(steps):
+        graph()
+    new[:, -1] = token
+    return GenerationOutput(sequences=torch.cat([input_ids, new], dim=1),
+                            scores=scores)
 
 
 def make_apply_fn(model, max_seqlen: int, max_batch: int):
@@ -153,9 +209,9 @@ class GenerationMixin:
         cg: bool = True,
     ):
         """Generate up to `max_length` tokens in all (prompt included)
-        through contiguous caches of that length. `cg` is taken for the
-        JAX signature and not read."""
-        del cg
+        through contiguous caches of that length. `cg` (the reference's
+        CUDA-graph cache; the JAX package jits instead): the decode steps
+        replay one captured CUDA graph on the card (`decode`'s `cg`)."""
         b, prompt = input_ids.shape
         caches = self.allocate_inference_cache(b, max_length).key_value_memory_dict
         apply_fn = make_apply_fn(self, max_length, b)
@@ -163,7 +219,7 @@ class GenerationMixin:
             input_ids, apply_fn, caches, max_length - prompt, top_k=top_k,
             top_p=top_p, min_p=min_p, temperature=temperature,
             eos_token_id=eos_token_id, generator=generator,
-            return_scores=output_scores)
+            return_scores=output_scores, cg=cg)
         return out if return_dict_in_generate else out.sequences
 
 

@@ -1,11 +1,14 @@
 """The port's serving engine against the JAX package's: the same weights
 (carried across with `state_dict_from_flax`) and prompts must give the same
-greedy tokens. Also the port's native-vs-Python scheduler differential, and
-its import hygiene and device rules."""
+greedy tokens, plain and speculative (the JAX rule: speculative equals
+plain). Also the step programs' static tensors, the port's native-vs-Python
+scheduler differential, and its import hygiene and device rules."""
 
+import dataclasses
 import os
 import subprocess
 import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -92,6 +95,103 @@ def test_engine_options_keep_jax_tokens(jax_run, option):
         # The second round reuses the first prompt's two full pages.
         assert engine.generate(prompts, MAX_NEW) == want
         assert engine.prefix_cache.hits >= 1
+
+
+SPEC_K = 3
+
+
+@pytest.fixture(scope="module")
+def jax_draft():
+    """An independent draft's JAX params: the engine's model at another
+    seed."""
+    model = JaxGPTLMHeadModel(JaxGPTConfig(**FIELDS, dtype=jnp.float32))
+    params = model.init(jax.random.PRNGKey(7), jnp.zeros((1, 8), jnp.int32))
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("draft", ["draft", "target-as-draft"])
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "split"])
+def test_speculative_engine_matches_jax_engine(jax_run, jax_draft, fused,
+                                               draft):
+    """speculative_k 3 gives the JAX engine's plain greedy tokens; the
+    target as its own draft has every draft accepted."""
+    params, prompts, want = jax_run
+    target = _port_model(params)
+    draft_model = target if draft == "target-as-draft" else _port_model(
+        jax_draft)
+    engine = LLMEngine(target, EngineConfig(**ENGINE, fused_kv_pages=fused,
+                                            speculative_k=SPEC_K),
+                       device="cpu", draft_model=draft_model)
+    assert engine.generate(prompts, MAX_NEW) == want
+    assert engine.prefill_steps == 3 and engine.decode_steps == 0
+    assert engine.spec_rounds >= 1
+    assert engine.spec_drafted == SPEC_K * len(prompts) * engine.spec_rounds
+    if draft == "target-as-draft":
+        assert engine.spec_accepted == engine.spec_drafted
+
+
+def test_speculative_config_errors():
+    """The JAX engine's ValueErrors: speculative_k without a draft, with
+    top_k != 1, with decode_depth > 1. speculative_k serves; device_put_fn
+    still raises, naming its ROADMAP item."""
+    model = GPTLMHeadModel(GPTConfig(**FIELDS, dtype=torch.float32),
+                           device="cpu")
+    spec = EngineConfig(**ENGINE, speculative_k=SPEC_K)
+    with pytest.raises(ValueError, match="draft_model"):
+        LLMEngine(model, spec, device="cpu")
+    with pytest.raises(ValueError, match="greedy"):
+        LLMEngine(model, dataclasses.replace(spec, top_k=5), device="cpu",
+                  draft_model=model)
+    with pytest.raises(ValueError, match="exclusive"):
+        LLMEngine(model, dataclasses.replace(spec, decode_depth=2),
+                  device="cpu", draft_model=model)
+    assert "round" in LLMEngine(model, spec, device="cpu",
+                                draft_model=model).graphs
+    with pytest.raises(NotImplementedError, match="item 12"):
+        LLMEngine(model, EngineConfig(**ENGINE, device_put_fn=lambda x: x),
+                  device="cpu")
+
+
+STATIC = ("_inputs", "_staging", "_prefill_tokens", "_decode_tokens",
+          "_offsets", "_tables", "_sampled", "_read_back", "last_logits")
+
+
+@pytest.mark.parametrize("program", ["decode", "round"])
+def test_step_programs_keep_their_static_tensors(jax_run, program):
+    """Every step program reads and writes the same tensors at every step
+    (what a captured CUDA graph replays over): the inputs are views of one
+    buffer, written in place; the tokens stay the JAX engine's. The rotary
+    table the steps read outlives a longer request's rebuild, and dropping
+    the engine frees it at once (its graphs hold it in no cycle)."""
+    params, prompts, want = jax_run
+    model = _port_model(params)
+    extra = (dict(speculative_k=SPEC_K) if program == "round"
+             else dict(decode_depth=2))
+    engine = LLMEngine(model, EngineConfig(**ENGINE, **extra), device="cpu",
+                       draft_model=model if program == "round" else None)
+    ptrs = {name: getattr(engine, name).data_ptr() for name in STATIC}
+    lo = ptrs["_inputs"]
+    hi = lo + engine._inputs.numel() * 4
+    assert all(lo <= ptrs[name] < hi for name in STATIC[2:6])
+    for i, p in enumerate(prompts):
+        engine.add_request(i, p, MAX_NEW)
+    steps = 0
+    while engine.sched.num_active() > 0 or any(
+            engine.sched.request_state(r) in (0, 1) for r in engine.outputs):
+        engine.step()
+        steps += 1
+        assert {name: getattr(engine, name).data_ptr()
+                for name in STATIC} == ptrs
+    assert [engine.outputs[i].tokens for i in range(len(prompts))] == want
+    assert steps > engine.prefill_steps
+    assert (engine.spec_rounds if program == "round" else engine.decode_steps)
+    rotary = model.transformer.layers[0].mixer.rotary
+    table = weakref.ref(rotary._cached[torch.device("cpu")][1])
+    rotary.cos_sin(2 * ENGINE["max_seqlen"] + 1)
+    assert table() is not None
+    gone = weakref.ref(engine)
+    del engine
+    assert gone() is None
 
 
 def _drive(sched, workload, max_steps=500):

@@ -128,6 +128,25 @@ def test_eos_stops_a_row(target, prompts, greedy):
     assert (got[0, 2:] == eos).all()
 
 
+def test_graphed_decode_matches_eager(target, prompts):
+    """`generate(cg=True)`'s step over static buffers (on the CPU run
+    eagerly, the code a CUDA graph captures) gives cg=False's sequences and
+    scores exactly: greedy with an eos, and top-k sampling from a seeded
+    generator."""
+    model = target[2]
+    ids = torch.from_numpy(prompts)
+    base = model.generate(ids, PROMPT + NEW)[:, PROMPT:]
+    for kw in (dict(eos_token_id=int(base[0, 2])),
+               dict(top_k=5, temperature=0.8)):
+        runs = [model.generate(ids, PROMPT + NEW, cg=cg,
+                               generator=torch.Generator().manual_seed(3),
+                               return_dict_in_generate=True,
+                               output_scores=True, **kw)
+                for cg in (True, False)]
+        assert torch.equal(runs[0].sequences, runs[1].sequences)
+        assert torch.equal(runs[0].scores, runs[1].scores)
+
+
 def test_seeded_generator_reproducible(target, prompts):
     """top-k sampling from a seeded torch.Generator: the same seed gives the
     same tokens, and each token after the first lies in the top k of the

@@ -31,7 +31,8 @@ and 5, whose C interfaces may differ between checkouts, are timed through
 each checkout's own wrappers: tools/ab_decode_worker.py runs once per
 checkout (its inputs built once), and each turn asks the checkout's worker
 for its times, in the same order. The last line gives each kernel's median
-over the rounds for either build. Needs one CUDA card.
+over the rounds for either build. `--cases` with no name times kernels 4
+and 5 and the vLLM step alone. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -348,9 +349,10 @@ def main(argv=None):
     parser.add_argument("--base", required=True,
                         help="the other checkout (e.g. build/parent)")
     parser.add_argument("--rounds", type=int, default=6)
-    parser.add_argument("--cases", nargs="+", choices=CASES, default=CASES,
+    parser.add_argument("--cases", nargs="*", choices=CASES, default=CASES,
                         help="the kernel 1-3, 6-8, 9-11 and 12-15 cases to "
-                             "time")
+                             "time (none: kernels 4 and 5 and the vLLM step "
+                             "alone)")
     parser.add_argument("--no-decode", action="store_true",
                         help="skip kernels 4 and 5 and the vLLM step")
     args = parser.parse_args(argv)
