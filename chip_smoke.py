@@ -178,9 +178,13 @@ from flash_attn_tpu_torch.kernels.flash_bwd import (  # noqa: E402
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
 )
+from flash_attn_tpu_torch.kernels import common  # noqa: E402
 from flash_attn_tpu_torch.kernels.common import (  # noqa: E402
+    alibi_bias,
     aux_take,
     default_alibi_slopes,
+    dropout_keep_mask,
+    make_features,
     normalize_window,
     visible_mask,
 )
@@ -896,6 +900,418 @@ def attn_fault_phase():
                   ok=all(caught.values())))
         check(all(caught.values()), f"attn_fault: a window off by one in "
                                     f"case {name} passes the tolerance")
+
+
+# -- phases: attn_features, attn_features_bits, attn_features_fault,
+#    attn_features_trace (kernels 1-3's feature instances vs plain,
+#    csrc/attn_features.cuh) --------------------------------------------------
+
+# name: (b, h, hk, sq, sk, d, causal, window_size, softcap, features), each
+# at the published widths of a model that runs the feature.
+FEATURE_CASES = {
+    # GPT-2 medium with GPT-2's attention dropout 0.1.
+    "dropout-gpt2m": (8, 16, 16, 2048, 2048, 64, True, (-1, -1), 0.0,
+                      dict(dropout_p=0.1, dropout_seed=1234)),
+    # Baichuan-13B (40 heads of 128), ALiBi with the geometric slopes, and
+    # per-row (b, h) slopes at batch 2.
+    "alibi-baichuan13b": (1, 40, 40, 4096, 4096, 128, True, (-1, -1), 0.0,
+                          dict(alibi="h")),
+    "alibi-bh-baichuan13b-b2": (2, 40, 40, 4096, 4096, 128, True, (-1, -1),
+                                0.0, dict(alibi="bh")),
+    # varlen_train's 16 documents (GPT2M_DOCS) as segment ids over 8 rows
+    # of 2048 at gpt2m widths.
+    "segments-gpt2m-docs": (8, 16, 16, 2048, 2048, 64, True, (-1, -1), 0.0,
+                            dict(segments="gpt2m-docs")),
+    # Llama-4-Scout (40 query and 8 kv heads of 128), attention_chunk 8192.
+    "chunk8192-llama4-scout": (1, 40, 8, 16384, 16384, 128, True, (-1, -1),
+                               0.0, dict(attention_chunk=8192)),
+    # Mistral-7B's window 4096 with 4 sink tokens (StreamingLLM).
+    "sinktok4-mistral": (1, 32, 8, 8192, 8192, 128, True, (WINDOW, -1), 0.0,
+                         dict(sink_token_length=4)),
+    # gpt-oss-20b (64 query and 8 kv heads of 64), window 128, learnable
+    # sink.
+    "sink-gptoss20b": (1, 64, 8, 4096, 4096, 64, True, (127, -1), 0.0,
+                       dict(sink=True)),
+    # Everything at once at d 64, softcap too.
+    "all-d64": (2, 8, 2, 2048, 2048, 64, True, (255, -1), 30.0,
+                dict(dropout_p=0.1, dropout_seed=-77, alibi="bh",
+                     segments="random", attention_chunk=512,
+                     sink_token_length=4, sink=True)),
+}
+# The planted faults run on this case (small; every rule a fault moves is
+# in it).
+FEATURE_FAULT_CASE = (2, 8, 2, 2048, 2048, 64, True, (255, -1), 0.0,
+                      dict(dropout_p=0.1, dropout_seed=31, attention_chunk=512,
+                           sink_token_length=4))
+
+
+def feature_inputs(case, seed):
+    """Seeded q, k, v, dO (bf16) and the case's feature arguments on the
+    card: (kw, fkw, (q, k, v, do))."""
+    b, h, hk, sq, sk, d, causal, window, softcap, spec = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hk, sk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    fkw = {key: spec[key] for key in ("dropout_p", "dropout_seed",
+                                      "attention_chunk", "sink_token_length")
+           if key in spec}
+    rng = np.random.RandomState(seed)
+    if spec.get("alibi"):
+        slopes = default_alibi_slopes(h)
+        if spec["alibi"] == "bh":
+            slopes = slopes[None] * torch.from_numpy(
+                rng.uniform(0.5, 2.0, (b, 1)).astype(np.float32))
+        fkw["alibi_slopes"] = slopes.to(dev)
+    if spec.get("segments") == "gpt2m-docs":
+        ids = torch.repeat_interleave(torch.arange(len(GPT2M_DOCS)),
+                                      torch.tensor(GPT2M_DOCS))
+        fkw["q_segment_ids"] = ids.reshape(b, sq).int().to(dev)
+        fkw["kv_segment_ids"] = fkw["q_segment_ids"]
+    elif spec.get("segments") == "random":
+        ids = np.sort(rng.randint(0, 6, (b, sq)), axis=1).astype(np.int32)
+        ids[:, sq - 37:] = -1  # padding rows and keys: never equal
+        kv = np.where(ids < 0, -2, ids)
+        fkw["q_segment_ids"] = torch.from_numpy(ids).to(dev)
+        fkw["kv_segment_ids"] = torch.from_numpy(kv).to(dev)
+    if spec.get("sink"):
+        fkw["sink"] = torch.randn(h, generator=gen, device=dev)
+    return dict(causal=causal, window_size=window, softcap=softcap), fkw, (
+        q, k, v, do)
+
+
+def feature_pairs(case, fkw):
+    """Visible (query row, key) pairs summed over the batch rows, per head:
+    the visibility rules' count (dropout, ALiBi and the sink see as many)."""
+    b, h, hk, sq, sk, d, causal, window, softcap, spec = case
+    f = make_features(**{k: v for k, v in fkw.items() if k != "sink"})
+    win = normalize_window(window, causal)
+    vis = (visible_mask(sq, sk, win, "cuda") if f is None
+           else f.visible(sq, sk, win, "cuda"))
+    return int(vis.sum()) * (b if vis.dim() == 2 else 1)
+
+
+def _dsink(out, lse, do, sink):
+    """The learnable sink's gradient as the JAX vjp takes it."""
+    delta = (do.float() * out.float()).sum(-1)
+    w = torch.exp(sink.float()[None, :, None] - lse)
+    w = torch.where(torch.isfinite(lse), w, torch.zeros_like(w))
+    return -(delta * w).sum((0, 2))
+
+
+@contextlib.contextmanager
+def planted_murmur(index, value):
+    """The plain versions' dropout hash with constant `index` of
+    common.MURMUR3 changed (a planted fault)."""
+    saved = common.MURMUR3
+    common.MURMUR3 = saved[:index] + (value,) + saved[index + 1:]
+    try:
+        yield
+    finally:
+        common.MURMUR3 = saved
+
+
+def feature_compare(case, seed, kernel_fkw=None, dv_factor=1.0):
+    """Kernels 1-3 with the case's features and their plain versions on the
+    same seeded inputs (the plain backward fed the plain forward's LSE and
+    delta); with a learnable sink also its gradient through
+    flash_attn_func's autograd against the JAX vjp's formula on the plain
+    forward. `kernel_fkw` hands the kernels other features than the plain
+    versions, and `dv_factor` scales the plain dV (planted faults).
+    Returns (result, kw, fkw, inputs)."""
+    kw, fkw, (q, k, v, do) = feature_inputs(case, seed)
+    kfkw = fkw if kernel_fkw is None else dict(fkw, **kernel_fkw)
+    rf = make_features(**fkw)
+    kf = make_features(**kfkw)
+    out, lse = flash_attention_fwd(q, k, v, **kw, **kfkw)
+    torch.cuda.synchronize()
+    up = tuple(x.float() for x in (q, k, v, do))
+    ref_out, ref_lse = flash_attention_fwd_ref(*up[:3], **kw, features=rf)
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max()) if finite.any() else 0.0
+    result = dict(out=held(out, ref_out), lse_max_abs_err=lse_err,
+                  rows_seeing_nothing=int((ref_out.abs().amax(-1) == 0).sum()))
+    fwd_ok = bool(result["out"]["err_over_limit"] <= 1
+                  and torch.equal(finite, torch.isfinite(lse))
+                  and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all())
+    if "sink" in fkw:
+        sink = fkw["sink"].clone().requires_grad_()
+        o = flash_attn_func(q, k, v, sink=sink, layout="bhsd",
+                            **{key: val for key, val in kfkw.items()
+                               if key != "sink"}, **kw)
+        (dsink,) = torch.autograd.grad(o, (sink,), do)
+        result["dsink"] = held(dsink[None], _dsink(ref_out, ref_lse, up[3],
+                                                   fkw["sink"])[None])
+        fwd_ok = fwd_ok and result["dsink"]["err_over_limit"] <= 1
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, ref_lse, **kw, features=kf)
+    ref_dq, ref_delta = _bwd_dq_ref(*up, ref_lse, **kw, features=rf)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, ref_lse, ref_delta, **kw,
+                                     features=kf)
+    torch.cuda.synchronize()
+    result.update(dq=held(dq, ref_dq), delta=held(delta, ref_delta))
+    del ref_dq
+    ref_dk, ref_dv = _bwd_dkv_ref(*up, ref_lse, ref_delta, **kw, features=rf)
+    result.update(dk=held(dk, ref_dk), dv=held(dv, ref_dv * dv_factor))
+    del ref_dk, ref_dv, ref_out, up
+    result.update(
+        fwd_ok=fwd_ok,
+        dq_ok=result["dq"]["err_over_limit"] <= 1
+        and result["delta"]["err_over_limit"] <= 1,
+        dkv_ok=max(result["dk"]["err_over_limit"],
+                   result["dv"]["err_over_limit"]) <= 1,
+        grads_finite=all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)))
+    return result, kw, fkw, (q, k, v, do, ref_lse, ref_delta)
+
+
+def feature_library(case, kw, fkw, tensors):
+    """SDPA on the same function where one call computes it: the ALiBi term
+    as an additive float mask, segment ids, a chunk or sink tokens as a
+    boolean mask (with the window and causality); K and V repeated to the
+    query heads outside the timed calls. None for dropout (SDPA draws its
+    own mask) and the learnable sink. A yardstick; the port never calls
+    it."""
+    if "dropout_p" in fkw or "sink" in fkw:
+        return None
+    b, h, hk, sq, sk, d = case[:6]
+    q, k, v, do = tensors[:4]
+    win = normalize_window(kw["window_size"], kw["causal"])
+    f = make_features(**fkw)
+    mask = f.visible(sq, sk, win, q.device)
+    if "alibi_slopes" in fkw:
+        bias = alibi_bias(fkw["alibi_slopes"], slice(0, h), sq, sk, q.device)
+        mask = bias.masked_fill(~mask, float("-inf")).to(q.dtype)
+        del bias
+    qt, kt, vt = (x.detach().clone().requires_grad_() for x in (
+        q, k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)))
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), reps=5, warmup=1)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o, (qt, kt, vt), do)
+
+    both = cuda_ms(sdpa_fwd_bwd, reps=5, warmup=1)
+    return dict(fwd_ms=fwd, bwd_ms=both - fwd,
+                call="scaled_dot_product_attention(attn_mask="
+                     + ("ALiBi float mask" if "alibi_slopes" in fkw
+                        else "boolean mask") + ")")
+
+
+def feature_case(name, seed):
+    """One FEATURE_CASES case: held, timed against its plain versions and
+    its bound, SDPA beside it where one call computes it."""
+    case = FEATURE_CASES[name]
+    checked, kw, fkw, tensors = feature_compare(case, seed)
+    b, h, hk, sq, sk, d = case[:6]
+    q, k, v, do, lse, delta = tensors
+    kf = make_features(**fkw)
+    big = b * h * sq * sk > 2**31
+    plain = dict(reps=1 if big else 3, warmup=1)
+    up = tuple(x.float() for x in (q, k, v, do))
+    result = dict(
+        phase="attn_features", case=name, b=b, h=h, hk=hk, sq=sq, sk=sk, d=d,
+        causal=kw["causal"], window_size=list(kw["window_size"]),
+        softcap=kw["softcap"], features=sorted(case[9]), **checked,
+        tolerance=ATTN_TOLERANCE,
+        ok=(checked["fwd_ok"] and checked["dq_ok"] and checked["dkv_ok"]
+            and checked["grads_finite"]),
+        fwd_ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, **kw, **fkw),
+                       reps=10),
+        dq_ms=cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, **kw,
+                                                     features=kf), reps=10),
+        dkv_ms=cuda_ms(lambda: flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw, features=kf), reps=10),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_fwd_ref(
+            *up[:3], **kw, features=kf), **plain),
+        dq_plain_ms=cuda_ms(lambda: _bwd_dq_ref(*up, lse, **kw, features=kf),
+                            **plain),
+        dkv_plain_ms=cuda_ms(lambda: _bwd_dkv_ref(*up, lse, delta, **kw,
+                                                  features=kf), **plain),
+    )
+    del up
+    pairs = feature_pairs(case, fkw)
+    el = q.element_size()
+    qb, kvb, stats = b * h * sq * d * el, b * hk * sk * d * el, b * h * sq * 4
+    # As attn_kernels' bound, over the visible pairs of the features' rules
+    # (summed over the batch rows): fwd 4d flops a pair, dK/dV 8d, dQ 6d.
+    for key, per_d, nbytes in (
+            ("fwd", 4, 2 * qb + 2 * kvb + stats),
+            ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+            ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, 1, h, d, pairs)
+    result["visible_pairs"] = pairs
+    result["library"] = feature_library(case, kw, fkw, tensors)
+    if "dropout_p" in fkw and name == "dropout-gpt2m":
+        # The dropped share of the visible pairs, from the keep mask the
+        # kernels draw (attn_features_bits shows they draw these bits).
+        vis = visible_mask(sq, sk, normalize_window(kw["window_size"],
+                                                    kw["causal"]), q.device)
+        kept = sum(int((kf.keep(b, slice(hh, hh + 1), sq, sk, q.device)
+                        & vis).sum()) for hh in range(h))
+        result["dropped_fraction"] = 1.0 - kept / (b * h * int(vis.sum()))
+        result["ok"] = result["ok"] and abs(
+            result["dropped_fraction"] - fkw["dropout_p"]) <= 0.01
+    emit(result)
+    check(result["ok"], f"attn_features case {name} disagrees with its plain "
+                        "version (or its dropped share is off p)")
+    return result
+
+
+def feature_bits_phase():
+    """The keep mask read back in bits from kernel 1: V = I at sk = d, so
+    out[r, c] is P[r, c] Z[r, c] / (1 - p) / l, and O's zeros are exactly
+    the dropped entries; against dropout_keep_mask (the JAX hash) at
+    nonzero batch rows and heads, rows 0..999 over six 192-row blocks, two
+    seeds (one negative)."""
+    b, h, sq, d = 3, 4, 1000, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    q = 0.1 * torch.randn(b, h, sq, d, generator=gen, device=dev)
+    k = 0.1 * torch.randn(b, h, d, d, generator=gen, device=dev)
+    v = torch.eye(d, device=dev).expand(b, h, d, d).contiguous()
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    cases = []
+    for seed, p in ((-12345, 0.25), (987654321, 0.1)):
+        out, _ = flash_attention_fwd(q, k, v, dropout_p=p, dropout_seed=seed)
+        keep = dropout_keep_mask(
+            seed, torch.arange(b, device=dev).reshape(-1, 1, 1, 1),
+            torch.arange(h, device=dev).reshape(1, -1, 1, 1), 0, 0, (sq, d),
+            1.0 - p, device=dev)
+        cases.append(dict(seed=seed, dropout_p=p,
+                          equal_bits=bool(torch.equal(out != 0, keep)),
+                          mismatched=int(((out != 0) != keep).sum()),
+                          dropped_fraction=float(1 - keep.float().mean())))
+    ok = all(c["equal_bits"] for c in cases)
+    emit(dict(phase="attn_features_bits", b=b, h=h, sq=sq, sk=d, d=d,
+              how="V = I at sk = d: O's zeros are the dropped entries",
+              cases=cases, ok=ok))
+    check(ok, "attn_features_bits: kernel 1's keep mask is not the hash's")
+
+
+def feature_fault_phase():
+    """The checks' power over the features, shown: each planted fault must
+    read > 1 in the kernels' error over limit. A changed hash constant
+    (fmix32's first multiplier in the plain versions), a sink-token range
+    one tile (128 keys) longer in the kernels, a chunk edge off by one (the
+    kernels' chunk one longer), and a dV without 1 / (1 - p) (the plain dV
+    times 1 - p)."""
+    spec = FEATURE_FAULT_CASE[9]
+    faults = {}
+    with planted_murmur(5, common.MURMUR3[5] ^ 0x10):
+        faults["hash_constant"] = feature_compare(FEATURE_FAULT_CASE, 41)[0]
+    faults["sink_tokens_plus_one_tile"] = feature_compare(
+        FEATURE_FAULT_CASE, 42, kernel_fkw=dict(
+            sink_token_length=spec["sink_token_length"] + 128))[0]
+    faults["chunk_edge_off_by_one"] = feature_compare(
+        FEATURE_FAULT_CASE, 43, kernel_fkw=dict(
+            attention_chunk=spec["attention_chunk"] + 1))[0]
+    faults["dv_without_keep_scale"] = feature_compare(
+        FEATURE_FAULT_CASE, 44, dv_factor=1.0 - spec["dropout_p"])[0]
+    want = {name: ("out", "dq", "dk", "dv") for name in faults}
+    want["dv_without_keep_scale"] = ("dv",)
+    read = {name: {t: r[t]["err_over_limit"] for t in
+                   ("out", "dq", "delta", "dk", "dv")}
+            for name, r in faults.items()}
+    caught = {name: all(read[name][t] > 1 for t in want[name])
+              for name in faults}
+    emit(dict(phase="attn_features_fault", case=list(FEATURE_FAULT_CASE[:9]),
+              features=sorted(spec), err_over_limit=read,
+              must_exceed_1=want, caught=caught, ok=all(caught.values())))
+    check(all(caught.values()), "attn_features_fault: a planted fault "
+                                "passes the tolerance")
+
+
+FEATURE_KERNELS = {"flash_fwd": "fwd_sm90_kernel",
+                   "flash_bwd_dq": "bwd_dq_sm90_kernel",
+                   "flash_bwd_dkv": "bwd_dkv_sm90_kernel"}
+
+
+def _feature_counts():
+    return dict(flash_fwd=flash_attention_fwd.feature_launches,
+                flash_bwd_dq=flash_attention_bwd_dq.feature_launches,
+                flash_bwd_dkv=flash_attention_bwd_dkv.feature_launches)
+
+
+def feature_trace_phase(seed=45):
+    """The feature instances' launches read from a torch.profiler trace of
+    one flash_attn_func forward and backward through autograd (the all-d64
+    case): one launch of each kernel's FeatParams instance, as the
+    wrappers' counts say."""
+    from torch.profiler import ProfilerActivity, profile
+
+    case = FEATURE_CASES["all-d64"]
+    kw, fkw, (q, k, v, do) = feature_inputs(case, seed)
+    q.requires_grad_()
+    before = _feature_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = flash_attn_func(q, k, v, layout="bhsd", **kw, **fkw)
+        torch.autograd.grad(o, (q,), do)
+        torch.cuda.synchronize()
+    counted = {n: c - before[n] for n, c in _feature_counts().items()}
+    by_kernel = _device_ms_by_kernel(prof, counts=True)
+
+    def instance(key, frag):
+        # The kernel's template arguments end with kFeat: 0 is the
+        # feature-free instance.
+        m = re.search("::" + frag + r"<[^<>]*,\s*(\d+)>", key)
+        return bool(m) and m.group(1) != "0"
+
+    listed = {name: sum(c for key, c in by_kernel.items()
+                        if instance(key, frag))
+              for name, frag in FEATURE_KERNELS.items()}
+    ok = listed == counted == dict(flash_fwd=1, flash_bwd_dq=1,
+                                   flash_bwd_dkv=1)
+    emit(dict(phase="attn_features_trace", case="all-d64",
+              launches_listed=listed, launches_counted=counted,
+              kernels=[key[:120] for key in by_kernel
+                       if "sm90_kernel" in key], ok=ok))
+    check(ok, "attn_features_trace: the trace's feature launches differ "
+              "from the counts")
+    return listed
+
+
+def feature_entry(features, key, train_dropout, name, logs):
+    """The kernels line's record of kernel 1, 2 or 3's feature instances
+    (`key` fwd, dkv or dq): their source, ptxas registers, launches on
+    train_dropout's path and the trace's, and each FEATURE_CASES case's
+    time beside its plain version's, its bound and SDPA's."""
+    src = "flash_fwd_features" if key == "fwd" else "flash_bwd_features"
+    frag = dict(fwd="15fwd_sm90_kernel", dq="bwd_dq_sm90_kernel",
+                dkv="bwd_dkv_sm90_kernel")[key]
+    trace = dict(fwd="flash_fwd", dq="flash_bwd_dq", dkv="flash_bwd_dkv")[key]
+    cases = {}
+    for case, r in features.items():
+        if case == "trace":
+            continue
+        lib = r["library"]
+        cases[case] = dict(
+            ms=r[f"{key}_ms"], plain_ms=r[f"{key}_plain_ms"],
+            bound_ms=r[f"{key}_bound_ms"], bound_by=r[f"{key}_bound_by"],
+            library_ms=None if lib is None else lib[
+                "fwd_ms" if key == "fwd" else "bwd_ms"],
+            max_abs_err=max(r[t]["max_abs_err"] for t in (
+                ("out",) if key == "fwd" else ("dq", "delta") if key == "dq"
+                else ("dk", "dv"))))
+    return dict(source=f"flash_attn_tpu_torch/csrc/{src}.cu",
+                ptxas=ptxas_of({src: logs.get(src, "")}, frag),
+                launches_train_dropout=train_dropout["feature_launches"][name],
+                launches_trace=features["trace"][trace], cases=cases)
+
+
+def feature_phases():
+    """Every FEATURE_CASES case, the bits, the planted faults, the trace."""
+    results = {}
+    for i, name in enumerate(FEATURE_CASES):
+        results[name] = feature_case(name, seed=160 + i)
+        gc.collect()
+        torch.cuda.empty_cache()
+    feature_bits_phase()
+    feature_fault_phase()
+    results["trace"] = feature_trace_phase()
+    return results
 
 
 # -- phases: varlen_kernels, varlen_fault (kernels 6-8 vs plain) --------------
@@ -3120,6 +3536,12 @@ def _zero_attn_counts():
     flash_attention_bwd_dq.launches = 0
 
 
+def _zero_feature_counts():
+    flash_attention_fwd.feature_launches = 0
+    flash_attention_bwd_dq.feature_launches = 0
+    flash_attention_bwd_dkv.feature_launches = 0
+
+
 def _expected_counts(config, steps):
     """Launches of a training run: per layer and step one forward, and a
     second one when remat recomputes it in the backward; one dK/dV and one
@@ -3130,13 +3552,15 @@ def _expected_counts(config, steps):
                 flash_bwd_dq=config.n_layer * steps)
 
 
-def train_grad_phase(batch=1, seed=4):
+def train_grad_phase(batch=1, seed=4, overrides=(), dropout_seed=None):
     """One loss and gradient of the full-depth GPT-2-medium model through
     the port (kernels, bf16 compute, fp32 params) against the plain model
-    in fp32 and in bf16 eager."""
+    in fp32 and in bf16 eager; `overrides` (dotted config settings) switch
+    on attention dropout, whose masks both take from `dropout_seed`, or
+    ALiBi."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config, _, dcfg = load_config(GPT2M_CONFIG)
+    config, _, dcfg = load_config(GPT2M_CONFIG, list(overrides))
     model = GPTLMHeadModel(
         config, device="cuda", param_dtype=torch.float32,
         generator=torch.Generator(device="cuda").manual_seed(seed))
@@ -3147,12 +3571,15 @@ def train_grad_phase(batch=1, seed=4):
         0, config.vocab_size, (batch, dcfg["seqlen"] + 1))).cuda()
     ids, labels = tokens[:, :-1], tokens[:, 1:]
     _zero_attn_counts()
-    loss = cross_entropy_loss(model(ids).float(), labels)
+    loss = cross_entropy_loss(model(ids, dropout_seed=dropout_seed).float(),
+                              labels)
     grads = torch.autograd.grad(loss, params)
     counts = _attn_counts()
-    loss32 = gpt_loss_ref(model, ids, labels, dtype=torch.float32)
+    loss32 = gpt_loss_ref(model, ids, labels, dtype=torch.float32,
+                          dropout_seed=dropout_seed)
     grads32 = torch.autograd.grad(loss32, params)
-    loss16 = gpt_loss_ref(model, ids, labels, dtype=torch.bfloat16)
+    loss16 = gpt_loss_ref(model, ids, labels, dtype=torch.bfloat16,
+                          dropout_seed=dropout_seed)
     grads16 = torch.autograd.grad(loss16, params)
 
     def worst(gs):
@@ -3172,7 +3599,8 @@ def train_grad_phase(batch=1, seed=4):
           and counts == _expected_counts(config, 1))
     result = dict(
         phase="train_grad", model="gpt2m (configs/gpt2m-synth.yaml), random "
-        f"fp32 weights (seed {seed})", layers=config.n_layer,
+        f"fp32 weights (seed {seed})", overrides=list(overrides),
+        dropout_seed=dropout_seed, layers=config.n_layer,
         params_m=sum(p.numel() for p in params) / 1e6, batch=batch,
         seqlen=dcfg["seqlen"], compute_dtype="bfloat16", remat=config.remat,
         loss_port=loss.item(), loss_fp32=loss32.item(),
@@ -3189,17 +3617,21 @@ def train_grad_phase(batch=1, seed=4):
     return result
 
 
-def train_phase():
+def train_phase(overrides=(), phase="train"):
     """`training.run.main` on configs/gpt2m-synth.yaml as it is, cut to
-    TRAIN_STEPS steps with a short warmup; launches of the three attention
-    kernels counted over this phase only."""
+    TRAIN_STEPS steps with a short warmup (and `overrides`, dotted
+    settings, for train_dropout); launches of the three attention kernels
+    counted over this phase only."""
     argv = ["--config", GPT2M_CONFIG,
             "--set", f"train.total_steps={TRAIN_STEPS}",
             "--set", f"train.warmup_steps={TRAIN_WARMUP}"]
+    for setting in overrides:
+        argv += ["--set", setting]
     config, train_config, dcfg = load_config(GPT2M_CONFIG, argv[3::2])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_attn_counts()
+    _zero_feature_counts()
     t0 = time.perf_counter()
     report = train_run.main(argv)
     torch.cuda.synchronize()
@@ -3211,8 +3643,11 @@ def train_phase():
     want = _expected_counts(config, n)
     ok = (n == TRAIN_STEPS and all(np.isfinite(losses))
           and losses[-1] < losses[0] and counts == want)
+    if overrides:
+        # With dropout every attention launch is a feature instance's.
+        ok = ok and _feature_counts() == want
     result = dict(
-        phase="train", config="configs/gpt2m-synth.yaml",
+        phase=phase, config="configs/gpt2m-synth.yaml",
         overrides=argv[2:], layers=config.n_layer, n_embd=config.n_embd,
         heads=config.n_head, vocab=config.vocab_size, remat=config.remat,
         batch=dcfg["batch_size"], seqlen=dcfg["seqlen"],
@@ -3220,10 +3655,49 @@ def train_phase():
         mfu_peak="989 TFLOP/s (H100 SXM bf16 dense, data sheet)",
         wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=counts, launches_expected=want, ok=ok)
+    if overrides:
+        result["feature_launches"] = _feature_counts()
     emit(result)
-    check(ok, "train: non-finite or non-falling loss, or launches off "
+    check(ok, f"{phase}: non-finite or non-falling loss, or launches off "
               "the count")
     return result
+
+
+def train_seeds_phase(seed=5, steps=2):
+    """Dropout's seeds in training: the gpt2m trainer (attn_pdrop 0.1) on
+    the same weights and batches with TrainConfig.seed 0, 0 and 1, `steps`
+    steps each: one seed gives equal bits (losses and the weights after),
+    two seeds differ."""
+    config, train_config, dcfg = load_config(GPT2M_CONFIG,
+                                             ["model.attn_pdrop=0.1"])
+    rng = np.random.RandomState(seed)
+    shape = (dcfg["batch_size"], dcfg["seqlen"] + 1)
+    batches = [rng.randint(0, config.vocab_size, shape) for _ in range(steps)]
+    runs = []
+    for train_seed in (0, 0, 1):
+        model = GPTLMHeadModel(
+            config, device="cuda", param_dtype=torch.float32,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+        trainer = Trainer(model, dataclasses.replace(train_config,
+                                                     seed=train_seed))
+        losses = [float(trainer.train_step(x[:, :-1], x[:, 1:])[0])
+                  for x in batches]
+        head = model.transformer.layers[0].mixer.Wq.weight.detach().clone()
+        runs.append((losses, head))
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+    differ = runs[0][0] != runs[2][0] and not torch.equal(runs[0][1],
+                                                           runs[2][1])
+    ok = same and differ
+    emit(dict(phase="train_seeds", config="configs/gpt2m-synth.yaml",
+              overrides=["model.attn_pdrop=0.1"], steps=steps,
+              losses={f"seed {s} run {i}": r[0] for i, (s, r) in
+                      enumerate(zip((0, 0, 1), runs))},
+              one_seed_equal_bits=same, two_seeds_differ=differ, ok=ok))
+    check(ok, "train_seeds: one seed does not repeat its bits, or two "
+              "seeds agree")
 
 
 def train_profile_phase(seed=5):
@@ -5291,9 +5765,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", nargs="+",
-        choices=("kernel", "attn", "varlen", "vllm", "decode", "sparse",
-                 "blocksparse", "quant"),
+        choices=("kernel", "attn", "features", "varlen", "vllm", "decode",
+                 "sparse", "blocksparse", "quant"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
+             "the attn_features phases, "
              "varlen_kernels + varlen_fault + varlen_train, vllm, "
              "decode_kernels + decode_fault, the sparse phases, the "
              "block-sparse phases, quant_kernels + quant_fault + quant_vllm "
@@ -5327,6 +5802,8 @@ def main(argv=None):
                 attn_case(*c, seed=20 + i)
             attn_copy_phase()
             attn_fault_phase()
+        if "features" in only:
+            feature_phases()
         if "varlen" in only:
             for i, name in enumerate(VARLEN_CASES):
                 varlen_case(name, seed=30 + i)
@@ -5363,6 +5840,9 @@ def main(argv=None):
     attn = {c[0]: attn_case(*c, seed=20 + i) for i, c in enumerate(ATTN_CASES)}
     tma_copies = attn_copy_phase()
     attn_fault_phase()
+    features = feature_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
     varlen = {name: varlen_case(name, seed=30 + i)
               for i, name in enumerate(VARLEN_CASES)}
     paged = paged_cases()
@@ -5437,7 +5917,23 @@ def main(argv=None):
     train_grad_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    train_grad_phase(overrides=["model.attn_pdrop=0.1"], dropout_seed=2718)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grad_phase(overrides=["model.use_alibi=true"])
+    gc.collect()
+    torch.cuda.empty_cache()
     train = train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_dropout = train_phase(["model.attn_pdrop=0.1"], phase="train_dropout")
+    emit(dict(phase="train_dropout_vs_train",
+              tokens_per_s=dict(train=train["tokens_per_s"],
+                                train_dropout=train_dropout["tokens_per_s"]),
+              ratio=train_dropout["tokens_per_s"] / train["tokens_per_s"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_seeds_phase()
     gc.collect()
     torch.cuda.empty_cache()
     train_profile_phase()
@@ -5553,7 +6049,9 @@ def main(argv=None):
         if key == "fwd":
             design = dict(
                 design="wgmma+tma",
-                ptxas=ptxas_of(logs, "15fwd_sm90_kernel"),
+                # The feature instances, in flash_fwd_features, go apart.
+                ptxas=ptxas_of({"flash_fwd": logs.get("flash_fwd", "")},
+                               "15fwd_sm90_kernel"),
                 sass=sass_counts(_build.library_path("flash_fwd"),
                                  ("HGMMA", "UTMALDG")),
                 tma_copies=tma_copies["fwd"])
@@ -5565,7 +6063,8 @@ def main(argv=None):
             kernel = f"bwd_{key}_sm90_kernel"
             design = dict(
                 design="wgmma+tma",
-                ptxas=ptxas_of(logs, kernel),
+                ptxas=ptxas_of({"flash_bwd": logs.get("flash_bwd", "")},
+                               kernel),
                 sass=sass_counts(_build.library_path("flash_bwd"),
                                  ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
                                   "STL"), kernel),
@@ -5581,6 +6080,7 @@ def main(argv=None):
             source=f"flash_attn_tpu_torch/csrc/{source}",
             replaces=f"flash_attn_tpu/kernels/{replaces}",
             launches=train["launches"][name], max_abs_err=err, max_err=err,
+            features=feature_entry(features, key, train_dropout, name, logs),
             ms=gpt2m[f"{key}_ms"], kernel_ms=gpt2m[f"{key}_ms"],
             plain_ms=gpt2m[f"{key}_plain_ms"],
             bound_ms=gpt2m[f"{key}_bound_ms"],
@@ -5641,7 +6141,8 @@ def main(argv=None):
                 ptxas=ptxas_of(logs, kernel), ptxas_main_path=main,
                 main_path_spill_bytes_within_kernel8s=bool(
                     main and main[0][1] <= 148),
-                ptxas_kernel2=ptxas_of(logs, "bwd_dkv_sm90_kernel"),
+                ptxas_kernel2=ptxas_of({"flash_bwd": logs.get("flash_bwd", "")},
+                                       "bwd_dkv_sm90_kernel"),
                 sass=sass_counts(_build.library_path("flash_bwd"),
                                  ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
                                   "STL"), kernel),

@@ -79,11 +79,26 @@
 // TMA fills boxes past the tensors' ends with zeros, which would score 0:
 // rows past sq take lse +inf (P = 0), keys past sk are masked, and only
 // tiles that cross the diagonal, a window edge or an end pay for the mask.
+//
+// Features (csrc/attn_features.cuh), in instances of their own (kFeat !=
+// 0; launched from csrc/flash_bwd_features.cu), as in the forward: the
+// kernels' range structs (DenseFeatRange, DenseFeatDkvRange) carry the
+// rules into the shared walks, which take them only where R::kFeat says
+// so, so that kernels 7 and 8 and the feature-free instances compile as
+// before. P is recomputed as _recompute_p_and_ds does: the ALiBi term after
+// the softcap, every visibility rule, and with dropout the keep mask Z:
+// dV takes P Z / (1 - p), and dP becomes dP Z / (1 - p) before delta (the
+// dQ kernel's first pass) and dS = P (dP - delta) use it. The learnable
+// sink needs nothing here: P = exp(S - LSE) carries it. Kernel 3 walks the
+// forward's key-tile sequence (key_tiles), kernel 2 the query rows that
+// query_rows gives (every row from the right edge on for a block with sink
+// tokens, narrowed to the chunks); both mask every tile with segment ids.
 
 #pragma once
 
 #include <type_traits>
 
+#include "attn_features.cuh"
 #include "mma_utils.cuh"
 #include "sm90_utils.cuh"
 
@@ -101,6 +116,13 @@ constexpr int kThreads = 128 * kWarpgroups;
 // 128 both kernels spilled 150-300 bytes there).
 __host__ __device__ constexpr int walk_tile(int d, bool softcap) {
   return d == 64 && !softcap ? 128 : 64;
+}
+
+// The dQ kernel's key tile: walk_tile's, but 64 in a feature instance,
+// whose 128-key tiles at d 64 spilled 192-284 bytes.
+__host__ __device__ constexpr int dq_walk_tile(int d, bool softcap,
+                                               int feat) {
+  return walk_tile(d, softcap || feat != 0);
 }
 
 template <int D, bool kSoftcap>
@@ -390,12 +412,19 @@ __device__ __forceinline__ void dq_range_walk(
     };
 
     // Whether every row of this warpgroup sees every key of the tile: no
-    // row past rows(), no key past keys(), no diagonal or window edge.
+    // row past rows(), no key past keys(), no diagonal or window edge (and
+    // with features, r.full: no chunk edge or segment ids).
     auto tile_full = [&](int col0) {
       const int off = r.off();
-      return wrow0 + 64 <= r.rows() && col0 + kBN <= r.keys() &&
-             in_window(col0, wrow0 + 63 + off, p.left, -1) &&
-             in_window(col0 + kBN - 1, wrow0 + off, -1, p.right);
+      const bool full = wrow0 + 64 <= r.rows() && col0 + kBN <= r.keys() &&
+                        in_window(col0, wrow0 + 63 + off, p.left, -1) &&
+                        in_window(col0 + kBN - 1, wrow0 + off, -1, p.right);
+      if constexpr (R::kFeat != 0) {
+        return full && r.full(col0, col0 + kBN - 1, wrow0 + off,
+                              wrow0 + 63 + off);
+      } else {
+        return full;
+      }
     };
     auto pr = [&](int, float s, int i, float& dmul) {
       return prob<kSoftcap>(p, s, lse2[i], dmul);
@@ -404,19 +433,43 @@ __device__ __forceinline__ void dq_range_walk(
     // Tile col0's step of pass 1 or, with Bool<true> as pass2, pass 2.
     auto step = [&](auto pass2, auto masked, int col0) {
       const auto keys = r.step_keys(masked);
-      auto visible = [&](int e) {
-        const int i = (e >> 1) & 1;
-        const int col = col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
-        return col < keys() && in_window(col, diag[i], p.left, p.right);
-      };
-      if constexpr (decltype(pass2)::value) {
-        dq_ds_step(masked, sc, dp, delta, pr, visible);
+      if constexpr (R::kFeat != 0) {
+        // The range's rules: P with the ALiBi term, visibility, and with
+        // dropout dP Z / (1 - p) in place.
+        r.drop_dp(dp, col0, tig);
+        auto prf = [&](int e, float s, int i, float& dmul) {
+          return r.prob(s, col0 + (e >> 2) * 8 + tig * 2 + (e & 1), i, lse2[i],
+                        dmul);
+        };
+        auto visible = [&](int e) {
+          const int col = col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+          return col < keys() && r.visible(col, (e >> 1) & 1);
+        };
+        if constexpr (decltype(pass2)::value) {
+          dq_ds_step(masked, sc, dp, delta, prf, visible);
+        } else {
+          dq_sum_step(masked, sc, dp, dsum, prf, visible);
+        }
       } else {
-        dq_sum_step(masked, sc, dp, dsum, pr, visible);
+        auto visible = [&](int e) {
+          const int i = (e >> 1) & 1;
+          const int col = col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+          return col < keys() && in_window(col, diag[i], p.left, p.right);
+        };
+        if constexpr (decltype(pass2)::value) {
+          dq_ds_step(masked, sc, dp, delta, pr, visible);
+        } else {
+          dq_sum_step(masked, sc, dp, dsum, pr, visible);
+        }
       }
     };
     auto tile_step = [&](auto pass2, int it) {
-      const int col0 = (r.tile_lo() + it) * kBN;
+      int col0;
+      if constexpr (R::kFeat != 0) {
+        col0 = r.tile(it) * kBN;
+      } else {
+        col0 = (r.tile_lo() + it) * kBN;
+      }
       if (tile_full(col0)) {
         step(pass2, Bool<false>(), col0);
       } else {
@@ -643,25 +696,52 @@ __device__ __forceinline__ void dkv_range_walk(
     uint32_t da[kBQ / 16][4];
 
     // P^T and dS^T of step s's tile (query rows rb.., their delta from
-    // row o of the stage's tile) in place.
-    auto p_ds_step = [&](auto masked, int s, int rb, int o) {
+    // row o of the stage's tile) in place; with features, by the range's
+    // rules for the step's query head (r.head_rules(it)).
+    auto p_ds_step = [&](auto masked, int s, int rb, int o, int it) {
       const float* lse2 = sh.sL2 + (cw * kStages + s) * kBQ;
       const float* dlt = sh.sD + s * C::kStatStride + o;
+      if constexpr (R::kFeat != 0) {
+        const auto hr = r.head_rules(it);
 #pragma unroll
-      for (int x = 0; x < kBQ / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
-        const int row = rb + c;
-        float dmul;
-        float pr = prob<kSoftcap>(p, st[x], lse2[c], dmul);
-        if constexpr (decltype(masked)::value) {
-          if (!(key[i] < r.keys() &&
-                in_window(key[i], row + r.off(), p.left, p.right))) {
-            pr = 0.f;
+        for (int x = 0; x < kBQ / 2; ++x) {
+          const int i = (x >> 1) & 1;
+          const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
+          const int row = rb + c;
+          float dmul;
+          float pr = r.prob(hr, st[x], lse2[c], key[i], row, dmul);
+          if constexpr (decltype(masked)::value) {
+            if (!(key[i] < r.keys() && r.visible(key[i], row, i))) pr = 0.f;
           }
+          // With dropout, dV takes P Z / (1 - p) and dS = P (dP Z /
+          // (1 - p) - delta).
+          float pz = pr;
+          float dz = dpt[x];
+          if constexpr ((R::kFeat & kFeatDrop) != 0) {
+            const bool keep = r.keep(hr, row, key[i]);
+            pz = keep ? pr * r.keep_scale() : 0.f;
+            dz = keep ? dz * r.keep_scale() : 0.f;
+          }
+          st[x] = pz;
+          dpt[x] = pr * (dz - dlt[c]) * dmul;
         }
-        st[x] = pr;
-        dpt[x] = pr * (dpt[x] - dlt[c]) * dmul;
+      } else {
+#pragma unroll
+        for (int x = 0; x < kBQ / 2; ++x) {
+          const int i = (x >> 1) & 1;
+          const int c = (x >> 2) * 8 + tig * 2 + (x & 1);
+          const int row = rb + c;
+          float dmul;
+          float pr = prob<kSoftcap>(p, st[x], lse2[c], dmul);
+          if constexpr (decltype(masked)::value) {
+            if (!(key[i] < r.keys() &&
+                  in_window(key[i], row + r.off(), p.left, p.right))) {
+              pr = 0.f;
+            }
+          }
+          st[x] = pr;
+          dpt[x] = pr * (dpt[x] - dlt[c]) * dmul;
+        }
       }
     };
 
@@ -705,14 +785,18 @@ __device__ __forceinline__ void dkv_range_walk(
       fence_regs(st);
       fence_regs(dpt);
 
-      const bool full_tile =
+      bool full_tile =
           rb + kBQ <= r.rows() && wkey0 + 64 <= r.keys() &&
           in_window(wkey0, rb + kBQ - 1 + r.off(), p.left, -1) &&
           in_window(wkey0 + 63, rb + r.off(), -1, p.right);
+      if constexpr (R::kFeat != 0) {
+        full_tile = full_tile && r.full(wkey0, wkey0 + 63, rb + r.off(),
+                                        rb + kBQ - 1 + r.off());
+      }
       if (full_tile) {
-        p_ds_step(Bool<false>(), s, rb, o);
+        p_ds_step(Bool<false>(), s, rb, o, it);
       } else {
-        p_ds_step(Bool<true>(), s, rb, o);
+        p_ds_step(Bool<true>(), s, rb, o, it);
       }
       pack_a<T, kBQ>(st, pa);
       pack_a<T, kBQ>(dpt, da);
@@ -751,6 +835,7 @@ __device__ __forceinline__ void dkv_range_walk(
 // Kernel 2's block for dkv_range_walk: its tile range, the lengths read
 // from its parameters where they are used, and the stages' row offsets.
 struct DenseDkvRange {
+  static constexpr int kFeat = 0;
   const Params& p;
   volatile int* sofs;
   int lo, n, n_it, off_;
@@ -767,6 +852,7 @@ struct DenseDkvRange {
 // from its parameters where they are used.
 struct DenseRange {
   static constexpr bool kSkipEmpty = false;
+  static constexpr int kFeat = 0;
   const Params& p;
   int lo, n, n2, off_;
   __device__ __forceinline__ int tile_lo() const { return lo; }
@@ -781,14 +867,190 @@ struct DenseRange {
   }
 };
 
-template <typename T, int D, bool kSoftcap>
+// The parameters of an instance with features.
+struct FeatParams : Params {
+  Features f;
+};
+
+template <int kFeat>
+using ParamsOf = std::conditional_t<kFeat == 0, Params, FeatParams>;
+
+// Score s's P in base 2 with the ALiBi term slope2 |col - diag| (an
+// extended instance), and dS's factor dmul as prob gives it.
+template <bool kSoftcap>
+__device__ __forceinline__ float prob_alibi(const FeatParams& p, float s,
+                                            float lse2, float slope2,
+                                            int dist, float& dmul) {
+  float s2;
+  if constexpr (kSoftcap) {
+    const float t = tanhf(s * p.score_mul);
+    dmul = (1.f - t * t) * p.scale;
+    s2 = t * p.cap_log2;
+  } else {
+    dmul = p.scale;
+    s2 = s * p.score_mul;
+  }
+  return exp2_approx(s2 - slope2 * fabsf(static_cast<float>(dist)) - lse2);
+}
+
+// Kernel 3's block for dq_range_walk with features (kF = kFeat): its walk
+// (the forward's key_tiles sequence in an extended instance) and, for this
+// thread's two rows (diagonals diag[i]), the rules: the head's ALiBi slope
+// in base 2, the rows' segment ids and dropout hash parts.
+template <int kF, bool kSoftcap>
+struct DenseFeatRange {
+  static constexpr bool kSkipEmpty = false;
+  static constexpr int kFeat = kF;
+  static constexpr bool kExt = (kF & kFeatExt) != 0;
+  const FeatParams& p;
+  int lo, n, n2, off_;
+  KeyTiles kt;
+  const int (&diag)[2];
+  float slope2;
+  int qseg[2];
+  const int* kvs;  // this batch row's kv segment ids
+  uint32_t drop_row[2];
+  __device__ __forceinline__ int n_tiles() const { return n; }
+  __device__ __forceinline__ int n_steps() const { return n2; }
+  __device__ __forceinline__ int rows() const { return p.sq; }
+  __device__ __forceinline__ int keys() const { return p.sk; }
+  __device__ __forceinline__ int off() const { return off_; }
+  template <class M>
+  __device__ __forceinline__ auto step_keys(M) const {
+    return [this] { return p.sk; };
+  }
+  __device__ __forceinline__ int tile(int it) const {
+    if constexpr (kExt) {
+      return kt.tile(it);
+    } else {
+      return lo + it;
+    }
+  }
+  // Whether the chunk and the segment ids leave a tile of keys c_lo..c_hi
+  // whole for rows of diagonals d_lo..d_hi (the window is tested apart).
+  __device__ __forceinline__ bool full(int c_lo, int c_hi, int d_lo,
+                                       int d_hi) const {
+    if constexpr (kExt) {
+      return !p.f.q_seg && chunk_full(c_lo, c_hi, d_lo, d_hi, p.f);
+    } else {
+      return true;
+    }
+  }
+  __device__ __forceinline__ float prob(float s, int col, int i, float lse2,
+                                        float& dmul) const {
+    if constexpr (kExt) {
+      return prob_alibi<kSoftcap>(p, s, lse2, slope2, col - diag[i], dmul);
+    } else {
+      return fa::bwd90::prob<kSoftcap>(p, s, lse2, dmul);
+    }
+  }
+  __device__ __forceinline__ bool visible(int col, int i) const {
+    if constexpr (kExt) {
+      return visible_ext(col, diag[i], p.left, p.right, p.f) &&
+             (!p.f.q_seg || qseg[i] == kvs[col]);
+    } else {
+      return in_window(col, diag[i], p.left, p.right);
+    }
+  }
+  // dP Z / (1 - p) in place, with dropout.
+  template <int N>
+  __device__ __forceinline__ void drop_dp(float (&dp)[N], int col0,
+                                          int tig) const {
+    if constexpr ((kF & kFeatDrop) != 0) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int col = col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+        dp[e] = dropout_keep(drop_row[(e >> 1) & 1], col, p.f.keep_threshold)
+                    ? dp[e] * p.f.keep_scale
+                    : 0.f;
+      }
+    }
+  }
+};
+
+// Kernel 2's block for dkv_range_walk with features: its range (the rows
+// query_rows gives in an extended instance), and the rules for this
+// thread's two keys (their segment ids) and each step's query head
+// (head_rules: its ALiBi slope in base 2 and dropout hash base).
+template <int kF, bool kSoftcap>
+struct DenseFeatDkvRange {
+  static constexpr int kFeat = kF;
+  static constexpr bool kExt = (kF & kFeatExt) != 0;
+  const FeatParams& p;
+  volatile int* sofs;
+  int lo, n, n_it, off_;
+  int b, g;
+  int kvseg[2];
+  __device__ __forceinline__ int qt_lo() const { return lo; }
+  __device__ __forceinline__ int n_qt() const { return n; }
+  __device__ __forceinline__ int n_iter() const { return n_it; }
+  __device__ __forceinline__ int rows() const { return p.sq; }
+  __device__ __forceinline__ int keys() const { return p.sk; }
+  __device__ __forceinline__ int off() const { return off_; }
+  __device__ __forceinline__ int stat_ofs(int s) const { return sofs[s]; }
+  struct HeadRules {
+    float slope2;
+    uint32_t base;
+  };
+  // Step it's query head's rules.
+  __device__ __forceinline__ HeadRules head_rules(int it) const {
+    const int head = g * p.group + it / n;
+    HeadRules hr;
+    hr.slope2 = kExt && p.f.slopes
+                    ? p.f.slopes[b * p.f.slope_b + head] * kLog2e
+                    : 0.f;
+    hr.base = (kF & kFeatDrop) != 0 ? dropout_base(p.f.seed, b, head) : 0u;
+    return hr;
+  }
+  __device__ __forceinline__ bool full(int k_lo, int k_hi, int d_lo,
+                                       int d_hi) const {
+    if constexpr (kExt) {
+      return !p.f.q_seg && chunk_full(k_lo, k_hi, d_lo, d_hi, p.f);
+    } else {
+      return true;
+    }
+  }
+  __device__ __forceinline__ float prob(const HeadRules& hr, float s,
+                                        float lse2, int key, int row,
+                                        float& dmul) const {
+    if constexpr (kExt) {
+      return prob_alibi<kSoftcap>(p, s, lse2, hr.slope2, key - row - off_,
+                                  dmul);
+    } else {
+      return fa::bwd90::prob<kSoftcap>(p, s, lse2, dmul);
+    }
+  }
+  // Key `key` (thread's key i) from query row `row`; rows past sq take
+  // P = 0 through their LSE, but read no segment id.
+  __device__ __forceinline__ bool visible(int key, int row, int i) const {
+    if constexpr (kExt) {
+      return visible_ext(key, row + off_, p.left, p.right, p.f) &&
+             (!p.f.q_seg ||
+              (row < p.sq && p.f.q_seg[b * p.f.q_seg_b + row] == kvseg[i]));
+    } else {
+      return in_window(key, row + off_, p.left, p.right);
+    }
+  }
+  __device__ __forceinline__ bool keep(const HeadRules& hr, int row,
+                                       int key) const {
+    return dropout_keep(dropout_row(hr.base, row), key, p.f.keep_threshold);
+  }
+  __device__ __forceinline__ float keep_scale() const {
+    return p.f.keep_scale;
+  }
+};
+
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const Params p) {
-  using C = DqCfg<D, kSoftcap>;
+                       const ParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
+  // A feature instance walks 64-key tiles at d 64 too (dq_walk_tile).
+  using C = DqCfg<D, kSoftcap || kFeat != 0>;
+  static_assert(C::kBN == dq_walk_tile(D, kSoftcap, kFeat), "dQ key tile");
   constexpr int kStages = C::kStages;
   constexpr int kBN = C::kBN;
   constexpr int kBlocksD = D / 64;  // 128-byte column blocks of a row
@@ -811,7 +1073,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int col_hi =
       p.right >= 0 ? min(row_last + off + p.right, p.sk - 1) : p.sk - 1;
   const int tile_lo = col_lo / kBN;
-  const int n_tiles = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
+  const int n_range = col_hi >= col_lo ? col_hi / kBN - tile_lo + 1 : 0;
+  // An extended instance walks the forward's sequence (key_tiles).
+  KeyTiles kt = {};
+  if constexpr (kExt) {
+    kt = key_tiles(row0, row_last, off, p.left, p.right, p.sk, kBN, p.f);
+  }
+  const int n_tiles = kExt ? kt.n : n_range;
+  auto tile_of = [&](int it) {
+    if constexpr (kExt) {
+      return kt.tile(it);
+    } else {
+      return tile_lo + it;
+    }
+  };
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -831,7 +1106,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_steps = 2 * n_tiles;
   auto load_kv = [&](int x) {
     const int s = x % kStages;
-    const int key0 = (tile_lo + x % n_tiles) * kBN;
+    const int key0 = tile_of(x % n_tiles) * kBN;
     const int g = head / p.group;
     mbar_wait(empty + s, ((x / kStages) & 1) ^ 1);
     mbar_expect_tx(full + s, 2 * C::kTileBytes);
@@ -878,10 +1153,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
   float delta[2] = {0.f, 0.f};
 
-  dq_range_walk<T, D, kSoftcap, C>(
-      p, DenseRange{p, tile_lo, n_tiles, n_steps, off}, load_kv,
-      DqShared{sQ, sdO, sK, sV, q_full, full, empty}, tid, lane, tig, cw,
-      wrow0, diag, lse2, dq, delta);
+  const DqShared sh{sQ, sdO, sK, sV, q_full, full, empty};
+  if constexpr (kFeat == 0) {
+    dq_range_walk<T, D, kSoftcap, C>(
+        p, DenseRange{p, tile_lo, n_tiles, n_steps, off}, load_kv, sh, tid,
+        lane, tig, cw, wrow0, diag, lse2, dq, delta);
+  } else {
+    DenseFeatRange<kFeat, kSoftcap> r{p,  tile_lo, n_tiles, n_steps,
+                                      off, kt,     diag};
+    r.slope2 = kExt && p.f.slopes
+                   ? p.f.slopes[b * p.f.slope_b + head] * kLog2e
+                   : 0.f;
+    r.kvs = p.f.kv_seg + b * p.f.kv_seg_b;
+    const uint32_t base = dropout_base(p.f.seed, b, head);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.qseg[i] = kExt && p.f.q_seg && row[i] < p.sq
+                      ? p.f.q_seg[b * p.f.q_seg_b + row[i]]
+                      : 0;
+      r.drop_row[i] = dropout_row(base, row[i]);
+    }
+    dq_range_walk<T, D, kSoftcap, C>(p, r, load_kv, sh, tid, lane, tig, cw,
+                                     wrow0, diag, lse2, dq, delta);
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -891,7 +1185,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    p.dq_s, row, p.sq, tig, dq);
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
@@ -899,7 +1193,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tlse,
                         const __grid_constant__ CUtensorMap tdelta,
-                        const Params p) {
+                        const ParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
   using C = DkvCfg<D, kSoftcap>;
   constexpr int kStages = C::kStages;
   constexpr int kBQ = C::kBQ;
@@ -927,9 +1222,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Query rows that see any key of the block, in tiles of kBQ, for each
   // query head of the group: step it reads query head g * group + it /
   // n_qt, rows (qt_lo + it % n_qt) * kBQ..
-  const int q_lo = p.right >= 0 ? max(key0 - off - p.right, 0) : 0;
-  const int q_hi =
-      p.left >= 0 ? min(key_last - off + p.left, p.sq - 1) : p.sq - 1;
+  int q_hi;
+  int q_lo;
+  if constexpr (kExt) {
+    q_lo = query_rows(key0, key_last, off, p.left, p.right, p.sq, p.f, q_hi);
+  } else {
+    q_lo = p.right >= 0 ? max(key0 - off - p.right, 0) : 0;
+    q_hi = p.left >= 0 ? min(key_last - off + p.left, p.sq - 1) : p.sq - 1;
+  }
   const int qt_lo = q_lo / kBQ;
   const int n_qt = q_hi >= q_lo ? q_hi / kBQ - qt_lo + 1 : 0;
   const int n_iter = n_qt * p.group;
@@ -994,10 +1294,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
 
-  dkv_range_walk<T, D, kSoftcap, C>(
-      p, DenseDkvRange{p, sofs, qt_lo, n_qt, n_iter, off}, load_q,
-      DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty}, tid, t,
-      lane, tig, cw, wkey0, key, dk, dv);
+  const DkvShared sh{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty};
+  if constexpr (kFeat == 0) {
+    dkv_range_walk<T, D, kSoftcap, C>(
+        p, DenseDkvRange{p, sofs, qt_lo, n_qt, n_iter, off}, load_q, sh, tid,
+        t, lane, tig, cw, wkey0, key, dk, dv);
+  } else {
+    DenseFeatDkvRange<kFeat, kSoftcap> r{p, sofs, qt_lo, n_qt, n_iter, off,
+                                         b, g};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.kvseg[i] = kExt && p.f.q_seg && key[i] < p.sk
+                       ? p.f.kv_seg[b * p.f.kv_seg_b + key[i]]
+                       : 0;
+    }
+    dkv_range_walk<T, D, kSoftcap, C>(p, r, load_q, sh, tid, t, lane, tig, cw,
+                                      wkey0, key, dk, dv);
+  }
 
   store_rows<T, D>(static_cast<T*>(p.dk) + b * p.dk_b + g * p.dk_h, p.dk_s,
                    key, p.sk, tig, dk);
@@ -1028,31 +1341,33 @@ int set_smem(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 int launch_dq(const CUtensorMap& tq, const CUtensorMap& tdo,
-              const CUtensorMap& tk, const CUtensorMap& tv, const Params& p,
-              int batch, cudaStream_t stream) {
-  const size_t smem = DqCfg<D, kSoftcap>::kSmem;
-  if (const int err = set_smem(bwd_dq_sm90_kernel<T, D, kSoftcap>, smem)) {
+              const CUtensorMap& tk, const CUtensorMap& tv,
+              const ParamsOf<kFeat>& p, int batch, cudaStream_t stream) {
+  const size_t smem = DqCfg<D, kSoftcap || kFeat != 0>::kSmem;
+  if (const int err =
+          set_smem(bwd_dq_sm90_kernel<T, D, kSoftcap, kFeat>, smem)) {
     return err;
   }
   const dim3 grid((p.sq + kBlockRows - 1) / kBlockRows, p.h, batch);
-  bwd_dq_sm90_kernel<T, D, kSoftcap>
+  bwd_dq_sm90_kernel<T, D, kSoftcap, kFeat>
       <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 int launch_dkv(const CUtensorMap& tq, const CUtensorMap& tdo,
                const CUtensorMap& tk, const CUtensorMap& tv,
                const CUtensorMap& tlse, const CUtensorMap& tdelta,
-               const Params& p, int batch, cudaStream_t stream) {
+               const ParamsOf<kFeat>& p, int batch, cudaStream_t stream) {
   const size_t smem = DkvCfg<D, kSoftcap>::kSmem;
-  if (const int err = set_smem(bwd_dkv_sm90_kernel<T, D, kSoftcap>, smem)) {
+  if (const int err =
+          set_smem(bwd_dkv_sm90_kernel<T, D, kSoftcap, kFeat>, smem)) {
     return err;
   }
   const dim3 grid((p.sk + kBlockRows - 1) / kBlockRows, p.h / p.group, batch);
-  bwd_dkv_sm90_kernel<T, D, kSoftcap>
+  bwd_dkv_sm90_kernel<T, D, kSoftcap, kFeat>
       <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, tlse, tdelta, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1076,6 +1391,49 @@ int launch_dkv_softcap(const CUtensorMap& tq, const CUtensorMap& tdo,
                                           batch, stream)
                  : launch_dkv<T, D, false>(tq, tdo, tk, tv, tlse, tdelta, p,
                                            batch, stream);
+}
+
+// The instances with features: kFeat 1-3 (kFeatExt | kFeatDrop), softcap
+// or not. Return -3 for kFeat 0, which launch_dq_softcap and
+// launch_dkv_softcap take.
+template <typename T, int D>
+int launch_dq_features(const CUtensorMap& tq, const CUtensorMap& tdo,
+                       const CUtensorMap& tk, const CUtensorMap& tv,
+                       const FeatParams& p, bool softcap, int feat, int batch,
+                       cudaStream_t s) {
+  switch (feat + 4 * softcap) {
+    case 1: return launch_dq<T, D, false, 1>(tq, tdo, tk, tv, p, batch, s);
+    case 2: return launch_dq<T, D, false, 2>(tq, tdo, tk, tv, p, batch, s);
+    case 3: return launch_dq<T, D, false, 3>(tq, tdo, tk, tv, p, batch, s);
+    case 5: return launch_dq<T, D, true, 1>(tq, tdo, tk, tv, p, batch, s);
+    case 6: return launch_dq<T, D, true, 2>(tq, tdo, tk, tv, p, batch, s);
+    case 7: return launch_dq<T, D, true, 3>(tq, tdo, tk, tv, p, batch, s);
+    default: return -3;
+  }
+}
+
+template <typename T, int D>
+int launch_dkv_features(const CUtensorMap& tq, const CUtensorMap& tdo,
+                        const CUtensorMap& tk, const CUtensorMap& tv,
+                        const CUtensorMap& tl, const CUtensorMap& td,
+                        const FeatParams& p, bool softcap, int feat,
+                        int batch, cudaStream_t s) {
+  switch (feat + 4 * softcap) {
+    case 1:
+      return launch_dkv<T, D, false, 1>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    case 2:
+      return launch_dkv<T, D, false, 2>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    case 3:
+      return launch_dkv<T, D, false, 3>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    case 5:
+      return launch_dkv<T, D, true, 1>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    case 6:
+      return launch_dkv<T, D, true, 2>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    case 7:
+      return launch_dkv<T, D, true, 3>(tq, tdo, tk, tv, tl, td, p, batch, s);
+    default:
+      return -3;
+  }
 }
 
 }  // namespace bwd90

@@ -49,9 +49,24 @@
 // Tried and dropped: exponentials through fp16x2 (half the MUFU work) ran
 // 4% slower at d 64 and moved the LSE by up to 6e-4. Not done yet: TMA
 // stores, persistent blocks.
+//
+// Features (csrc/attn_features.cuh), in instances of their own (kFeat !=
+// 0; launched from csrc/flash_fwd_features.cu), so that the feature-free
+// ones compile as before: ALiBi, segment ids, attention_chunk, sink tokens
+// and the learnable sink (kFeatExt), dropout (kFeatDrop). An extended
+// instance walks key_tiles' sequence (the tiles of the sink tokens, then
+// the window's range narrowed to the rows' chunks), scales the scores to
+// base 2 before the max (ALiBi subtracts its term there), and masks every
+// tile that some rule cuts (with segment ids, every tile). Dropout keeps
+// m and l of the undropped P, zeroes the dropped P before P V, and scales
+// out by 1 / (1 - p). These instances are right, not tuned: each rule is
+// a runtime test inside them.
 
 #pragma once
 
+#include <type_traits>
+
+#include "attn_features.cuh"
 #include "mma_utils.cuh"
 #include "sm90_utils.cuh"
 
@@ -69,6 +84,8 @@ constexpr int kTurnBarrier = 4;
 // Query rows per block: 64 per consumer warpgroup, three at d = 64 (a third
 // warpgroup's softmax hides behind the other two's wgmma), two at d = 128
 // (whose accumulators need the registers).
+// The extended feature instances at d = 64 spill 300-550 bytes at three,
+// but two (no spill) ran 1.15-1.17x slower in two of three cases.
 __host__ __device__ constexpr int block_m(int d) { return d == 64 ? 192 : 128; }
 
 template <int D>
@@ -100,11 +117,22 @@ struct Params {
   float score_mul, cap_log2;
 };
 
-template <typename T, int D, bool kSoftcap>
+// The parameters of an instance with features.
+struct FeatParams : Params {
+  Features f;
+};
+
+template <int kFeat>
+using ParamsOf = std::conditional_t<kFeat == 0, Params, FeatParams>;
+
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const Params p) {
+                    const __grid_constant__ CUtensorMap tv,
+                    const ParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
+  constexpr bool kDrop = (kFeat & kFeatDrop) != 0;
   using C = Cfg<D>;
   constexpr int kStages = C::kStages;
   constexpr int kBlockM = C::kBlockM;
@@ -129,7 +157,20 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   const int col_hi =
       p.right >= 0 ? min(row_last + off + p.right, p.sk - 1) : p.sk - 1;
   const int tile_lo = col_lo / kBlockN;
-  const int n_tiles = col_hi >= col_lo ? col_hi / kBlockN - tile_lo + 1 : 0;
+  const int n_range = col_hi >= col_lo ? col_hi / kBlockN - tile_lo + 1 : 0;
+  // An extended instance walks key_tiles' sequence instead.
+  KeyTiles kt = {};
+  if constexpr (kExt) {
+    kt = key_tiles(row0, row_last, off, p.left, p.right, p.sk, kBlockN, p.f);
+  }
+  const int n_tiles = kExt ? kt.n : n_range;
+  auto tile_of = [&](int it) {
+    if constexpr (kExt) {
+      return kt.tile(it);
+    } else {
+      return tile_lo + it;
+    }
+  };
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -159,7 +200,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const int parity = ((it / kStages) & 1) ^ 1;
-        const int key0 = (tile_lo + it) * kBlockN;
+        const int key0 = tile_of(it) * kBlockN;
         mbar_wait(k_empty + s, parity);
         mbar_expect_tx(k_full + s, C::kTileBytes);
 #pragma unroll
@@ -193,6 +234,25 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       const int r = wrow0 + warp * 16 + gid + 8 * i;
       row_ok[i] = r < p.sq;
       diag[i] = r + off;
+    }
+    // Features: this thread's rows' dropout hash parts, segment ids and
+    // the head's ALiBi slope in base 2.
+    uint32_t drop_row[2];
+    int qseg[2];
+    float slope2 = 0.f;
+    if constexpr (kDrop) {
+      const uint32_t base = dropout_base(p.f.seed, b, head);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) drop_row[i] = dropout_row(base, diag[i] - off);
+    }
+    if constexpr (kExt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qseg[i] = p.f.q_seg && row_ok[i]
+                      ? p.f.q_seg[b * p.f.q_seg_b + diag[i] - off]
+                      : 0;
+      }
+      if (p.f.slopes) slope2 = p.f.slopes[b * p.f.slope_b + head] * kLog2e;
     }
     float o[D / 2];
 #pragma unroll
@@ -247,21 +307,48 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     // and the online softmax of tile `it`: sc becomes P, and alpha the
     // factor O must be rescaled by.
     auto softmax = [&](float (&sc)[64], int it, float (&alpha)[2]) {
-      const int col0 = (tile_lo + it) * kBlockN;
+      const int col0 = tile_of(it) * kBlockN;
       const bool full =
           wrow0 + 64 <= p.sq && col0 + kBlockN <= p.sk &&
           in_window(col0, wrow0 + 63 + off, p.left, -1) &&
           in_window(col0 + kBlockN - 1, wrow0 + off, -1, p.right);
       // Without a softcap the scale folds into the exponent's FFMA (it is
-      // positive, so the row max commutes with it).
-      const float mul = kSoftcap ? 1.f : p.score_mul;
-      if constexpr (kSoftcap) {
+      // positive, so the row max commutes with it). An extended instance
+      // scales first: ALiBi's term is in base 2.
+      const float mul = kSoftcap || kExt ? 1.f : p.score_mul;
+      if constexpr (kExt) {
+#pragma unroll
+        for (int x = 0; x < 64; ++x) {
+          const int i = (x >> 1) & 1;
+          const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+          const float s = kSoftcap ? tanhf(sc[x] * p.score_mul) * p.cap_log2
+                                   : sc[x] * p.score_mul;
+          sc[x] = s - slope2 * fabsf(static_cast<float>(col - diag[i]));
+        }
+        const bool ext_full =
+            full && !p.f.q_seg &&
+            chunk_full(col0, col0 + kBlockN - 1, wrow0 + off,
+                       wrow0 + 63 + off, p.f);
+        if (!ext_full) {
+          const int* kvs = p.f.kv_seg + b * p.f.kv_seg_b;
+#pragma unroll
+          for (int x = 0; x < 64; ++x) {
+            const int i = (x >> 1) & 1;
+            const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+            if (!(row_ok[i] && col < p.sk &&
+                  visible_ext(col, diag[i], p.left, p.right, p.f) &&
+                  (!p.f.q_seg || qseg[i] == kvs[col]))) {
+              sc[x] = -INFINITY;
+            }
+          }
+        }
+      } else if constexpr (kSoftcap) {
 #pragma unroll
         for (int x = 0; x < 64; ++x) {
           sc[x] = tanhf(sc[x] * p.score_mul) * p.cap_log2;
         }
       }
-      if (!full) {
+      if (!kExt && !full) {
 #pragma unroll
         for (int x = 0; x < 64; ++x) {
           const int i = (x >> 1) & 1;
@@ -290,7 +377,13 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         // Masked: exp2(-inf) = 0.
         const float pe = exp2_approx(fmaf(sc[x], mul, -m[i]));
         l[i] += pe;
-        sc[x] = pe;
+        if constexpr (kDrop) {
+          // m and l take the undropped P; P V the kept entries.
+          const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+          sc[x] = dropout_keep(drop_row[i], col, p.f.keep_threshold) ? pe : 0.f;
+        } else {
+          sc[x] = pe;
+        }
       }
     };
     auto pack_p = [&](const float (&sc)[64], uint32_t (&pa)[kBlockN / 16][4]) {
@@ -372,7 +465,14 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = warp * 16 + gid + 8 * i;
-      const float inv = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+      float inv = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+      float lse_ext = 0.f;
+      if constexpr (kExt) {
+        const bool has_sink = p.f.sink != nullptr;
+        inv = finalize_row(m[i], lsum[i], has_sink,
+                           has_sink ? p.f.sink[head] * kLog2e : 0.f, lse_ext);
+      }
+      if constexpr (kDrop) inv *= p.f.keep_scale;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int chunk = (j & 7) ^ (r & 7);
@@ -383,7 +483,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       const int row = wrow0 + r;
       if (tig == 0 && row_ok[i]) {
         p.lse[(static_cast<long long>(b) * p.h + head) * p.sq + row] =
-            lsum[i] > 0.f ? (m[i] + log2f(lsum[i])) * kLn2 : -INFINITY;
+            kExt ? lse_ext
+                 : lsum[i] > 0.f ? (m[i] + log2f(lsum[i])) * kLn2 : -INFINITY;
       }
     }
     named_barrier(1 + cw, 128);
@@ -403,17 +504,17 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           const Params& p, int batch, cudaStream_t stream) {
+           const ParamsOf<kFeat>& p, int batch, cudaStream_t stream) {
   const size_t smem = Cfg<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      fwd_sm90_kernel<T, D, kSoftcap>,
+      fwd_sm90_kernel<T, D, kSoftcap, kFeat>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kBlockM = Cfg<D>::kBlockM;
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.h, batch);
-  fwd_sm90_kernel<T, D, kSoftcap>
+  fwd_sm90_kernel<T, D, kSoftcap, kFeat>
       <<<grid, Cfg<D>::kThreads, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -424,6 +525,23 @@ int launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
                    int batch, cudaStream_t stream) {
   return softcap ? launch<T, D, true>(tq, tk, tv, p, batch, stream)
                  : launch<T, D, false>(tq, tk, tv, p, batch, stream);
+}
+
+// An instance with features: kFeat 1-3 (kFeatExt | kFeatDrop), softcap or
+// not. Returns -3 for kFeat 0, which launch_softcap takes.
+template <typename T, int D>
+int launch_features(const CUtensorMap& tq, const CUtensorMap& tk,
+                    const CUtensorMap& tv, const FeatParams& p, bool softcap,
+                    int feat, int batch, cudaStream_t stream) {
+  switch (feat + 4 * softcap) {
+    case 1: return launch<T, D, false, 1>(tq, tk, tv, p, batch, stream);
+    case 2: return launch<T, D, false, 2>(tq, tk, tv, p, batch, stream);
+    case 3: return launch<T, D, false, 3>(tq, tk, tv, p, batch, stream);
+    case 5: return launch<T, D, true, 1>(tq, tk, tv, p, batch, stream);
+    case 6: return launch<T, D, true, 2>(tq, tk, tv, p, batch, stream);
+    case 7: return launch<T, D, true, 3>(tq, tk, tv, p, batch, stream);
+    default: return -3;
+  }
 }
 
 }  // namespace fwd90

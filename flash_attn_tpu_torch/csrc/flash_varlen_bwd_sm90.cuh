@@ -101,6 +101,7 @@ enum Slot { kQ0, kK0, kRows, kKeys, kOff, kTileLo, kNTiles, kSlots };
 // sequence's, so every tile that holds the last key takes the mask.
 struct SeqRange {
   static constexpr bool kSkipEmpty = true;
+  static constexpr int kFeat = 0;  // no features (csrc/attn_features.cuh)
   volatile int* blk;
   __device__ __forceinline__ int tile_lo() const { return blk[kTileLo]; }
   __device__ __forceinline__ int n_tiles() const { return blk[kNTiles]; }
@@ -325,6 +326,7 @@ enum DkvSlot { kVQ0, kVK0, kVRows, kVKeys, kVOff, kVQtLo, kVNQt, kVNIter,
 // never stored. Stage s's LSE and delta rows start at row sofs[s] of their
 // tiles.
 struct SeqDkvRange {
+  static constexpr int kFeat = 0;  // no features (csrc/attn_features.cuh)
   volatile int* blk;
   volatile int* sofs;
   int keys_, off_;

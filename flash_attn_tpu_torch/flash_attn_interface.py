@@ -41,7 +41,7 @@ from flash_attn_tpu_torch.kernels.block_sparsity import (
     varlen_lengths,
     wrap_varlen_mask_mod,
 )
-from flash_attn_tpu_torch.kernels.common import rows_dense
+from flash_attn_tpu_torch.kernels.common import rows_dense, seed_int
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_decode import (
     combine_partials,
@@ -126,29 +126,131 @@ def _blocksparse_kw(mask_mod, aux_tensors, aux_scalars, softmax_scale,
                 softmax_scale=softmax_scale, softcap=float(softcap))
 
 
+# Arguments of `flash_attention_fwd` that its backward takes too.
+_BWD_FEATURES = ("alibi_slopes", "q_segment_ids", "kv_segment_ids",
+                 "attention_chunk", "sink_token_length", "dropout_p",
+                 "dropout_seed")
+
+
 class _FlashAttnCore(torch.autograd.Function):
     """out, lse = attention(q, k, v) in (b, h, s, d); the backward takes dO
     only (the LSE's cotangent is ignored, as in the JAX package) and needs
-    no copy of out (see kernels.flash_bwd on delta)."""
+    no copy of out (see kernels.flash_bwd on delta), except for the
+    learnable sink's gradient. The sink (h,) is an input of its own so that
+    its gradient flows: as the JAX vjp does (XLA glue there, plain torch
+    here), dsink_h = -sum_{b,r} delta exp(sink_h - lse) with delta =
+    rowsum(dO * O), 0 on rows whose lse is not finite."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale, causal, window_size, softcap,
-                extras):
+    def forward(ctx, q, k, v, sink, softmax_scale, causal, window_size,
+                softcap, extras):
         kw = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap)
         q, k, v = (rows_dense(x) for x in (q, k, v))
-        out, lse = flash_attention_fwd(q, k, v, **kw, **extras)
-        ctx.save_for_backward(q, k, v, lse)
-        ctx.kw = kw
+        out, lse = flash_attention_fwd(q, k, v, **kw, sink=sink, **extras)
+        sink_grad = sink is not None and ctx.needs_input_grad[3]
+        ctx.save_for_backward(q, k, v, lse, sink if sink_grad else None,
+                              out if sink_grad else None)
+        ctx.kw = dict(kw, sink=sink,
+                      **{name: extras[name] for name in _BWD_FEATURES
+                         if name in extras})
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, lse, rows_dense(dout),
-                                         **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        q, k, v, lse, sink, out = ctx.saved_tensors
+        dout = rows_dense(dout)
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, dout, **ctx.kw)
+        dsink = None
+        if sink is not None:
+            delta = (dout.float() * out.float()).sum(-1)
+            w = torch.exp(sink.float()[None, :, None] - lse)
+            w = torch.where(torch.isfinite(lse), w, torch.zeros_like(w))
+            dsink = -(delta * w).sum((0, 2)).to(sink.dtype)
+        return dq, dk, dv, dsink, None, None, None, None, None
+
+
+def _gathered_probs(s, mask, scale, softcap):
+    """Softmax over the gathered keys (last dim) of raw scores s, scaled or
+    softcapped, masked; a row with no key gives 0."""
+    s = (torch.tanh(s * (scale / softcap)) * softcap if softcap > 0.0
+         else s * scale)
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
+
+
+def _topk_gather_attention(q, k, v, qv, indices, *, softmax_scale=None,
+                           causal=False, softcap=0.0):
+    """Top-k gathered attention (the JAX package's `_topk_gather_attention`,
+    XLA there, plain torch here; autograd gives its backward): query row i
+    of q (b, sq, h, d) attends only the keys indices[b, i] (b, sq, topk),
+    negative or out-of-range entries masked, with causal also keys past the
+    row's bottom-right diagonal; qv (b, sq, h, dv) adds qv . v to the
+    scores. Returns out (b, sq, h, dv) in q's dtype; a row with no key gives
+    0."""
+    b, sq, h, d = q.shape
+    sk, hk, dv = v.shape[1], v.shape[2], v.shape[3]
+    group = h // hk
+    if softmax_scale is None:
+        softmax_scale = (d + dv) ** -0.5 if qv is not None else d ** -0.5
+    idx = indices.to(device=q.device, dtype=torch.int64)
+    valid = (idx >= 0) & (idx < sk)
+    safe = idx.clamp(0, sk - 1)  # (b, sq, t)
+    rows = torch.arange(b, device=q.device)[:, None, None]
+    kg = k[rows, safe].float()  # (b, sq, t, hk, d)
+    vg = v[rows, safe].float()
+    qg = q.reshape(b, sq, hk, group, d).float()
+    s = torch.einsum("bsngd,bstnd->bsngt", qg, kg)
+    if qv is not None:
+        qvg = qv.reshape(b, sq, hk, group, dv).float()
+        s = s + torch.einsum("bsnge,bstne->bsngt", qvg, vg)
+    mask = valid[:, :, None, None, :]
+    if causal:
+        diag = (torch.arange(sq, device=q.device) + (sk - sq))[None, :, None]
+        mask = mask & (safe <= diag)[:, :, None, None, :]
+    p = _gathered_probs(s, mask, softmax_scale, softcap)
+    out = torch.einsum("bsngt,bstne->bsnge", p, vg)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def _topk_gather_attention_varlen(q, k, v, qv, indices, cu_q, cu_k, *,
+                                  softmax_scale=None, causal=False,
+                                  softcap=0.0):
+    """Varlen top-k gathered attention (the JAX package's
+    `_topk_gather_attention_varlen`, plain torch): indices (total_q, topk)
+    are key positions relative to each row's own sequence, negative or
+    past its keys masked, with causal also past the sequence's bottom-right
+    diagonal. Returns out (total_q, h, dv) in q's dtype."""
+    tq, h, d = q.shape
+    tk, hk, dv = v.shape
+    group = h // hk
+    if softmax_scale is None:
+        softmax_scale = (d + dv) ** -0.5 if qv is not None else d ** -0.5
+    cu_q = cu_q.to(device=q.device, dtype=torch.int64)
+    cu_k = cu_k.to(device=q.device, dtype=torch.int64)
+    nseq = cu_q.shape[0] - 1
+    rows = torch.arange(tq, device=q.device)
+    qseg = (torch.searchsorted(cu_q, rows, right=True) - 1).clamp(0, nseq - 1)
+    qpos = rows - cu_q[qseg]
+    klen = cu_k[qseg + 1] - cu_k[qseg]
+    qlen = cu_q[qseg + 1] - cu_q[qseg]
+    idx = indices.to(device=q.device, dtype=torch.int64)  # (tq, t)
+    valid = (idx >= 0) & (idx < klen[:, None])
+    if causal:
+        valid = valid & (idx <= (qpos + klen - qlen)[:, None])
+    safe = (idx.clamp(0, tk - 1) + cu_k[qseg][:, None]).clamp(0, tk - 1)
+    kg = k[safe].float()  # (tq, t, hk, d)
+    vg = v[safe].float()
+    qg = q.reshape(tq, hk, group, d).float()
+    s = torch.einsum("qngd,qtnd->qngt", qg, kg)
+    if qv is not None:
+        qvg = qv.reshape(tq, hk, group, dv).float()
+        s = s + torch.einsum("qnge,qtne->qngt", qvg, vg)
+    p = _gathered_probs(s, valid[:, None, None, :], softmax_scale, softcap)
+    out = torch.einsum("qngt,qtne->qnge", p, vg)
+    return out.reshape(tq, h, dv).to(q.dtype)
 
 
 def flash_attn_func(
@@ -197,15 +299,30 @@ def flash_attn_func(
     package (causal, windows and the other features raise ValueError), and
     a score_mod raises NotImplementedError.
 
-    `deterministic`, `bias_grad` and `dropout_seed` are taken so that calls
-    written for the JAX API run unchanged, and nothing reads them: the
-    backward is always deterministic, and a bias or dropout raises."""
-    del deterministic, bias_grad, dropout_seed
+    ALiBi slopes (h,) or (b, h), the learnable `sink` (h,) with its
+    gradient, segment ids (b, sq) and (b, sk), attention_chunk,
+    sink_token_length and dropout run in kernels 1-3 on the card.
+    Dropout's mask is the JAX package's murmur3 hash of (dropout_seed,
+    batch row, query head, row, column): the same seed gives the same bits
+    in both packages; `dropout_seed` is an int or a scalar tensor (a CUDA
+    one is read back), 0 when None, as in the JAX package.
+    `gather_kv_indices` (b, sq, topk) runs top-k gathered attention in
+    plain torch, as the JAX package runs it in XLA.
+
+    `deterministic` and `bias_grad` are taken so that calls written for
+    the JAX API run unchanged, and nothing reads them: the backward is
+    always deterministic, and a bias raises."""
+    del deterministic, bias_grad
     if gather_kv_indices is not None:
-        raise NotImplementedError(
-            "gather_kv_indices (top-k gathered attention) is not ported yet: "
-            "ROADMAP queue 2, kernels 1-3: gather_kv_indices"
-        )
+        if layout == "bhsd":
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+            qv = None if qv is None else qv.transpose(1, 2)
+        out = _topk_gather_attention(q, k, v, qv, gather_kv_indices,
+                                     softmax_scale=softmax_scale,
+                                     causal=causal, softcap=softcap)
+        if layout == "bhsd":
+            out = out.transpose(1, 2)
+        return (out, None, None) if return_attn_probs else out
     if layout == "bshd":
         q_, k_, v_ = (x.transpose(1, 2) for x in (q, k, v))
     elif layout == "bhsd":
@@ -233,16 +350,17 @@ def flash_attn_func(
                             softcap), None)
     else:
         extras = dict(
-            qv=qv, bias=attn_bias, alibi_slopes=alibi_slopes, sink=sink,
+            qv=qv, bias=attn_bias, alibi_slopes=alibi_slopes,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
             attention_chunk=attention_chunk,
             sink_token_length=sink_token_length, dropout_p=dropout_p,
+            dropout_seed=seed_int(dropout_seed) if dropout_p > 0 else None,
             score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors,
             aux_scalars=aux_scalars,
         )
         out, lse = _FlashAttnCore.apply(
-            q_, k_, v_, softmax_scale, bool(causal),
+            q_, k_, v_, sink, softmax_scale, bool(causal),
             tuple(int(w) for w in window_size), float(softcap), extras,
         )
     if layout == "bshd":
@@ -512,9 +630,10 @@ def flash_attn_varlen_func(
                             softcap))
         return (out, lse, None) if return_attn_probs else out
     if gather_kv_indices is not None:
-        raise NotImplementedError(
-            "gather_kv_indices (top-k gathered attention) is not ported yet: "
-            "ROADMAP queue 1, item 6 (varlen leftovers)")
+        out = _topk_gather_attention_varlen(
+            q, k, v, qv, gather_kv_indices, cu_seqlens_q, cu_seqlens_k,
+            softmax_scale=softmax_scale, causal=causal, softcap=softcap)
+        return (out, None, None) if return_attn_probs else out
     if q.device.type != "cpu":
         max_seqlen_q, max_seqlen_k = resolve_max_seqlens(
             cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, plan)

@@ -107,22 +107,194 @@ def normalize_window(
 
 
 def visible_mask(seqlen_q: int, seqlen_k: int, window: Tuple[int, int],
-                 device=None) -> torch.Tensor:
+                 device=None, *, attention_chunk: int = 0,
+                 sink_token_length: int = 0,
+                 q_segment_ids: Optional[torch.Tensor] = None,
+                 kv_segment_ids: Optional[torch.Tensor] = None,
+                 ) -> torch.Tensor:
     """(seqlen_q, seqlen_k) bool, True where query row i sees key column j
     under a normalised window (left, right), bottom-right aligned: with
     diag = i + seqlen_k - seqlen_q, j >= diag - left (left >= 0) and
     j <= diag + right (right >= 0). The CUDA kernels apply the same rule
-    per element (`fa::in_window` in csrc/mma_utils.cuh)."""
+    per element (`fa::in_window` in csrc/mma_utils.cuh).
+
+    The features narrow it as the JAX kernels' mask does (and
+    `fa::visible_ext` in csrc/attn_features.cuh): keys below
+    sink_token_length escape the left edge (only that edge), a chunk keeps
+    j in [diag - diag mod chunk, + chunk) (mod towards -inf), and segment
+    ids (b, sq) and (b, sk) keep pairs of equal ids, which makes the mask
+    (b, 1, seqlen_q, seqlen_k)."""
     left, right = window
     diag = (torch.arange(seqlen_q, device=device)[:, None]
             + (seqlen_k - seqlen_q))
     col = torch.arange(seqlen_k, device=device)[None]
     mask = torch.ones(seqlen_q, seqlen_k, dtype=torch.bool, device=device)
     if left >= 0:
-        mask &= col >= diag - left
+        in_left = col >= diag - left
+        if sink_token_length > 0:
+            in_left |= col < sink_token_length
+        mask &= in_left
     if right >= 0:
         mask &= col <= diag + right
+    if attention_chunk > 0:
+        lo = diag - torch.remainder(diag, attention_chunk)
+        mask &= (col >= lo) & (col < lo + attention_chunk)
+    if q_segment_ids is not None:
+        same = (q_segment_ids.to(device)[:, :, None]
+                == kv_segment_ids.to(device)[:, None, :])
+        mask = (mask[None] & same)[:, None]
     return mask
+
+
+# murmur3 constants of the dropout hash, in the JAX package's order (see
+# csrc/dropout.cuh): seed, batch, head, row, col multipliers, then fmix32's
+# two.
+MURMUR3 = (0x27D4EB2F, 0x165667B1, 0x9E3779B9, 0x9E3779B1, 0x85EBCA77,
+           0x85EBCA6B, 0xC2B2AE35)
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 on int64 holding uint32 values, without an int64
+    overflow: c is split into its 16-bit halves, so no product passes
+    2^48."""
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (hi + x * (c & 0xFFFF)) & _U32
+
+
+def keep_threshold(keep_prob: float) -> int:
+    """The dropout hash's threshold, min(int(keep_prob 2^32), 2^32 - 1),
+    computed in Python floats as the JAX wrapper does."""
+    return min(int(keep_prob * (2**32)), 2**32 - 1)
+
+
+def dropout_keep_mask(seed: int, b, h, row0: int, col0: int,
+                      shape: Tuple[int, int], keep_prob: float,
+                      device=None) -> torch.Tensor:
+    """The JAX package's `_dropout_keep_mask` (flash_attn_tpu/kernels/
+    flash_fwd.py:67) in torch: bool of `shape` (rows, cols), broadcast
+    against b and h (ints, or int tensors such as (b, 1, 1, 1) and
+    (1, n, 1, 1)), True where the element at absolute row row0 + i and
+    column col0 + j of batch row b and query head h is kept. Every product
+    wraps in uint32 on int64 tensors masked to 32 bits (torch has no
+    wrapping uint32 multiply); the seed enters as its 32 low bits (a
+    negative seed as its two's complement). The kernels draw the same bits
+    (csrc/dropout.cuh)."""
+    c_seed, c_b, c_h, c_row, c_col, c_m1, c_m2 = MURMUR3
+    b = torch.as_tensor(b, dtype=torch.int64, device=device)
+    h = torch.as_tensor(h, dtype=torch.int64, device=device)
+    rows = torch.arange(row0, row0 + shape[0], dtype=torch.int64,
+                        device=device)[:, None]
+    cols = torch.arange(col0, col0 + shape[1], dtype=torch.int64,
+                        device=device)[None]
+    base = ((int(seed) & _U32) * c_seed & _U32)
+    base = (base + _mul32(b & _U32, c_b) + _mul32(h & _U32, c_h)) & _U32
+    x = _mul32(rows & _U32, c_row) ^ _mul32(cols & _U32, c_col) ^ base
+    x = x ^ (x >> 16)
+    x = _mul32(x, c_m1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, c_m2)
+    x = x ^ (x >> 16)
+    return x < keep_threshold(keep_prob)
+
+
+def alibi_bias(slopes: torch.Tensor, heads: slice, seqlen_q: int,
+               seqlen_k: int, device=None) -> torch.Tensor:
+    """The ALiBi term -slope |j - i - (seqlen_k - seqlen_q)| of query heads
+    `heads`, fp32 natural-log units, (1 or b, n, seqlen_q, seqlen_k), from
+    slopes (h,) or (b, h) (the JAX kernels subtract it in base 2, after the
+    softcap)."""
+    s = slopes.to(device=device, dtype=torch.float32)
+    s = s.reshape(1, -1) if s.dim() == 1 else s
+    rel = (torch.arange(seqlen_k, device=device)[None]
+           - torch.arange(seqlen_q, device=device)[:, None]
+           - (seqlen_k - seqlen_q)).abs().float()
+    return -s[:, heads, None, None] * rel
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A dropout seed (int32 range) derived from `seed` and the ints
+    `data` (a step, a microbatch, a layer index) by murmur3's fmix32, so
+    that each step and each layer draw their own mask from one host int,
+    with no device read."""
+    x = int(seed) & _U32
+    for d in data:
+        x = (x ^ ((int(d) * 0x9E3779B9) & _U32)) & _U32
+        x ^= x >> 16
+        x = (x * 0x85EBCA6B) & _U32
+        x ^= x >> 13
+        x = (x * 0xC2B2AE35) & _U32
+        x ^= x >> 16
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+class Features(NamedTuple):
+    """The dense kernels' features beyond scale, window, GQA and softcap
+    (kernels 1-3, csrc/attn_features.cuh): ALiBi slopes (h,) or (b, h),
+    the learnable sink (h,), segment ids (b, sq) and (b, sk),
+    attention_chunk, sink_token_length, and dropout with its seed (an int;
+    its 32 low bits are used)."""
+
+    alibi_slopes: Optional[torch.Tensor] = None
+    sink: Optional[torch.Tensor] = None
+    q_segment_ids: Optional[torch.Tensor] = None
+    kv_segment_ids: Optional[torch.Tensor] = None
+    attention_chunk: int = 0
+    sink_token_length: int = 0
+    dropout_p: float = 0.0
+    dropout_seed: int = 0
+
+    @property
+    def extended(self) -> bool:
+        """Whether the score or visibility rules change (not dropout)."""
+        return (self.alibi_slopes is not None or self.sink is not None
+                or self.q_segment_ids is not None or self.attention_chunk > 0
+                or self.sink_token_length > 0)
+
+    def visible(self, seqlen_q, seqlen_k, window, device):
+        return visible_mask(seqlen_q, seqlen_k, window, device,
+                            attention_chunk=self.attention_chunk,
+                            sink_token_length=self.sink_token_length,
+                            q_segment_ids=self.q_segment_ids,
+                            kv_segment_ids=self.kv_segment_ids)
+
+    def keep(self, b: int, heads: slice, seqlen_q: int, seqlen_k: int,
+             device) -> torch.Tensor:
+        """The keep mask (b, n, seqlen_q, seqlen_k) of query heads
+        `heads`."""
+        return dropout_keep_mask(
+            self.dropout_seed, torch.arange(b).reshape(-1, 1, 1, 1),
+            torch.arange(heads.start, heads.stop).reshape(1, -1, 1, 1), 0, 0,
+            (seqlen_q, seqlen_k), 1.0 - self.dropout_p, device=device)
+
+
+def seed_int(seed) -> int:
+    """A dropout seed as a host int: an int, a numpy or CPU scalar, or a
+    CUDA scalar tensor (read back, one host sync)."""
+    if seed is None:
+        return 0
+    if isinstance(seed, torch.Tensor):
+        return int(seed.reshape(()).item())
+    return int(seed)
+
+
+def make_features(*, alibi_slopes=None, sink=None, q_segment_ids=None,
+                  kv_segment_ids=None, attention_chunk: int = 0,
+                  sink_token_length: int = 0, dropout_p: float = 0.0,
+                  dropout_seed=None) -> Optional[Features]:
+    """`Features` of the JAX signature's arguments, or None when none is
+    set; raises ValueError on what the kernels do not take."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids go together")
+    if not 0.0 <= float(dropout_p) < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if attention_chunk < 0 or sink_token_length < 0:
+        raise ValueError("attention_chunk and sink_token_length must be >= 0")
+    f = Features(alibi_slopes, sink, q_segment_ids, kv_segment_ids,
+                 int(attention_chunk), int(sink_token_length),
+                 float(dropout_p),
+                 seed_int(dropout_seed) if dropout_p > 0 else 0)
+    return f if f.extended or f.dropout_p > 0 else None
 
 
 def raise_unported(table, extras) -> None:

@@ -22,8 +22,11 @@ delta = rowsum(dO * O) instead; the two are equal in exact arithmetic, but
 with a bf16 O the rowsum no longer matches the recomputed P and dP, and the
 error it leaves in dS reaches the k-projection gradients magnified (see
 csrc/flash_bwd_sm90.cuh). CUDA tensors launch the kernels; CPU tensors take
-the plain versions. The features are those of `kernels.flash_fwd`; the
-rest raise NotImplementedError.
+the plain versions. The features are those of `kernels.flash_fwd`: with
+ALiBi, segment ids, attention_chunk, sink tokens or dropout the kernels'
+instances of `csrc/flash_bwd_features.cu` run (counted in `launches` and
+`feature_launches`); a learnable sink alone needs none, its LSE carries
+it. The rest raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,12 +37,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.kernels.common import normalize_window, visible_mask
+from flash_attn_tpu_torch.kernels.common import (
+    Features,
+    make_features,
+    normalize_window,
+    visible_mask,
+)
 from flash_attn_tpu_torch.kernels.flash_fwd import (
+    FEATURE_ARGTYPES,
     _scale,
     check_kernel_inputs,
     check_shapes,
     check_unported,
+    feature_args,
+    feature_scores,
+    feature_tensors,
+    head_passes,
     scores,
     stats_ready,
     strides_arg,
@@ -96,18 +109,28 @@ def bwd_walks(sq, sk, h, hk, d, causal=False, window_size=(-1, -1),
     return dkv, dq
 
 
-def _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible):
-    """P, dP and the softcap's tanh term (or None) of kv head g's query
-    heads, fp32 (b, group, sq, sk): P recomputed from the scores and the
-    LSE, 0 where masked and on rows with lse = -inf."""
-    heads = slice(g * group, (g + 1) * group)
+def _p_dp(q, k, v, do, lse, g, heads, scale, softcap, visible,
+          features=None):
+    """P, dP and the softcap's tanh term (or None) of query heads `heads`
+    (of kv head g), fp32 (b, n, sq, sk): P recomputed from the scores (with
+    the ALiBi term) and the LSE, 0 where masked and on rows with lse =
+    -inf. With dropout, also P Z / (1 - p) for dV, and dP becomes dP Z /
+    (1 - p), as `_recompute_p_and_ds` does; else that P is P itself."""
     s, t = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
+    sq, sk = s.shape[-2:]
+    s = feature_scores(s, features, heads, sq, sk)
     lse_g = lse[:, heads, :, None]
     keep = visible & torch.isfinite(lse_g)
     p = torch.where(keep, torch.exp(s - lse_g), torch.zeros_like(s))
     dp = torch.matmul(do[:, heads].float(),
                       v[:, g:g + 1].float().transpose(-1, -2))
-    return p, dp, t
+    p_drop = p
+    if features is not None and features.dropout_p > 0:
+        z = features.keep(q.shape[0], heads, sq, sk, q.device)
+        rp = 1.0 / (1.0 - features.dropout_p)
+        p_drop = torch.where(z, p, torch.zeros_like(p)) * rp
+        dp = torch.where(z, dp, torch.zeros_like(dp)) * rp
+    return p, dp, t, p_drop
 
 
 def _ds(p, dp, delta, scale, t):
@@ -116,49 +139,61 @@ def _ds(p, dp, delta, scale, t):
     return ds if t is None else ds * (1.0 - t * t)
 
 
-def _setup(q, k, softmax_scale, causal, window_size, visible):
+def _setup(q, k, softmax_scale, causal, window_size, visible, features):
     h, sq, d = q.shape[1:]
     hk, sk = k.shape[1], k.shape[2]
     if visible is None:
-        visible = visible_mask(sq, sk, normalize_window(window_size, causal),
-                               q.device)
+        window = normalize_window(window_size, causal)
+        visible = (visible_mask(sq, sk, window, q.device) if features is None
+                   else features.visible(sq, sk, window, q.device))
     return h // hk, _scale(d, softmax_scale), visible
 
 
 def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
-                 window_size=(-1, -1), softcap=0.0, visible=None):
+                 window_size=(-1, -1), softcap=0.0, visible=None,
+                 features: Optional[Features] = None):
     """Plain version of the dK/dV kernel: (dk, dv) in k's and v's dtypes,
     each kv head's group of query heads summed, in fp32. `visible`, a
-    (sq, sk) bool mask, replaces the causal/window rule."""
+    (sq, sk) bool mask, replaces the causal/window rule; `features` as in
+    `flash_attention_fwd_ref` (dV takes P Z / (1 - p) with dropout)."""
     group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
-                                   visible)
+                                   visible, features)
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     for g in range(k.shape[1]):
-        heads = slice(g * group, (g + 1) * group)
-        p, dp, t = _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible)
-        ds = _ds(p, dp, delta[:, heads], scale, t)
-        dv[:, g] = torch.matmul(p.transpose(-1, -2),
-                                do[:, heads].float()).sum(1).to(v.dtype)
-        dk[:, g] = torch.matmul(ds.transpose(-1, -2),
-                                q[:, heads].float()).sum(1).to(k.dtype)
+        dk_g = dv_g = 0.0
+        for heads in head_passes(g, group, b, sq, sk, features):
+            p, dp, t, p_drop = _p_dp(q, k, v, do, lse, g, heads, scale,
+                                     softcap, visible, features)
+            ds = _ds(p, dp, delta[:, heads], scale, t)
+            dv_g = dv_g + torch.matmul(p_drop.transpose(-1, -2),
+                                       do[:, heads].float()).sum(1)
+            dk_g = dk_g + torch.matmul(ds.transpose(-1, -2),
+                                       q[:, heads].float()).sum(1)
+        dv[:, g] = dv_g.to(v.dtype)
+        dk[:, g] = dk_g.to(k.dtype)
     return dk, dv
 
 
 def _bwd_dq_ref(q, k, v, do, lse, *, softmax_scale=None, causal=False,
-                window_size=(-1, -1), softcap=0.0, visible=None):
+                window_size=(-1, -1), softcap=0.0, visible=None,
+                features: Optional[Features] = None):
     """Plain version of the dQ kernel: (dq in q's dtype, delta (b, h, sq)
-    fp32 = sum_j P dP), in fp32. `visible` as in `_bwd_dkv_ref`."""
+    fp32 = sum_j P dP, dP times Z / (1 - p) with dropout), in fp32.
+    `visible` and `features` as in `_bwd_dkv_ref`."""
     group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
-                                   visible)
+                                   visible, features)
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     for g in range(k.shape[1]):
-        heads = slice(g * group, (g + 1) * group)
-        p, dp, t = _p_dp(q, k, v, do, lse, g, group, scale, softcap, visible)
-        delta[:, heads] = (p * dp).sum(-1)
-        ds = _ds(p, dp, delta[:, heads], scale, t)
-        dq[:, heads] = torch.matmul(ds, k[:, g:g + 1].float()).to(q.dtype)
+        for heads in head_passes(g, group, b, sq, sk, features):
+            p, dp, t, _ = _p_dp(q, k, v, do, lse, g, heads, scale, softcap,
+                                visible, features)
+            delta[:, heads] = (p * dp).sum(-1)
+            ds = _ds(p, dp, delta[:, heads], scale, t)
+            dq[:, heads] = torch.matmul(ds, k[:, g:g + 1].float()).to(q.dtype)
     return dq, delta
 
 
@@ -194,62 +229,91 @@ def _prepare(q, k, v, do, stats, softmax_scale, causal, window_size,
                                 float(softcap))
 
 
+def kernel_features(features: Optional[Features]) -> Optional[Features]:
+    """The features the backward kernels need an instance of their own for:
+    all but a learnable sink alone, which P = exp(S - LSE) carries."""
+    if features is None or not (
+            features.alibi_slopes is not None
+            or features.q_segment_ids is not None
+            or features.attention_chunk > 0 or features.sink_token_length > 0
+            or features.dropout_p > 0):
+        return None
+    return features
+
+
+def _launch_bwd(name, owner, args, strides, dims, q, features):
+    """Launch `name` (flash_bwd_dkv or flash_bwd_dq), or its instance with
+    `features` (flash_bwd_*_features), and count it in `owner`."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fp16 = int(q.dtype == torch.float16)
+    features = kernel_features(features)
+    if features is None:
+        rc = getattr(_kernels(), name)(*args, strides, *dims, fp16, stream)
+    else:
+        tensors = feature_tensors(features, q, dims[4])
+        rc = getattr(_feature_kernels(), name + "_features")(
+            *args, strides, *dims, fp16,
+            *feature_args(features, tensors, with_sink=False), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    owner.launches += 1
+    owner.feature_launches += features is not None
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
-                            causal=False, window_size=(-1, -1), softcap=0.0):
+                            causal=False, window_size=(-1, -1), softcap=0.0,
+                            features: Optional[Features] = None):
     """(dk, dv), each (b, hk, sk, d) in k's dtype, GQA groups summed. CUDA
-    tensors launch flash_bwd_dkv (counted in
-    `flash_attention_bwd_dkv.launches`); CPU tensors take `_bwd_dkv_ref`."""
+    tensors launch flash_bwd_dkv, or with features its instance in
+    csrc/flash_bwd_features.cu (counted in
+    `flash_attention_bwd_dkv.launches`, the latter also in
+    `feature_launches`); CPU tensors take `_bwd_dkv_ref`."""
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
     if q.device.type == "cpu":
-        return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw)
+        return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw, features=features)
     q, k, v, do, stats, dims = _prepare(q, k, v, do,
                                         dict(lse=lse, delta=delta), **kw)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _kernels().flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        stats["lse"].data_ptr(), stats["delta"].data_ptr(), dk.data_ptr(),
-        dv.data_ptr(),
-        strides_arg(q, k, v, do, dk, dv), *dims,
-        int(q.dtype == torch.float16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
-    flash_attention_bwd_dkv.launches += 1
+    _launch_bwd("flash_bwd_dkv", flash_attention_bwd_dkv,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 stats["lse"].data_ptr(), stats["delta"].data_ptr(),
+                 dk.data_ptr(), dv.data_ptr()),
+                strides_arg(q, k, v, do, dk, dv), dims, q, features)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.feature_launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, *, softmax_scale=None,
-                           causal=False, window_size=(-1, -1), softcap=0.0):
+                           causal=False, window_size=(-1, -1), softcap=0.0,
+                           features: Optional[Features] = None):
     """(dq (b, h, sq, d) in q's dtype, delta (b, h, sq) fp32). CUDA tensors
-    launch flash_bwd_dq (counted in `flash_attention_bwd_dq.launches`); CPU
-    tensors take `_bwd_dq_ref`."""
+    launch flash_bwd_dq, or with features its instance in
+    csrc/flash_bwd_features.cu (counted as in `flash_attention_bwd_dkv`);
+    CPU tensors take `_bwd_dq_ref`."""
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
     if q.device.type == "cpu":
-        return _bwd_dq_ref(q, k, v, do, lse, **kw)
+        return _bwd_dq_ref(q, k, v, do, lse, **kw, features=features)
     q, k, v, do, stats, dims = _prepare(q, k, v, do, dict(lse=lse), **kw)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    rc = _kernels().flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        stats["lse"].data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        strides_arg(q, k, v, do, dq), *dims,
-        int(q.dtype == torch.float16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
-    flash_attention_bwd_dq.launches += 1
+    _launch_bwd("flash_bwd_dq", flash_attention_bwd_dq,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 stats["lse"].data_ptr(), delta.data_ptr(), dq.data_ptr()),
+                strides_arg(q, k, v, do, dq), dims, q, features)
     return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.feature_launches = 0
+
+_DIMS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_int]
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,12 +321,29 @@ def _kernels() -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
 
     lib = load_library("flash_bwd")
-    dims = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + [strides] + dims
-    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + [strides] + dims
+    tail = _DIMS + [ctypes.c_void_p]
+    lib.flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + [strides] + tail
+    lib.flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + [strides] + tail
     lib.flash_bwd_dkv.restype = lib.flash_bwd_dq.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _feature_kernels() -> ctypes.CDLL:
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    lib = load_library("flash_bwd_features")
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    # The backward's feature arguments take no sink.
+    tail = _DIMS + FEATURE_ARGTYPES[:6] + FEATURE_ARGTYPES[7:] + [
+        ctypes.c_void_p]
+    lib.flash_bwd_dkv_features.argtypes = ([ctypes.c_void_p] * 8 + [strides]
+                                           + tail)
+    lib.flash_bwd_dq_features.argtypes = ([ctypes.c_void_p] * 7 + [strides]
+                                          + tail)
+    lib.flash_bwd_dkv_features.restype = ctypes.c_int
+    lib.flash_bwd_dq_features.restype = ctypes.c_int
     return lib
 
 
@@ -276,6 +357,7 @@ def flash_attention_bwd(
     qv: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    sink: Optional[torch.Tensor] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     softmax_scale: Optional[float] = None,
@@ -285,6 +367,7 @@ def flash_attention_bwd(
     sink_token_length: int = 0,
     softcap: float = 0.0,
     dropout_p: float = 0.0,
+    dropout_seed=None,
     score_mod=None,
     mask_mod=None,
     aux_tensors=(),
@@ -293,17 +376,22 @@ def flash_attention_bwd(
     """Flash-attention backward. Returns (dq, dk, dv); dk/dv come back per
     kv head (GQA groups summed), each in its input's dtype. Unlike the JAX
     function it takes no `out`: delta = sum_j P dP comes from the dQ
-    kernel, not from rowsum(dO * O)."""
+    kernel, not from rowsum(dO * O). `lse` is the forward's, which carries
+    a learnable sink; the sink's own gradient is the caller's
+    (flash_attn_interface)."""
     check_unported(
-        qv=qv, bias=bias, alibi_slopes=alibi_slopes,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-        attention_chunk=attention_chunk, sink_token_length=sink_token_length,
-        dropout_p=dropout_p, score_mod=score_mod, mask_mod=mask_mod,
+        qv=qv, bias=bias, score_mod=score_mod, mask_mod=mask_mod,
         aux_tensors=tuple(aux_tensors or ()),
         aux_scalars=tuple(aux_scalars or ()),
     )
     kw = dict(softmax_scale=softmax_scale, causal=causal,
-              window_size=window_size, softcap=softcap)
+              window_size=window_size, softcap=softcap,
+              features=make_features(
+                  alibi_slopes=alibi_slopes, sink=sink,
+                  q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                  attention_chunk=attention_chunk,
+                  sink_token_length=sink_token_length, dropout_p=dropout_p,
+                  dropout_seed=dropout_seed))
     if q.device.type != "cpu":
         # Copied (if at all) once for both kernels.
         q, k, v, do = (tma_ready(x, flash_attention_bwd) for x in (q, k, v, do))

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from flash_attn_tpu_torch.kernels.common import fold_seed
 from flash_attn_tpu_torch.modules.block import Block, LayerNorm, RMSNorm, make_norm
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
 from flash_attn_tpu_torch.modules.linear import Linear
@@ -178,7 +179,13 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
-                inference_params: Optional[InferenceParams] = None):
+                inference_params: Optional[InferenceParams] = None,
+                dropout_seed=None):
+        """`dropout_seed` (training with attn_pdrop > 0): an int, from which
+        layer i's attention dropout takes fold_seed(seed, i), or a sequence
+        of one seed per layer; None draws the int from torch's CPU
+        generator. The seeds are taken here, outside any checkpointed
+        block, so that a recomputed block draws the same mask."""
         c = self.config
         if position_ids is None and c.n_positions > 0:
             offset = 0 if inference_params is None else inference_params.seqlen_offset
@@ -199,20 +206,28 @@ class GPTModel(nn.Module):
         if c.embed_scale is not None:
             hidden = hidden * torch.tensor(c.embed_scale, dtype=c.dtype)
         remat = c.remat != "none" and inference_params is None and training
+        seeds = [None] * c.n_layer
+        if training and c.attn_pdrop > 0 and inference_params is None:
+            if dropout_seed is None:
+                dropout_seed = int(torch.randint(0, 2**31 - 1, ()))
+            seeds = (list(dropout_seed) if isinstance(dropout_seed, (list, tuple))
+                     else [fold_seed(dropout_seed, i) for i in range(c.n_layer)])
 
-        def run(layer, *args):
+        def run(layer, seed, *args):
             if not remat:
-                return layer(*args, inference_params=inference_params)
+                return layer(*args, inference_params=inference_params,
+                             dropout_seed=seed)
             kw = dict(context_fn=_remat_context) if c.remat == "dots" else {}
-            return checkpoint(layer, *args, use_reentrant=False, **kw)
+            return checkpoint(layer, *args, use_reentrant=False,
+                              dropout_seed=seed, **kw)
 
         if not c.prenorm:
-            for layer in self.layers:
-                hidden = run(layer, hidden)
+            for layer, seed in zip(self.layers, seeds):
+                hidden = run(layer, seed, hidden)
             return hidden
         residual = None
-        for layer in self.layers:
-            hidden, residual = run(layer, hidden, residual)
+        for layer, seed in zip(self.layers, seeds):
+            hidden, residual = run(layer, seed, hidden, residual)
         residual = residual + hidden.to(residual.dtype)
         return self.ln_f(residual).to(c.dtype)
 
@@ -269,9 +284,11 @@ class GPTLMHeadModel(nn.Module, GenerationMixin):
 
     def forward(self, input_ids, position_ids=None,
                 inference_params: Optional[InferenceParams] = None,
-                num_last_tokens: int = 0):
-        """Returns logits (b, s or num_last_tokens, padded_vocab)."""
-        hidden = self.transformer(input_ids, position_ids, inference_params)
+                num_last_tokens: int = 0, dropout_seed=None):
+        """Returns logits (b, s or num_last_tokens, padded_vocab).
+        `dropout_seed` as GPTModel.forward takes it."""
+        hidden = self.transformer(input_ids, position_ids, inference_params,
+                                  dropout_seed=dropout_seed)
         if num_last_tokens > 0:
             hidden = hidden[:, -num_last_tokens:]
         if self.lm_head is None:

@@ -74,10 +74,14 @@ class Block(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 residual: Optional[torch.Tensor] = None,
-                inference_params: Optional[InferenceParams] = None):
+                inference_params: Optional[InferenceParams] = None,
+                dropout_seed: Optional[int] = None):
+        """`dropout_seed` goes to the mixer (its attention dropout's mask)."""
+        mix = dict(inference_params=inference_params)
+        if dropout_seed is not None:
+            mix["dropout_seed"] = dropout_seed
         if not self.prenorm:
-            attn_out = self.mixer(hidden_states,
-                                  inference_params=inference_params)
+            attn_out = self.mixer(hidden_states, **mix)
             x = self.norm1(hidden_states + attn_out).to(self.dtype)
             return self.norm2(x + self.mlp(x)).to(self.dtype)
         acc = torch.float32 if self.residual_in_fp32 else hidden_states.dtype
@@ -87,8 +91,8 @@ class Block(nn.Module):
         if self.parallel_block:
             normed2 = (normed1 if self.norm2 is None
                        else self.norm2(res).to(self.dtype))
-            attn_out = self.mixer(normed1, inference_params=inference_params)
+            attn_out = self.mixer(normed1, **mix)
             return attn_out + self.mlp(normed2), res
-        attn_out = self.mixer(normed1, inference_params=inference_params)
+        attn_out = self.mixer(normed1, **mix)
         res = res + attn_out.to(acc)
         return self.mlp(self.norm2(res).to(self.dtype)), res

@@ -1,16 +1,23 @@
 """Multi-head attention (counterpart of flash_attn_tpu/modules/mha.py).
 
-Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window, softcap and
-ALiBi. Without a cache (training, full-sequence forwards) it runs dense
-causal flash attention (`flash_attn_func`: the flash forward and backward
-kernels). With a cache, `_decode_step` appends the new K/V to the layer's
+Separate Wq/Wk/Wv projections, rotary, GQA/MQA, sliding window, softcap,
+ALiBi, attention dropout and key padding. Without a cache (training,
+full-sequence forwards) it runs dense causal flash attention
+(`flash_attn_func`: the flash forward and backward kernels, with their
+feature instances for ALiBi, dropout and padding). With a cache, `_decode_step` appends the new K/V to the layer's
 cache in place, a contiguous (b, hk, smax, d) pair (`generate`) or a paged
 pool (`LLMEngine`), and runs `flash_attention_decode` over it (kernel 5 for
 contiguous caches and ALiBi, kernel 4 for the engine's paged pools). A
 quantized engine layer (`QuantPagedKV`, a 1-byte pool and its per-head
 descales) quantizes the new K/V on write and decodes with the descales.
-ALiBi without a cache, dwconv and attention dropout raise
-NotImplementedError.
+dwconv raises NotImplementedError.
+
+Attention dropout draws its mask from a seed per call: the caller's
+`dropout_seed` (the GPT model passes one per layer, derived from the
+trainer's step seed), else one drawn from torch's CPU generator, with no
+device read. The JAX MHA passes none, so its kernel uses seed 0 in every
+layer and at every step (a fixed mask); the port's differ per step and
+layer (a held difference, ROADMAP).
 """
 
 from __future__ import annotations
@@ -58,8 +65,9 @@ class MHA(nn.Module):
     """Causal self-attention with separate q/k/v projections, rotary,
     GQA/MQA, sliding window, softcap, ALiBi, and a KV-cache decode path.
     Projection weights are stored in `param_dtype` (default: `dtype`) and
-    computed in `dtype`. Attention dropout (`dropout` > 0) raises while
-    training."""
+    computed in `dtype`. Attention dropout (`dropout` > 0) applies while
+    training with gradients enabled, as the GPT model's training rule
+    says."""
 
     def __init__(
         self,
@@ -119,37 +127,53 @@ class MHA(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor,
-                inference_params: Optional[InferenceParams] = None):
+                inference_params: Optional[InferenceParams] = None, *,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None):
         """x: (b, s, embed_dim). Without `inference_params`: causal attention
-        over the whole sequence; with one (a paged cache): `_decode_step`."""
+        over the whole sequence (`key_padding_mask` (b, s) bool: False keys
+        are padding; `dropout_seed`: the seed of this call's dropout mask);
+        with one (a paged cache): `_decode_step`."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         q = self.Wq(x).reshape(b, s, h, d)
         k = self.Wk(x).reshape(b, s, hk, d)
         v = self.Wv(x).reshape(b, s, hk, d)
         if inference_params is None:
-            context = self._full_sequence(q, k, v)
+            context = self._full_sequence(q, k, v, key_padding_mask,
+                                          dropout_seed)
         else:
             context = self._decode_step(q, k, v, inference_params)
         return self.out_proj(context.reshape(b, s, h * d))
 
-    def _full_sequence(self, q, k, v):
-        """Rotary over positions 0..s-1, then causal flash attention."""
-        if self.dropout > 0.0 and self.training and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "attention dropout needs the murmur3 keep-mask in the flash "
-                "kernels: ROADMAP queue 2, kernels 1-3 (murmur3 dropout)"
-            )
+    def _full_sequence(self, q, k, v, key_padding_mask=None,
+                       dropout_seed=None):
+        """Rotary over positions 0..s-1, then causal flash attention; padding
+        keys become mismatching segment ids, as the JAX MHA's
+        key_padding_mask does (query rows of padding see nothing and give
+        0)."""
+        dropout_p = (self.dropout if self.training and torch.is_grad_enabled()
+                     else 0.0)
+        if dropout_p > 0.0 and dropout_seed is None:
+            dropout_seed = int(torch.randint(0, 2**31 - 1, ()))
+        seg = {}
+        if key_padding_mask is not None:
+            kpm = key_padding_mask.to(q.device, torch.bool)
+            seg = dict(
+                q_segment_ids=torch.where(kpm[:, :q.shape[1]], 0, -1).int(),
+                kv_segment_ids=torch.where(kpm, 0, -2).int())
         if self.rotary is not None:
             cos, sin = self.rotary.cos_sin(q.shape[1], device=q.device)
             q = apply_rotary_emb(q, cos, sin,
                                  interleaved=self.rotary_emb_interleaved)
             k = apply_rotary_emb(k, cos, sin,
                                  interleaved=self.rotary_emb_interleaved)
-        return flash_attn_func(q, k, v, softmax_scale=self.softmax_scale,
+        return flash_attn_func(q, k, v, dropout_p=dropout_p,
+                               softmax_scale=self.softmax_scale,
                                causal=True, window_size=self.window_size,
                                softcap=self.softcap,
-                               alibi_slopes=self.alibi_slopes)
+                               alibi_slopes=self.alibi_slopes,
+                               dropout_seed=dropout_seed, **seg)
 
     def _decode_step(self, q, k, v, inference_params: InferenceParams):
         """Append this call's K/V to the layer's cache (in place) and attend

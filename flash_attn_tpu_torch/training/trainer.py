@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from flash_attn_tpu_torch.kernels.common import round_up
+from flash_attn_tpu_torch.kernels.common import fold_seed, round_up
 from flash_attn_tpu_torch.losses.cross_entropy import cross_entropy_loss
 from flash_attn_tpu_torch.models.gpt import GATED_ACTIVATIONS
 from flash_attn_tpu_torch.training.optim import (
@@ -158,9 +158,16 @@ class Trainer:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), device=self.device).long()
 
-    def _loss(self, input_ids, labels) -> torch.Tensor:
-        logits = self.model(input_ids)
+    def _loss(self, input_ids, labels, dropout_seed=None) -> torch.Tensor:
+        logits = self.model(input_ids, dropout_seed=dropout_seed)
         return cross_entropy_loss(logits.float(), labels)
+
+    def step_seed(self, micro: int = 0) -> int:
+        """The attention dropout seed of this step's microbatch `micro`:
+        TrainConfig.seed folded with the step and the microbatch, as the JAX
+        trainer splits its key once a step; the model folds in each layer's
+        index."""
+        return fold_seed(self.config.seed, self.step_idx, micro)
 
     def train_step(self, input_ids, labels):
         """One optimizer update from a batch (b, s), or with
@@ -172,7 +179,7 @@ class Trainer:
         if acc > 1:
             loss = 0.0
             for i in range(acc):
-                micro = self._loss(ids[i], lbl[i])
+                micro = self._loss(ids[i], lbl[i], self.step_seed(i))
                 micro.backward()
                 loss = loss + micro.detach()
             for p in params:
@@ -180,7 +187,7 @@ class Trainer:
                     p.grad.div_(acc)
             loss = loss / acc
         else:
-            loss = self._loss(ids, lbl)
+            loss = self._loss(ids, lbl, self.step_seed())
             loss.backward()
             loss = loss.detach()
         grad_norm = clip_by_global_norm_(

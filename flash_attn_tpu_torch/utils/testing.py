@@ -16,6 +16,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flash_attn_tpu_torch.kernels.common import (
+    alibi_bias,
+    default_alibi_slopes,
+    dropout_keep_mask,
+    fold_seed,
+)
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
 from flash_attn_tpu_torch.losses.cross_entropy import cross_entropy_loss
 from flash_attn_tpu_torch.models.gpt import GATED_ACTIVATIONS
@@ -102,6 +108,9 @@ def attention_ref(
     softcap: float = 0.0,
     softmax_scale: Optional[float] = None,
     upcast: bool = True,
+    alibi_slopes: Optional[torch.Tensor] = None,      # (h,) or (b, h)
+    dropout_p: float = 0.0,
+    dropout_mask: Optional[torch.Tensor] = None,      # (b, h, sq, sk) keep
 ):
     """Exact attention; returns (output (b, sq, h, dv), probs (b, h, sq,
     sk)), both in q's dtype. upcast=False keeps the products in the input
@@ -109,7 +118,11 @@ def attention_ref(
     softmax is computed in fp32 either way. Keys outside key_padding_mask
     are dropped; windows and chunks are aligned to each row's key count in
     leftpad-relative columns (the reference oracle's rules); a learnable
-    sink adds exp(sink) to each row's softmax denominator. The descales
+    sink adds exp(sink) to each row's softmax denominator. ALiBi subtracts
+    slope |j - i - (sk - sq)| after the softcap; dropout (the JAX oracle's
+    dropout_mask, the keep mask) zeroes the dropped probabilities of the
+    output's product and scales it by 1 / (1 - dropout_p); the returned
+    probabilities are the undropped ones. The descales
     (the JAX oracle's) multiply q (per kv head of its group), k and v in
     fp32 before anything else: a 1-byte cache is held to this oracle on its
     dequantized values."""
@@ -148,6 +161,9 @@ def attention_ref(
         scores = scores.masked_fill(construct_chunk_mask(
             seqlen_q, seqlen_k, attention_chunk, device=q.device, **masks),
             float("-inf"))
+    if alibi_slopes is not None:
+        scores = scores + alibi_bias(alibi_slopes, slice(0, h), seqlen_q,
+                                     seqlen_k, q.device)
     row_max = scores.amax(dim=-1, keepdim=True)
     if learnable_sink is not None:
         sink = learnable_sink.float().to(q.device).reshape(1, h, 1, 1)
@@ -160,7 +176,11 @@ def attention_ref(
         denom = denom + torch.exp(sink - row_max)
     attention = torch.where(denom > 0, unnorm / denom.clamp_min(1e-37),
                             torch.zeros_like(unnorm))
-    output = torch.einsum("bhts,bshd->bthd", attention.to(v.dtype), v)
+    dropped = attention
+    if dropout_mask is not None:
+        dropped = torch.where(dropout_mask.to(q.device), attention,
+                              torch.zeros_like(attention)) / (1.0 - dropout_p)
+    output = torch.einsum("bhts,bshd->bthd", dropped.to(v.dtype), v)
     return output.to(dtype_og), attention.to(dtype_og)
 
 
@@ -368,18 +388,22 @@ def gpt_forward_ref(model_or_state_dict, input_ids: torch.Tensor,
 
 
 def gpt_loss_ref(model: nn.Module, input_ids: torch.Tensor,
-                 labels: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+                 labels: torch.Tensor, dtype=torch.float32,
+                 dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Mean cross-entropy of the plain forward's logits (cast to fp32),
     differentiable in the model's parameters: the gradient oracle of a
-    training step. Attention is `attention_ref` (plain, no kernel)."""
+    training step. Attention is `attention_ref` (plain, no kernel); with
+    `dropout_seed` and the config's attn_pdrop, layer i drops with the keep
+    mask of fold_seed(dropout_seed, i), as the model's training forward
+    does."""
     params = dict(model.named_parameters())
-    logits = _gpt_logits(params, model.config, input_ids, dtype)
+    logits = _gpt_logits(params, model.config, input_ids, dtype, dropout_seed)
     return cross_entropy_loss(logits.float(), labels)
 
 
-def _gpt_logits(sd, config, input_ids, dtype):
+def _gpt_logits(sd, config, input_ids, dtype, dropout_seed=None):
     c = config
-    if not c.prenorm or c.parallel_block or c.use_alibi or c.attn_type != "mha":
+    if not c.prenorm or c.parallel_block or c.attn_type != "mha":
         raise NotImplementedError("gpt_forward_ref covers the pre-norm, "
                                   "sequential-block MHA models")
     h, hk, d = c.n_head, c.resolved_n_head_kv, c.resolved_head_dim
@@ -416,6 +440,7 @@ def _gpt_logits(sd, config, input_ids, dtype):
     acc = torch.float32 if c.residual_in_fp32 else dtype
     residual = None
     gated = c.activation_function in GATED_ACTIVATIONS
+    slopes = default_alibi_slopes(h).to(ids.device) if c.use_alibi else None
     act = ACT2FN[c.activation_function]
     upcast = dtype == torch.float32
     for i in range(c.n_layer):
@@ -429,9 +454,18 @@ def _gpt_logits(sd, config, input_ids, dtype):
             rot = dict(interleaved=c.rotary_emb_interleaved)
             q = apply_rotary_emb(q, cos, sin, **rot)
             k = apply_rotary_emb(k, cos, sin, **rot)
+        drop = {}
+        if dropout_seed is not None and c.attn_pdrop > 0:
+            drop = dict(dropout_p=c.attn_pdrop, dropout_mask=dropout_keep_mask(
+                fold_seed(dropout_seed, i),
+                torch.arange(b, device=ids.device).reshape(-1, 1, 1, 1),
+                torch.arange(h, device=ids.device).reshape(1, -1, 1, 1), 0, 0,
+                (s, s), 1.0 - c.attn_pdrop, device=ids.device))
         o, _ = attention_ref(q, k, v, causal=True,
                              window_size=(c.window_size[0], None),
-                             softcap=c.softcap, upcast=upcast)
+                             softcap=c.softcap, upcast=upcast,
+                             alibi_slopes=slopes, **drop)
+        del drop
         residual = residual + linear(o.reshape(b, s, h * d),
                                      p + "mixer.out_proj").to(acc)
         y = norm(residual, p + "norm2")

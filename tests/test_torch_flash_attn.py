@@ -20,6 +20,7 @@ from flash_attn_tpu_torch.flash_attn_interface import (
     flash_attn_func,
     flash_attn_kvpacked_func,
 )
+from flash_attn_tpu_torch.kernels.common import dropout_keep_mask
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 
 B, H, HK, D = 2, 4, 2, 32
@@ -86,13 +87,68 @@ def test_kvpacked_and_bhsd_layouts_agree():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(dropout_p=0.1), dict(qv=torch.zeros(1)), dict(bias=torch.zeros(1)),
-    dict(alibi_slopes=torch.zeros(4)), dict(sink=torch.zeros(4)),
-    dict(attention_chunk=16), dict(sink_token_length=4),
-    dict(q_segment_ids=torch.zeros(1)), dict(k_descale=torch.ones(1)),
-    dict(score_mod=lambda s, *a: s), dict(cp_world_size=2),
+    dict(qv=torch.zeros(1)), dict(bias=torch.zeros(1)),
+    dict(k_descale=torch.ones(1)), dict(score_mod=lambda s, *a: s),
+    dict(cp_world_size=2),
 ], ids=lambda e: next(iter(e)))
 def test_unported_arguments_raise(extra):
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attention_fwd(q, q, q, **extra)
+
+
+def _dense_answer(q, k, v, visible, bias=0.0, sink=None, keep=None, p=0.0):
+    """softmax(q k^T / sqrt(d) + bias) v over the visible keys, written out:
+    exp(sink) joins each row's sum, dropped entries leave P V, scaled by
+    1 / (1 - p); a row that sees nothing gives 0."""
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5 + bias
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    if sink is not None:
+        m = torch.maximum(m, sink.reshape(1, -1, 1, 1))
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    if sink is not None:
+        l = l + torch.exp(sink.reshape(1, -1, 1, 1) - m)
+    if keep is not None:
+        e = torch.where(keep, e, torch.zeros_like(e)) / (1.0 - p)
+    return torch.where(l > 0, (e @ v) / l.clamp_min(1e-30), torch.zeros(()))
+
+
+_S = 40
+_ROW = torch.arange(_S)[:, None]
+_COL = torch.arange(_S)[None]
+_SEG = torch.tensor([[0] * 13 + [1] * 20 + [-1] * 7])
+
+
+@pytest.mark.parametrize("extra", [
+    dict(dropout_p=0.1), dict(alibi_slopes=torch.tensor([0.5, 0.125])),
+    dict(sink=torch.tensor([0.3, -1.0])), dict(attention_chunk=16),
+    dict(sink_token_length=4, window_size=(8, -1), causal=True),
+    dict(q_segment_ids=_SEG, kv_segment_ids=torch.where(_SEG < 0, -2, _SEG)),
+], ids=lambda e: next(iter(e)))
+def test_ported_arguments_answer(extra):
+    """The arguments of the JAX signature that kernels 1-3 took in their
+    feature instances give the answer written out by hand (the JAX
+    package's rules; tests/test_torch_attn_features.py holds them to the
+    JAX package itself)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, _S, 64)).astype(
+        np.float32)) for _ in range(3))
+    out, _ = flash_attention_fwd(q, k, v, **extra)
+    visible, bias, keep = torch.ones(_S, _S, dtype=torch.bool), 0.0, None
+    if "dropout_p" in extra:
+        keep = dropout_keep_mask(0, 0, torch.arange(2).reshape(1, 2, 1, 1),
+                                 0, 0, (_S, _S), 0.9)
+    if "alibi_slopes" in extra:
+        bias = -extra["alibi_slopes"].reshape(1, 2, 1, 1) * (_COL - _ROW).abs()
+    if "attention_chunk" in extra:
+        visible = _COL // 16 == _ROW // 16
+    if "sink_token_length" in extra:
+        visible = (_COL <= _ROW) & ((_COL >= _ROW - 8) | (_COL < 4))
+    if "q_segment_ids" in extra:
+        visible = (_SEG[0, :, None] == _SEG[0, None, :]) & (_SEG[0, :, None] >= 0)
+    want = _dense_answer(q, k, v, visible, bias, extra.get("sink"), keep,
+                         extra.get("dropout_p", 0.0))
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)

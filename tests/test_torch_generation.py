@@ -250,5 +250,9 @@ def test_alibi_decode_matches_jax_mha():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         offsets = offsets + s
     assert mha.alibi_slopes is not None and "alibi_slopes" not in mha.state_dict()
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        mha(torch.zeros(1, 4, embed))
+    # Without a cache ALiBi now runs in kernel 1's feature instance (its
+    # plain version here), as the JAX MHA's full-sequence call.
+    x = rng.standard_normal((b, 6, embed)).astype(np.float32)
+    np.testing.assert_allclose(
+        mha(torch.from_numpy(x)).detach().numpy(),
+        np.asarray(jax_mha.apply(params, jnp.asarray(x))), **TOL)

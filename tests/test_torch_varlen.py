@@ -267,6 +267,13 @@ def test_unported_arguments_raise():
                   dict(aux_tensors=(q,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attention_varlen_fwd(q, q, q, cu, cu, **extra)
-    for extra in (dict(bias_grad=True), dict(gather_kv_indices=q)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attn_varlen_func(q, q, q, cu, cu, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attn_varlen_func(q, q, q, cu, cu, bias_grad=True)
+    # gather_kv_indices is ported (plain torch, as the JAX package's XLA):
+    # every row gathering every key is the dense call.
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8, 2, 64)).astype(np.float32))
+    every = torch.arange(8).expand(8, 8)
+    torch.testing.assert_close(
+        flash_attn_varlen_func(x, x, x, cu, cu, gather_kv_indices=every),
+        flash_attn_varlen_func(x, x, x, cu, cu, 8, 8), rtol=1e-5, atol=1e-5)

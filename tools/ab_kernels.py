@@ -137,6 +137,16 @@ def registers(log):
     return keyed
 
 
+def base_name(key, base):
+    """The base's name of the tree's kernel `key`: the same, or for a
+    kernel that gained a trailing template parameter defaulting to 0, its
+    name without that argument when the base has it."""
+    if key in base:
+        return key
+    short = re.sub(r", 0>$", ">", key)
+    return short if short in base else key
+
+
 def use(tag):
     """Points the wrappers at the `tag` build."""
     paths = {src: os.path.join(OUT_DIR, f"{tag}-{src}.so") for src in SOURCES}
@@ -366,16 +376,18 @@ def main(argv=None):
         for src in logs[tag]:
             regs[tag].update({f"{src}: {name}": value for name, value in
                               registers(logs[tag][src]).items()})
+    # A tree kernel that gained a trailing template parameter defaulting to
+    # 0 (kernels 1-3's kFeat) is compared with the base's kernel without it.
+    named = {base_name(k, regs["base"]): v for k, v in regs["tree"].items()}
     differ = {k: dict(base=regs["base"].get(k), tree=v)
-              for k, v in regs["tree"].items() if regs["base"].get(k) != v
+              for k, v in named.items() if regs["base"].get(k) != v
               and k in regs["base"]}
     print(json.dumps(dict(phase="ptxas", card=chip_smoke.smi(),
                           base=trees["base"], kernels=len(regs["tree"]),
-                          same_in_both=sum(k in regs["base"]
-                                           for k in regs["tree"]),
+                          same_in_both=sum(k in regs["base"] for k in named),
                           differ=differ,
-                          only_in_base=sorted(set(regs["base"]) - set(regs["tree"])),
-                          only_in_tree=sorted(set(regs["tree"]) - set(regs["base"])),
+                          only_in_base=sorted(set(regs["base"]) - set(named)),
+                          only_in_tree=sorted(set(named) - set(regs["base"])),
                           registers=regs)), flush=True)
     workers = ({} if args.no_decode else
                {tag: DecodeWorker(root) for tag, root in trees.items()})
