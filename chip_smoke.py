@@ -30,6 +30,22 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               each with one boundary moved that its check must catch; a
               decode-only step's 32 layer calls replayed from a CUDA graph,
               equal in bits to the eager step;
+     varlen_features, varlen_features_bits, varlen_features_fault,
+     varlen_train_dropout, compile_specs, vllm_alibi  kernels 6-8's feature
+              instances (ALiBi, attention_chunk, dropout) against their
+              plain versions at the widths of models that run each feature
+              (Baichuan-13B ALiBi packed and on "phd" pools, GPT-2-medium
+              documents with dropout, Llama-4-Scout chunk 8192, all at once
+              at d 64), each beside the feature-free kernels on the same
+              inputs; kernel 6's keep mask read back in bits at packed
+              coordinates; planted faults (the keep mask in per-sequence
+              coordinates, ALiBi's diagonal moved by one, a chunk edge off
+              by one, dV without 1 / (1 - p)) that every check must catch;
+              varlen_train's 24 layers with dropout 0.1 beside it, every
+              attention launch a feature instance's in the trace; the
+              compiled-specs callable against flash_attn_varlen_func in
+              bits; the vllm schedule at Baichuan-13B widths with ALiBi
+              (kernel 6 on chunks, kernel 5 on decode rows, from the trace);
      decode_kernels  the general decode kernel (kernel 5) against its plain
               version at Mistral-7B widths: decode, generate's 4500-token
               prefill, batch index, leftpad with a window, ALiBi, sinks,
@@ -151,6 +167,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from flash_attn_tpu_torch.flash_attn_interface import (  # noqa: E402
+    compile_flash_attn_varlen_func_from_specs,
     flash_attn_func,
     flash_attn_varlen_func,
     sparse_attn_func,
@@ -184,6 +201,7 @@ from flash_attn_tpu_torch.kernels.common import (  # noqa: E402
     aux_take,
     default_alibi_slopes,
     dropout_keep_mask,
+    fold_seed,
     make_features,
     normalize_window,
     visible_mask,
@@ -228,6 +246,7 @@ from flash_attn_tpu_torch.kernels.flash_sparse_gather import (  # noqa: E402
     flash_attention_sparse_gather_fwd,
     plan_gather,
 )
+from flash_attn_tpu_torch.kernels import flash_varlen  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
     _varlen_dkv_ref,
     _varlen_dq_ref,
@@ -235,10 +254,12 @@ from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
     flash_attention_varlen_bwd_dq,
     flash_attention_varlen_fwd,
     flash_attention_varlen_fwd_ref,
+    make_varlen_metadata,
     plan_mismatch,
     sm90_block_m,
     sm90_grid_tiles,
     trace_schedule,
+    varlen_features,
     varlen_window,
 )
 from flash_attn_tpu_torch.losses.cross_entropy import (  # noqa: E402
@@ -1993,6 +2014,598 @@ def _zero_varlen_counts():
     flash_attention_varlen_bwd_dq.launches = 0
 
 
+# -- phases: varlen_features, varlen_features_bits, varlen_features_fault,
+#    varlen_train_dropout, compile_specs (kernels 6-8's feature instances,
+#    csrc/flash_varlen_features.cu and csrc/flash_varlen_bwd_features.cu) --
+
+# Baichuan-13B (https://huggingface.co/baichuan-inc/Baichuan-13B-Base
+# config.json: 40 layers, 40 heads of 128, ALiBi) and Llama-4-Scout
+# (https://huggingface.co/meta-llama/Llama-4-Scout-17B-16E config.json: 40
+# query and 8 kv heads of 128, attention_chunk_size 8192).
+BAICHUAN_13B = dict(h=40, hk=40, d=128, layers=40)
+LLAMA4_SCOUT = dict(h=40, hk=8, d=128, chunk=8192)
+
+
+def _seeded_lens(n, lo, hi, seed):
+    return np.random.RandomState(seed).randint(lo, hi + 1, n).tolist()
+
+
+# name: (lens (q and k alike), seqused_k or None, h, hk, d, causal,
+# window_size, softcap, layout, features), each at the published widths of
+# a model that runs the feature; "alibi-paged-phd16" reads "phd" pools.
+VARLEN_FEATURE_CASES = {
+    # Baichuan-13B ALiBi (geometric slopes), 8 packed sequences of
+    # 512-4096 tokens.
+    "alibi-baichuan13b": (_seeded_lens(8, 512, 4096, 180), None, 40, 40, 128,
+                          True, (-1, -1), 0.0, "thd", dict(alibi=True)),
+    # varlen_train's 16 GPT-2-medium documents in 8 x 2048 with GPT-2's
+    # attention dropout 0.1.
+    "dropout-gpt2m-docs": (GPT2M_DOCS, None, 16, 16, 64, True, (-1, -1), 0.0,
+                           "thd", dict(dropout_p=0.1, dropout_seed=2024)),
+    # Llama-4-Scout's chunked local attention over 3 documents of
+    # 8192-20000 tokens.
+    "chunk8192-llama4-scout": (_seeded_lens(3, 8192, 20000, 181), None, 40, 8,
+                               128, True, (-1, -1), 0.0, "thd",
+                               dict(attention_chunk=8192)),
+    # Every feature at once with softcap 30 at d 64, head-major, one
+    # sequence's used keys below its length.
+    "all-d64-hsd": (doc_lengths(8192, 2048, 182), "cut", 16, 4, 64, True,
+                    (255, -1), 30.0, "hsd",
+                    dict(alibi=True, attention_chunk=512, dropout_p=0.1,
+                         dropout_seed=-77)),
+}
+# The paged case: Baichuan-13B widths, the Mistral paged prefill step's
+# four 512-token chunks over "phd" pools of page 16.
+VARLEN_FEATURE_PAGED = "alibi-paged-phd16-baichuan13b"
+# The planted faults run on this case: non-causal (a diagonal moved by one
+# shifts causal ALiBi rows uniformly, which the softmax cancels).
+VARLEN_FEATURE_FAULT = (doc_lengths(4096, 1500, 183), None, 8, 2, 64, False,
+                        (-1, -1), 0.0, "thd",
+                        dict(alibi=True, attention_chunk=512, dropout_p=0.1,
+                             dropout_seed=31))
+
+
+def _zero_varlen_feature_counts():
+    for fn in (flash_attention_varlen_fwd, flash_attention_varlen_bwd_dq,
+               flash_attention_varlen_bwd_dkv):
+        fn.feature_launches = 0
+
+
+def _varlen_feature_counts():
+    return dict(flash_varlen_fwd=flash_attention_varlen_fwd.feature_launches,
+                flash_varlen_bwd_dq=flash_attention_varlen_bwd_dq.feature_launches,
+                flash_varlen_bwd_dkv=flash_attention_varlen_bwd_dkv.feature_launches)
+
+
+def varlen_feature_inputs(case, seed):
+    """Seeded packed q, k, v, dO (bf16, N(0, 1)) of a case on the card, its
+    cu_seqlens and seqused_k, and its kwargs: (kw, fkw, tensors)."""
+    lens, used, h, hk, d, causal, window, softcap, layout, spec = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    total = sum(lens)
+
+    def rand(heads):
+        shape = (total, heads, d) if layout == "thd" else (heads, total, d)
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, do = rand(h), rand(h)
+    k, v = rand(hk), rand(hk)
+    cu = _dev_int(_cu_of(lens))
+    used_k = None
+    if used == "cut":  # the longest sequence's last 100 keys unused
+        cut = list(lens)
+        cut[int(np.argmax(lens))] -= 100
+        used_k = _dev_int(cut)
+    fkw = {key: spec[key] for key in ("attention_chunk", "dropout_p",
+                                      "dropout_seed") if key in spec}
+    if spec.get("alibi"):
+        fkw["alibi_slopes"] = default_alibi_slopes(h).to(dev)
+    kw = dict(seqused_k=used_k, causal=causal, window_size=window,
+              softcap=softcap, layout=layout)
+    return kw, fkw, dict(q=q, k=k, v=v, do=do, cu=cu)
+
+
+@contextlib.contextmanager
+def planted_sequences(**change):
+    """The varlen plain versions with each sequence's features changed
+    (a planted fault): origin=(0, 0) draws the keep mask in per-sequence
+    coordinates, diag_offset=+1 moves ALiBi's diagonal by one."""
+    saved = flash_varlen._sequences
+
+    def planted(*args, **kwargs):
+        for *seq, fs in saved(*args, **kwargs):
+            if fs is not None:
+                fs = fs._replace(**{
+                    key: (fs.diag_offset + val if key == "diag_offset"
+                          else val) for key, val in change.items()})
+            yield (*seq, fs)
+
+    flash_varlen._sequences = planted
+    try:
+        yield
+    finally:
+        flash_varlen._sequences = saved
+
+
+def varlen_feature_compare(case, seed, kernel_fkw=None, dv_factor=1.0):
+    """Kernels 6-8 with a case's features and their plain versions on the
+    same seeded inputs (the plain backward fed the plain forward's LSE and
+    delta). `kernel_fkw` hands the kernels other features, `dv_factor`
+    scales the plain dV (planted faults). Returns (result, kw, fkw,
+    tensors)."""
+    kw, fkw, t = varlen_feature_inputs(case, seed)
+    kfkw = fkw if kernel_fkw is None else dict(fkw, **kernel_fkw)
+    q, k, v, do, cu = t["q"], t["k"], t["v"], t["do"], t["cu"]
+    layout = kw["layout"]
+    rf = varlen_features(case[2], **fkw)
+
+    def rows(x):  # the d values of one token and head last, for `held`
+        return x.float() if layout == "thd" else x.float().transpose(0, 1)
+
+    out, lse = flash_attention_varlen_fwd(q, k, v, cu, cu, **kw, **kfkw)
+    torch.cuda.synchronize()
+    up = tuple(x.float() for x in (q, k, v, do))
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(*up[:3], cu, cu, **kw,
+                                                      features=rf)
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max()) if finite.any() else 0.0
+    result = dict(out=held(rows(out), rows(ref_out)), lse_max_abs_err=lse_err)
+    fwd_ok = bool(result["out"]["err_over_limit"] <= 1
+                  and torch.equal(finite, torch.isfinite(lse))
+                  and lse_err <= ATTN_LSE_TOL and torch.isfinite(out).all())
+    del ref_out
+    dq, delta = flash_attention_varlen_bwd_dq(q, k, v, do, ref_lse, cu, cu,
+                                              **kw, **kfkw)
+    ref_dq, ref_delta = _varlen_dq_ref(*up, ref_lse, cu, cu, **kw, features=rf)
+    dk, dv = flash_attention_varlen_bwd_dkv(q, k, v, do, ref_lse, ref_delta,
+                                            cu, cu, **kw, **kfkw)
+    torch.cuda.synchronize()
+    result.update(dq=held(rows(dq), rows(ref_dq)), delta=held(delta, ref_delta))
+    del ref_dq
+    ref_dk, ref_dv = _varlen_dkv_ref(*up, ref_lse, ref_delta, cu, cu, **kw,
+                                     features=rf)
+    result.update(dk=held(rows(dk), rows(ref_dk)),
+                  dv=held(rows(dv), rows(ref_dv) * dv_factor))
+    del ref_dk, ref_dv, up
+    result.update(
+        fwd_ok=fwd_ok,
+        dq_ok=result["dq"]["err_over_limit"] <= 1
+        and result["delta"]["err_over_limit"] <= 1,
+        dkv_ok=max(result["dk"]["err_over_limit"],
+                   result["dv"]["err_over_limit"]) <= 1,
+        grads_finite=all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)))
+    t.update(lse=ref_lse, delta=ref_delta)
+    return result, kw, fkw, t
+
+
+def varlen_feature_pairs(lens, used_k, causal, window, chunk, dev="cuda"):
+    """Visible (row, key) pairs of a packed call per head under the varlen
+    rules (make_varlen_metadata's intervals, the chunk's included)."""
+    cu = _dev_int(_cu_of(lens), dev)
+    meta = make_varlen_metadata(cu, cu, sum(lens), seqused_k=used_k,
+                                causal=causal, window=window,
+                                attention_chunk=chunk)
+    span = (meta.hi - meta.lo + 1).clamp_min(0)
+    return int(span[meta.qseg >= 0].sum())
+
+
+def varlen_feature_library(case, kw, fkw, t):
+    """SDPA on the same function where one call computes it: the packed
+    tokens as one sequence with a block-diagonal mask holding the causal,
+    window and chunk rules (a boolean mask), plus the ALiBi term (a float
+    mask per head); K and V repeated to the query heads outside the timed
+    calls. None for dropout (SDPA draws its own mask), a softcap (SDPA has
+    none) and a mask over SDPA_MASK_BYTES. A yardstick; the port never calls
+    it."""
+    lens, _, h, hk = case[:4]
+    if "dropout_p" in fkw:
+        return None, "none: SDPA draws its own dropout mask"
+    if kw["softcap"]:
+        return None, "none: SDPA has no softcap"
+    total = sum(lens)
+    per_head = "alibi_slopes" in fkw
+    if per_head and kw["seqused_k"] is not None:
+        return None, "none: not built for seqused_k with ALiBi"
+    nbytes = total * total * (2 * h if per_head else 1)
+    if nbytes > SDPA_MASK_BYTES:
+        return None, (f"none: the {nbytes / 2**30:.1f} GiB mask is past the "
+                      f"{SDPA_MASK_BYTES / 2**30:.0f} GiB limit")
+    q, k, v, do, cu = t["q"], t["k"], t["v"], t["do"], t["cu"]
+    if kw["layout"] == "hsd":
+        q, k, v, do = (x.transpose(0, 1) for x in (q, k, v, do))
+    meta = make_varlen_metadata(cu, cu, total, seqused_k=kw["seqused_k"],
+                                causal=kw["causal"], window=kw["window_size"],
+                                attention_chunk=fkw.get("attention_chunk", 0))
+    cols = torch.arange(total, device=q.device)
+    mask = (cols[None] >= meta.lo[:, None]) & (cols[None] <= meta.hi[:, None])
+    if per_head:
+        # q and k pack the same lengths with no seqused_k here, so a row's
+        # diagonal is its own packed index.
+        rel = (cols[None] - cols[:, None]).abs().float()
+        mask = torch.stack([
+            (-fkw["alibi_slopes"][i] * rel).masked_fill(~mask, float("-inf"))
+            .to(q.dtype) for i in range(h)])[None]
+        del rel
+    qt, kt, vt = (x.transpose(0, 1)[None].detach().clone().requires_grad_()
+                  for x in (q, k.repeat_interleave(h // hk, 1),
+                            v.repeat_interleave(h // hk, 1)))
+    dot = do.transpose(0, 1)[None]
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), reps=3, warmup=1)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    both = cuda_ms(sdpa_fwd_bwd, reps=3, warmup=1)
+    del mask
+    return dict(fwd_ms=fwd, bwd_ms=both - fwd), (
+        "scaled_dot_product_attention over the packed tokens with a "
+        + ("block-diagonal ALiBi float mask" if per_head
+           else "block-diagonal boolean mask"))
+
+
+def varlen_feature_case(name, seed):
+    """One VARLEN_FEATURE_CASES case: held, timed against its plain versions
+    and its bound over the features' visible pairs, SDPA beside it where
+    one call computes it."""
+    case = VARLEN_FEATURE_CASES[name]
+    lens, _, h, hk, d, causal, window, softcap, layout, spec = case
+    checked, kw, fkw, t = varlen_feature_compare(case, seed)
+    q, k, v, do, cu, lse, delta = (t[x] for x in ("q", "k", "v", "do", "cu",
+                                                  "lse", "delta"))
+    total = sum(lens)
+    big = h * max(lens) ** 2 > 2**31
+    plain = dict(reps=1 if big else 3, warmup=1)
+    up = tuple(x.float() for x in (q, k, v, do))
+    rf = varlen_features(h, **fkw)
+    result = dict(
+        phase="varlen_features", case=name, nseq=len(lens), total=total,
+        max_len=max(lens), h=h, hk=hk, d=d, causal=causal,
+        window_size=list(window), softcap=softcap, layout=layout,
+        seqused_k=kw["seqused_k"] is not None, features=sorted(spec),
+        **checked, tolerance=ATTN_TOLERANCE,
+        ok=(checked["fwd_ok"] and checked["dq_ok"] and checked["dkv_ok"]
+            and checked["grads_finite"]),
+        fwd_ms=cuda_ms(lambda: flash_attention_varlen_fwd(
+            q, k, v, cu, cu, **kw, **fkw), reps=10),
+        dq_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dq(
+            q, k, v, do, lse, cu, cu, **kw, **fkw), reps=10),
+        dkv_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dkv(
+            q, k, v, do, lse, delta, cu, cu, **kw, **fkw), reps=10),
+        fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
+            *up[:3], cu, cu, **kw, features=rf), **plain),
+        dq_plain_ms=cuda_ms(lambda: _varlen_dq_ref(
+            *up, lse, cu, cu, **kw, features=rf), **plain),
+        dkv_plain_ms=cuda_ms(lambda: _varlen_dkv_ref(
+            *up, lse, delta, cu, cu, **kw, features=rf), **plain),
+        # The feature-free kernels on the same inputs (their own pairs; the
+        # backward times on the features' LSE and delta, which changes no
+        # work).
+        free_fwd_ms=cuda_ms(lambda: flash_attention_varlen_fwd(
+            q, k, v, cu, cu, **kw), reps=10),
+        free_dq_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dq(
+            q, k, v, do, lse, cu, cu, **kw), reps=10),
+        free_dkv_ms=cuda_ms(lambda: flash_attention_varlen_bwd_dkv(
+            q, k, v, do, lse, delta, cu, cu, **kw), reps=10))
+    del up
+    pairs = varlen_feature_pairs(lens, kw["seqused_k"], causal, window,
+                                 fkw.get("attention_chunk", 0))
+    plain_pairs = varlen_feature_pairs(lens, kw["seqused_k"], causal, window, 0)
+    el = 2
+    qb, kvb, stats = total * h * d * el, total * hk * d * el, total * h * 4
+    # As varlen_kernels' bound, over the visible pairs of the features'
+    # rules: fwd 4d flops a pair, dK/dV 8d, dQ 6d.
+    for key, per_d, nbytes in (
+            ("fwd", 4, 2 * qb + 2 * kvb + stats),
+            ("dkv", 8, 2 * qb + 4 * kvb + 2 * stats),
+            ("dq", 6, 3 * qb + 2 * kvb + 2 * stats)):
+        result[f"{key}_bound_ms"], result[f"{key}_bound_by"] = attn_bound(
+            per_d, nbytes, 1, h, d, pairs)
+    result.update(visible_pairs_per_head=pairs,
+                  visible_pairs_without_chunk=plain_pairs)
+    # Time per visible pair against the feature-free kernel's.
+    result["per_pair_vs_free"] = {
+        key: (result[f"{key}_ms"] / pairs)
+        / (result[f"free_{key}_ms"] / plain_pairs)
+        for key in ("fwd", "dq", "dkv")}
+    result["library"], result["library_call"] = varlen_feature_library(
+        case, kw, fkw, t)
+    if "dropout_p" in fkw:
+        # The dropped share of the visible pairs, from the keep mask the
+        # kernels draw (varlen_features_bits shows they draw these bits).
+        meta = make_varlen_metadata(cu, cu, total, seqused_k=kw["seqused_k"],
+                                    causal=causal, window=window,
+                                    attention_chunk=fkw.get("attention_chunk",
+                                                            0))
+        kept = seen = 0
+        cu_h = _cu_of(lens)
+        for j in range(len(lens)):
+            a, b = int(cu_h[j]), int(cu_h[j + 1])
+            cols = torch.arange(a, b, device=q.device)
+            vis = ((cols[None] >= meta.lo[a:b, None])
+                   & (cols[None] <= meta.hi[a:b, None]))
+            for hh in range(h):
+                keep = dropout_keep_mask(fkw["dropout_seed"], 0, hh, a, a,
+                                         (b - a, b - a), 1 - fkw["dropout_p"],
+                                         device=q.device)
+                kept += int((keep & vis).sum())
+                seen += int(vis.sum())
+        result["dropped_fraction"] = 1.0 - kept / seen
+        result["ok"] = result["ok"] and abs(
+            result["dropped_fraction"] - fkw["dropout_p"]) <= 0.01
+    emit(result)
+    check(result["ok"], f"varlen_features case {name} disagrees with its "
+                        "plain version (or its dropped share is off p)")
+    return result
+
+
+def varlen_feature_paged_case(seed=186):
+    """Kernel 6's ALiBi instance reading "phd" pools at page 16, Baichuan-13B
+    widths, the Mistral paged-prefill step's chunks and contexts: held
+    against its plain version (which gathers the pages), timed beside it and
+    against the packed ALiBi instance on the gathered pages."""
+    w = BAICHUAN_13B
+    st = paged_step(PAGED_QLENS, PAGED_CONTEXTS, 16, seed, h=w["h"],
+                    hk=w["hk"], d=w["d"])
+    slopes = default_alibi_slopes(w["h"]).to(st["q"].device)
+    kw = dict(causal=True, alibi_slopes=slopes)
+
+    def paged():
+        return flash_attention_varlen_fwd(
+            st["q"], None, None, st["cu_q"], None, seqused_k=st["used"],
+            kv_pools=st["pools"], block_table=st["table"], **kw)
+
+    out, lse = paged()
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_varlen_fwd_ref(
+        st["q"].float(), None, None, st["cu_q"], None, seqused_k=st["used"],
+        kv_pools=st["pools"], block_table=st["table"], causal=True,
+        features=varlen_features(w["h"], alibi_slopes=slopes))
+    finite = torch.isfinite(ref_lse)
+    lse_err = float((lse - ref_lse)[finite].abs().max())
+    res = dict(out=held(out, ref_out), lse_max_abs_err=lse_err)
+    del ref_out
+    kp = st["k_phd"][st["pages_in_order"]].reshape(-1, w["hk"], w["d"])
+    vp = st["v_phd"][st["pages_in_order"]].reshape(-1, w["hk"], w["d"])
+    pairs, needed = varlen_work(PAGED_QLENS, PAGED_CONTEXTS, None, None, True,
+                                (-1, -1))
+    tq = sum(PAGED_QLENS)
+    nbytes = (2 * tq * w["h"] * w["d"] * 2 + 2 * needed * w["hk"] * w["d"] * 2
+              + tq * w["h"] * 4)
+    bound_ms, bound_by = attn_bound(4, nbytes, 1, w["h"], w["d"], pairs)
+    r = dict(phase="varlen_features", case=VARLEN_FEATURE_PAGED,
+             qlens=list(PAGED_QLENS), contexts=list(PAGED_CONTEXTS),
+             h=w["h"], hk=w["hk"], d=w["d"], page=16, pools="phd (views)",
+             features=["alibi"], **res, tolerance=ATTN_TOLERANCE,
+             ok=bool(res["out"]["err_over_limit"] <= 1
+                     and torch.equal(finite, torch.isfinite(lse))
+                     and lse_err <= ATTN_LSE_TOL),
+             fwd_ms=cuda_ms(paged),
+             gathered_packed_ms=cuda_ms(lambda: flash_attention_varlen_fwd(
+                 st["q"], kp, vp, st["cu_q"], st["cu_k_pad"],
+                 seqused_k=st["used"], **kw)),
+             fwd_plain_ms=cuda_ms(lambda: flash_attention_varlen_fwd_ref(
+                 st["q"], None, None, st["cu_q"], None, seqused_k=st["used"],
+                 kv_pools=st["pools"], block_table=st["table"], causal=True,
+                 features=varlen_features(w["h"], alibi_slopes=slopes)),
+                 reps=3, warmup=1),
+             fwd_bound_ms=bound_ms, fwd_bound_by=bound_by,
+             visible_pairs_per_head=pairs, library=None,
+             library_call="none: no PyTorch call attends over a page table")
+    emit(r)
+    check(r["ok"], "varlen_features: the paged ALiBi case disagrees with its "
+                   "plain version")
+    return r
+
+
+def varlen_feature_bits_phase():
+    """The keep mask read back in bits from kernel 6: three sequences of 64
+    keys (= d) each, no causality, V = I per sequence, so out[r, c] is
+    P Z / (1 - p) / l and O's zeros are exactly the dropped entries; against
+    dropout_keep_mask (the JAX hash) at batch row 0, the packed rows and
+    keys, two seeds (one negative)."""
+    lens_q, lens_k, h, hk, d = (1000, 300, 37), (64, 64, 64), 4, 2, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(187)
+    q = (0.1 * torch.randn(sum(lens_q), h, d, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    k = (0.1 * torch.randn(sum(lens_k), hk, d, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    v = torch.eye(d, device=dev)[:, None].expand(d, hk, d).repeat(3, 1, 1).to(
+        torch.bfloat16)
+    cu_q, cu_k = _dev_int(_cu_of(lens_q)), _dev_int(_cu_of(lens_k))
+    oq, ok_ = _cu_of(lens_q), _cu_of(lens_k)
+    cases = []
+    for seed, p in ((-12345, 0.25), (987654321, 0.1)):
+        out, _ = flash_attention_varlen_fwd(q, k, v, cu_q, cu_k, dropout_p=p,
+                                            dropout_seed=seed)
+        keep = torch.zeros(out.shape, dtype=torch.bool, device=dev)
+        for j in range(3):
+            keep[oq[j]:oq[j + 1]] = dropout_keep_mask(
+                seed, 0, torch.arange(h, device=dev).reshape(-1, 1, 1),
+                int(oq[j]), int(ok_[j]), (lens_q[j], d), 1.0 - p,
+                device=dev).transpose(0, 1)
+        cases.append(dict(seed=seed, dropout_p=p,
+                          equal_bits=bool(torch.equal(out != 0, keep)),
+                          mismatched=int(((out != 0) != keep).sum()),
+                          dropped_fraction=float(1 - keep.float().mean())))
+    ok = all(c["equal_bits"] and abs(c["dropped_fraction"] - c["dropout_p"])
+             <= 0.01 for c in cases)
+    emit(dict(phase="varlen_features_bits", lens_q=list(lens_q),
+              lens_k=list(lens_k), h=h, d=d,
+              how="V = I per 64-key sequence: O's zeros are the dropped "
+                  "entries, at packed rows and keys",
+              cases=cases, ok=ok))
+    check(ok, "varlen_features_bits: kernel 6's keep mask is not the hash's "
+              "at packed coordinates, or its dropped share is off p")
+
+
+def varlen_feature_fault_phase():
+    """The checks' power over the varlen features: each planted fault must
+    read > 1 in the kernels' error over limit. The plain versions' keep
+    mask in per-sequence coordinates (origin 0, 0), their ALiBi diagonal
+    moved by one, the kernels' chunk one longer (a chunk edge off by one),
+    and a dV without 1 / (1 - p) (the plain dV times 1 - p)."""
+    spec = VARLEN_FEATURE_FAULT[9]
+    faults = {}
+    with planted_sequences(origin=(0, 0)):
+        faults["keep_mask_per_sequence"] = varlen_feature_compare(
+            VARLEN_FEATURE_FAULT, 191)[0]
+    with planted_sequences(diag_offset=1):
+        faults["alibi_diag_plus_one"] = varlen_feature_compare(
+            VARLEN_FEATURE_FAULT, 192)[0]
+    faults["chunk_edge_off_by_one"] = varlen_feature_compare(
+        VARLEN_FEATURE_FAULT, 193, kernel_fkw=dict(
+            attention_chunk=spec["attention_chunk"] + 1))[0]
+    faults["dv_without_keep_scale"] = varlen_feature_compare(
+        VARLEN_FEATURE_FAULT, 194, dv_factor=1.0 - spec["dropout_p"])[0]
+    want = {name: ("out", "dq", "dk", "dv") for name in faults}
+    want["dv_without_keep_scale"] = ("dv",)
+    read = {name: {x: r[x]["err_over_limit"] for x in
+                   ("out", "dq", "delta", "dk", "dv")}
+            for name, r in faults.items()}
+    caught = {name: all(read[name][x] > 1 for x in want[name])
+              for name in faults}
+    lens = VARLEN_FEATURE_FAULT[0]
+    emit(dict(phase="varlen_features_fault", nseq=len(lens), total=sum(lens),
+              case=list(VARLEN_FEATURE_FAULT[2:9]), features=sorted(spec),
+              err_over_limit=read, must_exceed_1=want, caught=caught,
+              ok=all(caught.values())))
+    check(all(caught.values()), "varlen_features_fault: a planted fault "
+                                "passes the tolerance")
+
+
+VARLEN_FEATURE_KERNELS = {"flash_varlen_fwd": "varlen_fwd_sm90_kernel",
+                          "flash_varlen_bwd_dq": "varlen_dq_sm90_kernel",
+                          "flash_varlen_bwd_dkv": "varlen_dkv_sm90_kernel"}
+
+
+def varlen_train_dropout_phase(vtrain, layers=24, seed=50, p=0.1):
+    """varlen_train's 24 layers with attention dropout 0.1 (a seed per
+    layer, fold_seed), in the same call: its step time beside varlen_train's
+    (timed again here, in turns), the launches counted, and every attention
+    launch of a profiled step read from the trace as a feature instance's
+    (kFeat 2)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cu = _dev_int(_cu_of(GPT2M_DOCS))
+    tq, h, d = sum(GPT2M_DOCS), 16, 64
+    qkv = [torch.randn(3, tq, h, d, generator=gen, device=dev,
+                       dtype=torch.bfloat16).requires_grad_()
+           for _ in range(layers)]
+    do = torch.randn(tq, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    maxlen = max(GPT2M_DOCS)
+
+    def step(drop):
+        kw = [dict(dropout_p=p, dropout_seed=fold_seed(seed, i)) if drop
+              else {} for i in range(layers)]
+        outs = [flash_attn_varlen_func(x[0], x[1], x[2], cu, cu, maxlen,
+                                       maxlen, causal=True, **kw[i])
+                for i, x in enumerate(qkv)]
+        torch.autograd.backward(outs, [do] * layers)
+
+    step(True)  # warm-up
+    torch.cuda.synchronize()
+    _zero_varlen_counts()
+    _zero_varlen_feature_counts()
+    step(True)
+    torch.cuda.synchronize()
+    counts, fcounts = _varlen_counts(), _varlen_feature_counts()
+    grads_finite = all(bool(torch.isfinite(x.grad).all()) for x in qkv)
+    # In turns: plain, dropout, dropout, plain.
+    ms = dict(varlen_train=[], varlen_train_dropout=[])
+    for drop in (False, True, True, False):
+        ms["varlen_train_dropout" if drop else "varlen_train"].append(
+            cuda_ms(lambda: step(drop), reps=5, warmup=1))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # A kernel of its own first: without it the trace of a profiled
+        # step has missed the step's first launch on the H100.
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        step(True)
+        torch.cuda.synchronize()
+    listed = _device_ms_by_kernel(prof, counts=True)
+    traced = {name: dict(features=sum(c for key, c in listed.items()
+                                      if (kernel_feat(key, frag) or 0) != 0),
+                         feature_free=sum(c for key, c in listed.items()
+                                          if kernel_feat(key, frag) == 0))
+              for name, frag in VARLEN_FEATURE_KERNELS.items()}
+    want = {name: layers for name in VARLEN_FEATURE_KERNELS}
+    ok = (counts == want and fcounts == want and grads_finite
+          and all(t == dict(features=layers, feature_free=0)
+                  for t in traced.values()))
+    plain_ms = float(np.median(ms["varlen_train"]))
+    drop_ms = float(np.median(ms["varlen_train_dropout"]))
+    result = dict(phase="varlen_train_dropout", layers=layers,
+                  docs=len(GPT2M_DOCS), tokens=tq, h=h, d=d, causal=True,
+                  dropout_p=p, step_ms=ms, step_ms_median=dict(
+                      varlen_train=plain_ms, varlen_train_dropout=drop_ms),
+                  rate_vs_varlen_train=plain_ms / drop_ms,
+                  varlen_train_step_ms_earlier=vtrain["step_ms_by_events"],
+                  launches=counts, feature_launches=fcounts,
+                  launches_expected=want, launches_traced=traced,
+                  grads_finite=grads_finite, ok=ok)
+    emit(result)
+    check(ok, "varlen_train_dropout: launches off the count, an attention "
+              "launch in the trace that is not a feature instance's, or "
+              "non-finite gradients")
+    return result
+
+
+def compile_specs_phase(seed=188):
+    """compile_flash_attn_varlen_func_from_specs's callable at
+    gpt2m-packed's shapes against flash_attn_varlen_func: equal bits."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tq, h, d = sum(GPT2M_DOCS), 16, 64
+    q, k, v = (torch.randn(tq, h, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    cu = _dev_int(_cu_of(GPT2M_DOCS))
+    t0 = time.perf_counter()
+    fn = compile_flash_attn_varlen_func_from_specs(
+        total_q=tq, total_k=tq, nseq=len(GPT2M_DOCS), num_heads=h,
+        head_dim=d, causal=True, window_size=(255, -1), softcap=30.0)
+    compile_s = time.perf_counter() - t0
+    got = fn(q, k, v, cu, cu)
+    want = flash_attn_varlen_func(q, k, v, cu, cu, causal=True,
+                                  window_size=(255, -1), softcap=30.0)
+    refused = False
+    try:
+        fn(q[:-1], k, v, cu, cu)
+    except ValueError:
+        refused = True
+    ok = bool(torch.equal(got, want)) and refused
+    emit(dict(phase="compile_specs", total=tq, nseq=len(GPT2M_DOCS), h=h, d=d,
+              window_size=[255, -1], softcap=30.0, compile_s=compile_s,
+              equal_bits=bool(torch.equal(got, want)),
+              other_shape_refused=refused, ok=ok))
+    check(ok, "compile_specs: the compiled callable differs from "
+              "flash_attn_varlen_func, or takes a tensor of another shape")
+
+
+def varlen_feature_phases(vtrain):
+    """Every VARLEN_FEATURE_CASES case and the paged one, the bits, the
+    planted faults, varlen_train_dropout, compile_specs."""
+    results = {}
+    for i, name in enumerate(VARLEN_FEATURE_CASES):
+        results[name] = varlen_feature_case(name, seed=180 + i)
+        gc.collect()
+        torch.cuda.empty_cache()
+    results[VARLEN_FEATURE_PAGED] = varlen_feature_paged_case()
+    varlen_feature_bits_phase()
+    varlen_feature_fault_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["train_dropout"] = varlen_train_dropout_phase(vtrain)
+    compile_specs_phase()
+    return results
+
+
 # -- phase: vllm (vLLM's per-layer calls, Mistral-7B widths) ------------------
 
 VLLM_BUDGET, VLLM_DECODE_STEPS, VLLM_PAGE = 2048, 32, 16
@@ -2023,6 +2636,50 @@ def vllm_schedule(lens, budget, decode_steps):
         if not rows:
             return steps
         steps.append(rows)
+
+
+def kernel_feat(key, fragment):
+    """The kFeat template argument (the last) of a kernel the profiler
+    lists under `key` whose name is `fragment`, or None for another
+    kernel: 0 is the feature-free instance."""
+    m = re.search("::" + fragment + r"<[^<>]*,\s*(\d+)>", key)
+    return int(m.group(1)) if m else None
+
+
+def traced_launches(fn):
+    """{kernel name: launches} that torch.profiler lists over one call of
+    `fn`, recorded after a warm-up cycle of another call: a first cycle's
+    trace has missed 1-4 of 40 launches on the H100."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _device_ms_by_kernel(prof, counts=True)
+
+
+def vllm_ref(q, kp, vp, cu_q, used, table, qlens, ctx, window, slopes):
+    """A vLLM layer call's plain answer on "phd" pools (kp, vp): kernel 6's
+    plain version over the pages; with ALiBi, its decode rows (a step whose
+    rows are all single tokens) through kernel 5's plain version, as the
+    call routes them."""
+    pools = (kp.transpose(1, 2), vp.transpose(1, 2))
+    if slopes is not None and max(qlens) <= 4:
+        out, _ = flash_attention_decode_ref(
+            q.float().reshape(len(qlens), 1, *q.shape[1:]), *pools, used,
+            block_table=table, alibi_slopes=slopes, causal=True,
+            window_left=window[0])
+        return out.reshape(q.shape)
+    ref, _ = flash_attention_varlen_fwd_ref(
+        q.float(), None, None, cu_q, None, seqused_k=used, kv_pools=pools,
+        block_table=table, causal=True, window_size=window,
+        features=None if slopes is None else varlen_features(
+            q.shape[1], alibi_slopes=slopes))
+    return ref
 
 
 class _SyncsRaise:
@@ -2061,7 +2718,7 @@ def vllm_graph_step(calls, layers):
                 eager_ms=eager_ms, replay_over_eager=ms / eager_ms)
 
 
-def vllm_phase(seed=2, layers=32, quant=None):
+def vllm_phase(seed=2, layers=32, quant=None, widths=None):
     """One scheduler loop in vLLM's calling convention at Mistral-7B
     widths: 32 layers, each with its own (num_blocks, 16, 8, 128) bf16 K
     and V pools; the 8 prompts of the serve phase under a 2048-token budget,
@@ -2069,6 +2726,11 @@ def vllm_phase(seed=2, layers=32, quant=None):
     pools by plain indexing (vLLM's reshape_and_cache), one
     get_scheduler_metadata, then one vllm_compat.flash_attn_varlen_func per
     layer with host syncs made errors.
+
+    widths (phase `vllm_alibi`): another model's (h, hk, d), window and
+    ALiBi slopes (h,): the mixed steps run kernel 6's ALiBi instance on the
+    pools, the decode-only steps kernel 5 (route paged-decode-alibi); the
+    launches of both are also read from the profiled steps' traces.
 
     quant (a 1-byte dtype; phase `quant_vllm`): the pools hold that dtype,
     each layer's K and V quantized on write with its own scale, and every
@@ -2079,6 +2741,11 @@ def vllm_phase(seed=2, layers=32, quant=None):
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
+    w = widths or dict(h=H, hk=HK, d=D, window=(WINDOW, -1), slopes=None,
+                       model="Mistral-7B-v0.1 attention widths")
+    h_, hk_, d_, window = w["h"], w["hk"], w["d"], tuple(w["window"])
+    slopes = w["slopes"]
+    alibi = {} if slopes is None else dict(alibi_slopes=slopes)
     lens = serve_prompt_lens(np.random.RandomState(seed)).tolist()
     steps = vllm_schedule(lens, VLLM_BUDGET, VLLM_DECODE_STEPS)
     rng = np.random.RandomState(seed)
@@ -2094,9 +2761,9 @@ def vllm_phase(seed=2, layers=32, quant=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pool_dtype = quant or torch.bfloat16
-    pools = [(torch.zeros(num_blocks, VLLM_PAGE, HK, D, device=dev,
+    pools = [(torch.zeros(num_blocks, VLLM_PAGE, hk_, d_, device=dev,
                           dtype=pool_dtype),
-              torch.zeros(num_blocks, VLLM_PAGE, HK, D, device=dev,
+              torch.zeros(num_blocks, VLLM_PAGE, hk_, d_, device=dev,
                           dtype=pool_dtype)) for _ in range(layers)]
     pool_gb = 2 * layers * pools[0][0].numel() * pools[0][0].element_size() / 1e9
     # A 1-byte pool's per-layer (K, V) scales, each (hk,) on the card.
@@ -2108,6 +2775,8 @@ def vllm_phase(seed=2, layers=32, quant=None):
     flash_attention_varlen_fwd.launches_sm80 = 0
     flash_attention_decode_multipage.launches = 0
     flash_attention_decode_multipage.combine_launches = 0
+    flash_attention_decode_general.launches = 0
+    _zero_varlen_feature_counts()
     dispatch_counts.clear()
     kinds, attn_ms, checks = [], [], []
     q_tokens = plan_reused = 0
@@ -2122,8 +2791,8 @@ def vllm_phase(seed=2, layers=32, quant=None):
         page_ids = torch.from_numpy(req_table[owner, pos // VLLM_PAGE].astype(
             np.int64)).to(dev)
         slots = torch.from_numpy((pos % VLLM_PAGE).astype(np.int64)).to(dev)
-        new_kv = torch.randn(layers, 2, tq, HK, D, generator=gen, device=dev,
-                             dtype=torch.bfloat16)
+        new_kv = torch.randn(layers, 2, tq, hk_, d_, generator=gen,
+                             device=dev, dtype=torch.bfloat16)
         for layer, (kp, vp) in enumerate(pools):  # vLLM's reshape_and_cache
             if quant is None:
                 kp[page_ids, slots] = new_kv[layer, 0]
@@ -2133,7 +2802,7 @@ def vllm_phase(seed=2, layers=32, quant=None):
                                         scales[layer]):
                 pool.view(torch.uint8)[page_ids, slots] = quantize_to_cache_dtype(
                     new[None], scale, quant)[0].view(torch.uint8)
-        q = torch.randn(layers, tq, H, D, generator=gen, device=dev,
+        q = torch.randn(layers, tq, h_, d_, generator=gen, device=dev,
                         dtype=torch.bfloat16)
         cu_q = _dev_int(_cu_of(qlens))
         used = _dev_int(ctx)
@@ -2141,13 +2810,13 @@ def vllm_phase(seed=2, layers=32, quant=None):
         max_q, max_k = max(qlens), max(ctx)
         kind = "mixed" if max_q > 4 else "decode"
         meta = get_scheduler_metadata(
-            len(rows), max_q, max_k, H, HK, D, cache_seqlens=used,
-            cu_seqlens_q=cu_q, causal=True, window_size=(WINDOW, -1),
+            len(rows), max_q, max_k, h_, hk_, d_, cache_seqlens=used,
+            cu_seqlens_q=cu_q, causal=True, window_size=window,
             page_size=VLLM_PAGE)
         # The layers' calls reuse the step's plan without a host read.
         plan_reused += plan_mismatch(
             meta.plan, cu_seqlens_q=cu_q, seqused_k=used, causal=True,
-            window_size=(WINDOW, -1), host_read=False) is None
+            window_size=window, host_read=False) is None
 
         def descales(layer):
             if quant is None:
@@ -2160,8 +2829,8 @@ def vllm_phase(seed=2, layers=32, quant=None):
             for layer, (kp, vp) in enumerate(pools):
                 o = vllm_flash_attn_varlen_func(
                     q[layer], kp, vp, max_q, cu_q, max_k, seqused_k=used,
-                    causal=True, window_size=(WINDOW, -1), block_table=table,
-                    scheduler_metadata=meta, **descales(layer))
+                    causal=True, window_size=window, block_table=table,
+                    scheduler_metadata=meta, **alibi, **descales(layer))
                 if layer in keep:
                     kept[layer] = o
             return kept
@@ -2181,10 +2850,8 @@ def vllm_phase(seed=2, layers=32, quant=None):
             if quant is not None:  # the plain path: the pools dequantized
                 kp, vp = (pool.float() * scale[:, None] for pool, scale
                           in zip((kp, vp), scales[layer]))
-            ref, _ = flash_attention_varlen_fwd_ref(
-                q[layer].float(), None, None, cu_q, None, seqused_k=used,
-                kv_pools=(kp.transpose(1, 2), vp.transpose(1, 2)),
-                block_table=table, causal=True, window_size=(WINDOW, -1))
+            ref = vllm_ref(q[layer], kp, vp, cu_q, used, table, qlens, ctx,
+                           window, slopes)
             checks.append(dict(step=si, layer=layer, kind=kind, **held(o, ref)))
             del kp, vp
         if quant is not None and kind == "mixed" and dequant_ms is None:
@@ -2198,20 +2865,25 @@ def vllm_phase(seed=2, layers=32, quant=None):
             counts_before = (flash_attention_varlen_fwd.launches,
                              flash_attention_decode_multipage.launches,
                              dict(dispatch_counts),
-                             flash_attention_decode_multipage.combine_launches)
+                             flash_attention_decode_multipage.combine_launches,
+                             flash_attention_decode_general.launches,
+                             flash_attention_varlen_fwd.feature_launches)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 calls()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            graph = (vllm_graph_step(calls, layers)
-                     if kind == "decode" and quant is None else None)
+            graph = (vllm_graph_step(calls, layers) if kind == "decode"
+                     and quant is None and slopes is None else None)
+            listed = None if slopes is None else traced_launches(calls)
             # The profiled replay (and the graph's calls) is not part of
             # the scheduler loop's count.
             flash_attention_varlen_fwd.launches = counts_before[0]
             flash_attention_decode_multipage.launches = counts_before[1]
             flash_attention_decode_multipage.combine_launches = counts_before[3]
+            flash_attention_decode_general.launches = counts_before[4]
+            flash_attention_varlen_fwd.feature_launches = counts_before[5]
             dispatch_counts.clear()
             dispatch_counts.update(counts_before[2])
             by_kernel = _device_ms_by_kernel(prof)
@@ -2223,6 +2895,24 @@ def vllm_phase(seed=2, layers=32, quant=None):
                                   top_kernels=[dict(name=k[:80], ms=v) for k, v in top])
             if graph is not None:
                 profiles[kind]["graph"] = graph
+            if slopes is not None:
+                # The attending kernels' launches as the trace lists them:
+                # kernel 6's ALiBi instance (kFeat 1, paged) on a mixed
+                # step, kernel 5 (split or rows; its combine apart) on a
+                # decode-only step.
+                profiles[kind]["launches_listed"] = dict(
+                    varlen_fwd_alibi=sum(
+                        c for key, c in listed.items()
+                        if kernel_feat(key, "varlen_fwd_sm90_kernel") == 1),
+                    general_decode=sum(
+                        c for key, c in listed.items()
+                        if "::decode_split_kernel<" in key
+                        or "::decode_kernel<" in key),
+                    other_attention=sum(
+                        c for key, c in listed.items()
+                        if "paged_" in key or (
+                            "varlen_fwd_sm90_kernel" in key and
+                            kernel_feat(key, "varlen_fwd_sm90_kernel") != 1)))
         del q, new_kv
     n_mixed, n_decode = kinds.count("mixed"), kinds.count("decode")
     launches = dict(flash_varlen_fwd=flash_attention_varlen_fwd.launches,
@@ -2236,20 +2926,36 @@ def vllm_phase(seed=2, layers=32, quant=None):
                    else "varlen/paged-prefill-dequant")
     want_routes = {mixed_route: layers * n_mixed,
                    "varlen/paged-decode": layers * n_decode}
+    traced_ok = True
+    if slopes is not None:
+        launches.update(
+            flash_varlen_fwd_features=flash_attention_varlen_fwd.feature_launches,
+            general_decode=flash_attention_decode_general.launches)
+        want.update(paged_decode=0,
+                    flash_varlen_fwd_features=layers * n_mixed,
+                    general_decode=layers * n_decode)
+        want_routes = {mixed_route: layers * n_mixed,
+                       "varlen/paged-decode-alibi": layers * n_decode}
+        traced_ok = (profiles["mixed"]["launches_listed"] == dict(
+            varlen_fwd_alibi=layers, general_decode=0, other_attention=0)
+            and profiles["decode"]["launches_listed"] == dict(
+                varlen_fwd_alibi=0, general_decode=layers, other_attention=0))
     worst = max(c["err_over_limit"] for c in checks)
     mixed_ms = [t for t, k in zip(attn_ms, kinds) if k == "mixed"]
     decode_ms = [t for t, k in zip(attn_ms, kinds) if k == "decode"]
     ok = (launches == want and routes == want_routes and worst <= 1
           and n_mixed > 0 and n_decode > 0 and plan_reused == len(steps)
-          and flash_attention_varlen_fwd.launches_sm80 == 0
+          and flash_attention_varlen_fwd.launches_sm80 == 0 and traced_ok
           and profiles["decode"].get("graph", dict(equal_bits=True))[
               "equal_bits"])
     result = dict(
-        phase="vllm" if quant is None else "quant_vllm",
-        model="Mistral-7B-v0.1 attention widths", layers=layers,
-        pool_layout=f"phd (num_blocks, 16, 8, 128) {str(pool_dtype)[6:]} per "
-                    "layer, K and V" + ("" if quant is None else
-                                        ", descales (nseq, hk)"),
+        phase=("vllm_alibi" if slopes is not None else "vllm" if quant is None
+               else "quant_vllm"),
+        model=w["model"], layers=layers,
+        pool_layout=f"phd (num_blocks, 16, {hk_}, {d_}) "
+                    f"{str(pool_dtype)[6:]} per layer, K and V"
+                    + ("" if quant is None else ", descales (nseq, hk)")
+                    + ("" if slopes is None else ", ALiBi slopes (h,)"),
         num_blocks=num_blocks, pools_gb=pool_gb, prompt_lens=lens,
         budget=VLLM_BUDGET, decode_steps_per_request=VLLM_DECODE_STEPS,
         steps=len(steps), mixed_steps=n_mixed, decode_steps=n_decode,
@@ -2271,9 +2977,10 @@ def vllm_phase(seed=2, layers=32, quant=None):
                       dequant_share_of_mixed_step=dequant_ms / mixed_mean,
                       dequant_scratch_gb_per_mixed_call=scratch_gb)
     emit(result)
-    check(ok, f"{result['phase']}: launches or routes off the count, a "
-              "layer's output outside the tolerance, or the decode step "
-              "replayed from a graph not equal in bits to the eager step")
+    check(ok, f"{result['phase']}: launches or routes off the count (or off "
+              "the trace), a layer's output outside the tolerance, or the "
+              "decode step replayed from a graph not equal in bits to the "
+              "eager step")
     del pools
     return result
 
@@ -5761,15 +6468,58 @@ def ptxas_named(logs, fragment):
     return found
 
 
+def vllm_alibi_phase():
+    """The vllm phase's scheduler loop at Baichuan-13B widths (40 heads of
+    128, all 40 layers) with its ALiBi slopes on bf16 "phd" pools of page
+    16: kernel 6's ALiBi instance on the mixed steps, kernel 5 on the
+    decode-only steps."""
+    w = BAICHUAN_13B
+    return vllm_phase(layers=w["layers"], widths=dict(
+        h=w["h"], hk=w["hk"], d=w["d"], window=(-1, -1),
+        slopes=default_alibi_slopes(w["h"]).to("cuda"),
+        model="Baichuan-13B attention widths, ALiBi"))
+
+
+def varlen_feature_entry(vfeat, valibi, key, name, logs):
+    """The kernels line's record of kernel 6, 7 or 8's feature instances
+    (`key` fwd, dkv or dq): their source and ptxas registers, their launches
+    on varlen_train_dropout's path (and vllm_alibi's, for the forward), and
+    each varlen_features case's time beside its plain version's, its bound
+    and SDPA's."""
+    src = "flash_varlen_features" if key == "fwd" else "flash_varlen_bwd_features"
+    frag = VARLEN_FEATURE_KERNELS[name]
+    tensors = dict(fwd=("out",), dq=("dq", "delta"), dkv=("dk", "dv"))[key]
+    cases = {}
+    for case, r in vfeat.items():
+        if case == "train_dropout" or f"{key}_ms" not in r:
+            continue
+        lib = r["library"]
+        cases[case] = dict(
+            ms=r[f"{key}_ms"], plain_ms=r[f"{key}_plain_ms"],
+            bound_ms=r[f"{key}_bound_ms"], bound_by=r[f"{key}_bound_by"],
+            library_ms=None if lib is None else lib[
+                "fwd_ms" if key == "fwd" else "bwd_ms"],
+            max_abs_err=max(r[t]["max_abs_err"] for t in tensors))
+    paths = dict(varlen_train_dropout=vfeat["train_dropout"][
+        "feature_launches"][name])
+    if key == "fwd":
+        paths["vllm_alibi"] = valibi["launches"]["flash_varlen_fwd_features"]
+    return dict(source=f"flash_attn_tpu_torch/csrc/{src}.cu",
+                ptxas=ptxas_of({src: logs.get(src, "")}, frag),
+                launches_by_path=paths, cases=cases)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", nargs="+",
-        choices=("kernel", "attn", "features", "varlen", "vllm", "decode",
-                 "sparse", "blocksparse", "quant"),
+        choices=("kernel", "attn", "features", "varlen", "varlen_features",
+                 "vllm", "decode", "sparse", "blocksparse", "quant"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
              "the attn_features phases, "
-             "varlen_kernels + varlen_fault + varlen_train, vllm, "
+             "varlen_kernels + varlen_fault + varlen_train, the "
+             "varlen_features phases (varlen_train first) + vllm_alibi, "
+             "vllm, "
              "decode_kernels + decode_fault, the sparse phases, the "
              "block-sparse phases, quant_kernels + quant_fault + quant_vllm "
              "+ quant_serve) and stop, with no result line: for iterating "
@@ -5810,6 +6560,9 @@ def main(argv=None):
             paged_cases()
             varlen_fault_phase()
             varlen_train_phase()
+        if "varlen_features" in only:
+            varlen_feature_phases(varlen_train_phase())
+            vllm_alibi_phase()
         if "vllm" in only:
             vllm_phase()
         if "decode" in only:
@@ -5848,7 +6601,13 @@ def main(argv=None):
     paged = paged_cases()
     varlen_fault_phase()
     vtrain = varlen_train_phase()
+    vfeat = varlen_feature_phases(vtrain)
+    gc.collect()
+    torch.cuda.empty_cache()
     vllm = vllm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    valibi = vllm_alibi_phase()
     gc.collect()
     torch.cuda.empty_cache()
     decodes = {name: decode_case(name, seed=70 + i)
@@ -6099,6 +6858,10 @@ def main(argv=None):
                                "4095 bf16"),
         ))
     gpt2m_v, p16 = varlen["gpt2m-packed"], paged[16]
+    # The feature-free instances' registers from their own libraries (the
+    # feature instances, in flash_varlen_features and
+    # flash_varlen_bwd_features, go apart).
+    varlen_lib = dict(fwd="flash_fwd", dq="flash_bwd", dkv="flash_bwd")
     for name, key, source, replaces, tensors in (
             ("flash_varlen_fwd", "fwd", "flash_fwd.cu", "flash_varlen.py:542",
              ("out",)),
@@ -6134,11 +6897,12 @@ def main(argv=None):
             # its consumer (dkv_range_walk), beside it.
             kernel = "varlen_dkv_sm90_kernel"
             sch = gpt2m_v["dkv_schedule"]
-            main = ptxas_of(logs, kernel + "I13__nv_bfloat16Li64ELb0E")
+            own = {"flash_bwd": logs.get("flash_bwd", "")}
+            main = ptxas_of(own, kernel + "I13__nv_bfloat16Li64ELb0ELi0E")
             entry.update(
                 design="wgmma+tma, kernel 2's dK/dV on a flat schedule of "
                        "128-key tiles",
-                ptxas=ptxas_of(logs, kernel), ptxas_main_path=main,
+                ptxas=ptxas_of(own, kernel), ptxas_main_path=main,
                 main_path_spill_bytes_within_kernel8s=bool(
                     main and main[0][1] <= 148),
                 ptxas_kernel2=ptxas_of({"flash_bwd": logs.get("flash_bwd", "")},
@@ -6166,7 +6930,8 @@ def main(argv=None):
             sch = gpt2m_v["dq_schedule"]
             entry.update(
                 design="wgmma+tma, kernel 3's dQ on a flat tile schedule",
-                ptxas=ptxas_of(logs, kernel),
+                ptxas=ptxas_of({"flash_bwd": logs.get("flash_bwd", "")},
+                               kernel),
                 sass=sass_counts(_build.library_path("flash_bwd"),
                                  ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
                                   "STL"), kernel),
@@ -6188,7 +6953,8 @@ def main(argv=None):
             kernel = "varlen_fwd_sm90_kernel"
             entry.update(
                 design="wgmma+tma, flat tile schedule, page pieces by TMA",
-                ptxas=ptxas_of(logs, kernel),
+                ptxas=ptxas_of({"flash_fwd": logs.get("flash_fwd", "")},
+                               kernel),
                 sass=sass_counts(_build.library_path("flash_fwd"),
                                  ("HGMMA", "UTMALDG", "ATOM", "RED", "LDL",
                                   "STL"), kernel),
@@ -6211,6 +6977,8 @@ def main(argv=None):
                 shape="Mistral paged prefill: 4 x 512-token chunks at "
                       "contexts 2831-6000, h=32 hk=8 d=128, window 4095, "
                       "page 16, phd views")
+        entry["features"] = varlen_feature_entry(vfeat, valibi, key, name,
+                                                 logs)
         kernels.append(entry)
     kernels += sparse_kernel_entries(sparse, logs)
     kernels += blocksparse_kernel_entries(bsr, logs)

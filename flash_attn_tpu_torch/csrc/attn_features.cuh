@@ -1,6 +1,8 @@
 // The attention features that the dense kernels 1-3 take beyond scale,
 // window, GQA/MQA and softcap: ALiBi, segment ids, attention_chunk, sink
-// tokens, the learnable sink, and dropout (csrc/dropout.cuh).
+// tokens, the learnable sink, and dropout (csrc/dropout.cuh); and those
+// that the packed varlen kernels 6-8 take (ALiBi, attention_chunk, dropout;
+// see "The varlen kernels" below).
 //
 // The kernels take them in instances of their own, chosen by a template
 // parameter kFeat: kFeatExt for the score and visibility rules (ALiBi,
@@ -130,6 +132,41 @@ __device__ __forceinline__ int query_rows(int key0, int key_last, int off,
     hi = min(hi, chunk_start(key_last, f.chunk) + f.chunk - 1 - off);
   }
   return lo;
+}
+
+// The varlen kernels (6-8, csrc/flash_varlen_fwd_sm90.cuh and
+// csrc/flash_varlen_bwd_sm90.cuh) take ALiBi with per-head slopes,
+// attention_chunk and dropout from Features (slope_b 0; no segment ids,
+// sink tokens or learnable sink, as the JAX varlen kernel has none). Their
+// rules are the ones above in each sequence's own positions: a row of
+// rows = min(used_q, length) and a key of keys count from the sequence's
+// first row and key, and diag = row + used_k - used_q, so that
+//   ALiBi:    |col - diag| is the JAX kernels' |packed col - qmeta diag|
+//             (flash_attn_tpu/kernels/flash_varlen.py:701-704, :837-840);
+//   chunk:    chunk_start(diag) <= col < chunk_start(diag) + chunk, in the
+//             sequence's key positions (make_varlen_metadata :166-183);
+//   dropout:  the keep mask of batch row 0 at the packed query row q0 + row
+//             and key k0 + col (q0, k0 the sequence's first row and key),
+//             as the JAX varlen kernel draws it (:733-736, :859-861).
+// A block's walk is narrowed to its rows' chunks (chunk_keys) or its keys'
+// rows (chunk_rows); with no sink tokens it stays one range.
+
+// Narrows [lo, hi], the keys that rows of diagonals d_lo..d_hi walk, to
+// their chunks (chunk > 0).
+__device__ __forceinline__ void chunk_keys(int d_lo, int d_hi, int chunk,
+                                           int& lo, int& hi) {
+  if (chunk <= 0) return;
+  lo = max(lo, chunk_start(d_lo, chunk));
+  hi = min(hi, chunk_start(d_hi, chunk) + chunk - 1);
+}
+
+// Narrows [lo, hi], the query rows that see keys key0..key_last (off =
+// used_k - used_q), to the rows whose chunks hold them (chunk > 0).
+__device__ __forceinline__ void chunk_rows(int key0, int key_last, int off,
+                                           int chunk, int& lo, int& hi) {
+  if (chunk <= 0) return;
+  lo = max(lo, chunk_start(key0, chunk) - off);
+  hi = min(hi, chunk_start(key_last, chunk) + chunk - 1 - off);
 }
 
 // out's factor and the LSE (natural log) of a row from its running max m

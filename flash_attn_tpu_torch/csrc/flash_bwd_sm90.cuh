@@ -876,9 +876,11 @@ template <int kFeat>
 using ParamsOf = std::conditional_t<kFeat == 0, Params, FeatParams>;
 
 // Score s's P in base 2 with the ALiBi term slope2 |col - diag| (an
-// extended instance), and dS's factor dmul as prob gives it.
-template <bool kSoftcap>
-__device__ __forceinline__ float prob_alibi(const FeatParams& p, float s,
+// extended instance), and dS's factor dmul as prob gives it. P is any
+// parameter block with scale, score_mul and cap_log2 (this header's, or the
+// varlen kernels').
+template <bool kSoftcap, typename P>
+__device__ __forceinline__ float prob_alibi(const P& p, float s,
                                             float lse2, float slope2,
                                             int dist, float& dmul) {
   float s2;

@@ -69,8 +69,22 @@
 //    sk > sq, rows 0) issues nothing and stores nothing.
 // Deterministic: no atomics; every output element is summed by one thread
 // in a fixed order and written once.
+//
+// Features (csrc/attn_features.cuh, the varlen rules), in instances of
+// their own (kFeat != 0, launched from csrc/flash_varlen_bwd_features.cu):
+// the range structs SeqFeatRange and SeqFeatDkvRange carry ALiBi,
+// attention_chunk and dropout into the shared walks, as kernels 2-3's
+// carry theirs. P is recomputed with the ALiBi term after the softcap and
+// the chunk's visibility; with dropout the keep mask Z (batch row 0, the
+// packed row and key) gives dV from P Z / (1 - p) and dP Z / (1 - p) for
+// delta (kernel 8's first pass) and dS. Kernel 8 narrows its key walk to
+// its rows' chunks and walks 64-key tiles (dq_walk_tile), kernel 7 narrows
+// its query walk to the rows whose chunks hold its keys. The feature-free
+// instances compile as they did.
 
 #pragma once
+
+#include <type_traits>
 
 #include "flash_bwd_sm90.cuh"
 #include "varlen_schedule.cuh"
@@ -87,6 +101,7 @@ using fa::bwd90::kBlockRows;
 using fa::bwd90::kThreads;
 using fa::bwd90::kWarpgroups;
 using fa::bwd90::lse_base2;
+using fa::bwd90::prob_alibi;
 using fa::bwd90::set_smem;
 using fa::bwd90::store_rows;
 using fa::bwd90::walk_tile;
@@ -146,14 +161,97 @@ struct Params {
   long long trace_len;
 };
 
-template <typename T, int D, bool kSoftcap>
+// The parameters of a dQ instance with features.
+struct FeatParams : Params {
+  Features f;
+};
+
+template <int kFeat>
+using ParamsOf = std::conditional_t<kFeat == 0, Params, FeatParams>;
+
+// Kernel 8's block for dq_range_walk with features (kF = kFeat): SeqRange's
+// walk and lengths, and for this thread's two rows (diagonals diag[i]) the
+// rules: the head's ALiBi slope in base 2 and the rows' dropout hash parts
+// (the packed rows).
+template <int kF, bool kSoftcap>
+struct SeqFeatRange {
+  static constexpr bool kSkipEmpty = true;
+  static constexpr int kFeat = kF;
+  static constexpr bool kExt = (kF & kFeatExt) != 0;
+  const FeatParams& p;
+  volatile int* blk;
+  const int (&diag)[2];
+  float slope2;
+  uint32_t drop_row[2];
+  __device__ __forceinline__ int n_tiles() const { return blk[kNTiles]; }
+  __device__ __forceinline__ int n_steps() const { return 2 * blk[kNTiles]; }
+  __device__ __forceinline__ int rows() const { return blk[kRows]; }
+  __device__ __forceinline__ int keys() const { return blk[kKeys]; }
+  __device__ __forceinline__ int off() const { return blk[kOff]; }
+  template <class M>
+  __device__ __forceinline__ auto step_keys(M) const {
+    const int keys = M::value ? blk[kKeys] : 0;
+    return [keys] { return keys; };
+  }
+  __device__ __forceinline__ int tile(int it) const {
+    return blk[kTileLo] + it;
+  }
+  // Whether the chunk leaves a tile of keys c_lo..c_hi whole for rows of
+  // diagonals d_lo..d_hi (the window is tested apart).
+  __device__ __forceinline__ bool full(int c_lo, int c_hi, int d_lo,
+                                       int d_hi) const {
+    if constexpr (kExt) {
+      return chunk_full(c_lo, c_hi, d_lo, d_hi, p.f);
+    } else {
+      return true;
+    }
+  }
+  __device__ __forceinline__ float prob(float s, int col, int i, float lse2,
+                                        float& dmul) const {
+    if constexpr (kExt) {
+      return prob_alibi<kSoftcap>(p, s, lse2, slope2, col - diag[i], dmul);
+    } else {
+      return fa::bwd90::prob<kSoftcap>(p, s, lse2, dmul);
+    }
+  }
+  __device__ __forceinline__ bool visible(int col, int i) const {
+    if constexpr (kExt) {
+      return visible_ext(col, diag[i], p.left, p.right, p.f);
+    } else {
+      return in_window(col, diag[i], p.left, p.right);
+    }
+  }
+  // dP Z / (1 - p) in place, with dropout: Z at the packed key k0 + col.
+  template <int N>
+  __device__ __forceinline__ void drop_dp(float (&dp)[N], int col0,
+                                          int tig) const {
+    if constexpr ((kF & kFeatDrop) != 0) {
+      const int k0 = blk[kK0];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const int col = k0 + col0 + (e >> 2) * 8 + tig * 2 + (e & 1);
+        dp[e] = dropout_keep(drop_row[(e >> 1) & 1], col, p.f.keep_threshold)
+                    ? dp[e] * p.f.keep_scale
+                    : 0.f;
+      }
+    }
+  }
+};
+
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     varlen_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const Params p) {
-  using C = typename Cfg<D, kSoftcap>::Dq;
+                          const ParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
+  // A feature instance walks 64-key tiles at d 64 too (dq_walk_tile), as
+  // kernel 3's does.
+  using Cf = Cfg<D, kSoftcap || kFeat != 0>;
+  using C = typename Cf::Dq;
+  static_assert(C::kBN == fa::bwd90::dq_walk_tile(D, kSoftcap, kFeat),
+                "dQ key tile");
   constexpr int kStages = C::kStages;
   constexpr int kBN = C::kBN;
   constexpr int kBlocksD = D / 64;  // 128-byte column blocks of a row
@@ -174,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // at d 64 without a softcap; read here, 148 (kernel 3 spills 16). Reading
   // the rows and diagonals from here too spilled nothing but ran 1.09-1.10x
   // slower (PERF.md §6).
-  volatile int* blk = scan + Cfg<D, kSoftcap>::kScanInts;
+  volatile int* blk = scan + Cf::kScanInts;
 
   // The block's sequence and row tile, before the warpgroups split.
   const int seq = vsched::find_tile<kThreads, kBlockRows>(
@@ -199,9 +297,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int keys = max(min(uk, len_k), 0);
     const int off = uk - uq;
     const int row_last = min(row0 + kBlockRows, rows) - 1;
-    const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
-    const int col_hi =
+    int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+    int col_hi =
         p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
+    if constexpr (kExt) {
+      chunk_keys(row0 + off, row_last + off, p.f.chunk, col_lo, col_hi);
+    }
     blk[kQ0] = q0;
     blk[kK0] = k0;
     blk[kRows] = rows;
@@ -276,9 +377,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
   float delta[2] = {0.f, 0.f};
 
-  dq_range_walk<T, D, kSoftcap, C>(
-      p, SeqRange{blk}, load_kv, DqShared{sQ, sdO, sK, sV, q_full, full, empty},
-      tid, lane, tig, cw, wrow0, diag, lse2, dq, delta);
+  if constexpr (kFeat == 0) {
+    dq_range_walk<T, D, kSoftcap, C>(
+        p, SeqRange{blk}, load_kv,
+        DqShared{sQ, sdO, sK, sV, q_full, full, empty}, tid, lane, tig, cw,
+        wrow0, diag, lse2, dq, delta);
+  } else {
+    SeqFeatRange<kFeat, kSoftcap> r{p, blk, diag};
+    r.slope2 = kExt && p.f.slopes ? p.f.slopes[head] * kLog2e : 0.f;
+    const uint32_t base = dropout_base(p.f.seed, 0, head);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.drop_row[i] = dropout_row(base, blk[kQ0] + row[i]);
+    }
+    dq_range_walk<T, D, kSoftcap, C>(
+        p, r, load_kv, DqShared{sQ, sdO, sK, sV, q_full, full, empty}, tid,
+        lane, tig, cw, wrow0, diag, lse2, dq, delta);
+  }
 
   // Per-row guarded stores: rows below `rows` only.
   const int rows = blk[kRows];
@@ -291,17 +406,19 @@ __global__ void __launch_bounds__(kThreads, 1)
                    p.dq_s, row, rows, tig, dq);
 }
 
-template <typename T, int D, bool kSoftcap>
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 int launch(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
-           const CUtensorMap& tv, const Params& p, cudaStream_t stream) {
+           const CUtensorMap& tv, const ParamsOf<kFeat>& p,
+           cudaStream_t stream) {
   const long long tiles = vsched::grid_tiles(p.total_q, p.nseq, kBlockRows);
   if (tiles <= 0) return 0;
-  const size_t smem = Cfg<D, kSoftcap>::kSmem;
-  if (const int err = set_smem(varlen_dq_sm90_kernel<T, D, kSoftcap>, smem)) {
+  const size_t smem = Cfg<D, kSoftcap || kFeat != 0>::kSmem;
+  if (const int err =
+          set_smem(varlen_dq_sm90_kernel<T, D, kSoftcap, kFeat>, smem)) {
     return err;
   }
   const dim3 grid(static_cast<unsigned>(tiles), p.h);
-  varlen_dq_sm90_kernel<T, D, kSoftcap>
+  varlen_dq_sm90_kernel<T, D, kSoftcap, kFeat>
       <<<grid, kThreads, smem, stream>>>(tq, tdo, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -312,6 +429,22 @@ int launch_softcap(const CUtensorMap* maps, const Params& p, bool softcap,
   return softcap ? launch<T, D, true>(maps[0], maps[1], maps[2], maps[3], p, s)
                  : launch<T, D, false>(maps[0], maps[1], maps[2], maps[3], p,
                                        s);
+}
+
+// The dQ instances with features: kFeat 1-3 (kFeatExt | kFeatDrop),
+// softcap or not. Returns -3 for kFeat 0, which launch_softcap takes.
+template <typename T, int D>
+int launch_features(const CUtensorMap* m, const FeatParams& p, bool softcap,
+                    int feat, cudaStream_t s) {
+  switch (feat + 4 * softcap) {
+    case 1: return launch<T, D, false, 1>(m[0], m[1], m[2], m[3], p, s);
+    case 2: return launch<T, D, false, 2>(m[0], m[1], m[2], m[3], p, s);
+    case 3: return launch<T, D, false, 3>(m[0], m[1], m[2], m[3], p, s);
+    case 5: return launch<T, D, true, 1>(m[0], m[1], m[2], m[3], p, s);
+    case 6: return launch<T, D, true, 2>(m[0], m[1], m[2], m[3], p, s);
+    case 7: return launch<T, D, true, 3>(m[0], m[1], m[2], m[3], p, s);
+    default: return -3;
+  }
 }
 
 // Kernel 7's block: its sequence and walk, in shared memory, written by
@@ -369,7 +502,90 @@ struct DkvParams {
   long long trace_len;
 };
 
-template <typename T, int D, bool kSoftcap>
+// The parameters of a dK/dV instance with features.
+struct DkvFeatParams : DkvParams {
+  Features f;
+};
+
+template <int kFeat>
+using DkvParamsOf = std::conditional_t<kFeat == 0, DkvParams, DkvFeatParams>;
+
+// Kernel 7's block for dkv_range_walk with features: SeqDkvRange's walk and
+// lengths, and the rules of each step's query head (head_rules: its ALiBi
+// slope in base 2, its dropout hash base, and the sequence's first packed
+// row and key, read from the slots once a step).
+template <int kF, bool kSoftcap>
+struct SeqFeatDkvRange {
+  static constexpr int kFeat = kF;
+  static constexpr bool kExt = (kF & kFeatExt) != 0;
+  const DkvFeatParams& p;
+  volatile int* blk;
+  volatile int* sofs;
+  int keys_, off_, g;
+  __device__ __forceinline__ int qt_lo() const { return blk[kVQtLo]; }
+  __device__ __forceinline__ int n_qt() const { return blk[kVNQt]; }
+  __device__ __forceinline__ int n_iter() const { return blk[kVNIter]; }
+  __device__ __forceinline__ int rows() const { return blk[kVRows]; }
+  __device__ __forceinline__ int keys() const { return keys_; }
+  __device__ __forceinline__ int off() const { return off_; }
+  __device__ __forceinline__ int stat_ofs(int s) const { return sofs[s]; }
+  struct HeadRules {
+    float slope2;
+    uint32_t base;
+    int q0, k0;
+  };
+  __device__ __forceinline__ HeadRules head_rules(int it) const {
+    const int head = g * p.group + it / blk[kVNQt];
+    HeadRules hr;
+    hr.slope2 = kExt && p.f.slopes ? p.f.slopes[head] * kLog2e : 0.f;
+    hr.base = 0u;
+    hr.q0 = hr.k0 = 0;
+    if constexpr ((kF & kFeatDrop) != 0) {
+      hr.base = dropout_base(p.f.seed, 0, head);
+      hr.q0 = blk[kVQ0];
+      hr.k0 = blk[kVK0];
+    }
+    return hr;
+  }
+  __device__ __forceinline__ bool full(int k_lo, int k_hi, int d_lo,
+                                       int d_hi) const {
+    if constexpr (kExt) {
+      return chunk_full(k_lo, k_hi, d_lo, d_hi, p.f);
+    } else {
+      return true;
+    }
+  }
+  __device__ __forceinline__ float prob(const HeadRules& hr, float s,
+                                        float lse2, int key, int row,
+                                        float& dmul) const {
+    if constexpr (kExt) {
+      return prob_alibi<kSoftcap>(p, s, lse2, hr.slope2, key - row - off_,
+                                  dmul);
+    } else {
+      return fa::bwd90::prob<kSoftcap>(p, s, lse2, dmul);
+    }
+  }
+  // Key `key` (thread's key i) from query row `row`; rows past `rows` take
+  // P = 0 through their LSE.
+  __device__ __forceinline__ bool visible(int key, int row, int) const {
+    if constexpr (kExt) {
+      return visible_ext(key, row + off_, p.left, p.right, p.f);
+    } else {
+      return in_window(key, row + off_, p.left, p.right);
+    }
+  }
+  // Z at the packed row q0 + row and key k0 + key.
+  __device__ __forceinline__ bool keep(const HeadRules& hr, int row,
+                                       int key) const {
+    return dropout_keep(dropout_row(hr.base, hr.q0 + row), hr.k0 + key,
+                        p.f.keep_threshold);
+  }
+  __device__ __forceinline__ float keep_scale() const {
+    return p.f.keep_scale;
+  }
+};
+
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
 __global__ void __launch_bounds__(kThreads, 1)
     varlen_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tdo,
@@ -377,7 +593,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tlse,
                            const __grid_constant__ CUtensorMap tdelta,
-                           const DkvParams p) {
+                           const DkvParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
   using C = typename DkvCfg<D, kSoftcap>::Dkv;
   constexpr int kStages = C::kStages;
   constexpr int kBQ = C::kBQ;
@@ -427,13 +644,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q_lo = p.right >= 0 ? max(key0 - off - p.right, 0) : 0;
     const int q_hi =
         p.left >= 0 ? min(key_last - off + p.left, rows - 1) : rows - 1;
-    const int n_qt = q_hi >= q_lo ? q_hi / kBQ - q_lo / kBQ + 1 : 0;
+    // An extended instance narrows the rows to the keys' chunks.
+    int lo = q_lo, hi = q_hi;
+    if constexpr (kExt) chunk_rows(key0, key_last, off, p.f.chunk, lo, hi);
+    const int n_qt = hi >= lo ? hi / kBQ - lo / kBQ + 1 : 0;
     blk[kVQ0] = q0;
     blk[kVK0] = k0;
     blk[kVRows] = rows;
     blk[kVKeys] = keys;
     blk[kVOff] = off;
-    blk[kVQtLo] = q_lo / kBQ;
+    blk[kVQtLo] = lo / kBQ;
     blk[kVNQt] = n_qt;
     blk[kVNIter] = n_qt * p.group;
     vsched::trace_block(p.trace, p.trace_len, seq, key0);
@@ -499,10 +719,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
 
-  dkv_range_walk<T, D, kSoftcap, C>(
-      p, SeqDkvRange{blk, sofs, blk[kVKeys], blk[kVOff]}, load_q,
-      DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty}, tid, t,
-      lane, tig, cw, wkey0, key, dk, dv);
+  if constexpr (kFeat == 0) {
+    dkv_range_walk<T, D, kSoftcap, C>(
+        p, SeqDkvRange{blk, sofs, blk[kVKeys], blk[kVOff]}, load_q,
+        DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty}, tid,
+        t, lane, tig, cw, wkey0, key, dk, dv);
+  } else {
+    dkv_range_walk<T, D, kSoftcap, C>(
+        p,
+        SeqFeatDkvRange<kFeat, kSoftcap>{p, blk, sofs, blk[kVKeys],
+                                         blk[kVOff], g},
+        load_q, DkvShared{sK, sV, sQ, sdO, sL, sD, sL2, kv_full, full, empty},
+        tid, t, lane, tig, cw, wkey0, key, dk, dv);
+  }
 
   // Per-row guarded stores: keys below `keys` only.
   const int keys = blk[kVKeys];
@@ -513,18 +742,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                    key, keys, tig, dv);
 }
 
-template <typename T, int D, bool kSoftcap>
-int launch_dkv(const CUtensorMap* maps, const DkvParams& p, long long total_k,
-               int hk, cudaStream_t stream) {
+template <typename T, int D, bool kSoftcap, int kFeat = 0>
+int launch_dkv(const CUtensorMap* maps, const DkvParamsOf<kFeat>& p,
+               long long total_k, int hk, cudaStream_t stream) {
   const long long tiles = vsched::grid_tiles(total_k, p.nseq, kBlockRows);
   if (tiles <= 0) return 0;
   const size_t smem = DkvCfg<D, kSoftcap>::kSmem;
-  if (const int err = set_smem(varlen_dkv_sm90_kernel<T, D, kSoftcap>, smem)) {
+  if (const int err =
+          set_smem(varlen_dkv_sm90_kernel<T, D, kSoftcap, kFeat>, smem)) {
     return err;
   }
   const dim3 grid(static_cast<unsigned>(tiles), hk);
-  varlen_dkv_sm90_kernel<T, D, kSoftcap><<<grid, kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
+  varlen_dkv_sm90_kernel<T, D, kSoftcap, kFeat>
+      <<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                         maps[4], maps[5], p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,6 +765,23 @@ int launch_dkv_softcap(const CUtensorMap* maps, const DkvParams& p,
                        cudaStream_t s) {
   return softcap ? launch_dkv<T, D, true>(maps, p, total_k, hk, s)
                  : launch_dkv<T, D, false>(maps, p, total_k, hk, s);
+}
+
+// The dK/dV instances with features: kFeat 1-3, softcap or not. Returns -3
+// for kFeat 0, which launch_dkv_softcap takes.
+template <typename T, int D>
+int launch_dkv_features(const CUtensorMap* maps, const DkvFeatParams& p,
+                        bool softcap, int feat, long long total_k, int hk,
+                        cudaStream_t s) {
+  switch (feat + 4 * softcap) {
+    case 1: return launch_dkv<T, D, false, 1>(maps, p, total_k, hk, s);
+    case 2: return launch_dkv<T, D, false, 2>(maps, p, total_k, hk, s);
+    case 3: return launch_dkv<T, D, false, 3>(maps, p, total_k, hk, s);
+    case 5: return launch_dkv<T, D, true, 1>(maps, p, total_k, hk, s);
+    case 6: return launch_dkv<T, D, true, 2>(maps, p, total_k, hk, s);
+    case 7: return launch_dkv<T, D, true, 3>(maps, p, total_k, hk, s);
+    default: return -3;
+  }
 }
 
 }  // namespace vbwd90

@@ -53,9 +53,22 @@
 //    the keys) is an out-of-range coordinate, which TMA fills with zeros.
 // A page size that is not a multiple of 8 keeps csrc/flash_fwd_tile.cuh's
 // paged mode (the wrapper counts that route apart).
+//
+// Features (csrc/attn_features.cuh, the varlen rules), in instances of
+// their own (kFeat != 0, launched from csrc/flash_varlen_features.cu), as
+// kernel 1's: ALiBi and attention_chunk (kFeatExt, packed or paged),
+// dropout (kFeatDrop, packed). The feature-free instances compile as they
+// did. An extended instance narrows its key walk to its rows' chunks,
+// scales the scores to base 2 before the max (ALiBi subtracts its term
+// there) and masks every tile a chunk edge crosses; dropout keeps m and l
+// of the undropped P, zeroes the dropped P before P V (the keep mask at
+// the packed row and key) and scales out by 1 / (1 - p).
 
 #pragma once
 
+#include <type_traits>
+
+#include "attn_features.cuh"
 #include "mma_utils.cuh"
 #include "sm90_utils.cuh"
 #include "varlen_schedule.cuh"
@@ -133,12 +146,23 @@ struct Params {
   long long trace_len;
 };
 
-template <typename T, int D, bool kSoftcap, bool kPaged>
+// The parameters of an instance with features.
+struct FeatParams : Params {
+  Features f;
+};
+
+template <int kFeat>
+using ParamsOf = std::conditional_t<kFeat == 0, Params, FeatParams>;
+
+template <typename T, int D, bool kSoftcap, bool kPaged, int kFeat = 0>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     varlen_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           const Params p) {
+                           const ParamsOf<kFeat> p) {
+  constexpr bool kExt = (kFeat & kFeatExt) != 0;
+  constexpr bool kDrop = (kFeat & kFeatDrop) != 0;
+  static_assert(!(kPaged && kDrop), "dropout reads packed K/V only");
   using C = Cfg<D>;
   constexpr int kStages = C::kStages;
   constexpr int kBlockM = C::kBlockM;
@@ -180,9 +204,12 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
   const int off = uk - uq;
   const int row_last = min(row0 + kBlockM, rows) - 1;
-  const int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
-  const int col_hi =
+  int col_lo = p.left >= 0 ? max(row0 + off - p.left, 0) : 0;
+  int col_hi =
       p.right >= 0 ? min(row_last + off + p.right, keys - 1) : keys - 1;
+  if constexpr (kExt) {
+    chunk_keys(row0 + off, row_last + off, p.f.chunk, col_lo, col_hi);
+  }
   const int tile_lo = col_lo / kBlockN;
   const int n_tiles = col_hi >= col_lo ? col_hi / kBlockN - tile_lo + 1 : 0;
   const int tid = threadIdx.x;
@@ -302,6 +329,20 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       row_ok[i] = r < rows;
       diag[i] = r + off;
     }
+    // Features: this thread's rows' dropout hash parts (batch row 0, the
+    // packed rows) and the head's ALiBi slope in base 2.
+    uint32_t drop_row[2];
+    float slope2 = 0.f;
+    if constexpr (kDrop) {
+      const uint32_t base = dropout_base(p.f.seed, 0, head);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        drop_row[i] = dropout_row(base, q0 + diag[i] - off);
+      }
+    }
+    if constexpr (kExt) {
+      if (p.f.slopes) slope2 = p.f.slopes[head] * kLog2e;
+    }
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -359,15 +400,37 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
           in_window(col0, wrow0 + 63 + off, p.left, -1) &&
           in_window(col0 + kBlockN - 1, wrow0 + off, -1, p.right);
       // Without a softcap the scale folds into the exponent's FFMA (it is
-      // positive, so the row max commutes with it).
-      const float mul = kSoftcap ? 1.f : p.score_mul;
-      if constexpr (kSoftcap) {
+      // positive, so the row max commutes with it). An extended instance
+      // scales first: ALiBi's term is in base 2.
+      const float mul = kSoftcap || kExt ? 1.f : p.score_mul;
+      if constexpr (kExt) {
+#pragma unroll
+        for (int x = 0; x < 64; ++x) {
+          const int i = (x >> 1) & 1;
+          const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+          const float s = kSoftcap ? tanhf(sc[x] * p.score_mul) * p.cap_log2
+                                   : sc[x] * p.score_mul;
+          sc[x] = s - slope2 * fabsf(static_cast<float>(col - diag[i]));
+        }
+        if (!(full && chunk_full(col0, col0 + kBlockN - 1, wrow0 + off,
+                                 wrow0 + 63 + off, p.f))) {
+#pragma unroll
+          for (int x = 0; x < 64; ++x) {
+            const int i = (x >> 1) & 1;
+            const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+            if (!(row_ok[i] && col < keys &&
+                  visible_ext(col, diag[i], p.left, p.right, p.f))) {
+              sc[x] = -INFINITY;
+            }
+          }
+        }
+      } else if constexpr (kSoftcap) {
 #pragma unroll
         for (int x = 0; x < 64; ++x) {
           sc[x] = tanhf(sc[x] * p.score_mul) * p.cap_log2;
         }
       }
-      if (!full) {
+      if (!kExt && !full) {
 #pragma unroll
         for (int x = 0; x < 64; ++x) {
           const int i = (x >> 1) & 1;
@@ -396,7 +459,16 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         // Masked: exp2(-inf) = 0.
         const float pe = exp2_approx(fmaf(sc[x], mul, -m[i]));
         l[i] += pe;
-        sc[x] = pe;
+        if constexpr (kDrop) {
+          // m and l take the undropped P; P V the kept entries, keyed on
+          // the packed key.
+          const int col = col0 + (x >> 2) * 8 + tig * 2 + (x & 1);
+          sc[x] = dropout_keep(drop_row[i], k0 + col, p.f.keep_threshold)
+                      ? pe
+                      : 0.f;
+        } else {
+          sc[x] = pe;
+        }
       }
     };
     auto pack_p = [&](const float (&sc)[64], uint32_t (&pa)[kBlockN / 16][4]) {
@@ -475,7 +547,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = warp * 16 + gid + 8 * i;
-      const float inv = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+      float inv = lsum[i] > 0.f ? 1.f / lsum[i] : 0.f;
+      if constexpr (kDrop) inv *= p.f.keep_scale;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int chunk = (j & 7) ^ (r & 7);
@@ -513,18 +586,18 @@ inline long long grid_tiles(long long total_q, int nseq, int d) {
   return (total_q + static_cast<long long>(nseq) * (bm - 1)) / bm;
 }
 
-template <typename T, int D, bool kSoftcap, bool kPaged>
+template <typename T, int D, bool kSoftcap, bool kPaged, int kFeat = 0>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           const Params& p, cudaStream_t stream) {
+           const ParamsOf<kFeat>& p, cudaStream_t stream) {
   using C = Cfg<D>;
   const long long tiles = grid_tiles(p.total_q, p.nseq, D);
   if (tiles <= 0) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
-      varlen_fwd_sm90_kernel<T, D, kSoftcap, kPaged>,
+      varlen_fwd_sm90_kernel<T, D, kSoftcap, kPaged, kFeat>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(tiles), p.h);
-  varlen_fwd_sm90_kernel<T, D, kSoftcap, kPaged>
+  varlen_fwd_sm90_kernel<T, D, kSoftcap, kPaged, kFeat>
       <<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -538,6 +611,29 @@ int dispatch(const CUtensorMap* maps, const Params& p, bool softcap,
   }
   return softcap ? launch<T, D, true, false>(maps[0], maps[1], maps[2], p, s)
                  : launch<T, D, false, false>(maps[0], maps[1], maps[2], p, s);
+}
+
+// An instance with features: kFeat 1-3 (kFeatExt | kFeatDrop) on packed
+// K/V, kFeatExt on pools; softcap or not. Returns -3 for kFeat 0 (dispatch
+// takes it) and for dropout on pools.
+template <typename T, int D>
+int dispatch_features(const CUtensorMap* maps, const FeatParams& p,
+                      bool softcap, bool paged, int feat, cudaStream_t s) {
+  const CUtensorMap &tq = maps[0], &tk = maps[1], &tv = maps[2];
+  if (paged) {
+    if (feat != kFeatExt) return -3;
+    return softcap ? launch<T, D, true, true, 1>(tq, tk, tv, p, s)
+                   : launch<T, D, false, true, 1>(tq, tk, tv, p, s);
+  }
+  switch (feat + 4 * softcap) {
+    case 1: return launch<T, D, false, false, 1>(tq, tk, tv, p, s);
+    case 2: return launch<T, D, false, false, 2>(tq, tk, tv, p, s);
+    case 3: return launch<T, D, false, false, 3>(tq, tk, tv, p, s);
+    case 5: return launch<T, D, true, false, 1>(tq, tk, tv, p, s);
+    case 6: return launch<T, D, true, false, 2>(tq, tk, tv, p, s);
+    case 7: return launch<T, D, true, false, 3>(tq, tk, tv, p, s);
+    default: return -3;
+  }
 }
 
 }  // namespace vfwd90

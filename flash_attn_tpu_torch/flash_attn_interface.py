@@ -41,6 +41,7 @@ from flash_attn_tpu_torch.kernels.block_sparsity import (
     varlen_lengths,
     wrap_varlen_mask_mod,
 )
+from flash_attn_tpu_torch.kernels._build import build_libraries
 from flash_attn_tpu_torch.kernels.common import rows_dense, seed_int
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_decode import (
@@ -73,6 +74,7 @@ from flash_attn_tpu_torch.runtime.kv_cache import (
     update_kv_cache,
     update_paged_kv_cache,
 )
+from flash_attn_tpu_torch.utils.device import resolve_device
 from flash_attn_tpu_torch.utils.fa_logging import get_logger
 
 __all__ = [
@@ -520,10 +522,18 @@ def flash_attn_combine(
     return (o, lse) if return_lse else o
 
 
+# The varlen features the backward kernels take again (the forward's seed:
+# the backward regenerates the forward's keep mask from it).
+_VARLEN_BWD_FEATURES = ("alibi_slopes", "attention_chunk", "dropout_p",
+                        "dropout_seed")
+
+
 class _FlashAttnVarlenCore(torch.autograd.Function):
     """out, lse = varlen attention(q, k, v); like `_FlashAttnCore`, the
     backward takes dO only (the LSE's cotangent is ignored, as in the JAX
-    package) and needs no copy of out."""
+    package) and needs no copy of out. ALiBi, attention_chunk and dropout
+    go to both directions' kernels; dropout's seed is a host int, so the
+    backward draws the forward's keep mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
@@ -535,7 +545,8 @@ class _FlashAttnVarlenCore(torch.autograd.Function):
             **kw, **extras)
         ctx.save_for_backward(q, k, v, lse, cu_seqlens_q, cu_seqlens_k,
                               seqused_q, seqused_k)
-        ctx.kw = kw
+        ctx.kw = dict(kw, **{name: extras[name]
+                             for name in _VARLEN_BWD_FEATURES})
         ctx.max_seqlens = (max_seqlen_q, max_seqlen_k)
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -590,8 +601,14 @@ def flash_attn_varlen_func(
     `flash_attn_varlen_func`, differentiable in q, k and v.
 
     Bottom-right-aligned causal masking per sequence, sliding windows, GQA,
-    softcap, seqused_q/k. Returns out in q's layout; with
-    return_attn_probs=True, (out, softmax_lse (h, total_q) fp32, None).
+    softcap, seqused_q/k, ALiBi slopes (h,), attention_chunk and dropout
+    (kernels 6-8's feature instances on the card). Dropout's keep mask is
+    the JAX package's murmur3 hash of (dropout_seed, batch row 0, query
+    head, packed row, packed key): the same seed gives the same bits in
+    both packages; `dropout_seed` is an int or a scalar tensor (a CUDA one
+    is read back), 0 when None, as in the JAX package. Returns out in q's
+    layout; with return_attn_probs=True, (out, softmax_lse (h, total_q)
+    fp32, None).
 
     The backward's CUDA grids are sized by max_seqlen_q/k: the caller's,
     else the plan's (`make_varlen_plan`), else one host read of cu_seqlens;
@@ -600,10 +617,10 @@ def flash_attn_varlen_func(
     With `block_sparse_tensors` (from `compute_block_sparsity_varlen`) the
     call runs `mask_mod` block-sparsely (`_varlen_blocksparse`); it
     composes with softcap and seqused_q/k only, as in the JAX package.
-    `deterministic`, `dropout_seed`, `block_q` and `block_kv` are taken for
-    calls written for the JAX API and not read: the backward is always
-    deterministic and the CUDA tiles are fixed."""
-    del deterministic, dropout_seed, block_q, block_kv
+    `deterministic`, `block_q` and `block_kv` are taken for calls written
+    for the JAX API and not read: the backward is always deterministic and
+    the CUDA tiles are fixed."""
+    del deterministic, block_q, block_kv
     if layout not in ("thd", "hsd"):
         raise ValueError(f"unknown varlen layout {layout!r}")
     if layout == "hsd" and (block_sparse_tensors is not None
@@ -641,6 +658,8 @@ def flash_attn_varlen_func(
               window_size=tuple(int(w) for w in window_size),
               softcap=float(softcap), layout=layout)
     extras = dict(qv=qv, alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+                  dropout_seed=(seed_int(dropout_seed) if dropout_p > 0
+                                else None),
                   attention_chunk=attention_chunk, attn_bias=attn_bias,
                   score_mod=score_mod, mask_mod=mask_mod,
                   aux_tensors=aux_tensors, aux_scalars=aux_scalars)
@@ -746,12 +765,73 @@ def flash_attn_varlen_kvpacked_func(
         alibi_slopes, deterministic, return_attn_probs, **kwargs)
 
 
-def compile_flash_attn_varlen_func_from_specs(**specs):
-    """Not ported: the JAX function compiles an XLA executable ahead of
-    time; raises NotImplementedError."""
-    raise NotImplementedError(
-        "compile_flash_attn_varlen_func_from_specs is not ported yet: ROADMAP "
-        "queue 1, item 6 (varlen leftovers)")
+def compile_flash_attn_varlen_func_from_specs(
+    *,
+    total_q: int,
+    total_k: int,
+    nseq: int,
+    num_heads: int,
+    num_heads_kv: Optional[int] = None,
+    head_dim: int,
+    head_dim_v: Optional[int] = None,
+    has_qv: bool = False,
+    dtype=torch.bfloat16,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    block_q: int = 256,
+    block_kv: int = 256,
+    device=None,
+):
+    """The JAX package's `compile_flash_attn_varlen_func_from_specs`
+    (flash_attn_interface.py:1277): pays the compilation before traffic
+    arrives and returns the callable `(q, k, v, cu_seqlens_q,
+    cu_seqlens_k[, qv]) -> out` for these static specs. On the card
+    (`device`, the card by default) it builds kernels 6-8's CUDA sources
+    now (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`), so that the first call
+    compiles nothing; on the CPU there is nothing to build. The callable
+    runs `flash_attn_varlen_func` with the specs (differentiable, as that
+    is) and refuses tensors of other shapes, dtypes or devices, as the
+    JAX executable does. `has_qv` raises NotImplementedError, as `qv`
+    does; specs the CUDA kernels do not take (a head dim other than 64 or
+    128, head_dim_v != head_dim, a dtype other than bf16/fp16, heads that
+    do not group) raise ValueError on the card. `block_q`/`block_kv` are
+    the JAX tiles, taken and not read."""
+    del block_q, block_kv
+    check_varlen_unported(qv=True if has_qv else None)
+    dev = resolve_device(device)
+    hk = num_heads_kv or num_heads
+    dv = head_dim_v or head_dim
+    if dev.type == "cuda":
+        if dtype not in (torch.bfloat16, torch.float16):
+            raise ValueError(f"the CUDA kernels take bf16/fp16, got {dtype}")
+        if head_dim not in (64, 128) or dv != head_dim:
+            raise ValueError(f"the CUDA kernels take head dim 64 or 128 for "
+                             f"q, k and v alike, got {head_dim} / {dv}")
+        if num_heads % hk:
+            raise ValueError(f"{num_heads} query heads do not group over "
+                             f"{hk} kv heads")
+        build_libraries(["flash_fwd", "flash_bwd"])
+    want = dict(q=(total_q, num_heads, head_dim), k=(total_k, hk, head_dim),
+                v=(total_k, hk, dv), cu_seqlens_q=(nseq + 1,),
+                cu_seqlens_k=(nseq + 1,))
+    kw = dict(softmax_scale=softmax_scale, causal=causal,
+              window_size=window_size, softcap=softcap)
+
+    def fn(q, k, v, cu_seqlens_q, cu_seqlens_k, qv=None):
+        for name, t in zip(want, (q, k, v, cu_seqlens_q, cu_seqlens_k)):
+            typed = name in ("q", "k", "v")
+            if (tuple(t.shape) != want[name] or t.device.type != dev.type
+                    or (typed and t.dtype != dtype)):
+                raise ValueError(
+                    f"{name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
+                    f"compiled for {tuple(want[name])}"
+                    + (f" {dtype}" if typed else "") + f" on {dev}")
+        return flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
+                                      qv=qv, **kw)
+
+    return fn
 
 
 class _SparseAttnCore(torch.autograd.Function):

@@ -199,16 +199,20 @@ def dropout_keep_mask(seed: int, b, h, row0: int, col0: int,
 
 
 def alibi_bias(slopes: torch.Tensor, heads: slice, seqlen_q: int,
-               seqlen_k: int, device=None) -> torch.Tensor:
-    """The ALiBi term -slope |j - i - (seqlen_k - seqlen_q)| of query heads
-    `heads`, fp32 natural-log units, (1 or b, n, seqlen_q, seqlen_k), from
-    slopes (h,) or (b, h) (the JAX kernels subtract it in base 2, after the
-    softcap)."""
+               seqlen_k: int, device=None,
+               offset: Optional[int] = None) -> torch.Tensor:
+    """The ALiBi term -slope |j - i - offset| of query heads `heads`, fp32
+    natural-log units, (1 or b, n, seqlen_q, seqlen_k), from slopes (h,) or
+    (b, h) (the JAX kernels subtract it in base 2, after the softcap). The
+    diagonal's offset is seqlen_k - seqlen_q unless given (a packed
+    sequence's is used_k - used_q)."""
     s = slopes.to(device=device, dtype=torch.float32)
     s = s.reshape(1, -1) if s.dim() == 1 else s
+    if offset is None:
+        offset = seqlen_k - seqlen_q
     rel = (torch.arange(seqlen_k, device=device)[None]
            - torch.arange(seqlen_q, device=device)[:, None]
-           - (seqlen_k - seqlen_q)).abs().float()
+           - offset).abs().float()
     return -s[:, heads, None, None] * rel
 
 
@@ -233,7 +237,13 @@ class Features(NamedTuple):
     (kernels 1-3, csrc/attn_features.cuh): ALiBi slopes (h,) or (b, h),
     the learnable sink (h,), segment ids (b, sq) and (b, sk),
     attention_chunk, sink_token_length, and dropout with its seed (an int;
-    its 32 low bits are used)."""
+    its 32 low bits are used).
+
+    A packed sequence of the varlen kernels (6-8) sets the two coordinates
+    of its slice: `origin`, the absolute (row, column) of its first query
+    row and key in the keep mask (batch row 0), and `diag_offset`, its
+    ALiBi diagonal's offset (used_k - used_q); None is seqlen_k -
+    seqlen_q."""
 
     alibi_slopes: Optional[torch.Tensor] = None
     sink: Optional[torch.Tensor] = None
@@ -243,6 +253,8 @@ class Features(NamedTuple):
     sink_token_length: int = 0
     dropout_p: float = 0.0
     dropout_seed: int = 0
+    origin: Tuple[int, int] = (0, 0)
+    diag_offset: Optional[int] = None
 
     @property
     def extended(self) -> bool:
@@ -264,8 +276,9 @@ class Features(NamedTuple):
         `heads`."""
         return dropout_keep_mask(
             self.dropout_seed, torch.arange(b).reshape(-1, 1, 1, 1),
-            torch.arange(heads.start, heads.stop).reshape(1, -1, 1, 1), 0, 0,
-            (seqlen_q, seqlen_k), 1.0 - self.dropout_p, device=device)
+            torch.arange(heads.start, heads.stop).reshape(1, -1, 1, 1),
+            *self.origin, (seqlen_q, seqlen_k), 1.0 - self.dropout_p,
+            device=device)
 
 
 def seed_int(seed) -> int:

@@ -98,7 +98,8 @@ def feature_scores(s, features: Optional[Features], heads: slice, sq, sk):
     """Scores with the ALiBi term of query heads `heads`, if any."""
     if features is None or features.alibi_slopes is None:
         return s
-    return s + alibi_bias(features.alibi_slopes, heads, sq, sk, s.device)
+    return s + alibi_bias(features.alibi_slopes, heads, sq, sk, s.device,
+                          features.diag_offset)
 
 
 def flash_attention_fwd_ref(

@@ -29,6 +29,16 @@ that the wrapper takes for CPU tensors:
     GQA groups summed in-kernel; `trace_schedule(..., kernel="dkv")` reads
     its flat schedule of key tiles.
 
+ALiBi slopes (h,), attention_chunk and dropout (the JAX varlen kernel's
+features, `varlen_features`) run in the three kernels' feature instances
+(`csrc/flash_varlen_features.cu` for kernel 6, packed or on pools;
+`csrc/flash_varlen_bwd_features.cu` for kernels 7-8), counted in each
+wrapper's `.feature_launches` beside `.launches`; the plain versions take
+them as `features`. Their rules are kernels 1-3's in packed coordinates:
+ALiBi's distance from a row's bottom-right diagonal, the chunk in the
+sequence's key positions, the keep mask of batch row 0 at the packed query
+row and key.
+
 The three Hopper kernels' grids come from the shapes alone (the packed
 row or key count and the sequence count). Only the forward on pools whose
 page size is not a multiple of 8 (the sm80 route, `launches_sm80`) is sized
@@ -50,7 +60,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from flash_attn_tpu_torch.kernels.common import raise_unported
+from flash_attn_tpu_torch.kernels.common import (
+    Features,
+    keep_threshold,
+    make_features,
+    raise_unported,
+)
 from flash_attn_tpu_torch.kernels.flash_bwd import _bwd_dkv_ref, _bwd_dq_ref
 from flash_attn_tpu_torch.kernels.flash_decode_multipage import _fused_split
 from flash_attn_tpu_torch.kernels.flash_fwd import (
@@ -65,15 +80,18 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 # name -> (value that means "not used", ROADMAP item).
 _UNPORTED = {
     "qv": (None, "queue 1, item 10: MLA (qv)"),
-    "alibi_slopes": (None, "queue 2, kernels 6-8: ALiBi"),
-    "attn_bias": (None, "queue 2, kernels 6-8: additive bias and dBias"),
-    "bias_grad": (False, "queue 2, kernels 6-8: additive bias and dBias"),
-    "dropout_p": (0.0, "queue 2, kernels 6-8: dropout"),
-    "attention_chunk": (0, "queue 2, kernels 6-8: attention_chunk"),
-    "score_mod": (None, "queue 2, kernels 6-8: score_mod/mask_mod"),
-    "mask_mod": (None, "queue 2, kernels 6-8: score_mod/mask_mod"),
-    "aux_tensors": ((), "queue 2, kernels 6-8: score_mod/mask_mod"),
-    "aux_scalars": ((), "queue 2, kernels 6-8: score_mod/mask_mod"),
+    "attn_bias": (None, "queue 1, item 14: additive bias and dBias on "
+                        "kernels 1-3 and 6-8"),
+    "bias_grad": (False, "queue 1, item 14: additive bias and dBias on "
+                         "kernels 1-3 and 6-8"),
+    "score_mod": (None, "queue 2, kernels 6-8: score_mod/mask_mod, with "
+                        "kernel 9's compiled catalog"),
+    "mask_mod": (None, "queue 2, kernels 6-8: score_mod/mask_mod, with "
+                       "kernel 9's compiled catalog"),
+    "aux_tensors": ((), "queue 2, kernels 6-8: score_mod/mask_mod, with "
+                        "kernel 9's compiled catalog"),
+    "aux_scalars": ((), "queue 2, kernels 6-8: score_mod/mask_mod, with "
+                        "kernel 9's compiled catalog"),
     "cp_world_size": (1, "queue 1, item 12: context parallelism"),
     "cp_rank": (0, "queue 1, item 12: context parallelism"),
     "cp_tot_seqused_k": (None, "queue 1, item 12: context parallelism"),
@@ -84,6 +102,22 @@ def check_unported(**extras) -> None:
     raise_unported(_UNPORTED, {
         k: tuple(v or ()) if k.startswith("aux_") else v
         for k, v in extras.items()})
+
+
+def varlen_features(h: int, *, alibi_slopes=None, attention_chunk: int = 0,
+                    dropout_p: float = 0.0, dropout_seed=None
+                    ) -> Optional[Features]:
+    """The varlen kernels' features as `Features` (None when none is set):
+    ALiBi slopes (h,), attention_chunk, and dropout with its seed (None is
+    0, as in the JAX package). Slopes of another shape raise ValueError,
+    where the JAX varlen kernel asserts per-head slopes
+    (flash_varlen.py:1394)."""
+    if alibi_slopes is not None and tuple(alibi_slopes.shape) != (h,):
+        raise ValueError(f"varlen ALiBi takes per-head slopes ({h},), got "
+                         f"{tuple(alibi_slopes.shape)}")
+    return make_features(alibi_slopes=alibi_slopes,
+                         attention_chunk=int(attention_chunk),
+                         dropout_p=float(dropout_p), dropout_seed=dropout_seed)
 
 
 def varlen_window(window_size, causal: bool) -> Tuple[int, int]:
@@ -112,14 +146,18 @@ def make_varlen_metadata(
     seqused_k: Optional[torch.Tensor] = None,
     causal: bool = False,
     window: Tuple[int, int] = (-1, -1),
+    attention_chunk: int = 0,
 ) -> VarlenMetadata:
     """Per packed query row (total_q,), int64 on cu_seqlens_q's device:
 
     qseg      its sequence, -1 for an inert row (past seqused_q, or past
               cu_seqlens_q[-1]);
     lo, hi    its visible key columns, [lo, hi] in packed coordinates:
-              segment, bottom-right causal, window and seqused_q/k in one
-              interval; empty (hi = lo - 1) for a row that sees nothing.
+              segment, bottom-right causal, window, attention_chunk (the
+              keys of the row's chunk, [c, c + chunk) with c = qpos_adj -
+              qpos_adj mod chunk in the sequence's key positions, mod
+              towards -inf) and seqused_q/k in one interval; empty (hi =
+              lo - 1) for a row that sees nothing.
 
     As flash_attn_tpu's `make_varlen_metadata` without its tile bounds. Two
     differences on malformed input only: rows past cu_seqlens_q[-1] are
@@ -149,6 +187,10 @@ def make_varlen_metadata(
     lo_rel = torch.zeros_like(qpos_adj)
     if left >= 0:
         lo_rel = torch.maximum(lo_rel, qpos_adj - left)
+    if attention_chunk > 0:
+        c_lo = qpos_adj - torch.remainder(qpos_adj, attention_chunk)
+        lo_rel = torch.maximum(lo_rel, c_lo)
+        hi_rel = torch.minimum(hi_rel, c_lo + attention_chunk - 1)
     lo = torch.where(valid, cu_k[seg] + lo_rel, 1)
     hi = torch.where(valid, cu_k[seg] + hi_rel, 0)
     hi = torch.maximum(hi, lo - 1)
@@ -170,8 +212,8 @@ class VarlenPlan:
     the sequence count, the longest sequence's rows and keys (the backward
     grids' first dimension; the forward's grid needs neither), the masking
     it was built for, and the lengths it was built from. Reuse it across
-    layers; a call whose lengths, causal or window differ is refused
-    (`plan_mismatch`). The kernels cover every tile whatever the grid size,
+    layers; a call whose lengths, causal, window or attention_chunk differ
+    is refused (`plan_mismatch`). The kernels cover every tile whatever the grid size,
     so even a plan that slipped through could not change an answer, only
     its time."""
 
@@ -184,6 +226,7 @@ class VarlenPlan:
     cu_k: Optional[np.ndarray]
     used_q: Optional[np.ndarray]
     used_k: Optional[np.ndarray]
+    attention_chunk: int = 0
     # name -> (tensor, its version counter when the plan was built): a call
     # handing in the very same, unmodified tensor matches without a host
     # read. Held so that its memory cannot be reused by another tensor.
@@ -207,13 +250,15 @@ def make_varlen_plan(
 ) -> VarlenPlan:
     """Build a VarlenPlan from the step's lengths: one host read of each
     length tensor given. `cu_seqlens_k=None` is the paged form (keys are
-    seqused_k). `block_q`/`block_kv` are the JAX planner's TPU tile sizes,
-    taken so that calls written for it run unchanged; the CUDA tiles are
-    fixed."""
+    seqused_k). The plan records causal, window and attention_chunk, which
+    a call must match. `block_q`/`block_kv` are the JAX planner's TPU tile
+    sizes, taken so that calls written for it run unchanged; the CUDA tiles
+    are fixed."""
     del block_q, block_kv
-    check_unported(attention_chunk=attention_chunk,
-                   cp_world_size=cp_world_size, cp_rank=cp_rank,
+    check_unported(cp_world_size=cp_world_size, cp_rank=cp_rank,
                    cp_tot_seqused_k=cp_tot_seqused_k)
+    if attention_chunk < 0:
+        raise ValueError("attention_chunk must be >= 0")
     cu_q, cu_k = _host(cu_seqlens_q), _host(cu_seqlens_k)
     used_q, used_k = _host(seqused_q), _host(seqused_k)
     if cu_k is None and used_k is None:
@@ -234,7 +279,8 @@ def make_varlen_plan(
         nseq=len(cu_q) - 1, max_seqlen_q=int(rows.max(initial=0)),
         max_seqlen_k=int(keys.max(initial=0)), causal=bool(causal),
         window=varlen_window(window, causal), cu_q=cu_q, cu_k=cu_k,
-        used_q=used_q, used_k=used_k, sources=sources)
+        used_q=used_q, used_k=used_k, attention_chunk=int(attention_chunk),
+        sources=sources)
 
 
 def _same_tensor(plan: VarlenPlan, name: str, t: torch.Tensor) -> bool:
@@ -249,17 +295,22 @@ def _same_tensor(plan: VarlenPlan, name: str, t: torch.Tensor) -> bool:
 
 def plan_mismatch(plan: VarlenPlan, *, cu_seqlens_q, cu_seqlens_k=None,
                   seqused_q=None, seqused_k=None, causal: bool,
-                  window_size, host_read: bool = True) -> Optional[str]:
+                  window_size, attention_chunk: int = 0,
+                  host_read: bool = True) -> Optional[str]:
     """Why `plan` does not fit a call, or None. The masking must match
     (the reference's scheduler-metadata reuse does not check causal or
-    window, vllm_compat.py:300). Each length tensor matches when it is the
-    very tensor the plan was built from, unmodified; otherwise its values
-    are compared, which for a CUDA tensor is a host read. With
-    host_read=False such a tensor counts as a mismatch instead."""
+    window, vllm_compat.py:300), attention_chunk included. Each length
+    tensor matches when it is the very tensor the plan was built from,
+    unmodified; otherwise its values are compared, which for a CUDA tensor
+    is a host read. With host_read=False such a tensor counts as a mismatch
+    instead."""
     window = varlen_window(window_size, causal)
-    if (plan.causal, plan.window) != (bool(causal), window):
-        return (f"built for causal={plan.causal}, window={plan.window}; the "
-                f"call has causal={bool(causal)}, window={window}")
+    mask = (bool(causal), window, int(attention_chunk))
+    if (plan.causal, plan.window, plan.attention_chunk) != mask:
+        return (f"built for causal={plan.causal}, window={plan.window}, "
+                f"attention_chunk={plan.attention_chunk}; the call has "
+                f"causal={mask[0]}, window={mask[1]}, "
+                f"attention_chunk={mask[2]}")
     for name, snap, t in (("cu_seqlens_q", plan.cu_q, cu_seqlens_q),
                           ("cu_seqlens_k", plan.cu_k, cu_seqlens_k),
                           ("seqused_q", plan.used_q, seqused_q),
@@ -318,19 +369,30 @@ def _thd(x: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 def _sequences(cu_seqlens_q, cu_seqlens_k, total_q, seqused_q, seqused_k,
-               causal, window_size):
-    """(q0, q1, k0, k1, visible (q1 - q0, k1 - k0) bool) of every sequence
-    with rows and keys, visibility from `make_varlen_metadata`."""
+               causal, window_size, features=None):
+    """(q0, q1, k0, k1, visible (q1 - q0, k1 - k0) bool, features) of every
+    sequence with rows and keys, visibility from `make_varlen_metadata`
+    (with `features`' attention_chunk). A sequence's features (None without
+    any) hold its slice's coordinates: the keep mask's origin (q0, k0) in
+    packed rows and keys, batch row 0, and ALiBi's diagonal offset used_k -
+    used_q, as the JAX kernels' packed coordinates have them."""
+    chunk = 0 if features is None else features.attention_chunk
     meta = make_varlen_metadata(
         cu_seqlens_q, cu_seqlens_k, total_q, seqused_q=seqused_q,
-        seqused_k=seqused_k, causal=causal, window=window_size)
+        seqused_k=seqused_k, causal=causal, window=window_size,
+        attention_chunk=chunk)
     cu_q, cu_k = _host(cu_seqlens_q), _host(cu_seqlens_k)
+    used_q, used_k = _host(seqused_q), _host(seqused_k)
     for j in range(len(cu_q) - 1):
         q0, q1, k0, k1 = int(cu_q[j]), int(cu_q[j + 1]), int(cu_k[j]), int(cu_k[j + 1])
         if q1 > q0 and k1 > k0:
             cols = torch.arange(k0, k1, device=meta.lo.device)
+            uq = q1 - q0 if used_q is None else int(used_q[j])
+            uk = k1 - k0 if used_k is None else int(used_k[j])
+            fs = None if features is None else features._replace(
+                origin=(q0, k0), diag_offset=uk - uq)
             yield q0, q1, k0, k1, ((cols >= meta.lo[q0:q1, None])
-                                   & (cols <= meta.hi[q0:q1, None]))
+                                   & (cols <= meta.hi[q0:q1, None])), fs
 
 
 def _bhsd(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -365,12 +427,17 @@ def flash_attention_varlen_fwd_ref(
     q, k, v, cu_seqlens_q, cu_seqlens_k, *, seqused_q=None, seqused_k=None,
     softmax_scale=None, causal=False, window_size=(-1, -1), softcap=0.0,
     layout="thd", kv_pools=None, block_table=None, head_dim_v=None,
+    features: Optional[Features] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel, in fp32, sequence by sequence
     through the dense plain version with each sequence's visibility from
     `make_varlen_metadata`. Paged K/V are first gathered (`_gather_pages`).
-    Returns (out in q's layout and dtype, lse (h, total_q) fp32); inert rows
-    and rows that see nothing give out 0 and lse -inf."""
+    `features` (`varlen_features`: ALiBi, attention_chunk, dropout) as the
+    JAX varlen kernel takes them, in packed coordinates: the keep mask of
+    batch row 0 at packed rows and keys, ALiBi's |col - diag| with diag a
+    row's bottom-right diagonal. Returns (out in q's layout and dtype, lse
+    (h, total_q) fp32); inert rows and rows that see nothing give out 0 and
+    lse -inf."""
     if kv_pools is not None:
         k, v, cu_seqlens_k = _gather_pages(kv_pools, block_table, seqused_k,
                                            q.shape[-1], head_dim_v)
@@ -381,12 +448,13 @@ def flash_attention_varlen_fwd_ref(
     total_q, h, _ = qt.shape
     out = qt.new_zeros((total_q, h, vt.shape[2]))
     lse = torch.full((h, total_q), float("-inf"), device=q.device)
-    for q0, q1, k0, k1, vis in _sequences(
+    for q0, q1, k0, k1, vis, fs in _sequences(
             cu_seqlens_q, cu_seqlens_k, total_q, seqused_q, seqused_k,
-            causal, window_size):
+            causal, window_size, features):
         o, l = flash_attention_fwd_ref(
             _bhsd(qt, q0, q1), _bhsd(kt, k0, k1), _bhsd(vt, k0, k1),
-            softmax_scale=softmax_scale, softcap=softcap, visible=vis)
+            softmax_scale=softmax_scale, softcap=softcap, visible=vis,
+            features=fs)
         out[q0:q1] = o[0].transpose(0, 1)
         lse[:, q0:q1] = l[0]
     return (out if layout == "thd" else out.transpose(0, 1)), lse
@@ -395,21 +463,24 @@ def flash_attention_varlen_fwd_ref(
 def _varlen_dq_ref(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, *,
                    seqused_q=None, seqused_k=None, softmax_scale=None,
                    causal=False, window_size=(-1, -1), softcap=0.0,
-                   layout="thd"):
+                   layout="thd", features: Optional[Features] = None):
     """Plain version of the dQ kernel: (dq in q's layout and dtype, delta
     (h, total_q) fp32 = sum_j P dP), P recomputed from Q, K and the LSE as
-    the reference's `_varlen_recompute` does (flash_varlen.py:790-882)."""
+    the reference's `_varlen_recompute` does (flash_varlen.py:790-882):
+    with `features` as the forward's, the ALiBi term, and with dropout dP
+    Z / (1 - p) in delta and dS."""
     qt, kt, vt, dot = (_thd(x, layout) for x in (q, k, v, do))
     total_q, h, _ = qt.shape
     dq = torch.zeros_like(qt)
     delta = torch.zeros((h, total_q), device=q.device)
-    for q0, q1, k0, k1, vis in _sequences(
+    for q0, q1, k0, k1, vis, fs in _sequences(
             cu_seqlens_q, cu_seqlens_k, total_q, seqused_q, seqused_k,
-            causal, window_size):
+            causal, window_size, features):
         dq_j, delta_j = _bwd_dq_ref(
             _bhsd(qt, q0, q1), _bhsd(kt, k0, k1), _bhsd(vt, k0, k1),
             _bhsd(dot, q0, q1), lse[None, :, q0:q1],
-            softmax_scale=softmax_scale, softcap=softcap, visible=vis)
+            softmax_scale=softmax_scale, softcap=softcap, visible=vis,
+            features=fs)
         dq[q0:q1] = dq_j[0].transpose(0, 1)
         delta[:, q0:q1] = delta_j[0]
     return (dq if layout == "thd" else dq.transpose(0, 1)), delta
@@ -418,19 +489,21 @@ def _varlen_dq_ref(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, *,
 def _varlen_dkv_ref(q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, *,
                     seqused_q=None, seqused_k=None, softmax_scale=None,
                     causal=False, window_size=(-1, -1), softcap=0.0,
-                    layout="thd"):
+                    layout="thd", features: Optional[Features] = None):
     """Plain version of the dK/dV kernel: (dk, dv) in k's layout and dtype,
-    each kv head's group of query heads summed, from the dQ kernel's
-    delta."""
+    each kv head's group of query heads summed, from the dQ kernel's delta;
+    with `features` as the forward's (dropout: dV from P Z / (1 - p), dS
+    from dP Z / (1 - p))."""
     qt, kt, vt, dot = (_thd(x, layout) for x in (q, k, v, do))
     dk, dv = torch.zeros_like(kt), torch.zeros_like(vt)
-    for q0, q1, k0, k1, vis in _sequences(
+    for q0, q1, k0, k1, vis, fs in _sequences(
             cu_seqlens_q, cu_seqlens_k, qt.shape[0], seqused_q, seqused_k,
-            causal, window_size):
+            causal, window_size, features):
         dk_j, dv_j = _bwd_dkv_ref(
             _bhsd(qt, q0, q1), _bhsd(kt, k0, k1), _bhsd(vt, k0, k1),
             _bhsd(dot, q0, q1), lse[None, :, q0:q1], delta[None, :, q0:q1],
-            softmax_scale=softmax_scale, softcap=softcap, visible=vis)
+            softmax_scale=softmax_scale, softcap=softcap, visible=vis,
+            features=fs)
         dk[k0:k1] = dk_j[0].transpose(0, 1)
         dv[k0:k1] = dv_j[0].transpose(0, 1)
     if layout == "hsd":
@@ -561,6 +634,58 @@ def trace_schedule(trace: Optional[torch.Tensor], kernel: str = "fwd"
     fn(trace.data_ptr(), trace.numel())
 
 
+# ctypes types of the feature arguments of csrc/flash_varlen_features.cu's
+# and csrc/flash_varlen_bwd_features.cu's entry points (_feature_args):
+# slopes, chunk, dropout, seed, keep_threshold, keep_scale.
+_FEATURE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+
+
+def _feature_args(f: Features, dev) -> tuple:
+    """(the slopes on `dev`, kept alive by the caller, and the C feature
+    arguments of `f`)."""
+    slopes = (None if f.alibi_slopes is None else
+              f.alibi_slopes.to(dev, torch.float32).contiguous())
+    drop = f.dropout_p > 0
+    return slopes, (_ptr(slopes), f.attention_chunk, int(drop),
+                    f.dropout_seed & 0xFFFFFFFF,
+                    keep_threshold(1.0 - f.dropout_p) if drop else 0,
+                    1.0 / (1.0 - f.dropout_p))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_features_kernel():
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    fn = load_library("flash_varlen_features").flash_varlen_fwd_features
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int] + _FEATURE_ARGTYPES
+                   + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_features_kernels() -> ctypes.CDLL:
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    lib = load_library("flash_varlen_bwd_features")
+    tail = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_int] + _FEATURE_ARGTYPES + [ctypes.c_void_p])
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_varlen_bwd_dkv_features.argtypes = ([ctypes.c_void_p] * 8
+                                                  + [strides] + tail)
+    lib.flash_varlen_bwd_dq_features.argtypes = ([ctypes.c_void_p] * 7
+                                                 + [strides] + tail)
+    lib.flash_varlen_bwd_dkv_features.restype = ctypes.c_int
+    lib.flash_varlen_bwd_dq_features.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels() -> ctypes.CDLL:
     from flash_attn_tpu_torch.kernels._build import load_library
@@ -623,25 +748,45 @@ def flash_attention_varlen_fwd(
     lengths).
 
     `plan` (from `make_varlen_plan`) is refused (ValueError) when its
-    lengths, causal or window differ from the call's. The Hopper kernel's
-    grid needs no max_seqlen_q; pools whose page size is not a multiple of
-    8 take the sm80 route (counted in
+    lengths, causal, window or attention_chunk differ from the call's. The
+    Hopper kernel's grid needs no max_seqlen_q; pools whose page size is
+    not a multiple of 8 take the sm80 route (counted in
     `flash_attention_varlen_fwd.launches_sm80` as well), whose grid
     max_seqlen_q sizes: the caller's, the plan's, or else one host read of
-    cu_seqlens_q. `block_q`/`block_kv`/`dropout_seed` are taken for calls
-    written for the JAX API and not read. CUDA tensors launch
-    `csrc/flash_fwd.cu` flash_varlen_fwd (counted in
-    `flash_attention_varlen_fwd.launches`; inputs its TMA tensor maps
-    cannot take are copied first, counted in `.tma_copies`); CPU tensors
-    take `flash_attention_varlen_fwd_ref`."""
-    del block_q, block_kv, dropout_seed
+    cu_seqlens_q. `block_q`/`block_kv` are taken for calls written for the
+    JAX API and not read. CUDA tensors launch `csrc/flash_fwd.cu`
+    flash_varlen_fwd (counted in `flash_attention_varlen_fwd.launches`;
+    inputs its TMA tensor maps cannot take are copied first, counted in
+    `.tma_copies`); CPU tensors take `flash_attention_varlen_fwd_ref`.
+
+    ALiBi slopes (h,), attention_chunk and dropout (`dropout_seed` an int
+    or a scalar tensor, None 0) run in kernel 6's feature instances
+    (`csrc/flash_varlen_features.cu`, counted in `.launches` and
+    `.feature_launches`), ALiBi and chunk on pools too. Dropout on pools
+    and features on the sm80 route raise NotImplementedError."""
+    del block_q, block_kv
     check_unported(
-        qv=qv, alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
-        dropout_p=dropout_p, cp_world_size=cp_world_size, cp_rank=cp_rank,
+        qv=qv, cp_world_size=cp_world_size, cp_rank=cp_rank,
         cp_tot_seqused_k=cp_tot_seqused_k, attn_bias=attn_bias,
         score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors,
         aux_scalars=aux_scalars)
     _thd(q, layout)  # checks the layout
+    features = varlen_features(
+        q.shape[1 if layout == "thd" else 0], alibi_slopes=alibi_slopes,
+        attention_chunk=attention_chunk, dropout_p=dropout_p,
+        dropout_seed=dropout_seed)
+    if kv_pools is not None and features is not None:
+        page = _pool_views(kv_pools, q.shape[-1], head_dim_v)[0].shape[2]
+        if features.dropout_p > 0:
+            raise NotImplementedError(
+                "flash attention argument 'dropout_p' with page pools is "
+                "not ported yet: ROADMAP queue 2, kernel 6: dropout on page "
+                "pools (vLLM's entry takes none)")
+        if not pages_on_tma(page):
+            raise NotImplementedError(
+                "flash attention features on pools whose page size is not "
+                "a multiple of 8 (the sm80 route) are not ported yet: "
+                "ROADMAP queue 2, kernel 6: features on the sm80 route")
     if kv_pools is not None:
         if block_table is None:
             raise ValueError("paged K/V need a block_table")
@@ -654,7 +799,8 @@ def flash_attention_varlen_fwd(
         why = plan_mismatch(plan, cu_seqlens_q=cu_seqlens_q,
                             cu_seqlens_k=cu_seqlens_k, seqused_q=seqused_q,
                             seqused_k=seqused_k, causal=causal,
-                            window_size=window_size)
+                            window_size=window_size,
+                            attention_chunk=attention_chunk)
         if why:
             raise ValueError(f"stale VarlenPlan: {why}; rebuild it "
                              "(make_varlen_plan) when lengths or masking "
@@ -665,19 +811,23 @@ def flash_attention_varlen_fwd(
     if q.device.type == "cpu":
         return flash_attention_varlen_fwd_ref(
             q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools=kv_pools,
-            block_table=block_table, head_dim_v=head_dim_v, **kw)
+            block_table=block_table, head_dim_v=head_dim_v,
+            features=features, **kw)
     return _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools,
-                       block_table, head_dim_v, max_seqlen_q, plan, **kw)
+                       block_table, head_dim_v, max_seqlen_q, plan, features,
+                       **kw)
 
 
 flash_attention_varlen_fwd.launches = 0
+flash_attention_varlen_fwd.feature_launches = 0
 flash_attention_varlen_fwd.launches_sm80 = 0
 flash_attention_varlen_fwd.tma_copies = 0
 
 
 def _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools, block_table,
-                head_dim_v, max_seqlen_q, plan, *, seqused_q, seqused_k,
-                softmax_scale, causal, window_size, softcap, layout):
+                head_dim_v, max_seqlen_q, plan, features, *, seqused_q,
+                seqused_k, softmax_scale, causal, window_size, softcap,
+                layout):
     dev = q.device
     owner = flash_attention_varlen_fwd
     q = tma_ready(q, owner)
@@ -721,15 +871,21 @@ def _launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, kv_pools, block_table,
         return out, lse
     strides = (_packed_strides(q, layout) + kv_strides[:3] + kv_strides[3:]
                + _packed_strides(out, layout))
-    rc = _fwd_kernel()(
-        q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _strides_arg(strides), cu_q.data_ptr(), _ptr(cu_k),
-        _ptr(used_q), _ptr(used_k), *table_args, nseq, int(max_seqlen_q or 0),
-        total_q, h, hk, d, _scale(d, softmax_scale), left, right,
-        float(softcap), int(q.dtype == torch.float16), _stream(q))
+    args = (q.data_ptr(), k_view.data_ptr(), v_view.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _strides_arg(strides),
+            cu_q.data_ptr(), _ptr(cu_k), _ptr(used_q), _ptr(used_k),
+            *table_args, nseq)
+    tail = (total_q, h, hk, d, _scale(d, softmax_scale), left, right,
+            float(softcap), int(q.dtype == torch.float16))
+    if features is None:
+        rc = _fwd_kernel()(*args, int(max_seqlen_q or 0), *tail, _stream(q))
+    else:
+        slopes, fargs = _feature_args(features, dev)
+        rc = _fwd_features_kernel()(*args, *tail, *fargs, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_varlen_fwd launch failed: CUDA error {rc}")
     owner.launches += 1
+    owner.feature_launches += features is not None
     owner.launches_sm80 += sm80
     return out, lse
 
@@ -753,20 +909,28 @@ def _bwd_prepare(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, seqused_q,
 def flash_attention_varlen_bwd_dq(
     q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, *, seqused_q=None,
     seqused_k=None, softmax_scale=None, causal=False, window_size=(-1, -1),
-    softcap=0.0, layout="thd",
+    softcap=0.0, layout="thd", alibi_slopes=None, attention_chunk=0,
+    dropout_p=0.0, dropout_seed=None,
 ):
     """(dq in q's layout and dtype, delta (h, total_q) fp32). CUDA tensors
     launch flash_varlen_bwd_dq (counted in
     `flash_attention_varlen_bwd_dq.launches`; inputs its TMA tensor maps
     cannot take are copied first, counted in `.tma_copies`), whose flat
-    schedule needs no max_seqlen_q (its C argument is passed as 0); CPU
-    tensors take `_varlen_dq_ref`."""
+    schedule needs no max_seqlen_q (its C argument is passed as 0), or with
+    the forward's features (`flash_attention_varlen_fwd`) kernel 8's
+    feature instances (`csrc/flash_varlen_bwd_features.cu`, counted in
+    `.launches` and `.feature_launches`); CPU tensors take
+    `_varlen_dq_ref`."""
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
+    features = varlen_features(
+        q.shape[1 if layout == "thd" else 0], alibi_slopes=alibi_slopes,
+        attention_chunk=attention_chunk, dropout_p=dropout_p,
+        dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return _varlen_dq_ref(q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k,
-                              **kw)
+                              features=features, **kw)
     owner = flash_attention_varlen_bwd_dq
     q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     total_q, h, d, hk, ints = _bwd_prepare(
@@ -782,44 +946,57 @@ def flash_attention_varlen_bwd_dq(
     # k's and v's first entries carry their token counts: the extents of
     # the kernel's K/V tensor maps.
     strides[3] = strides[6] = _thd(k, layout).shape[0]
-    rc = _bwd_kernels().flash_varlen_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _strides_arg(strides), *(_ptr(t) for t in ints), nseq,
-        0, total_q, h, hk, d, _scale(d, softmax_scale),
-        left, right, float(softcap), int(q.dtype == torch.float16),
-        _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _strides_arg(strides), *(_ptr(t) for t in ints), nseq)
+    tail = (total_q, h, hk, d, _scale(d, softmax_scale), left, right,
+            float(softcap), int(q.dtype == torch.float16))
+    if features is None:
+        rc = _bwd_kernels().flash_varlen_bwd_dq(*args, 0, *tail, _stream(q))
+    else:
+        slopes, fargs = _feature_args(features, q.device)
+        rc = _bwd_features_kernels().flash_varlen_bwd_dq_features(
+            *args, *tail, *fargs, _stream(q))
     if rc == -2:
         raise RuntimeError("flash_varlen_bwd_dq: h * total_q passes 2^31 or "
                            "cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"flash_varlen_bwd_dq launch failed: CUDA error {rc}")
     owner.launches += 1
+    owner.feature_launches += features is not None
     return dq, delta
 
 
 flash_attention_varlen_bwd_dq.launches = 0
+flash_attention_varlen_bwd_dq.feature_launches = 0
 flash_attention_varlen_bwd_dq.tma_copies = 0
 
 
 def flash_attention_varlen_bwd_dkv(
     q, k, v, do, lse, delta, cu_seqlens_q, cu_seqlens_k, *, seqused_q=None,
     seqused_k=None, softmax_scale=None, causal=False, window_size=(-1, -1),
-    softcap=0.0, layout="thd",
+    softcap=0.0, layout="thd", alibi_slopes=None, attention_chunk=0,
+    dropout_p=0.0, dropout_seed=None,
 ):
     """(dk, dv) in k's layout and dtype, GQA groups summed, from the dQ
     kernel's delta (h, total_q). CUDA tensors launch flash_varlen_bwd_dkv
     (counted in `flash_attention_varlen_bwd_dkv.launches`; inputs its TMA
     tensor maps cannot take, q, k, v, dO, the LSE or delta, are copied
-    first, counted in `.tma_copies`),
-    whose flat schedule of key tiles needs no max_seqlen_k (its C argument
-    is passed as 0); CPU tensors take `_varlen_dkv_ref`."""
+    first, counted in `.tma_copies`), whose flat schedule of key tiles
+    needs no max_seqlen_k (its C argument is passed as 0), or with the
+    forward's features kernel 7's feature instances
+    (`csrc/flash_varlen_bwd_features.cu`, counted in `.launches` and
+    `.feature_launches`); CPU tensors take `_varlen_dkv_ref`."""
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap, layout=layout)
+    features = varlen_features(
+        q.shape[1 if layout == "thd" else 0], alibi_slopes=alibi_slopes,
+        attention_chunk=attention_chunk, dropout_p=dropout_p,
+        dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return _varlen_dkv_ref(q, k, v, do, lse, delta, cu_seqlens_q,
-                               cu_seqlens_k, **kw)
+                               cu_seqlens_k, features=features, **kw)
     owner = flash_attention_varlen_bwd_dkv
     q, k, v, do = (tma_ready(x, owner) for x in (q, k, v, do))
     total_q, h, d, hk, ints = _bwd_prepare(
@@ -840,22 +1017,29 @@ def flash_attention_varlen_bwd_dkv(
     # k's and v's first entries carry their token counts: the extents of
     # the kernel's K/V tensor maps.
     strides[3] = strides[6] = total_k
-    rc = _bwd_kernels().flash_varlen_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides_arg(strides), *(_ptr(t) for t in ints), nseq, 0, total_q, h,
-        hk, d, _scale(d, softmax_scale), left, right, float(softcap),
-        int(q.dtype == torch.float16), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides_arg(strides), *(_ptr(t) for t in ints), nseq)
+    tail = (total_q, h, hk, d, _scale(d, softmax_scale), left, right,
+            float(softcap), int(q.dtype == torch.float16))
+    if features is None:
+        rc = _bwd_kernels().flash_varlen_bwd_dkv(*args, 0, *tail, _stream(q))
+    else:
+        slopes, fargs = _feature_args(features, q.device)
+        rc = _bwd_features_kernels().flash_varlen_bwd_dkv_features(
+            *args, *tail, *fargs, _stream(q))
     if rc == -2:
         raise RuntimeError("flash_varlen_bwd_dkv: h * total_q passes 2^31 or "
                            "cuTensorMapEncodeTiled refused a tensor map")
     if rc != 0:
         raise RuntimeError(f"flash_varlen_bwd_dkv launch failed: CUDA error {rc}")
     owner.launches += 1
+    owner.feature_launches += features is not None
     return dk, dv
 
 
 flash_attention_varlen_bwd_dkv.launches = 0
+flash_attention_varlen_bwd_dkv.feature_launches = 0
 flash_attention_varlen_bwd_dkv.tma_copies = 0
 
 
@@ -873,16 +1057,18 @@ def flash_attention_varlen_bwd(
     comes from the dQ kernel, not from rowsum(dO * O)
     (flash_varlen.py:1586; see csrc/flash_bwd.cu). max_seqlen_q and
     max_seqlen_k are not read: the dQ and dK/dV kernels' flat schedules
-    need none."""
-    del out, dropout_seed, block_q, block_kv, max_seqlen_q, max_seqlen_k
-    check_unported(qv=qv, alibi_slopes=alibi_slopes,
-                   attention_chunk=attention_chunk, dropout_p=dropout_p,
-                   attn_bias=attn_bias, bias_grad=bias_grad,
+    need none. ALiBi, attention_chunk and dropout (the forward's seed, so
+    the keep mask is the forward's) run in kernels 7-8's feature
+    instances."""
+    del out, block_q, block_kv, max_seqlen_q, max_seqlen_k
+    check_unported(qv=qv, attn_bias=attn_bias, bias_grad=bias_grad,
                    score_mod=score_mod, mask_mod=mask_mod,
                    aux_tensors=aux_tensors, aux_scalars=aux_scalars)
     kw = dict(seqused_q=seqused_q, seqused_k=seqused_k,
               softmax_scale=softmax_scale, causal=causal,
-              window_size=window_size, softcap=softcap, layout=layout)
+              window_size=window_size, softcap=softcap, layout=layout,
+              alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
+              dropout_p=dropout_p, dropout_seed=dropout_seed)
     dq, delta = flash_attention_varlen_bwd_dq(
         q, k, v, do, lse, cu_seqlens_q, cu_seqlens_k, **kw)
     dk, dv = flash_attention_varlen_bwd_dkv(

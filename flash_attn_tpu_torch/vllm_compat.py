@@ -19,7 +19,12 @@ module:
     right-aligned into (nseq, max_seqlen_q);
   * a block table and `s_aux` sinks (gpt-oss), any max_seqlen_q: the same
     decode route with the sinks, which only the general decode kernel
-    takes (kernel 5, route "paged-decode-sinks").
+    takes (kernel 5, route "paged-decode-sinks");
+  * ALiBi slopes (h,) (Baichuan, MPT, BLOOM) on each of these routes:
+    kernel 6's feature instances without a block table and on a paged
+    prefill, kernel 5 on decode rows (route "paged-decode-alibi"), which
+    kernel 4 does not take. Dropout, and `s_aux` without a block table,
+    raise: the JAX entry ignores both.
 
 Pools are vLLM's (num_blocks, page, hk, d) ["phd"], head-major (num_blocks,
 hk, page, d) ["hpd"], or a fused K|V pool ["hpd_fused"]; every route reads
@@ -154,6 +159,12 @@ def _unported(what: str, item: str):
         f"ROADMAP {item}")
 
 
+def _held(what: str):
+    return NotImplementedError(
+        f"vllm_compat.flash_attn_varlen_func does not take {what}: the JAX "
+        "entry ignores it (ROADMAP section 3, held differences)")
+
+
 def flash_attn_varlen_func(
     q: torch.Tensor,   # (total_q, h, d) packed
     k: torch.Tensor,   # paged: (npages, page, hk, d); else (total_k, hk, d)
@@ -193,14 +204,14 @@ def flash_attn_varlen_func(
     whose page size is not a multiple of 8 (the sm80 route) from
     max_seqlen_q, or from the scheduler metadata's plan when its lengths and
     masking match the call's (the very tensors it was built from; otherwise
-    the plan is not used)."""
+    the plan is not used). ALiBi slopes (h,) run on every route: kernel 6's
+    feature instances (packed, and on the pools of a paged prefill), and
+    kernel 5 on decode rows, where kernel 4 has no ALiBi."""
     del fa_version, num_splits, kwargs
     if q_v is not None:
         raise _unported("q_v", "queue 1, item 10 (MLA)")
     if dropout_p > 0.0:
-        raise _unported("dropout", "queue 2, kernels 6-8 (dropout)")
-    if alibi_slopes is not None:
-        raise _unported("ALiBi", "queue 2, kernels 4 and 6-8 (ALiBi)")
+        raise _held("dropout")
     if q.element_size() == 1:
         raise _unported("1-byte (fp8) queries", "queue 2, kernels 1 and 6 "
                                                 "(fp8 queries and descales)")
@@ -216,13 +227,13 @@ def flash_attn_varlen_func(
                             "queue 2, kernels 1 and 6 (fp8 queries and "
                             "descales)")
         if s_aux is not None:
-            raise _unported("s_aux (sinks) and no block table",
-                            "queue 2, kernels 6-8 (learnable sink)")
+            raise _held("s_aux (sinks) without a block table")
         log_dispatch("varlen", route="packed", total_q=q.shape[0])
         res, lse, _ = _varlen_packed(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
             softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size, softcap=softcap, seqused_k=seqused_k,
+            window_size=window_size, softcap=softcap,
+            alibi_slopes=alibi_slopes, seqused_k=seqused_k,
             return_attn_probs=True)
         return _finish(res, lse, out, return_softmax_lse)
 
@@ -283,22 +294,25 @@ def flash_attn_varlen_func(
                      plan=plan is not None)
         res, lse = flash_attention_varlen_fwd(
             q, None, None, cu_seqlens_q, None, seqused_k=seqused_k,
-            softmax_scale=softmax_scale, causal=True,
-            window_size=window_size, softcap=softcap, kv_pools=pools,
+            alibi_slopes=alibi_slopes, softmax_scale=softmax_scale,
+            causal=True, window_size=window_size, softcap=softcap,
+            kv_pools=pools,
             block_table=table, head_dim_v=head_dim if fused else None,
             plan=plan, max_seqlen_q=None if plan is not None else sq)
         return _finish(res, lse, out, return_softmax_lse)
 
-    log_dispatch("varlen", route="paged-decode" if s_aux is None
-                 else "paged-decode-sinks", page=kc.shape[2], nseq=nseq,
+    route = ("paged-decode-sinks" if s_aux is not None else
+             "paged-decode-alibi" if alibi_slopes is not None else
+             "paged-decode")
+    log_dispatch("varlen", route=route, page=kc.shape[2], nseq=nseq,
                  total_q=total_q, fused=fused)
     fused_kw = dict(fused_kv_dim=head_dim, fused_kv_dim_v=head_dim) if fused \
         else {}
     decode_kw = dict(block_table=block_table.to(torch.int32).contiguous(),
                      softmax_scale=softmax_scale, causal=True,
                      window_left=int(window_size[0]), softcap=softcap,
-                     sink=s_aux, k_scale=k_descale, v_scale=v_descale,
-                     **fused_kw)
+                     alibi_slopes=alibi_slopes, sink=s_aux, k_scale=k_descale,
+                     v_scale=v_descale, **fused_kw)
     used = seqused_k.to(torch.int32).contiguous()
     if sq == 1 and total_q == nseq:
         # One row per sequence (vLLM's decode steps): the rows are already

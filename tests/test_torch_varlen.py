@@ -261,8 +261,7 @@ def test_plan_refuses_stale_lengths_and_other_masking(causal_window_case):
 def test_unported_arguments_raise():
     q = torch.zeros(8, 2, 64)
     cu = torch.tensor([0, 8], dtype=torch.int32)
-    for extra in (dict(dropout_p=0.1), dict(qv=q), dict(alibi_slopes=q),
-                  dict(attn_bias=q), dict(attention_chunk=4),
+    for extra in (dict(qv=q), dict(attn_bias=q),
                   dict(score_mod=lambda s, *a: s), dict(cp_world_size=2),
                   dict(aux_tensors=(q,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -231,7 +231,7 @@ def test_packed_route_and_out_buffer():
 def test_unported_arguments_raise():
     s = _step(7, **DECODE)
     t = torch.from_numpy
-    for extra in (dict(q_v=t(s["q"])), dict(alibi_slopes=torch.ones(H)),
+    for extra in (dict(q_v=t(s["q"])),
                   dict(q_descale=torch.ones(1), block_table=None),
                   dict(k_descale=torch.ones(1), block_table=None),
                   dict(s_aux=torch.ones(H), block_table=None),
