@@ -131,6 +131,27 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               both;
      speculative  decode_speculative with a TinyLlama-1.1B-width draft,
               tokens equal to greedy generate's;
+     mla_kernels, mla_fault, mla_serve, mla_profile, mla_logits,
+     mla_generate  MLA
+              serving at DeepSeek-V2-Lite's attention widths (h 16, a 64-wide
+              rope key, a 512-wide latent, one KV head): kernels 4 and 5's
+              qv paths (csrc/mla_decode.cu) and kernel 1's qv forward
+              (csrc/flash_fwd_qv.cu) against their plain versions (decode at
+              b 8 on fused and split page-16 pools, a 256-token prefill
+              chunk, a decode at 32768, generate's decode step on contiguous
+              caches, the 4096-token forward with and without qv), twice for
+              equal bits, beside SDPA over [q | qv] . [k_rope | latent]^T;
+              planted faults (qv dropped, V read at offset 64, a split
+              boundary moved by one key) that the checks must catch, lengths
+              past the cache that the kernels must answer as the plain
+              versions do; LLMEngine on the 27-layer
+              model (no experts: the dense MLP on every layer) serving the
+              serve traffic eager and graphed (equal tokens, every attention
+              launch kernel 4's qv path, pool bytes against an MHA cache);
+              the graphed prefill and decode steps under torch.profiler
+              (device time by kernel, kernel 4's qv share); the cache-free and the engine's logits against an fp32 plain
+              forward; generate(cg=True) over contiguous latent caches
+              (kernel 5's qv path);
   7. train_grad  one loss and gradient of GPT-2-medium (configs/gpt2m-synth.yaml,
               full depth, fp32 weights, bf16 compute) through the kernels,
               held against the plain model in fp32 under the 2x-bf16-eager
@@ -247,6 +268,7 @@ from flash_attn_tpu_torch.kernels.flash_sparse_gather import (  # noqa: E402
     plan_gather,
 )
 from flash_attn_tpu_torch.kernels import flash_varlen  # noqa: E402
+from flash_attn_tpu_torch.kernels import mla_attn  # noqa: E402
 from flash_attn_tpu_torch.kernels.flash_varlen import (  # noqa: E402
     _varlen_dkv_ref,
     _varlen_dq_ref,
@@ -268,7 +290,10 @@ from flash_attn_tpu_torch.losses.cross_entropy import (  # noqa: E402
 from flash_attn_tpu_torch.models.adapters import (  # noqa: E402
     llama_config_to_gpt_config,
 )
-from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel  # noqa: E402
+from flash_attn_tpu_torch.models.gpt import (  # noqa: E402
+    GPTConfig,
+    GPTLMHeadModel,
+)
 from flash_attn_tpu_torch.runtime.engine import (  # noqa: E402
     EngineConfig,
     LLMEngine,
@@ -1259,20 +1284,21 @@ def _feature_counts():
 def feature_trace_phase(seed=45):
     """The feature instances' launches read from a torch.profiler trace of
     one flash_attn_func forward and backward through autograd (the all-d64
-    case): one launch of each kernel's FeatParams instance, as the
-    wrappers' counts say."""
-    from torch.profiler import ProfilerActivity, profile
-
+    case, traced_launches): one launch of each kernel's FeatParams
+    instance, as the wrappers' counts say."""
     case = FEATURE_CASES["all-d64"]
     kw, fkw, (q, k, v, do) = feature_inputs(case, seed)
     q.requires_grad_()
-    before = _feature_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def call():
         o = flash_attn_func(q, k, v, layout="bhsd", **kw, **fkw)
         torch.autograd.grad(o, (q,), do)
-        torch.cuda.synchronize()
+
+    before = _feature_counts()
+    call()
+    torch.cuda.synchronize()
     counted = {n: c - before[n] for n, c in _feature_counts().items()}
-    by_kernel = _device_ms_by_kernel(prof, counts=True)
+    by_kernel = traced_launches(call)
 
     def instance(key, frag):
         # The kernel's template arguments end with kFeat: 0 is the
@@ -2487,10 +2513,9 @@ def varlen_train_dropout_phase(vtrain, layers=24, seed=50, p=0.1):
     """varlen_train's 24 layers with attention dropout 0.1 (a seed per
     layer, fold_seed), in the same call: its step time beside varlen_train's
     (timed again here, in turns), the launches counted, and every attention
-    launch of a profiled step read from the trace as a feature instance's
-    (kFeat 2)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    launch of a traced step read from the trace as a feature instance's
+    (kFeat 2): the most of each kernel over three traced steps
+    (traced_launches), since one trace can miss a launch."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     cu = _dev_int(_cu_of(GPT2M_DOCS))
@@ -2522,14 +2547,7 @@ def varlen_train_dropout_phase(vtrain, layers=24, seed=50, p=0.1):
     for drop in (False, True, True, False):
         ms["varlen_train_dropout" if drop else "varlen_train"].append(
             cuda_ms(lambda: step(drop), reps=5, warmup=1))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # A kernel of its own first: without it the trace of a profiled
-        # step has missed the step's first launch on the H100.
-        torch.ones(1, device=dev).add_(1)
-        torch.cuda.synchronize()
-        step(True)
-        torch.cuda.synchronize()
-    listed = _device_ms_by_kernel(prof, counts=True)
+    listed = traced_launches(lambda: step(True))
     traced = {name: dict(features=sum(c for key, c in listed.items()
                                       if (kernel_feat(key, frag) or 0) != 0),
                          feature_free=sum(c for key, c in listed.items()
@@ -2646,20 +2664,27 @@ def kernel_feat(key, fragment):
     return int(m.group(1)) if m else None
 
 
-def traced_launches(fn):
+def traced_launches(fn, cycles=3):
     """{kernel name: launches} that torch.profiler lists over one call of
-    `fn`, recorded after a warm-up cycle of another call: a first cycle's
-    trace has missed 1-4 of 40 launches on the H100."""
+    `fn`: the most of each kernel over `cycles` traced calls, after a
+    warm-up cycle of another call. A trace only loses records (a first
+    cycle's has missed 1-4 of 40 launches on the H100, and so has a single
+    cycle after a warm-up), so the most any cycle lists is the count a
+    whole trace gives."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    seen = []
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
+                                   repeat=cycles),
+                 on_trace_ready=lambda p: seen.append(
+                     _device_ms_by_kernel(p, counts=True))) as prof:
+        for _ in range(2 * cycles):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    return _device_ms_by_kernel(prof, counts=True)
+    return {key: max(cycle.get(key, 0) for cycle in seen)
+            for key in set().union(*seen)}
 
 
 def vllm_ref(q, kp, vp, cu_q, used, table, qlens, ctx, window, slopes):
@@ -3402,7 +3427,9 @@ class TimedEngine(LLMEngine):
         return sum(g.capture_s for g in self.graphs.values())
 
 
-def logits_phase(engine, model, prompt_len=4500, decode_steps=8, seed=1):
+def logits_phase(engine, model, prompt_len=4500, decode_steps=8, seed=1,
+                 phase="logits",
+                 label="Mistral-7B-v0.1 widths, random weights (seed 0)"):
     cfg = engine.config
     c = model.config
     dev = engine.device
@@ -3448,7 +3475,7 @@ def logits_phase(engine, model, prompt_len=4500, decode_steps=8, seed=1):
     floor = LOGIT_FLOOR_FRACTION * ref32.abs().max().item()
     ok = bool(torch.isfinite(port).all()) and err_port <= 2 * err_bf16 + floor
     result = dict(
-        phase="logits", model="Mistral-7B-v0.1 widths, random weights (seed 0)",
+        phase=phase, model=label,
         layers=c.n_layer, dtype="bfloat16", prompt_len=prompt_len,
         prefill_chunks=len(range(0, prompt_len, chunk)),
         decode_steps=decode_steps, rows_compared=len(positions),
@@ -3504,6 +3531,7 @@ def serve_run(engine, prompts, max_new=SERVE_NEW):
     first_id = max(engine.outputs.keys(), default=-1) + 1
     engine.record, engine.decode_logits = True, []
     flash_attention_decode_multipage.launches = 0
+    flash_attention_decode_multipage.qv_launches = 0
     flash_attention_decode_multipage.combine_launches = 0
     t0 = time.perf_counter()
     outs = engine.generate(prompts, max_new)
@@ -3529,6 +3557,7 @@ def serve_run(engine, prompts, max_new=SERVE_NEW):
         warm_up_s=warm_s, capture_s=engine.capture_s(), wall_s=wall,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         kernel_launches=launches, layers_x_steps=c.n_layer * steps,
+        qv_launches=flash_attention_decode_multipage.qv_launches,
         combine_launches=flash_attention_decode_multipage.combine_launches,
         launches_ok=launches > 0 and launches == c.n_layer * steps,
         first_request_id=first_id)
@@ -4182,16 +4211,18 @@ def _profiled_steps(engine, ids, kind, profiled):
     return steps, by_kernel, wall_ms, moved
 
 
-def _profile_entry(entry, engine, kind, steps, by_kernel, wall_ms, moved):
-    """profile_phase's numbers for one kind of step, into `entry`."""
+def _profile_entry(entry, engine, kind, steps, by_kernel, wall_ms, moved,
+                   attend_names=PAGED_ATTEND, combine_names=PAGED_COMBINE):
+    """profile_phase's numbers for one kind of step, into `entry`; kernel
+    4's kernels by the names the profiler lists them under."""
     by_kernel, listed = by_kernel
     busy = sum(by_kernel.values())
-    attn = _listed(by_kernel, PAGED_ATTEND + PAGED_COMBINE)
+    attn = _listed(by_kernel, attend_names + combine_names)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     same_steps = steps == entry["steps_unprofiled"]
     want = engine.model.config.n_layer * steps
-    attend, combine = _listed(listed, PAGED_ATTEND), _listed(listed,
-                                                             PAGED_COMBINE)
+    attend, combine = (_listed(listed, attend_names),
+                       _listed(listed, combine_names))
     entry.update(
         steps=steps, wall_ms=wall_ms,
         device_busy_ms=busy if busy > 0 else None,
@@ -6509,12 +6540,662 @@ def varlen_feature_entry(vfeat, valibi, key, name, logs):
                 launches_by_path=paths, cases=cases)
 
 
+# -- MLA serving: DeepSeek-V2-Lite's latent attention --------------------------
+
+# DeepSeek-V2-Lite, https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json:
+# its attention and dense layers at their published widths. Cut, as the JAX
+# model allows: no experts (every layer takes the dense SwiGLU MLP at
+# intermediate_size 10944, the model's layer-0 form), no YaRN rope scaling
+# (factor 40, mscale 0.707), the JAX module's softmax scale (dn + dr)^-0.5;
+# random seeded weights.
+DEEPSEEK_V2_LITE = dict(
+    hidden_size=2048, num_hidden_layers=27, num_attention_heads=16,
+    kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, intermediate_size=10944,
+    vocab_size=102400, rms_norm_eps=1e-6, rope_theta=10000.0,
+    tie_word_embeddings=False)
+MLA_H, MLA_D, MLA_DV = 16, 64, 512  # query heads, rope key, latent
+MLA_SCALE = (128 + 64) ** -0.5
+MLA_ENGINE = EngineConfig(max_batch_size=8, page_size=16, num_pages=2304,
+                          max_pages_per_seq=264, prefill_chunk=256,
+                          max_seqlen=8192)
+MLA_GEN_BATCH, MLA_GEN_PROMPT, MLA_GEN_NEW = 4, 2048, 32
+# Per (query head, visible key): the score 2 (d + dv), P C 2 dv.
+MLA_FLOPS_PER_PAIR = 2 * (MLA_D + MLA_DV) + 2 * MLA_DV
+
+
+def mla_config():
+    c = DEEPSEEK_V2_LITE
+    return GPTConfig(
+        vocab_size=c["vocab_size"], n_positions=0, n_embd=c["hidden_size"],
+        n_layer=c["num_hidden_layers"], n_head=c["num_attention_heads"],
+        n_inner=c["intermediate_size"], activation_function="swiglu",
+        rms_norm=True, layer_norm_epsilon=c["rms_norm_eps"],
+        rotary_emb_base=c["rope_theta"], attn_type="mla",
+        kv_lora_rank=c["kv_lora_rank"], q_lora_rank=c["q_lora_rank"],
+        qk_nope_head_dim=c["qk_nope_head_dim"],
+        qk_rope_head_dim=c["qk_rope_head_dim"], v_head_dim=c["v_head_dim"],
+        qkv_proj_bias=False, out_proj_bias=False, mlp_fc1_bias=False,
+        mlp_fc2_bias=False, tie_word_embeddings=c["tie_word_embeddings"],
+        dtype=torch.bfloat16)
+
+
+# name -> the call: kernel 4 over the engine's page-16 pools (decode at
+# b 8 over the serve contexts, fused and split; a 256-token prefill chunk;
+# a decode at 32768), kernel 5 over generate's contiguous caches (its decode
+# step at b 4), kernel 1's cache-free qv forward of a 4096-token sequence,
+# and its d-64 / dv-512 forward without qv (the kHasQv=false instances that
+# flash_attn_func takes for a 512-wide v).
+MLA_CASES = {
+    "decode-fused": dict(kernel=4, fused=True, sq=1, lens=DECODE_LENS),
+    "decode-split": dict(kernel=4, fused=False, sq=1, lens=DECODE_LENS),
+    "prefill-chunk-256": dict(kernel=4, fused=True, sq=256, lens=DECODE_LENS),
+    "decode-ctx32768": dict(kernel=4, fused=True, sq=1, lens=(32768,) * 8),
+    "decode-contiguous": dict(
+        kernel=5, sq=1, lens=(MLA_GEN_PROMPT + MLA_GEN_NEW - 1,) * 4,
+        smax=MLA_GEN_PROMPT + MLA_GEN_NEW),
+    "fwd-qv-s4096": dict(kernel=1, b=2, s=4096),
+    "fwd-noqv-s4096": dict(kernel=1, b=2, s=4096, qv=False),
+}
+MLA_TOLERANCE = (f"|out-ref| <= {OUT_ATOL} + {OUT_RTOL}|ref|, |lse-ref| <= "
+                 f"{LSE_ATOL}; share = the largest error over its limit")
+
+
+def mla_share(out, lse, ref_out, ref_lse):
+    """(share of the tolerance used: max over out of |out - ref| / (atol +
+    rtol |ref|) and over the finite lse of |lse - ref| / atol; it must be
+    <= 1, and rows that see nothing must agree; max abs error of out)."""
+    err = (out.float() - ref_out.float()).abs()
+    share = float((err / (OUT_ATOL + OUT_RTOL * ref_out.float().abs())).max())
+    fin = torch.isfinite(ref_lse)
+    if fin.any():
+        share = max(share, float((lse - ref_lse)[fin].abs().max()) / LSE_ATOL)
+    if not (torch.isfinite(out).all() and torch.equal(fin, torch.isfinite(lse))):
+        share = float("inf")
+    return share, float(err.max())
+
+
+def mla_inputs(name, seed):
+    """The seeded inputs of an MLA kernel case: a dict with the kernel's
+    call, its plain version's, the yardstick's (one SDPA call over [q | qv]
+    . [k_rope | latent]^T with V = latent, on the cache gathered
+    contiguous), the bound and the tensors."""
+    c = MLA_CASES[name]
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    if c["kernel"] == 1:
+        b, s = c["b"], c["s"]
+        q, k = randn(b, MLA_H, s, MLA_D), randn(b, 1, s, MLA_D)
+        v = randn(b, 1, s, MLA_DV)
+        qv = randn(b, MLA_H, s, MLA_DV) if c.get("qv", True) else None
+        kw = dict(qv=qv, causal=True, softmax_scale=MLA_SCALE)
+        pairs = MLA_H * b * s * (s + 1) // 2
+        qd = MLA_D + (MLA_DV if qv is not None else 0)  # the score's depth
+        nbytes = b * s * (2 * MLA_H * (qd + MLA_DV) + 2 * (MLA_D + MLA_DV)
+                          + 4 * MLA_H)
+        lib_q = q if qv is None else torch.cat([q, qv], -1)
+        lib_k = k if qv is None else torch.cat([k, v], -1)
+        return dict(
+            kernel=lambda: flash_attention_fwd(q, k, v, **kw),
+            plain=lambda: flash_attention_fwd_ref(q, k, v, **kw),
+            ref=lambda: flash_attention_fwd_ref(
+                q.float(), k.float(), v.float(),
+                qv=None if qv is None else qv.float(), causal=True,
+                softmax_scale=MLA_SCALE),
+            library=lambda: F.scaled_dot_product_attention(
+                lib_q, lib_k, v, is_causal=True, scale=MLA_SCALE,
+                enable_gqa=True),
+            pairs=pairs, nbytes=nbytes, flops_per_pair=2 * qd + 2 * MLA_DV,
+            b=b, sq=s, ctx=[s] * b, design="rows")
+    lens = np.asarray(c["lens"])
+    b, sq = len(lens), c["sq"]
+    q, qv = randn(b, sq, MLA_H, MLA_D), randn(b, sq, MLA_H, MLA_DV)
+    lens_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    if c["kernel"] == 4:
+        page = MLA_ENGINE.page_size
+        max_pages = -(-int(lens.max()) // page)
+        npages = b * max_pages + 1
+        table = torch.from_numpy(rng.permutation(npages - 1)[:b * max_pages]
+                                 .reshape(b, max_pages).astype(np.int32)).to(dev)
+        if c["fused"]:
+            pool = allocate_fused_paged_kv_cache(npages, page, 1, MLA_D,
+                                                 MLA_DV, device=dev)
+            pool.normal_(generator=gen)
+            pools = (pool, None)
+            views = (pool[..., :MLA_D], pool[..., 128:128 + MLA_DV])
+            pkw = dict(fused_kv_dim=MLA_D, fused_kv_dim_v=MLA_DV)
+        else:
+            pools = views = (randn(npages, 1, page, MLA_D),
+                             randn(npages, 1, page, MLA_DV))
+            pkw = {}
+        kw = dict(qv=qv, softmax_scale=MLA_SCALE, **pkw)
+        args = (q, *pools, lens_t, table)
+        kernel = lambda: flash_attention_decode_multipage(*args, **kw)
+        plain = lambda: flash_attention_decode_multipage_ref(*args, **kw)
+        ref = lambda: flash_attention_decode_multipage_ref(
+            *args, out_dtype=torch.float32, **kw)
+        tl = table.long()
+        kg, vg = (x[tl].permute(0, 2, 1, 3, 4).reshape(b, 1, -1, x.shape[-1])
+                  for x in views)
+        extra = dict(args=args, kw=kw, table=table, views=views)
+        table_bytes = 4 * table.numel()
+    else:
+        smax = c["smax"]
+        kg, vg = randn(b, 1, smax, MLA_D), randn(b, 1, smax, MLA_DV)
+        kw = dict(qv=qv, softmax_scale=MLA_SCALE)
+        kernel = lambda: flash_attention_decode_general(q, kg, vg, lens_t, **kw)
+        plain = lambda: flash_attention_decode_ref(q, kg, vg, lens_t, **kw)
+        ref = lambda: flash_attention_decode_ref(
+            q, kg, vg, lens_t, out_dtype=torch.float32, **kw)
+        extra = {}
+        table_bytes = 0
+    lib_k = torch.cat([kg, vg], -1).contiguous()
+    lib_v = vg.contiguous()
+    lib_q = torch.cat([q, qv], -1).transpose(1, 2)
+    cols = torch.arange(lib_k.shape[2], device=dev)[None, None]
+    pos = (lens_t.long()[:, None, None] - sq
+           + torch.arange(sq, device=dev)[None, :, None])
+    mask = ((cols < lens_t.long()[:, None, None]) & (cols <= pos))[:, None]
+    pairs = MLA_H * sum(int(L) * sq - sq * (sq - 1) // 2 for L in lens)
+    nbytes = (1152 * int(lens.sum()) + b * sq * MLA_H * 2 * (MLA_D + 2 * MLA_DV)
+              + b * MLA_H * sq * 4 + table_bytes + 4 * b)
+    return dict(
+        kernel=kernel, plain=plain, ref=ref,
+        library=lambda: F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=mask, scale=MLA_SCALE,
+            enable_gqa=True),
+        pairs=pairs, nbytes=nbytes, b=b, sq=sq, ctx=lens.tolist(),
+        design="split-kv" if sq * MLA_H <= 16 else "rows",
+        q=q, qv=qv, lens=lens_t, **extra)
+
+
+def mla_bound(pairs, nbytes, flops_per_pair=MLA_FLOPS_PER_PAIR):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops_per_pair * pairs / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mla_case(name, seed):
+    """One MLA kernel case: the kernel against its plain version (fp32) on
+    the same inputs, twice for equal bits, timed (eager, from a CUDA graph
+    for decode steps), beside its plain version, the SDPA yardstick and the
+    card's bound for the work."""
+    c = MLA_CASES[name]
+    t = mla_inputs(name, seed)
+    out, lse = t["kernel"]()
+    out2, lse2 = t["kernel"]()
+    torch.cuda.synchronize()
+    bits_equal = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2
+    ref_out, ref_lse = t["ref"]()
+    share, max_err = mla_share(out, lse, ref_out, ref_lse)
+    del ref_out, ref_lse
+    counts = (flash_attention_fwd.launches, flash_attention_fwd.qv_launches,
+              flash_attention_decode_multipage.launches,
+              flash_attention_decode_multipage.qv_launches,
+              flash_attention_decode_multipage.combine_launches,
+              flash_attention_decode_general.launches,
+              flash_attention_decode_general.qv_launches,
+              flash_attention_decode_general.combine_launches)
+    ms = cuda_ms(t["kernel"], reps=10 if c["kernel"] == 1 else 20)
+    kernel_graph_ms = (graph_ms(t["kernel"]) if t["design"] == "split-kv"
+                       else None)
+    plain_ms = cuda_ms(t["plain"], reps=3, warmup=1)
+    library_ms = cuda_ms(t["library"], reps=5, warmup=1)
+    (flash_attention_fwd.launches, flash_attention_fwd.qv_launches,
+     flash_attention_decode_multipage.launches,
+     flash_attention_decode_multipage.qv_launches,
+     flash_attention_decode_multipage.combine_launches,
+     flash_attention_decode_general.launches,
+     flash_attention_decode_general.qv_launches,
+     flash_attention_decode_general.combine_launches) = counts
+    bound_ms, bound_by = mla_bound(
+        t["pairs"], t["nbytes"],
+        t.get("flops_per_pair", MLA_FLOPS_PER_PAIR))
+    splits = (fdm.splits_of(t["q"], t["views"][0], t["table"], -1)
+              if c["kernel"] == 4 else
+              fdm.num_splits_for(t["b"], 1, 1, MLA_H, c["smax"], -1,
+                                 fdm.sm_count(0)) if c["kernel"] == 5 else 1)
+    ok = share <= 1.0 and bits_equal
+    result = dict(
+        phase="mla_kernels", case=name, kernel=c["kernel"], b=t["b"],
+        sq=t["sq"], h=MLA_H, hk=1, d=MLA_D, dv=MLA_DV,
+        has_qv=c.get("qv", True), contexts=[min(t["ctx"]), max(t["ctx"])],
+        cache=("fused page-16 pool" if c.get("fused") else "split page-16 pools"
+               if c["kernel"] == 4 else "contiguous" if c["kernel"] == 5
+               else "dense (b, s, h, .)"),
+        design=t["design"], num_splits=splits, max_abs_err=max_err,
+        tolerance_share=share, tolerance=MLA_TOLERANCE,
+        bits_equal_run_to_run=bits_equal, ms=ms, graph_ms=kernel_graph_ms,
+        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bound_share=bound_ms / ms,
+        visible_pairs=t["pairs"], bytes=t["nbytes"], ok=ok)
+    emit(result)
+    check(ok, f"mla_kernels case {name}: off its plain version or not equal "
+              "in bits run to run")
+    return result
+
+
+def mla_fault_phase(seed=97, num_splits=3):
+    """The MLA checks' power: planted faults whose share of the tolerance
+    must read > 1: the qv term dropped (the kernel handed a zero qv), the
+    V section read at offset 64 instead of 128 of the fused pool (the
+    kernel handed that view), and the plain split schedule with split 1
+    starting one key late (at contexts of 70-200 keys over three splits,
+    where one key carries weight); the kernel's own three-split call on
+    those inputs must pass, and so must its calls with lengths past the
+    keys the cache holds (a page table or a contiguous cache too short),
+    where it sees only the cache's keys, as the plain versions do."""
+    t = mla_inputs("decode-fused", seed)
+    ref_out, ref_lse = t["ref"]()
+    shares = {}
+    kw = dict(t["kw"], qv=torch.zeros_like(t["qv"]))
+    shares["qv_dropped"] = mla_share(
+        *flash_attention_decode_multipage(*t["args"], **kw), ref_out,
+        ref_lse)[0]
+    pool = t["args"][1]
+    shares["v_at_offset_64"] = mla_share(
+        *mla_attn.decode(t["q"], t["qv"], pool[..., :MLA_D],
+                         pool[..., MLA_D:MLA_D + MLA_DV], t["lens"],
+                         t["table"], fdm.splits_of(t["q"], t["views"][0],
+                                                   t["table"], -1),
+                         MLA_SCALE), ref_out, ref_lse)[0]
+    del ref_out, ref_lse
+    # Short contexts over three splits.
+    lens = np.random.RandomState(seed).randint(70, 201, t["b"])
+    lens_t = torch.from_numpy(lens.astype(np.int32)).cuda()
+    q, qv, table = t["q"], t["qv"], t["table"]
+    ref_out, ref_lse = flash_attention_decode_multipage_ref(
+        q, pool, None, lens_t, table, out_dtype=torch.float32, **t["kw"])
+    shares["kernel_three_splits"] = mla_share(
+        *mla_attn.decode(q, qv, *t["views"], lens_t, table, num_splits,
+                         MLA_SCALE), ref_out, ref_lse)[0]
+    moved = [[(lo + (i == 1 and hi > lo), hi) for i, (lo, hi) in
+              enumerate(split_ranges(int(n), 1, -1, num_splits))]
+             for n in lens]
+    shares["split_boundary_moved"] = mla_share(
+        *flash_attention_decode_multipage_split_ref(
+            q, pool, None, lens_t, table, num_splits, ranges=moved,
+            **t["kw"]), ref_out, ref_lse)[0]
+    # Lengths past the cache: kernel 4 past its table's pages, kernel 5
+    # past a 256-key contiguous cache.
+    cap = table.shape[1] * MLA_ENGINE.page_size
+    over = torch.full_like(t["lens"], cap + 7)
+    args = (q, pool, None, over, table)
+    shares["kernel_lengths_past_pages"] = mla_share(
+        *flash_attention_decode_multipage(*args, **t["kw"]),
+        *flash_attention_decode_multipage_ref(*args, out_dtype=torch.float32,
+                                              **t["kw"]))[0]
+    smax = 256
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kc, vc = (torch.randn(4, 1, smax, w, generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for w in (MLA_D, MLA_DV))
+    lens4 = torch.tensor([smax, smax + 5, smax + 300, 3 * smax],
+                         dtype=torch.int32, device="cuda")
+    kw = dict(qv=qv[:4], softmax_scale=MLA_SCALE)
+    shares["kernel_lengths_past_smax"] = mla_share(
+        *flash_attention_decode_general(q[:4], kc, vc, lens4, **kw),
+        *flash_attention_decode_ref(q[:4], kc, vc, lens4,
+                                    out_dtype=torch.float32, **kw))[0]
+    ok = all(v <= 1.0 if k.startswith("kernel_") else v > 1.0
+             for k, v in shares.items())
+    emit(dict(phase="mla_fault", tolerance=MLA_TOLERANCE,
+              short_contexts=lens.tolist(), num_splits=num_splits,
+              tolerance_share=shares, ok=ok))
+    check(ok, "mla_fault: a planted fault passes the check, or one of the "
+              "kernel's own calls (three splits, lengths past the cache) "
+              "fails it")
+
+
+def _mla_counts():
+    return dict(
+        flash_fwd_qv=flash_attention_fwd.qv_launches,
+        flash_fwd=flash_attention_fwd.launches,
+        paged_decode=flash_attention_decode_multipage.launches,
+        paged_decode_qv=flash_attention_decode_multipage.qv_launches,
+        general_decode=flash_attention_decode_general.launches,
+        general_decode_qv=flash_attention_decode_general.qv_launches)
+
+
+def _zero_mla_counts():
+    flash_attention_fwd.launches = flash_attention_fwd.qv_launches = 0
+    flash_attention_decode_multipage.launches = 0
+    flash_attention_decode_multipage.qv_launches = 0
+    flash_attention_decode_multipage.combine_launches = 0
+    flash_attention_decode_general.launches = 0
+    flash_attention_decode_general.qv_launches = 0
+    flash_attention_decode_general.combine_launches = 0
+
+
+def mla_serve_phase(model):
+    """LLMEngine on the DeepSeek-V2-Lite-width model, fused latent pools,
+    serving the serve phase's traffic (8 prompts, seed 2, 32 new tokens):
+    eagerly (cg=False), then graphed; equal tokens; on both every attention
+    launch of the steps a qv launch of kernel 4 (layers x steps); the
+    pools' bytes against an MHA cache at the same widths; prefill and
+    decode tokens/s. Returns (result, the graphed engine)."""
+    c = model.config
+    lens, prompts = serve_prompts(c.vocab_size)
+    runs = {}
+    engine = None
+    for cg in (False, True):
+        engine = TimedEngine(model, MLA_ENGINE, device="cuda", cg=cg)
+        outs, stats = serve_run(engine, prompts)
+        runs[cg] = (outs, stats)
+        if not cg:
+            pools = pool_bytes(engine.caches)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    (eager_outs, eager), (outs, graphed) = runs[False], runs[True]
+    tokens = MLA_ENGINE.page_size * (MLA_ENGINE.num_pages + 1)
+    mha_bytes = c.n_layer * tokens * c.n_head * (
+        c.qk_nope_head_dim + c.qk_rope_head_dim + c.v_head_dim) * 2
+    launches_ok = all(s["launches_ok"] and s["qv_launches"] == s["kernel_launches"]
+                      for s in (eager, graphed))
+    ok = launches_ok and outs == eager_outs and graphed["graphed"]
+    for stats in (eager, graphed):
+        stats["prefill_ms_per_step"] = (1e3 * stats["prefill_s"]
+                                        / max(stats["prefill_steps"], 1))
+    keys = ("prefill_tokens_per_s", "decode_tokens_per_s", "decode_ms_per_step",
+            "prefill_ms_per_step",
+            "prefill_steps", "decode_steps", "kernel_launches", "qv_launches",
+            "combine_launches", "layers_x_steps", "peak_memory_gb",
+            "capture_s", "wall_s")
+    result = dict(
+        phase="mla_serve", model="DeepSeek-V2-Lite attention widths, dense "
+        "MLP 10944 on all 27 layers, random weights (seed 0)",
+        layers=c.n_layer, prompt_lens=lens.tolist(), new_tokens=SERVE_NEW,
+        pool="fused rope|latent page pools, page 16, one KV head",
+        pool_gb=pools / 1e9, mha_cache_gb=mha_bytes / 1e9,
+        pool_over_mha=pools / mha_bytes,
+        bytes_per_token_per_layer=dict(
+            latent_pool=pools // (c.n_layer * tokens),
+            latent_unpadded=2 * (c.qk_rope_head_dim + c.kv_lora_rank),
+            mha_expanded=mha_bytes // (c.n_layer * tokens)),
+        graphed={k: graphed[k] for k in keys},
+        eager={k: eager[k] for k in keys},
+        graphed_over_eager_decode=(graphed["decode_tokens_per_s"]
+                                   / eager["decode_tokens_per_s"]),
+        tokens_equal=outs == eager_outs, launches_ok=launches_ok, ok=ok)
+    emit(result)
+    check(ok, "mla_serve: graphed tokens differ from eager, or an attention "
+              "launch that is not kernel 4's qv path")
+    return result, engine
+
+
+# Kernel 4's qv path by the names the profiler lists: the attention kernel
+# (split-KV for decode, 64-row tiles for chunks) and the split-KV combine.
+MLA_ATTEND = ("mla_attn_kernel",)
+MLA_COMBINE = ("mla_combine_kernel",)
+
+
+def mla_profile_phase(engine, model):
+    """Where a graphed MLA step's time goes: `mla_serve`'s traffic (8
+    prompts, seed 2, 32 new tokens) through the graphed engine once more,
+    its prefill steps and then its decode steps under torch.profiler
+    (device activity only), as profile_phase does for the MHA engine:
+    device time by kernel beside the host wall, per step, and kernel 4's
+    qv kernels' share. The same traffic runs first without the profiler,
+    for the wall per step without the profiler's cost. Fails if the
+    profiler lists no time of kernel 4's qv kernel in either kind of
+    step."""
+    c = model.config
+    _, prompts = serve_prompts(c.vocab_size)
+    result = dict(phase="mla_profile", requests=len(prompts),
+                  max_new_tokens=SERVE_NEW, layers=c.n_layer)
+    for profiled in (False, True):
+        base = max(engine.outputs.keys(), default=-1) + 1
+        ids = range(base, base + len(prompts))
+        for rid, prompt in zip(ids, prompts):
+            engine.add_request(rid, prompt, SERVE_NEW)
+        for kind in ("prefill", "decode"):
+            steps, by_kernel, wall_ms, moved = _profiled_steps(
+                engine, ids, kind, profiled)
+            if not profiled:
+                result[kind] = dict(steps_unprofiled=steps,
+                                    wall_ms_unprofiled=wall_ms)
+                continue
+            entry = result[kind]
+            _profile_entry(entry, engine, kind, steps, by_kernel, wall_ms,
+                           moved, MLA_ATTEND, MLA_COMBINE)
+            n = max(steps, 1)
+            entry.update(
+                wall_ms_per_step_unprofiled=(entry["wall_ms_unprofiled"]
+                                             / max(entry["steps_unprofiled"], 1)),
+                device_busy_ms_per_step=(entry["device_busy_ms"] or 0.0) / n,
+                mla_kernel_ms_per_step=(entry["paged_decode_ms"] or 0.0) / n)
+    result["ok"] = all(result[kind]["graphed"]
+                       and (result[kind]["paged_decode_ms"] or 0.0) > 0.0
+                       for kind in ("prefill", "decode"))
+    emit(result)
+    check(result["ok"], "mla_profile: the profiler listed no time of kernel "
+                        "4's qv kernel, or a step was not graphed")
+    return result
+
+
+def mla_logits_phase(engine, model, prompt_len=2048, seed=1):
+    """The model's cache-free logits (kernel 1's qv forward in every layer)
+    over a 2048-token prompt against an fp32 plain forward (the expanded,
+    un-absorbed MLA: utils.testing), and the engine's prefill-chunk and
+    decode logits (logits_phase), each under the 2x bf16-eager contract."""
+    c = model.config
+    decode = logits_phase(engine, model, prompt_len=prompt_len, seed=seed,
+                          phase="mla_logits_engine",
+                          label="DeepSeek-V2-Lite attention widths, random "
+                                "weights (seed 0)")
+    rng = np.random.RandomState(seed + 1)
+    ids = torch.from_numpy(rng.randint(0, c.vocab_size, (1, prompt_len))).cuda()
+    _zero_mla_counts()
+    with torch.no_grad():
+        port = model(ids).float()[0]
+    counts = _mla_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref32 = gpt_forward_ref(model, ids, dtype=torch.float32)[0]
+    err_port = (port - ref32).abs().max().item()
+    del port
+    ref16 = gpt_forward_ref(model, ids, dtype=torch.bfloat16)[0].float()
+    err_bf16 = (ref16 - ref32).abs().max().item()
+    floor = LOGIT_FLOOR_FRACTION * ref32.abs().max().item()
+    del ref16, ref32
+    want = dict(flash_fwd_qv=c.n_layer, flash_fwd=c.n_layer)
+    launches_ok = all(counts[k] == v for k, v in want.items())
+    ok = err_port <= 2 * err_bf16 + floor and launches_ok
+    result = dict(
+        phase="mla_logits", cache_free=dict(
+            prompt_len=prompt_len, positions_compared=prompt_len,
+            max_abs_err_port=err_port, max_abs_err_bf16_eager=err_bf16,
+            floor=floor, limit=2 * err_bf16 + floor, launches=counts,
+            launches_expected=want),
+        engine=dict((k, decode[k]) for k in (
+            "max_abs_err_port", "max_abs_err_bf16_eager", "floor", "limit",
+            "rows_compared", "argmax_agreement")),
+        ok=ok)
+    emit(result)
+    check(ok, "mla_logits: cache-free logits outside the 2x bf16-eager "
+              "contract, or a layer not on kernel 1's qv forward")
+    return dict(result, limit=decode["limit"])
+
+
+def mla_generate_phase(model, logits_limit, seed=6):
+    """`generate(cg=True)` of the MLA model over contiguous latent caches
+    (kernel 5's qv path in every layer, the prefill and each decode step),
+    batch 4, 2048-token prompts, 32 new tokens, greedy with scores: every
+    row's scores against an fp32 plain forward under the 2x bf16-eager
+    contract, launches = layers x forwards, all qv launches; cg=False equal
+    in bits; decode tokens/s from the walls of 32 and 16 new tokens."""
+    c = model.config
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(
+        0, c.vocab_size, (MLA_GEN_BATCH, MLA_GEN_PROMPT))).cuda()
+    length = MLA_GEN_PROMPT + MLA_GEN_NEW
+    _zero_mla_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, length, return_dict_in_generate=True,
+                         output_scores=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _mla_counts()
+    want = dict(general_decode=c.n_layer * MLA_GEN_NEW,
+                general_decode_qv=c.n_layer * MLA_GEN_NEW, paged_decode=0,
+                flash_fwd=0)
+    launches_ok = all(counts[k] == v for k, v in want.items())
+    seqs, scores = out.sequences, out.scores
+    argmax_ok = bool(torch.equal(scores.argmax(-1), seqs[:, MLA_GEN_PROMPT + 1:]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err_port = err_bf16 = ref_max = 0.0
+    for i in range(MLA_GEN_BATCH):
+        row = seqs[i:i + 1, :length - 1]
+        ref32 = gpt_forward_ref(model, row, dtype=torch.float32)[
+            0, MLA_GEN_PROMPT:]
+        ref16 = gpt_forward_ref(model, row, dtype=torch.bfloat16)[
+            0, MLA_GEN_PROMPT:].float()
+        err_port = max(err_port, (scores[i] - ref32).abs().max().item())
+        err_bf16 = max(err_bf16, (ref16 - ref32).abs().max().item())
+        ref_max = max(ref_max, ref32.abs().max().item())
+        del ref32, ref16
+    floor = LOGIT_FLOOR_FRACTION * ref_max
+    scores_ok = (bool(torch.isfinite(scores).all())
+                 and err_port <= 2 * err_bf16 + floor)
+    eager = model.generate(ids, length, return_dict_in_generate=True,
+                           output_scores=True, cg=False)
+    cg_equal = (torch.equal(eager.sequences, seqs)
+                and torch.equal(eager.scores, scores))
+    del eager, out, scores
+
+    def timed(new, cg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(ids, MLA_GEN_PROMPT + new, cg=cg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    half = MLA_GEN_NEW // 2
+    by_cg = {}
+    for cg, name in ((True, "graphed"), (False, "eager")):
+        walls = {new: min(timed(new, cg) for _ in range(2))
+                 for new in (MLA_GEN_NEW, half)}
+        step_s = (walls[MLA_GEN_NEW] - walls[half]) / (MLA_GEN_NEW - half)
+        by_cg[name] = dict(whole_call_s=walls[MLA_GEN_NEW],
+                           decode_ms_per_step=1e3 * step_s,
+                           decode_tokens_per_s=MLA_GEN_BATCH / step_s)
+    ok = argmax_ok and scores_ok and launches_ok and cg_equal
+    result = dict(
+        phase="mla_generate", batch=MLA_GEN_BATCH, prompt_len=MLA_GEN_PROMPT,
+        new_tokens=MLA_GEN_NEW,
+        cache=f"contiguous (rope (b, 1, {length}, 64), latent (b, 1, "
+              f"{length}, 512)) bf16 per layer",
+        max_abs_err_port=err_port, max_abs_err_bf16_eager=err_bf16,
+        floor=floor, limit=2 * err_bf16 + floor, scores_ok=scores_ok,
+        tokens_are_argmax_of_scores=argmax_ok, launches=counts,
+        launches_expected=want, cg_equal_to_eager_bits=cg_equal, wall_s=wall,
+        cg=by_cg, logits_limit_of_mla_logits=logits_limit, ok=ok)
+    emit(result)
+    check(ok, "mla_generate: scores outside the contract, a token not the "
+              "argmax of its step, launches off the count, or cg=True not "
+              "equal in bits to cg=False")
+    return result
+
+
+def mla_phases():
+    """The MLA phases in order; returns what the kernels line needs."""
+    cases = {name: mla_case(name, seed=300 + i)
+             for i, name in enumerate(MLA_CASES)}
+    mla_fault_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTLMHeadModel(mla_config(), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    emit(dict(phase="mla_model", layers=model.config.n_layer,
+              params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+              memory_gb=torch.cuda.memory_allocated() / 1e9))
+    serve, engine = mla_serve_phase(model)
+    mla_profile_phase(engine, model)
+    logits = mla_logits_phase(engine, model)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = mla_generate_phase(model, logits["limit"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(cases=cases, serve=serve, logits=logits, generate=gen)
+
+
+def mla_kernel_entries(mla, logs):
+    """The kernels line's entries of the qv instances: kernel 4's and
+    kernel 5's qv paths (csrc/mla_decode.cu) and kernel 1's qv forward
+    (csrc/flash_fwd_qv.cu), each with its cases, registers and the
+    launches of its main path (mla_serve graphed, mla_generate,
+    mla_logits's cache-free forward)."""
+    cases = mla["cases"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(case):
+        return dict({k: cases[case][k] for k in keys},
+                    graph_ms=cases[case]["graph_ms"],
+                    tolerance_share=cases[case]["tolerance_share"],
+                    has_qv=cases[case]["has_qv"],
+                    shape=f"b={cases[case]['b']} sq={cases[case]['sq']} h=16 "
+                          f"hk=1 d=64 dv=512, contexts "
+                          f"{cases[case]['contexts']}, {cases[case]['cache']}")
+
+    dec = {"mla_decode": logs.get("mla_decode", "")}
+    fwd = {"flash_fwd_qv": logs.get("flash_fwd_qv", "")}
+    k4 = [n for n, cs in MLA_CASES.items() if cs["kernel"] == 4]
+    k1 = [n for n, cs in MLA_CASES.items() if cs["kernel"] == 1]
+    return [
+        dict(name="mla_decode_paged", route="cuda",
+             source="flash_attn_tpu_torch/csrc/mla_decode.cu",
+             replaces="flash_attn_tpu/kernels/flash_decode_multipage.py:65",
+             path="kernel 4's qv path (qv term at :262)",
+             launches=mla["serve"]["graphed"]["qv_launches"],
+             launches_by_path=dict(
+                 mla_serve=mla["serve"]["graphed"]["qv_launches"],
+                 mla_serve_eager=mla["serve"]["eager"]["qv_launches"]),
+             max_abs_err=max(cases[n]["max_abs_err"] for n in k4),
+             **{k: cases["decode-fused"][k] for k in keys},
+             shape=entry("decode-fused")["shape"],
+             cases={n: entry(n) for n in k4},
+             ptxas=dict(attn=ptxas_of(dec, "mla_attn_kernel"),
+                        combine=ptxas_of(dec, "mla_combine_kernel"))),
+        dict(name="mla_decode_contiguous", route="cuda",
+             source="flash_attn_tpu_torch/csrc/mla_decode.cu",
+             replaces="flash_attn_tpu/kernels/flash_decode.py:56",
+             path="kernel 5's qv path (qv term at :187)",
+             launches=mla["generate"]["launches"]["general_decode_qv"],
+             max_abs_err=cases["decode-contiguous"]["max_abs_err"],
+             **{k: cases["decode-contiguous"][k] for k in keys},
+             graph_ms=cases["decode-contiguous"]["graph_ms"],
+             shape=entry("decode-contiguous")["shape"],
+             ptxas=dict(attn=ptxas_of(dec, "mla_attn_kernel"))),
+        dict(name="flash_fwd_qv", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_fwd_qv.cu",
+             replaces="flash_attn_tpu/kernels/flash_fwd.py:95",
+             path="kernel 1's qv forward (qv term at :291)",
+             launches=mla["logits"]["cache_free"]["launches"]["flash_fwd_qv"],
+             max_abs_err=max(cases[n]["max_abs_err"] for n in k1),
+             **{k: cases["fwd-qv-s4096"][k] for k in keys},
+             shape=entry("fwd-qv-s4096")["shape"],
+             cases={n: entry(n) for n in k1},
+             ptxas=dict(attn=ptxas_of(fwd, "mla_attn_kernel"))),
+    ]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", nargs="+",
         choices=("kernel", "attn", "features", "varlen", "varlen_features",
-                 "vllm", "decode", "sparse", "blocksparse", "quant"),
+                 "vllm", "decode", "sparse", "blocksparse", "quant", "mla"),
         help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
              "the attn_features phases, "
              "varlen_kernels + varlen_fault + varlen_train, the "
@@ -6522,8 +7203,8 @@ def main(argv=None):
              "vllm, "
              "decode_kernels + decode_fault, the sparse phases, the "
              "block-sparse phases, quant_kernels + quant_fault + quant_vllm "
-             "+ quant_serve) and stop, with no result line: for iterating "
-             "on one kernel")
+             "+ quant_serve, the MLA phases) and stop, with no result line: "
+             "for iterating on one kernel")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6585,6 +7266,8 @@ def main(argv=None):
                 llama_config_to_gpt_config(MISTRAL_7B), device="cuda",
                 generator=torch.Generator(device="cuda").manual_seed(0))
             quant_serve_phase(TimedEngine(model, ENGINE, device="cuda"), model)
+        if "mla" in only:
+            mla_phases()
         print(smi(), flush=True)
         return 0
 
@@ -6672,6 +7355,7 @@ def main(argv=None):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    mla = mla_phases()
 
     train_grad_phase()
     gc.collect()
@@ -6982,6 +7666,7 @@ def main(argv=None):
         kernels.append(entry)
     kernels += sparse_kernel_entries(sparse, logs)
     kernels += blocksparse_kernel_entries(bsr, logs)
+    kernels += mla_kernel_entries(mla, logs)
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -173,6 +173,28 @@ class _FlashAttnCore(torch.autograd.Function):
         return dq, dk, dv, dsink, None, None, None, None, None
 
 
+class _FlashAttnQvCore(torch.autograd.Function):
+    """out, lse = attention(q, k, v) with MLA's absorbed query qv, in (b,
+    h, s, d): kernel 1's qv forward (`csrc/flash_fwd_qv.cu` on the card).
+    Its backward (dQv on kernels 2-3) is not ported yet and raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qv, softmax_scale, causal, window_size,
+                softcap, extras):
+        q, k, v, qv = (rows_dense(x) for x in (q, k, v, qv))
+        out, lse = flash_attention_fwd(
+            q, k, v, qv=qv, softmax_scale=softmax_scale, causal=causal,
+            window_size=window_size, softcap=softcap, **extras)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        raise NotImplementedError(
+            "the backward through qv is not ported yet: ROADMAP queue 1, "
+            "item 10 (MLA training: dQv on kernels 2-3)")
+
+
 def _gathered_probs(s, mask, scale, softcap):
     """Softmax over the gathered keys (last dim) of raw scores s, scaled or
     softcapped, masked; a row with no key gives 0."""
@@ -309,7 +331,10 @@ def flash_attn_func(
     in both packages; `dropout_seed` is an int or a scalar tensor (a CUDA
     one is read back), 0 when None, as in the JAX package.
     `gather_kv_indices` (b, sq, topk) runs top-k gathered attention in
-    plain torch, as the JAX package runs it in XLA.
+    plain torch, as the JAX package runs it in XLA. `qv` (b, sq, h, dv) is
+    MLA's absorbed query (v (b, sk, hk, dv) is the latent): the scores
+    gain qv . v and the default scale is (d + dv)^-0.5; on the card it runs
+    kernel 1's qv forward (d 64, dv 512), and its backward raises.
 
     `deterministic` and `bias_grad` are taken so that calls written for
     the JAX API run unchanged, and nothing reads them: the backward is
@@ -352,7 +377,7 @@ def flash_attn_func(
                             softcap), None)
     else:
         extras = dict(
-            qv=qv, bias=attn_bias, alibi_slopes=alibi_slopes,
+            bias=attn_bias, alibi_slopes=alibi_slopes,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
             attention_chunk=attention_chunk,
@@ -361,10 +386,15 @@ def flash_attn_func(
             score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors,
             aux_scalars=aux_scalars,
         )
-        out, lse = _FlashAttnCore.apply(
-            q_, k_, v_, sink, softmax_scale, bool(causal),
-            tuple(int(w) for w in window_size), float(softcap), extras,
-        )
+        args = (softmax_scale, bool(causal),
+                tuple(int(w) for w in window_size), float(softcap))
+        if qv is not None:
+            if sink is not None:
+                extras["sink"] = sink
+            qv_ = qv.transpose(1, 2) if layout == "bshd" else qv
+            out, lse = _FlashAttnQvCore.apply(q_, k_, v_, qv_, *args, extras)
+        else:
+            out, lse = _FlashAttnCore.apply(q_, k_, v_, sink, *args, extras)
     if layout == "bshd":
         out = out.transpose(1, 2)
     if return_attn_probs:

@@ -379,8 +379,12 @@ def flash_attention_bwd(
     kernel, not from rowsum(dO * O). `lse` is the forward's, which carries
     a learnable sink; the sink's own gradient is the caller's
     (flash_attn_interface)."""
+    if qv is not None:
+        raise NotImplementedError(
+            "the backward through qv is not ported yet: ROADMAP queue 1, "
+            "item 10 (MLA training: dQv on kernels 2-3)")
     check_unported(
-        qv=qv, bias=bias, score_mod=score_mod, mask_mod=mask_mod,
+        bias=bias, score_mod=score_mod, mask_mod=mask_mod,
         aux_tensors=tuple(aux_tensors or ()),
         aux_scalars=tuple(aux_scalars or ()),
     )

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.kernels import mla_attn
 from flash_attn_tpu_torch.kernels.common import (
     QUANT_DTYPES,
     check_rows_dense,
@@ -57,21 +58,38 @@ from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
     flash_attention_decode_multipage,
     sm_count,
 )
+from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
+    num_splits_for as num_splits_mp,
+)
 
 # Keeps `pos - window_left` inside int32 in the kernel.
 _WINDOW_CAP = 1 << 30
 
 
-def _check_unported(q, k_cache, v_cache) -> None:
+def _check_unported(q, k_cache, v_cache, qv=None, **features) -> None:
+    """What kernel 5 does not take yet. Without qv: head dims other than
+    64/128 and a V head dim other than q's. With qv (MLA's absorbed decode
+    over a latent cache, causal only: the MLA kernel's): any of the
+    features in `features` (leftpad, batch index, ALiBi, sink, descales,
+    window, chunk, sink tokens, softcap); its (d, dv) pair is checked on
+    the card (`mla_attn.check_pair`), since the plain version takes any."""
     d = q.shape[-1]
+    if qv is not None:
+        used = [name for name, val in features.items()
+                if torch.is_tensor(val) or val not in (None, 0, -1)]
+        if used:
+            raise NotImplementedError(
+                f"qv with {', '.join(used)} is not ported yet: ROADMAP "
+                "queue 2, kernels 4 and 5 (qv with features)")
+        return
     if d not in (64, 128):
         raise NotImplementedError(
             f"head dim {d}: the general decode kernel takes 64 or 128, ROADMAP "
             "queue 2, kernel 5 (other head dims)")
     if v_cache.shape[-1] != d:
         raise NotImplementedError(
-            "a V head dim other than q's is MLA's: ROADMAP queue 1, item 10 "
-            "(MLA)")
+            f"a V head dim ({v_cache.shape[-1]}) other than q's ({d}) without "
+            "qv: ROADMAP queue 2, kernel 5 (other (d, dv) pairs)")
 
 
 def flash_attention_decode(
@@ -97,9 +115,12 @@ def flash_attention_decode(
     fused_kv_dim: int = 0,
     fused_kv_dim_v: int = 0,
 ):
-    """Decode attention over a KV cache. Returns (out (b, sq, h, d), lse
+    """Decode attention over a KV cache. Returns (out (b, sq, h, dv), lse
     (b, h, sq) fp32). Query token i of sq sits at position seqlen - sq + i;
-    with causal it attends cache positions <= that."""
+    with causal it attends cache positions <= that. `qv` (b, sq, h, dv) is
+    MLA's absorbed query over a latent cache (k_cache the rope key,
+    v_cache the latent): the scores gain qv . V and the default scale is
+    (d + dv)^-0.5."""
     paged = block_table is not None
     quant = check_quant(q, k_cache, qv)
     descaled = k_scale is not None or v_scale is not None
@@ -130,9 +151,14 @@ def flash_attention_decode(
         return flash_attention_decode_multipage(
             q, k_cache, v_cache, cache_seqlens, block_table, qv=qv,
             k_scale=k_scale, v_scale=v_scale, **kw)
-    _check_unported(q, k_cache, v_cache)
+    _check_unported(q, k_cache, v_cache, qv, cache_leftpad=cache_leftpad,
+                    cache_batch_idx=cache_batch_idx,
+                    alibi_slopes=alibi_slopes, sink=sink, k_scale=k_scale,
+                    v_scale=v_scale, window_left=window_left,
+                    attention_chunk=attention_chunk,
+                    sink_token_length=sink_token_length, softcap=softcap)
     return flash_attention_decode_general(
-        q, k_cache, v_cache, cache_seqlens, block_table=block_table,
+        q, k_cache, v_cache, cache_seqlens, qv=qv, block_table=block_table,
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
         alibi_slopes=alibi_slopes, sink=sink, causal=causal,
         attention_chunk=attention_chunk,
@@ -146,6 +172,7 @@ def flash_attention_decode_general(
     v_cache: torch.Tensor,
     cache_seqlens: torch.Tensor,
     *,
+    qv: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     cache_batch_idx: Optional[torch.Tensor] = None,
     cache_leftpad: Optional[torch.Tensor] = None,
@@ -163,8 +190,9 @@ def flash_attention_decode_general(
     """Kernel 5. CUDA tensors launch `csrc/decode.cu` (`decode_scaled.cu`,
     `decode_int8.cu` or `decode_e4m3.cu` for a cache with descales, int8 or
     e4m3; each launch counted in `flash_attention_decode_general.launches`,
-    a split-KV call's combine kernel in `.combine_launches`); CPU tensors
-    take `flash_attention_decode_ref`."""
+    a split-KV call's combine kernel in `.combine_launches`), or with `qv`
+    `csrc/mla_decode.cu` over the latent cache (counted also in
+    `.qv_launches`); CPU tensors take `flash_attention_decode_ref`."""
     if block_table is not None and cache_batch_idx is not None:
         raise ValueError("cache_batch_idx picks rows of a contiguous cache; "
                          "a paged cache takes none")
@@ -176,12 +204,43 @@ def flash_attention_decode_general(
               k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
         return flash_attention_decode_ref(q, k_cache, v_cache, cache_seqlens,
-                                          **kw)
+                                          qv=qv, **kw)
+    if qv is not None:
+        return _launch_qv(q, qv, k_cache, v_cache, cache_seqlens,
+                          block_table, softmax_scale, causal)
     return _launch(q, k_cache, v_cache, cache_seqlens, **kw)
 
 
 flash_attention_decode_general.launches = 0
+flash_attention_decode_general.qv_launches = 0
 flash_attention_decode_general.combine_launches = 0
+
+
+def _launch_qv(q, qv, k_cache, v_cache, cache_seqlens, block_table,
+               softmax_scale, causal):
+    """Kernel 5's qv path: csrc/mla_decode.cu over contiguous (b, hk, smax,
+    .) latent caches (or paged ones), split-KV as kernel 4's qv path for
+    calls of at most 16 packed rows."""
+    d, dv = q.shape[-1], v_cache.shape[-1]
+    if softmax_scale is None:
+        softmax_scale = (d + dv) ** -0.5
+    if cache_seqlens.device != q.device:
+        raise ValueError(f"cache_seqlens is on {cache_seqlens.device}, q on "
+                         f"{q.device}")
+    table = (None if block_table is None
+             else block_table.to(q.device, torch.int32).contiguous())
+    b, sq, h, _ = q.shape
+    hk, page = k_cache.shape[1], k_cache.shape[2]
+    ctx = page * (1 if table is None else table.shape[1])
+    n = num_splits_mp(b, hk, sq, h // hk, ctx, -1,
+                      sm_count(q.device.index or 0))
+    out = mla_attn.decode(q, qv, k_cache, v_cache,
+                          cache_seqlens.to(torch.int32), table, n,
+                          softmax_scale, causal)
+    flash_attention_decode_general.launches += 1
+    flash_attention_decode_general.qv_launches += 1
+    flash_attention_decode_general.combine_launches += n > 1
+    return out
 
 # Calls of at most SPLIT_MAX_ROWS packed rows (one block of csrc/decode.cu)
 # may run split-KV: up to SPLIT_ROWS every warp holds all the rows and takes
@@ -326,6 +385,7 @@ def flash_attention_decode_ref(
     v_cache: torch.Tensor,
     cache_seqlens: torch.Tensor,  # (b,) total lengths
     *,
+    qv: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     cache_batch_idx: Optional[torch.Tensor] = None,
     cache_leftpad: Optional[torch.Tensor] = None,
@@ -350,14 +410,16 @@ def flash_attention_decode_ref(
     (b, sq, h, dv) in `out_dtype` or q's dtype, lse (b, h, sq) fp32); a row
     that sees nothing gives out 0 and lse -inf, or lse = sink with a sink.
     `col_range` = (lo, hi), (b,) each, keeps only columns lo <= c < hi of
-    each batch row (one split's chunk)."""
+    each batch row (one split's chunk). `qv` (b, sq, h, dv) adds qv . V to
+    the scores (MLA's absorbed query; V, the latent, is also the P V
+    operand), and the default scale is then (d + dv)^-0.5."""
     b, sq, h, d = q.shape
     hk = k_cache.shape[1]
     group = h // hk
     dv = v_cache.shape[3]
     dev = q.device
     if softmax_scale is None:
-        softmax_scale = d**-0.5
+        softmax_scale = (d + dv)**-0.5 if qv is not None else d**-0.5
     window_left = min(window_left, _WINDOW_CAP)
     seqlens = cache_seqlens.to(dev).long()
     leftpad = (cache_leftpad.to(dev).long() if cache_leftpad is not None
@@ -386,8 +448,11 @@ def flash_attention_decode_ref(
             k, v = up(k_cache[row]).float(), up(v_cache[row]).float()
         ncols = k.shape[1]
         qf = q[i].float().reshape(sq, hk, group, d)
-        s = (torch.einsum("tkgd,kcd->ktgc", qf, k)
-             * (softmax_scale * kd[i]).reshape(hk, 1, 1, 1))
+        s = torch.einsum("tkgd,kcd->ktgc", qf, k)
+        if qv is not None:
+            qvf = qv[i].float().reshape(sq, hk, group, dv)
+            s = s + torch.einsum("tkge,kce->ktgc", qvf, v)
+        s = s * (softmax_scale * kd[i]).reshape(hk, 1, 1, 1)
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
         pos = (seqlens[i] - sq + torch.arange(sq, device=dev)).reshape(

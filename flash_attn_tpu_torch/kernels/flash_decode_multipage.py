@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.kernels import mla_attn
 from flash_attn_tpu_torch.kernels.common import (
     QUANT_DTYPES,
     check_rows_dense,
@@ -70,7 +71,9 @@ def _fused_split(k_pages, fused_kv_dim, fused_kv_dim_v):
 
 def check_quant(q, k_pages, qv=None) -> bool:
     """Whether the pool is 1-byte (int8 / e4m3); raises on what the kernels
-    do not take: 1-byte queries, another 1-byte type, and qv (MLA)."""
+    do not take: 1-byte queries, another 1-byte type, and qv (MLA) over a
+    1-byte pool (ValueError, as both the JAX kernels and engine refuse
+    it: the latent is the V operand and stays 16-bit)."""
     if q.element_size() == 1:
         raise NotImplementedError(
             "1-byte (fp8) queries are not ported yet: ROADMAP queue 2, "
@@ -79,11 +82,20 @@ def check_quant(q, k_pages, qv=None) -> bool:
     if quant and k_pages.dtype not in QUANT_DTYPES:
         raise ValueError(f"a 1-byte pool holds int8 or float8_e4m3fn, not "
                          f"{k_pages.dtype}")
-    if qv is not None:
-        raise NotImplementedError(
-            "qv (MLA absorbed decode) is not ported yet: ROADMAP queue 1, "
-            "item 10 (MLA)")
+    if quant and qv is not None:
+        raise ValueError("qv (MLA absorbed scores) is not supported with a "
+                         "1-byte (int8/fp8) cache: the latent is V")
     return quant
+
+
+def check_qv_features(qv, window_left: int, softcap: float) -> None:
+    """qv calls on the MLA kernels are causal, with no window and no
+    softcap; raises NotImplementedError on the others, on the CPU as on
+    the card."""
+    if qv is not None and (window_left >= 0 or softcap > 0.0):
+        raise NotImplementedError(
+            "qv with a window or a softcap is not ported yet: ROADMAP queue "
+            "2, kernels 4 and 5 (qv with features)")
 
 
 def _check_descales(quant, k_scale, v_scale):
@@ -101,6 +113,7 @@ def flash_attention_decode_multipage_ref(
     cache_seqlens: torch.Tensor,  # (b,) total lengths, new tokens included
     block_table: torch.Tensor,    # (b, max_pages) int32
     *,
+    qv: Optional[torch.Tensor] = None,
     fused_kv_dim: int = 0,
     fused_kv_dim_v: int = 0,
     softmax_scale: Optional[float] = None,
@@ -116,7 +129,9 @@ def flash_attention_decode_multipage_ref(
     (times K's descale), mask, softmax, output (times V's descale). Returns
     (out (b, sq, h, dv) in `out_dtype` (default q's), lse (b, h, sq) fp32).
     `col_range`, two (b,) tensors (lo, hi), keeps only columns lo <= c < hi
-    of each batch row visible (one split's chunk)."""
+    of each batch row visible (one split's chunk). `qv` (b, sq, h, dv), MLA's
+    absorbed query, adds qv . V to the scores (V, the latent, is also the
+    P V operand), and the default scale is then (d + dv)^-0.5."""
     b, sq, h, d = q.shape
     npages, hk, page, _ = k_pages.shape
     group = h // hk
@@ -127,7 +142,7 @@ def flash_attention_decode_multipage_ref(
     else:
         k_pool, v_pool, dv = k_pages, v_pages, v_pages.shape[3]
     if softmax_scale is None:
-        softmax_scale = d**-0.5
+        softmax_scale = (d + dv)**-0.5 if qv is not None else d**-0.5
     table = block_table.long()
     # Page ids outside the pool read as zeros, as in the kernel.
     valid = (table >= 0) & (table < npages)
@@ -142,8 +157,11 @@ def flash_attention_decode_multipage_ref(
     v = gather(v_pool, dv)
     ncols = k.shape[2]
     qf = q.float().reshape(b, sq, hk, group, d)
-    s = (torch.einsum("btkgd,bkcd->bktgc", qf, k)
-         * (softmax_scale * kd).reshape(b, hk, 1, 1, 1))
+    s = torch.einsum("btkgd,bkcd->bktgc", qf, k)
+    if qv is not None:
+        qvf = qv.float().reshape(b, sq, hk, group, dv)
+        s = s + torch.einsum("btkge,bkce->bktgc", qvf, v)
+    s = s * (softmax_scale * kd).reshape(b, hk, 1, 1, 1)
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     seqlen = cache_seqlens.long().reshape(b, 1, 1)
@@ -263,24 +281,33 @@ def flash_attention_decode_multipage(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paged decode. Returns (out (b, sq, h, dv), lse (b, h, sq) fp32).
     A 1-byte pool takes its descales `k_scale`/`v_scale`, (hk,) or (b, hk)
-    fp32 (1 where None).
+    fp32 (1 where None). `qv` (b, sq, h, dv) is MLA's absorbed query over
+    a latent pool (rope key K, latent V; fused, or split pools of unequal
+    widths): the scores gain qv . V, and the default scale is
+    (d + dv)^-0.5.
 
-    CUDA tensors launch `csrc/paged_decode.cu` (and count the launch in
-    `flash_attention_decode_multipage.launches`; a split-KV call's combine
-    in `.combine_launches`); CPU tensors take
-    `flash_attention_decode_multipage_ref`."""
+    CUDA tensors launch `csrc/paged_decode.cu`, or with qv
+    `csrc/mla_decode.cu` (and count the launch in
+    `flash_attention_decode_multipage.launches`, a qv launch also in
+    `.qv_launches`; a split-KV call's combine in `.combine_launches`); CPU
+    tensors take `flash_attention_decode_multipage_ref`."""
     _check_descales(check_quant(q, k_pages, qv), k_scale, v_scale)
+    check_qv_features(qv, window_left, softcap)
     kw = dict(fused_kv_dim=fused_kv_dim, fused_kv_dim_v=fused_kv_dim_v,
               softmax_scale=softmax_scale, window_left=window_left,
               softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cpu":
         return flash_attention_decode_multipage_ref(
-            q, k_pages, v_pages, cache_seqlens, block_table, **kw
+            q, k_pages, v_pages, cache_seqlens, block_table, qv=qv, **kw
         )
+    if qv is not None:
+        return _launch_qv(q, qv, k_pages, v_pages, cache_seqlens, block_table,
+                          fused_kv_dim, fused_kv_dim_v, softmax_scale)
     return _launch(q, k_pages, v_pages, cache_seqlens, block_table, **kw)
 
 
 flash_attention_decode_multipage.launches = 0
+flash_attention_decode_multipage.qv_launches = 0
 flash_attention_decode_multipage.combine_launches = 0
 
 
@@ -477,6 +504,46 @@ def splits_of(q, k_pages, block_table, window_left) -> int:
     hk, page = k_pages.shape[1], k_pages.shape[2]
     return num_splits_for(b, hk, sq, h // hk, block_table.shape[1] * page,
                           window_left, sm_count(q.device.index or 0))
+
+
+def latent_views(k_pages, v_pages, fused_kv_dim, fused_kv_dim_v):
+    """(rope view, latent view) of a fused rope|latent pool, or of split
+    pools (which may differ in width)."""
+    if fused_kv_dim > 0:
+        if v_pages is not None:
+            raise ValueError("a fused pool takes v_pages=None")
+        k_view, v_view, _ = _fused_split(k_pages, fused_kv_dim,
+                                         fused_kv_dim_v)
+        return k_view, v_view
+    if v_pages is None or v_pages.shape[:3] != k_pages.shape[:3]:
+        raise ValueError(
+            f"split pools must both be (npages, hk, page, .); got "
+            f"{tuple(k_pages.shape)} and "
+            f"{None if v_pages is None else tuple(v_pages.shape)}")
+    return k_pages, v_pages
+
+
+def _launch_qv(q, qv, k_pages, v_pages, cache_seqlens, block_table,
+               fused_kv_dim, fused_kv_dim_v, softmax_scale):
+    """Kernel 4's qv path: csrc/mla_decode.cu over a latent pool, split-KV
+    for decode steps as `num_splits_for` says, one split for prefill
+    chunks."""
+    k_view, v_view = latent_views(k_pages, v_pages, fused_kv_dim,
+                                  fused_kv_dim_v)
+    d, dv = q.shape[-1], v_view.shape[-1]
+    if softmax_scale is None:
+        softmax_scale = (d + dv) ** -0.5
+    for name, t in (("cache_seqlens", cache_seqlens),
+                    ("block_table", block_table)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    n = splits_of(q, k_view, block_table, -1)
+    out = mla_attn.decode(q, qv, k_view, v_view, cache_seqlens, block_table,
+                          n, softmax_scale)
+    flash_attention_decode_multipage.launches += 1
+    flash_attention_decode_multipage.qv_launches += 1
+    flash_attention_decode_multipage.combine_launches += n > 1
+    return out
 
 
 def _launch(q, k_pages, v_pages, cache_seqlens, block_table, **kw):

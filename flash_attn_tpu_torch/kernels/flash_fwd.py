@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.kernels import mla_attn
 from flash_attn_tpu_torch.kernels.common import (
     Features,
     alibi_bias,
@@ -37,7 +38,6 @@ from flash_attn_tpu_torch.kernels.common import (
 # Arguments of the JAX kernels' signature that the port does not take yet:
 # name -> (value that means "not used", ROADMAP item).
 _UNPORTED = {
-    "qv": (None, "queue 2, kernels 1-3: qv (MLA absorbed scores)"),
     "bias": (None, "queue 2, kernels 1-3: additive bias and dBias"),
     "q_descale": (None, "queue 2, kernels 1-3: descales"),
     "k_descale": (None, "queue 2, kernels 1-3: descales"),
@@ -63,6 +63,11 @@ def check_unported(**extras) -> None:
 
 def _scale(head_dim: int, softmax_scale: Optional[float]) -> float:
     return head_dim**-0.5 if softmax_scale is None else float(softmax_scale)
+
+
+def qv_scale(d: int, dv: int, softmax_scale: Optional[float]) -> float:
+    """The default scale with qv, (d + dv)^-0.5, as the JAX kernel's."""
+    return (d + dv)**-0.5 if softmax_scale is None else float(softmax_scale)
 
 
 def scores(q, k, scale: float, softcap: float):
@@ -113,6 +118,7 @@ def flash_attention_fwd_ref(
     softcap: float = 0.0,
     visible: Optional[torch.Tensor] = None,
     features: Optional[Features] = None,
+    qv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, in fp32, one kv head's group of
     query heads at a time (so the (sq, sk) scores of all heads never exist
@@ -123,11 +129,14 @@ def flash_attention_fwd_ref(
     each sequence's). `features` as the JAX kernel takes them: the ALiBi
     term after the softcap, the visibility rules, exp(sink) in each row's
     sum, and dropout: m and l from the undropped P, P V from P times the
-    keep mask, out times 1 / (1 - p)."""
+    keep mask, out times 1 / (1 - p). `qv` (b, h, sq, dv), MLA's absorbed
+    query, adds qv . V to the raw scores (V is also the P V operand), and
+    the default scale is then (d + dv)^-0.5."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
-    scale = _scale(d, softmax_scale)
+    scale = (_scale(d, softmax_scale) if qv is None
+             else qv_scale(d, v.shape[3], softmax_scale))
     window = normalize_window(window_size, causal)
     if visible is None:
         visible = (visible_mask(sq, sk, window, q.device) if features is None
@@ -138,7 +147,15 @@ def flash_attention_fwd_ref(
     drop = features is not None and features.dropout_p > 0
     for g in range(hk):
         for heads in head_passes(g, group, b, sq, sk, features):
-            s, _ = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
+            if qv is None:
+                s, _ = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
+            else:
+                raw = (torch.matmul(q[:, heads].float(),
+                                    k[:, g:g + 1].float().transpose(-1, -2))
+                       + torch.matmul(qv[:, heads].float(),
+                                      v[:, g:g + 1].float().transpose(-1, -2)))
+                s = (torch.tanh(raw * (scale / softcap)) * softcap
+                     if softcap > 0.0 else raw * scale)
             s = feature_scores(s, features, heads, sq, sk)
             s = s.masked_fill(~visible, float("-inf"))
             m = s.amax(dim=-1, keepdim=True)
@@ -207,7 +224,7 @@ def flash_attention_fwd(
     `dropout_seed` is an int or a scalar tensor (a CUDA one is read back),
     the JAX default 0 when None."""
     check_unported(
-        qv=qv, bias=bias, q_descale=q_descale, k_descale=k_descale,
+        bias=bias, q_descale=q_descale, k_descale=k_descale,
         v_descale=v_descale, score_mod=score_mod,
         mask_mod=mask_mod, aux_tensors=tuple(aux_tensors or ()),
         aux_scalars=tuple(aux_scalars or ()), cp_world_size=cp_world_size,
@@ -221,14 +238,38 @@ def flash_attention_fwd(
         dropout_seed=dropout_seed)
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
+    mla = qv is not None or v.shape[3] != q.shape[3]
+    if mla:
+        check_qv(features, window_size, softcap)
     if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, **kw, features=features)
+        return flash_attention_fwd_ref(q, k, v, **kw, features=features,
+                                       qv=qv)
+    if mla:
+        # MLA's widths: csrc/flash_fwd_qv.cu, with or without qv.
+        scale = (qv_scale(q.shape[3], v.shape[3], softmax_scale)
+                 if qv is not None else _scale(q.shape[3], softmax_scale))
+        out = mla_attn.forward(q, qv, k, v, scale, causal)
+        flash_attention_fwd.launches += 1
+        flash_attention_fwd.qv_launches += qv is not None
+        return out
     return _launch(q, k, v, features, **kw)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.qv_launches = 0
 flash_attention_fwd.feature_launches = 0
 flash_attention_fwd.tma_copies = 0
+
+
+def check_qv(features: Optional[Features], window_size, softcap) -> None:
+    """The qv forward (and MLA's dv-512 forward) is causal or not, with no
+    window, softcap or feature; raises NotImplementedError on the others,
+    on the CPU as on the card."""
+    if (features is not None or tuple(window_size) != (-1, -1)
+            or softcap > 0.0):
+        raise NotImplementedError(
+            "qv (MLA) with a window, a softcap or attention features is not "
+            "ported yet: ROADMAP queue 2, kernels 1-3 (qv with features)")
 
 
 def check_kernel_inputs(d: int, h: int, hk: int, **tensors) -> None:

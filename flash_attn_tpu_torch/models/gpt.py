@@ -4,7 +4,8 @@ Llama/Mistral-style models. Without a cache the forward runs the whole
 sequence through the flash-attention kernels (training; `remat` sets the
 activation checkpointing); with a paged KV cache (`InferenceParams` with a
 block table) it is `LLMEngine`'s step; with contiguous caches
-(`allocate_inference_cache`) it is `generate`'s.
+(`allocate_inference_cache`) it is `generate`'s. `attn_type="mla"` takes
+DeepSeek-style latent attention (`modules.mla.MLA`) as every layer's mixer.
 `utils.testing.gpt_forward_ref` is a plain full-sequence forward to check
 it against."""
 
@@ -29,6 +30,7 @@ from flash_attn_tpu_torch.modules.block import Block, LayerNorm, RMSNorm, make_n
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
 from flash_attn_tpu_torch.modules.linear import Linear
 from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
+from flash_attn_tpu_torch.modules.mla import MLA
 from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
 from flash_attn_tpu_torch.runtime.generation import GenerationMixin
 from flash_attn_tpu_torch.runtime.kv_cache import allocate_kv_cache
@@ -73,6 +75,8 @@ class GPTConfig:
     pad_vocab_size_multiple: int = 1
     position_offset: int = 0
     embed_scale: Optional[float] = None
+    # "mha", or "mla": DeepSeek-style latent attention (modules/mla.py) with
+    # the five widths below (None: head_dim, as in the JAX config).
     attn_type: str = "mha"
     # Activation checkpointing per block while training ("none" | "dots" |
     # "full"): "dots" keeps the outputs of the (non-batched) matrix
@@ -80,6 +84,11 @@ class GPTConfig:
     # backward, as jax.checkpoint's dots_with_no_batch_dims_saveable does;
     # "full" keeps nothing.
     remat: str = "none"
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: Optional[int] = None
     dtype: Any = torch.bfloat16
 
     @property
@@ -97,11 +106,27 @@ class GPTConfig:
 
 
 def _mixer_factory(config: GPTConfig, layer_idx: int, device, param_dtype):
-    if config.attn_type != "mha":
-        raise NotImplementedError(
-            f"attn_type={config.attn_type!r} is not ported yet: ROADMAP "
-            "queue 1, item 10 (MLA)"
+    if config.attn_type == "mla":
+        d = config.resolved_head_dim
+        return functools.partial(
+            MLA,
+            embed_dim=config.n_embd,
+            num_heads=config.n_head,
+            kv_lora_rank=config.kv_lora_rank,
+            q_lora_rank=config.q_lora_rank,
+            qk_nope_head_dim=config.qk_nope_head_dim or d,
+            qk_rope_head_dim=config.qk_rope_head_dim,
+            v_head_dim=config.v_head_dim or d,
+            rotary_emb_base=config.rotary_emb_base,
+            causal=True,
+            layer_idx=layer_idx,
+            device=device,
+            dtype=config.dtype,
+            param_dtype=param_dtype,
         )
+    if config.attn_type != "mha":
+        raise ValueError(f"attn_type must be mha or mla, not "
+                         f"{config.attn_type!r}")
     return functools.partial(
         MHA,
         embed_dim=config.n_embd,
@@ -277,6 +302,8 @@ class GPTLMHeadModel(nn.Module, GenerationMixin):
                 module.weight.fill_(1.0)
                 if getattr(module, "bias", None) is not None:
                     module.bias.zero_()
+            elif isinstance(module, MLA):
+                module.init_up_projections(generator)
 
     @property
     def device(self) -> torch.device:
@@ -299,12 +326,18 @@ class GPTLMHeadModel(nn.Module, GenerationMixin):
     def allocate_inference_cache(self, batch_size: int, max_seqlen: int,
                                  dtype=None) -> InferenceParams:
         """Zeroed contiguous (batch_size, hk, max_seqlen, d) K and V caches
-        for every layer, on the model's device."""
+        for every layer, on the model's device; for MLA each layer's (rope
+        (b, 1, smax, qk_rope_head_dim), latent (b, 1, smax, kv_lora_rank))
+        pair, one KV head."""
         c = self.config
         if c.attn_type == "mla":
-            raise NotImplementedError(
-                "the MLA latent cache is not ported yet: ROADMAP queue 1, "
-                "item 10 (MLA)")
+            caches = {i: layer.mixer.allocate_cache(
+                          batch_size, max_seqlen, dtype or c.dtype,
+                          device=self.device)
+                      for i, layer in enumerate(self.transformer.layers)}
+            return InferenceParams(max_seqlen=max_seqlen,
+                                   max_batch_size=batch_size, seqlen_offset=0,
+                                   key_value_memory_dict=caches)
         caches = {
             i: allocate_kv_cache(batch_size, max_seqlen, c.resolved_n_head_kv,
                                  c.resolved_head_dim, dtype or c.dtype,

@@ -32,6 +32,12 @@ of padded chunk tails and padded batch rows. A speculative round writes all
 k + 1 tokens to the target's pools and k to the draft's; rejected ones lie
 past the kept length and are overwritten before they become visible.
 
+An MLA model (`GPTConfig(attn_type="mla")`) is served from latent page
+pools with one KV head: a fused rope|latent pool per layer by default, or
+(rope, latent) pools under `fused_kv_pages=False`; every attention call is
+kernel 4's qv path. Speculative decoding takes MLA targets and drafts alike
+(each model's pools follow its own config).
+
 Quantized KV serving (`kv_cache_dtype` "int8", "fp8" or "fp8_e4m3"): every
 layer's pool holds 1-byte elements beside per-kv-head dequant scales
 (`kv_cache_scale`, a scalar or a {layer: scalar} dict), half the bytes of
@@ -229,6 +235,8 @@ class LLMEngine:
         a 1-byte model dtype rules them out), 1-byte `QuantPagedKV` pools
         with `kv_cache_dtype`."""
         config = self.config
+        if mc.attn_type == "mla":
+            return self._allocate_latent_pools(mc)
         hk, d = mc.resolved_n_head_kv, mc.resolved_head_dim
         fused = config.fused_kv_pages
         if fused is None:
@@ -258,6 +266,26 @@ class LLMEngine:
                                                     device=self.device)
                 caches[i] = QuantPagedKV(*pools, k_scale=ks, v_scale=vs)
         return caches
+
+    def _allocate_latent_pools(self, mc) -> dict:
+        """An MLA model's page pools, one KV head each (the JAX engine's
+        latent branch): a fused rope|latent pool per layer (rope at [0,
+        dr), latent at [round_up(dr, 128), + dc)) by default for a >= 2-byte
+        dtype, else, or under fused_kv_pages=False, (rope, latent) pools."""
+        config = self.config
+        fused = config.fused_kv_pages
+        if fused is None:
+            fused = mc.dtype.itemsize >= 2
+        args = (config.num_pages + 1, config.page_size, 1)
+        dr, dc = mc.qk_rope_head_dim, mc.kv_lora_rank
+        if fused:
+            return {i: allocate_fused_paged_kv_cache(
+                        *args, dr, dc, dtype=mc.dtype, device=self.device)
+                    for i in range(mc.n_layer)}
+        return {i: tuple(allocate_paged_kv_cache(*args, width, mc.dtype,
+                                                 device=self.device)[0]
+                         for width in (dr, dc))
+                for i in range(mc.n_layer)}
 
     def _make_buffers(self):
         """The programs' static tensors: one int32 device buffer holding the

@@ -39,8 +39,10 @@ from flash_attn_tpu_torch.kernels.flash_decode_multipage import (
 # these counters by what a capture added on every replay instead.
 LAUNCH_COUNTERS: Tuple[Tuple[object, str], ...] = (
     (flash_attention_decode_multipage, "launches"),
+    (flash_attention_decode_multipage, "qv_launches"),
     (flash_attention_decode_multipage, "combine_launches"),
     (flash_attention_decode_general, "launches"),
+    (flash_attention_decode_general, "qv_launches"),
     (flash_attention_decode_general, "combine_launches"),
 )
 

@@ -20,7 +20,8 @@ def _t(x) -> torch.Tensor:
 
 def state_dict_from_flax(params, config) -> Dict[str, torch.Tensor]:
     """Flax Dense kernels (in, out) become Linear weights (out, in); Embed
-    tables, RMSNorm/LayerNorm scales and the untied lm_head map by name.
+    tables, RMSNorm/LayerNorm scales and the untied lm_head map by name;
+    a mixer's bare arrays (MLA's W_uk and W_uv) carry over as they are.
     Tensors come back in fp32; `load_state_dict` casts them to the model's
     dtypes."""
     p = params.get("params", params)
@@ -47,7 +48,10 @@ def state_dict_from_flax(params, config) -> Dict[str, torch.Tensor]:
         layer = tr[f"layers_{i}"]
         prefix = f"transformer.layers.{i}"
         for name, node in layer["mixer"].items():
-            dense(f"{prefix}.mixer.{name}", node)
+            if hasattr(node, "keys"):
+                dense(f"{prefix}.mixer.{name}", node)
+            else:  # MLA's W_uk (h, dn, dc) and W_uv (h, dc, dv), as they are
+                sd[f"{prefix}.mixer.{name}"] = _t(node)
         for name, node in layer["mlp"].items():
             dense(f"{prefix}.mlp.{name}", node)
         for name in ("norm1", "norm2"):

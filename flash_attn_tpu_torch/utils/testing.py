@@ -403,9 +403,9 @@ def gpt_loss_ref(model: nn.Module, input_ids: torch.Tensor,
 
 def _gpt_logits(sd, config, input_ids, dtype, dropout_seed=None):
     c = config
-    if not c.prenorm or c.parallel_block or c.attn_type != "mha":
+    if not c.prenorm or c.parallel_block or c.attn_type not in ("mha", "mla"):
         raise NotImplementedError("gpt_forward_ref covers the pre-norm, "
-                                  "sequential-block MHA models")
+                                  "sequential-block MHA and MLA models")
     h, hk, d = c.n_head, c.resolved_n_head_kv, c.resolved_head_dim
     b, s = input_ids.shape
 
@@ -433,7 +433,8 @@ def _gpt_logits(sd, config, input_ids, dtype, dropout_seed=None):
         x = x + F.embedding(pos, w("transformer.embeddings.position_embeddings.weight"))[None]
     if c.embed_scale is not None:
         x = x * torch.tensor(c.embed_scale, dtype=dtype)
-    rot_dim = int(c.rotary_emb_fraction * d)
+    rot_dim = (c.qk_rope_head_dim if c.attn_type == "mla"
+               else int(c.rotary_emb_fraction * d))
     if rot_dim > 0:
         cos, sin = RotaryEmbedding(rot_dim, base=c.rotary_emb_base).cos_sin(
             s, device=ids.device)
@@ -447,26 +448,29 @@ def _gpt_logits(sd, config, input_ids, dtype, dropout_seed=None):
         p = f"transformer.layers.{i}."
         residual = x.to(acc) if residual is None else residual + x.to(acc)
         y = norm(residual, p + "norm1")
-        q = linear(y, p + "mixer.Wq").reshape(b, s, h, d)
-        k = linear(y, p + "mixer.Wk").reshape(b, s, hk, d)
-        v = linear(y, p + "mixer.Wv").reshape(b, s, hk, d)
-        if rot_dim > 0:
-            rot = dict(interleaved=c.rotary_emb_interleaved)
-            q = apply_rotary_emb(q, cos, sin, **rot)
-            k = apply_rotary_emb(k, cos, sin, **rot)
-        drop = {}
-        if dropout_seed is not None and c.attn_pdrop > 0:
-            drop = dict(dropout_p=c.attn_pdrop, dropout_mask=dropout_keep_mask(
-                fold_seed(dropout_seed, i),
-                torch.arange(b, device=ids.device).reshape(-1, 1, 1, 1),
-                torch.arange(h, device=ids.device).reshape(1, -1, 1, 1), 0, 0,
-                (s, s), 1.0 - c.attn_pdrop, device=ids.device))
-        o, _ = attention_ref(q, k, v, causal=True,
-                             window_size=(c.window_size[0], None),
-                             softcap=c.softcap, upcast=upcast,
-                             alibi_slopes=slopes, **drop)
-        del drop
-        residual = residual + linear(o.reshape(b, s, h * d),
+        if c.attn_type == "mla":
+            o = _mla_ref(c, y, p + "mixer.", w, linear, cos, sin, upcast)
+        else:
+            q = linear(y, p + "mixer.Wq").reshape(b, s, h, d)
+            k = linear(y, p + "mixer.Wk").reshape(b, s, hk, d)
+            v = linear(y, p + "mixer.Wv").reshape(b, s, hk, d)
+            if rot_dim > 0:
+                rot = dict(interleaved=c.rotary_emb_interleaved)
+                q = apply_rotary_emb(q, cos, sin, **rot)
+                k = apply_rotary_emb(k, cos, sin, **rot)
+            drop = {}
+            if dropout_seed is not None and c.attn_pdrop > 0:
+                drop = dict(dropout_p=c.attn_pdrop, dropout_mask=dropout_keep_mask(
+                    fold_seed(dropout_seed, i),
+                    torch.arange(b, device=ids.device).reshape(-1, 1, 1, 1),
+                    torch.arange(h, device=ids.device).reshape(1, -1, 1, 1), 0, 0,
+                    (s, s), 1.0 - c.attn_pdrop, device=ids.device))
+            o, _ = attention_ref(q, k, v, causal=True,
+                                 window_size=(c.window_size[0], None),
+                                 softcap=c.softcap, upcast=upcast,
+                                 alibi_slopes=slopes, **drop)
+            del drop
+        residual = residual + linear(o.reshape(b, s, -1),
                                      p + "mixer.out_proj").to(acc)
         y = norm(residual, p + "norm2")
         if gated:
@@ -479,3 +483,25 @@ def _gpt_logits(sd, config, input_ids, dtype, dropout_seed=None):
     head = ("transformer.embeddings.word_embeddings.weight"
             if c.tie_word_embeddings else "lm_head.weight")
     return F.linear(hidden, w(head))
+
+
+def _mla_ref(c, y, prefix, w, linear, cos, sin, upcast):
+    """An MLA layer's attention output (b, s, h, dv) in the expanded form,
+    independent of the absorbed one the module computes: per-head keys
+    [W_uk c | k_rope] and values W_uv c, through `attention_ref` at the
+    scale (dn + dr)^-0.5."""
+    b, s, _ = y.shape
+    h, dc = c.n_head, c.kv_lora_rank
+    dn = c.qk_nope_head_dim or c.resolved_head_dim
+    q = (linear(linear(y, prefix + "W_dq"), prefix + "W_uq") if c.q_lora_rank
+         else linear(y, prefix + "W_q")).reshape(b, s, h, -1)
+    ckv = linear(y, prefix + "W_dkv")
+    lat, k_rope = ckv[..., :dc], ckv[..., dc:]
+    q_rope = apply_rotary_emb(q[..., dn:], cos, sin)
+    k_rope = apply_rotary_emb(k_rope[:, :, None], cos, sin)
+    k_nope = torch.einsum("bsc,hnc->bshn", lat, w(prefix + "W_uk"))
+    v = torch.einsum("bsc,hcv->bshv", lat, w(prefix + "W_uv"))
+    qf = torch.cat([q[..., :dn], q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, h, k_rope.shape[-1])], dim=-1)
+    o, _ = attention_ref(qf, kf, v, causal=True, upcast=upcast)
+    return o

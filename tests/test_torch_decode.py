@@ -223,8 +223,9 @@ def test_combine_matches_jax():
 def test_routes_and_unported_arguments():
     """Paged causal calls without extras go to kernel 4 (its plain version,
     bit for bit); a fused pool with an extra, and a batch index on a paged
-    cache, are refused; qv, 1-byte queries and head dims other than 64/128
-    raise NotImplementedError naming the ROADMAP item. Descales and 1-byte
+    cache, are refused; qv with a window, 1-byte queries and head dims
+    other than 64/128 raise NotImplementedError naming the ROADMAP item
+    (qv alone answers). Descales and 1-byte
     caches are taken (kernel 5 here): unit descales change no bit, and an
     int8 cache gives the answer of its values in q's dtype."""
     q, k, v, lens, kw = _inputs("paged-sink")
@@ -245,8 +246,14 @@ def test_routes_and_unported_arguments():
                                causal=False, cache_batch_idx=t(lens))
     qc, kc, vc, lens_c, _ = _inputs("contig-gqa-sq1")
     args = (t(qc), t(kc), t(vc), t(lens_c))
+    # qv (MLA) is ported: a zero qv adds nothing to the scores; qv with a
+    # window still raises.
+    for g, w in zip(flash_attention_decode(*args, qv=torch.zeros_like(t(qc)),
+                                           softmax_scale=0.1),
+                    flash_attention_decode(*args, softmax_scale=0.1)):
+        assert torch.equal(g, w)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_decode(*args, qv=t(qc))
+        flash_attention_decode(*args, qv=t(qc), window_left=3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attention_decode(args[0].to(torch.float8_e4m3fn), *args[1:])
     plain = flash_attention_decode(*args)

@@ -87,7 +87,8 @@ def test_kvpacked_and_bhsd_layouts_agree():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(qv=torch.zeros(1)), dict(bias=torch.zeros(1)),
+    dict(qv=torch.zeros(1, 2, 8, 64), window_size=(2, 0)),
+    dict(bias=torch.zeros(1)),
     dict(k_descale=torch.ones(1)), dict(score_mod=lambda s, *a: s),
     dict(cp_world_size=2),
 ], ids=lambda e: next(iter(e)))
@@ -127,10 +128,13 @@ _SEG = torch.tensor([[0] * 13 + [1] * 20 + [-1] * 7])
     dict(sink=torch.tensor([0.3, -1.0])), dict(attention_chunk=16),
     dict(sink_token_length=4, window_size=(8, -1), causal=True),
     dict(q_segment_ids=_SEG, kv_segment_ids=torch.where(_SEG < 0, -2, _SEG)),
+    dict(qv=torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 2, _S, 64)).astype(np.float32)), softmax_scale=0.125),
 ], ids=lambda e: next(iter(e)))
 def test_ported_arguments_answer(extra):
     """The arguments of the JAX signature that kernels 1-3 took in their
-    feature instances give the answer written out by hand (the JAX
+    feature instances, and kernel 1's qv forward, give the answer written
+    out by hand (the JAX
     package's rules; tests/test_torch_attn_features.py holds them to the
     JAX package itself)."""
     rng = np.random.default_rng(3)
@@ -149,6 +153,8 @@ def test_ported_arguments_answer(extra):
         visible = (_COL <= _ROW) & ((_COL >= _ROW - 8) | (_COL < 4))
     if "q_segment_ids" in extra:
         visible = (_SEG[0, :, None] == _SEG[0, None, :]) & (_SEG[0, :, None] >= 0)
+    if "qv" in extra:  # MLA's absorbed scores, at the scale 1/8 given
+        bias = extra["qv"] @ v.transpose(-1, -2) * 0.125
     want = _dense_answer(q, k, v, visible, bias, extra.get("sink"), keep,
                          extra.get("dropout_p", 0.0))
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
