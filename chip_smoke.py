@@ -152,6 +152,16 @@ Builds the port's CUDA kernels from csrc/ (into build/kernels/), then:
               (device time by kernel, kernel 4's qv share); the cache-free and the engine's logits against an fp32 plain
               forward; generate(cg=True) over contiguous latent caches
               (kernel 5's qv path);
+     mla_bwd_kernels, mla_bwd_fault, mla_train_grad, mla_train  MLA
+              training: kernels 3 and 2's MLA instances (csrc/mla_bwd.cu)
+              against their plain versions at DeepSeek-V2-Lite's widths,
+              twice for equal bits, beside SDPA's backward; dV without
+              dS^T Qv, an unwritten dQv and a head left out of the
+              group's sum, which the check must catch; the 27-layer MLA
+              GPT's loss and gradients against the fp32 plain model; and
+              training.run.main on configs/deepseek-v2-lite-mla-synth.yaml
+              for 20 steps (falling loss, tokens/s, MFU, peak memory,
+              launches per step);
   7. train_grad  one loss and gradient of GPT-2-medium (configs/gpt2m-synth.yaml,
               full depth, fp32 weights, bf16 compute) through the kernels,
               held against the plain model in fp32 under the 2x-bf16-eager
@@ -310,7 +320,10 @@ from flash_attn_tpu_torch.runtime.kv_cache import (  # noqa: E402
 )
 from flash_attn_tpu_torch.training import run as train_run  # noqa: E402
 from flash_attn_tpu_torch.training.run import load_config  # noqa: E402
-from flash_attn_tpu_torch.training.trainer import Trainer  # noqa: E402
+from flash_attn_tpu_torch.training.trainer import (  # noqa: E402
+    Trainer,
+    gpt_flops_per_token,
+)
 from flash_attn_tpu_torch.utils import sparse_crossover  # noqa: E402
 from flash_attn_tpu_torch.utils.fa_logging import dispatch_counts  # noqa: E402
 from flash_attn_tpu_torch.utils.sparse_crossover import (  # noqa: E402
@@ -7190,22 +7203,449 @@ def mla_kernel_entries(mla, logs):
     ]
 
 
+# -- MLA training: kernels 2-3's qv backward, DeepSeek-V2-Lite in the trainer --
+
+MLA_TRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "configs", "deepseek-v2-lite-mla-synth.yaml")
+MLA_TRAIN_STEPS, MLA_TRAIN_WARMUP = 20, 5
+# name -> a backward call at DeepSeek-V2-Lite's attention widths (16 query
+# heads over one latent head, d 64, dv 512): with qv (MLA training's) and
+# without (the dv-512 backward), causal and not, at the trainer's b 2 and
+# s 4096, and lengths that are not a multiple of 4 (LSE and delta rows off
+# a 16-byte boundary), one in fp16.
+MLA_BWD_CASES = {
+    "qv-causal-s4096": dict(s=4096, causal=True),
+    "qv-noncausal-s4096": dict(s=4096, causal=False),
+    "qv-causal-s4001": dict(s=4001, causal=True),
+    "qv-noncausal-s4001-fp16": dict(s=4001, causal=False,
+                                    dtype=torch.float16),
+    "noqv-causal-s4096": dict(s=4096, causal=True, qv=False),
+    "noqv-noncausal-s4001": dict(s=4001, causal=False, qv=False),
+}
+
+
+def mla_bwd_inputs(s, causal, qv=True, dtype=torch.bfloat16, b=2, seed=0):
+    """Seeded backward inputs (b, h, s, .) at MLA's widths, the plain
+    forward's lse (fp32, from the same inputs) and the softmax scale."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+
+    t = dict(q=randn(b, MLA_H, s, MLA_D), k=randn(b, 1, s, MLA_D),
+             v=randn(b, 1, s, MLA_DV), do=randn(b, MLA_H, s, MLA_DV),
+             qv=randn(b, MLA_H, s, MLA_DV) if qv else None, causal=causal,
+             scale=MLA_SCALE if qv else MLA_D ** -0.5)
+    up = {n: None if t[n] is None else t[n].float()
+          for n in ("q", "k", "v", "qv")}
+    _, t["lse"] = flash_attention_fwd_ref(
+        up["q"], up["k"], up["v"], qv=up["qv"], causal=causal,
+        softmax_scale=t["scale"])
+    return t
+
+
+def mla_bwd_run(t, heads=slice(None)):
+    """The two kernels on `t` (query heads `heads` of it): (dq, delta,
+    dqv, dk, dv)."""
+    q, qv, do = (None if t[n] is None else t[n][:, heads]
+                 for n in ("q", "qv", "do"))
+    lse = t["lse"][:, heads].contiguous()
+    dq, delta, dqv = mla_attn.backward_dq(q, qv, t["k"], t["v"], do, lse,
+                                          t["scale"], t["causal"])
+    dk, dv = mla_attn.backward_dkv(q, qv, t["k"], t["v"], do, lse, delta,
+                                   t["scale"], t["causal"])
+    return dq, delta, dqv, dk, dv
+
+
+def mla_bwd_plain_args(t):
+    """The plain versions' arguments on `t` in fp32: (args, kwargs)."""
+    up = {n: None if t[n] is None else t[n].float()
+          for n in ("q", "k", "v", "do", "qv")}
+    kw = dict(qv=up["qv"], causal=t["causal"], softmax_scale=t["scale"])
+    return (up["q"], up["k"], up["v"], up["do"], t["lse"]), kw
+
+
+def mla_bwd_ref(t):
+    """The plain versions in fp32 on the same inputs: (dq, delta, dqv, dk,
+    dv), dqv None without qv."""
+    args, kw = mla_bwd_plain_args(t)
+    dq, delta, *dqv = _bwd_dq_ref(*args, **kw)
+    dk, dv = _bwd_dkv_ref(*args, delta, **kw)
+    return dq, delta, (dqv or [None])[0], dk, dv
+
+
+MLA_BWD_NAMES = ("dq", "delta", "dqv", "dk", "dv")
+
+
+def mla_bwd_held(got, ref):
+    """{name: held(...)} of each output present in both."""
+    return {n: held(g, r) for n, g, r in zip(MLA_BWD_NAMES, got, ref)
+            if g is not None and r is not None}
+
+
+def mla_bwd_bound(b, s, causal, has_qv, el=2):
+    """Least times of the dQ and dK/dV kernels on this card: the flops of
+    each visible (query head, key) pair (dQ: S 2 (d + dv) with qv, else
+    2d, dP 2dv, dQ 2d, dQv 2dv; dK/dV: S, dP, P^T dO 2dv, dS^T Qv 2dv, dK
+    2d; delta rides on P and dP), and the bytes each reads and writes
+    once."""
+    pairs = b * MLA_H * visible_pairs(s, s, causal, (-1, -1))
+    sd = 2 * (MLA_D + (MLA_DV if has_qv else 0))
+    flops = dict(dq=sd + 2 * MLA_DV + 2 * MLA_D + (2 * MLA_DV if has_qv else 0),
+                 dkv=sd + 2 * MLA_DV + 2 * MLA_DV
+                 + (2 * MLA_DV if has_qv else 0) + 2 * MLA_D)
+    rows = b * MLA_H * s
+    q_rows = rows * (MLA_D + (MLA_DV if has_qv else 0)) * el  # q, qv
+    do_rows = rows * MLA_DV * el
+    kv = b * s * (MLA_D + MLA_DV) * el
+    stats = rows * 4  # lse, delta
+    # dQ writes dq (and dqv) and delta; dK/dV reads delta, writes dk, dv.
+    nbytes = dict(dq=2 * q_rows + do_rows + kv + 2 * stats,
+                  dkv=q_rows + do_rows + 2 * kv + 2 * stats)
+    out = {}
+    for key in ("dq", "dkv"):
+        t_ops = flops[key] * pairs / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes[key] / HBM_BYTES_PER_S * 1e3
+        out[key] = (max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes")
+    return out, pairs
+
+
+def mla_bwd_library_ms(t):
+    """SDPA's backward over the concatenated operands ([q | qv] . [k |
+    latent]^T, V the latent, enable_gqa): its forward+backward less its
+    forward, the yardstick of kernels 2-3's qv instances; the port never
+    calls it."""
+    cat_q = (t["q"] if t["qv"] is None else torch.cat([t["q"], t["qv"]], -1))
+    cat_k = (t["k"] if t["qv"] is None else torch.cat([t["k"], t["v"]], -1))
+    lq, lk, lv = (x.detach().clone().requires_grad_()
+                  for x in (cat_q, cat_k, t["v"]))
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=t["causal"], scale=t["scale"],
+            enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (lq, lk, lv), t["do"])
+
+    fwd_ms = cuda_ms(fwd, reps=5, warmup=1)
+    return cuda_ms(fwd_bwd, reps=5, warmup=1) - fwd_ms
+
+
+def mla_bwd_case(name, seed):
+    """One backward case: both kernels against their plain versions (fp32)
+    under ATTN_TOLERANCE, twice for equal bits, timed beside the plain
+    versions, SDPA's backward and the card's bound."""
+    c = MLA_BWD_CASES[name]
+    has_qv = c.get("qv", True)
+    t = mla_bwd_inputs(c["s"], c["causal"], has_qv,
+                       c.get("dtype", torch.bfloat16), seed=seed)
+    got = mla_bwd_run(t)
+    again = mla_bwd_run(t)
+    torch.cuda.synchronize()
+    bits = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    checked = mla_bwd_held(got, mla_bwd_ref(t))
+    dq_ms = cuda_ms(lambda: mla_attn.backward_dq(
+        t["q"], t["qv"], t["k"], t["v"], t["do"], t["lse"], t["scale"],
+        t["causal"]), reps=10)
+    delta = got[1]
+    dkv_ms = cuda_ms(lambda: mla_attn.backward_dkv(
+        t["q"], t["qv"], t["k"], t["v"], t["do"], t["lse"], delta,
+        t["scale"], t["causal"]), reps=10)
+    args, kw = mla_bwd_plain_args(t)
+    dq_plain_ms = cuda_ms(lambda: _bwd_dq_ref(*args, **kw), reps=2, warmup=1)
+    dkv_plain_ms = cuda_ms(lambda: _bwd_dkv_ref(*args, delta, **kw), reps=2,
+                           warmup=1)
+    del args, kw
+    library_bwd_ms = mla_bwd_library_ms(t)
+    bounds, pairs = mla_bwd_bound(t["q"].shape[0], c["s"], c["causal"], has_qv,
+                                  t["q"].element_size())
+    worst = max(h["err_over_limit"] for h in checked.values())
+    finite = all(bool(torch.isfinite(x).all()) for x in got if x is not None)
+    ok = worst <= 1.0 and bits and finite
+    result = dict(
+        phase="mla_bwd_kernels", case=name, b=t["q"].shape[0], sq=c["s"],
+        sk=c["s"], h=MLA_H, hk=1, d=MLA_D, dv=MLA_DV, has_qv=has_qv,
+        causal=c["causal"], dtype=str(t["q"].dtype).split(".")[-1],
+        held=checked, err_over_limit=worst, tolerance=ATTN_TOLERANCE,
+        bits_equal_run_to_run=bits, dq_ms=dq_ms, dkv_ms=dkv_ms,
+        dq_plain_ms=dq_plain_ms, dkv_plain_ms=dkv_plain_ms,
+        library_bwd_ms=library_bwd_ms,
+        dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+        dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
+        dq_bound_share=bounds["dq"][0] / dq_ms,
+        dkv_bound_share=bounds["dkv"][0] / dkv_ms, visible_pairs=pairs,
+        ok=ok)
+    emit(result)
+    check(ok, f"mla_bwd_kernels case {name}: off its plain version, not "
+              "finite, or not equal in bits run to run")
+    return result
+
+
+def mla_bwd_fault_phase(s=2048, seed=98):
+    """The backward checks' power: planted faults whose worst share of the
+    tolerance must read > 1 against the plain versions: dV without its
+    dS^T Qv term (the kernels' dV less that term, computed in fp32 from
+    the plain pieces), a dQv the kernel never wrote (zeros), and one query
+    head of the group left out of the dK/dV sum (the kernels handed heads
+    1-15 of 16)."""
+    t = mla_bwd_inputs(s, True, b=1, seed=seed)
+    got = mla_bwd_run(t)
+    ref = mla_bwd_ref(t)
+    ok_clean = max(h["err_over_limit"] for h in mla_bwd_held(got, ref).values())
+    # P^T dO alone, from the plain pieces, gives the dS^T Qv term of dV.
+    s_raw = (torch.matmul(t["q"].float(), t["k"].float().transpose(-1, -2))
+             + torch.matmul(t["qv"].float(), t["v"].float().transpose(-1, -2)))
+    vis = visible_mask(s, s, normalize_window((-1, -1), True), s_raw.device)
+    p = torch.where(vis, torch.exp(s_raw * t["scale"] - t["lse"][..., None]),
+                    torch.zeros_like(s_raw))
+    del s_raw
+    pdo = torch.matmul(p.transpose(-1, -2), t["do"].float()).sum(1,
+                                                                 keepdim=True)
+    del p
+    qv_term = ref[4] - pdo
+    shares = dict(
+        dv_without_dsT_qv=held(got[4].float() - qv_term, ref[4])[
+            "err_over_limit"],
+        dqv_not_written=held(torch.zeros_like(ref[2]), ref[2])[
+            "err_over_limit"])
+    part = mla_bwd_run(t, heads=slice(1, None))
+    shares["one_head_left_out"] = max(held(part[3], ref[3])["err_over_limit"],
+                                      held(part[4], ref[4])["err_over_limit"])
+    caught = all(v > 1.0 for v in shares.values())
+    ok = caught and ok_clean <= 1.0
+    emit(dict(phase="mla_bwd_fault", b=1, s=s, h=MLA_H, causal=True,
+              clean_err_over_limit=ok_clean, fault_err_over_limit=shares,
+              every_fault_caught=caught, tolerance=ATTN_TOLERANCE, ok=ok))
+    check(ok, "mla_bwd_fault: a planted fault passed the check, or the clean "
+              "kernels failed it")
+
+
+def _mla_train_counts():
+    return dict(flash_fwd_qv=flash_attention_fwd.qv_launches,
+                mla_bwd_dq=flash_attention_bwd_dq.qv_launches,
+                mla_bwd_dkv=flash_attention_bwd_dkv.qv_launches,
+                attention=_attn_counts())
+
+
+def _zero_mla_train_counts():
+    _zero_attn_counts()
+    flash_attention_fwd.qv_launches = 0
+    flash_attention_bwd_dq.qv_launches = 0
+    flash_attention_bwd_dkv.qv_launches = 0
+
+
+def _mla_expected(config, steps):
+    """Per layer and step: kernel 1's qv forward once, and again when remat
+    recomputes the block; each backward kernel once. Every attention launch
+    is a qv launch."""
+    fwd = (2 if config.remat != "none" else 1) * config.n_layer * steps
+    bwd = config.n_layer * steps
+    return dict(flash_fwd_qv=fwd, mla_bwd_dq=bwd, mla_bwd_dkv=bwd,
+                attention=dict(flash_fwd=fwd, flash_bwd_dkv=bwd,
+                               flash_bwd_dq=bwd))
+
+
+def mla_train_grad_phase(seqlen=2048, batch=1, seed=4):
+    """One loss and gradient of the DeepSeek-V2-Lite-width MLA GPT (all 27
+    layers, configs/deepseek-v2-lite-mla-synth.yaml, remat "full") through
+    the kernels, bf16 compute and fp32 weights, against the plain model
+    (utils.testing.gpt_loss_ref, MLA expanded per head) in fp32 and in bf16
+    eager: the 2x-bf16-eager contract of train_grad. The three gradient
+    sets never live at once: each is held to fp32's and dropped."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config, _, _ = load_config(MLA_TRAIN_CONFIG)
+    model = GPTLMHeadModel(
+        config, device="cuda", param_dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    rng = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rng.randint(
+        0, config.vocab_size, (batch, seqlen + 1))).cuda()
+    ids, labels = tokens[:, :-1], tokens[:, 1:]
+    _zero_mla_train_counts()
+    loss = cross_entropy_loss(model(ids).float(), labels)
+    grads = torch.autograd.grad(loss, params)
+    counts = _mla_train_counts()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    loss32 = gpt_loss_ref(model, ids, labels, dtype=torch.float32)
+    grads32 = torch.autograd.grad(loss32, params)
+
+    def worst(gs):
+        errs = {n: _max_rel(g, g32) for n, g, g32 in zip(names, gs, grads32)}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    port_grad, port_at = worst(grads)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss16 = gpt_loss_ref(model, ids, labels, dtype=torch.bfloat16)
+    grads16 = torch.autograd.grad(loss16, params)
+    bf16_grad, bf16_at = worst(grads16)
+    del grads16, grads32
+    loss_err = abs(loss.item() - loss32.item())
+    loss_err16 = abs(loss16.item() - loss32.item())
+    loss_floor = LOSS_FLOOR_FRACTION * abs(loss32.item())
+    want = _mla_expected(config, 1)
+    ok = (finite and loss_err <= 2 * loss_err16 + loss_floor
+          and port_grad <= 2 * bf16_grad + GRAD_FLOOR and counts == want)
+    result = dict(
+        phase="mla_train_grad", model="DeepSeek-V2-Lite widths "
+        "(configs/deepseek-v2-lite-mla-synth.yaml), random fp32 weights "
+        f"(seed {seed})", layers=config.n_layer,
+        params_b=sum(p.numel() for p in params) / 1e9, batch=batch,
+        seqlen=seqlen, compute_dtype="bfloat16", remat=config.remat,
+        loss_port=loss.item(), loss_fp32=loss32.item(),
+        loss_bf16_eager=loss16.item(), loss_err_port=loss_err,
+        loss_err_bf16_eager=loss_err16, loss_limit=2 * loss_err16 + loss_floor,
+        grad_rel_err_port=port_grad, grad_worst_tensor_port=port_at,
+        grad_rel_err_bf16_eager=bf16_grad, grad_worst_tensor_bf16=bf16_at,
+        grad_limit=2 * bf16_grad + GRAD_FLOOR, launches=counts,
+        launches_expected=want,
+        contract="err <= 2 x bf16-eager err + floor (loss: 1e-3 |loss|, "
+                 "gradients: 1e-2 relative)", ok=ok)
+    del model, params, loss, loss16
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(result)
+    check(ok, "mla_train_grad outside the 2x bf16-eager contract, not "
+              "finite, or launches off the count")
+    return result
+
+
+def mla_train_phase():
+    """`training.run.main` on configs/deepseek-v2-lite-mla-synth.yaml (27
+    layers, b 2 x s 4096, remat "full"), MLA_TRAIN_STEPS steps with a short
+    warmup: falling loss, tokens/s and MFU against the MLA-aware 6N,
+    peak memory, and the launches of kernel 1's qv forward and the two
+    backward kernels, counted over this phase only."""
+    argv = ["--config", MLA_TRAIN_CONFIG,
+            "--set", f"train.total_steps={MLA_TRAIN_STEPS}",
+            "--set", f"train.warmup_steps={MLA_TRAIN_WARMUP}"]
+    config, _, dcfg = load_config(MLA_TRAIN_CONFIG, argv[3::2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_mla_train_counts()
+    t0 = time.perf_counter()
+    report = train_run.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _mla_train_counts()
+    steps = report["steps"]
+    losses = [s["loss"] for s in steps]
+    n = len(steps)
+    want = _mla_expected(config, n)
+    ok = (n == MLA_TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and counts == want)
+    result = dict(
+        phase="mla_train", config="configs/deepseek-v2-lite-mla-synth.yaml",
+        overrides=argv[2:], layers=config.n_layer, n_embd=config.n_embd,
+        heads=config.n_head, kv_lora_rank=config.kv_lora_rank,
+        vocab=config.vocab_size, remat=config.remat,
+        batch=dcfg["batch_size"], seqlen=dcfg["seqlen"], steps=steps,
+        tokens_per_s=report["tokens_per_s"], mfu=report["mfu"],
+        flops_per_token=gpt_flops_per_token(config),
+        mfu_peak="989 TFLOP/s (H100 SXM bf16 dense, data sheet); 6N with "
+                 "MLA's own matrices, no attention term",
+        wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts, launches_expected=want,
+        launches_per_step={k: counts[k] / max(n, 1) for k in
+                           ("flash_fwd_qv", "mla_bwd_dq", "mla_bwd_dkv")},
+        ok=ok)
+    emit(result)
+    check(ok, "mla_train: non-finite or non-falling loss, or launches off "
+              "the count")
+    return result
+
+
+def mla_train_phases():
+    """The MLA training phases in order; returns what the kernels line
+    needs."""
+    cases = {name: mla_bwd_case(name, seed=320 + i)
+             for i, name in enumerate(MLA_BWD_CASES)}
+    mla_bwd_fault_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad = mla_train_grad_phase()
+    train = mla_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(cases=cases, grad=grad, train=train)
+
+
+def mla_train_kernel_entries(mlat, logs):
+    """The kernels line's entries of kernels 3 and 2's MLA instances
+    (csrc/mla_bwd.cu): each at the main path's case (qv, causal, b 2 s
+    4096), its other cases, registers and spills, and its launches in
+    mla_train."""
+    cases = mlat["cases"]
+    main = cases["qv-causal-s4096"]
+    lib = {"mla_bwd": logs.get("mla_bwd", "")}
+    entries = []
+    for key, name, kernel, replaces, outs in (
+            ("dq", "mla_bwd_dq", "mla_bwd_dq_kernel", "flash_bwd.py:449",
+             ("dq", "delta", "dqv")),
+            ("dkv", "mla_bwd_dkv", "mla_bwd_dkv_kernel", "flash_bwd.py:233",
+             ("dk", "dv"))):
+        err = max(c["held"][o]["max_abs_err"] for c in cases.values()
+                  for o in outs if o in c["held"])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="flash_attn_tpu_torch/csrc/mla_bwd.cu",
+            replaces=f"flash_attn_tpu/kernels/{replaces}",
+            path=("kernel 3's qv path (dQv, qv at :467-498)" if key == "dq"
+                  else "kernel 2's qv path (dS^T Qv in dV, qv at :381-386)"),
+            design="mma.sync from ldmatrix, 512 threads, 32-row x 32-key "
+                   "tiles, cp.async double buffering, no atomics",
+            launches=mlat["train"]["launches"][name],
+            launches_by_path=dict(
+                mla_train=mlat["train"]["launches"][name],
+                mla_train_grad=mlat["grad"]["launches"][name]),
+            max_abs_err=err, ms=main[f"{key}_ms"],
+            plain_ms=main[f"{key}_plain_ms"], bound_ms=main[f"{key}_bound_ms"],
+            bound_by=main[f"{key}_bound_by"],
+            # SDPA's backward computes dq, dk and dv at once: the same
+            # figure stands beside both kernels.
+            library_ms=main["library_bwd_ms"],
+            shape="b=2 sq=sk=4096 h=16 hk=1 d=64 dv=512 causal bf16, qv",
+            cases={n: {k: c[k] for k in (f"{key}_ms", f"{key}_plain_ms",
+                                         f"{key}_bound_ms", "library_bwd_ms",
+                                         "err_over_limit")}
+                   for n, c in cases.items()},
+            ptxas=ptxas_of(lib, kernel)))
+    return entries
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    choices = ("kernel", "attn", "features", "varlen", "varlen_features",
+               "vllm", "decode", "sparse", "blocksparse", "quant", "mla",
+               "mla_bwd_kernels", "mla_train")
     parser.add_argument(
-        "--only", nargs="+",
-        choices=("kernel", "attn", "features", "varlen", "varlen_features",
-                 "vllm", "decode", "sparse", "blocksparse", "quant", "mla"),
-        help="run only these kernel phases (kernel, attn_kernels + attn_fault, "
+        "--only", nargs="+", metavar="PHASES",
+        help=f"run only these kernel phases, {', '.join(choices)}, named "
+             "apart or with commas (kernel, attn_kernels + attn_fault, "
              "the attn_features phases, "
              "varlen_kernels + varlen_fault + varlen_train, the "
              "varlen_features phases (varlen_train first) + vllm_alibi, "
              "vllm, "
              "decode_kernels + decode_fault, the sparse phases, the "
              "block-sparse phases, quant_kernels + quant_fault + quant_vllm "
-             "+ quant_serve, the MLA phases) and stop, with no result line: "
-             "for iterating on one kernel")
+             "+ quant_serve, the MLA serving phases, mla_bwd_kernels + "
+             "mla_bwd_fault, mla_train_grad + mla_train) and stop, with no "
+             "result line: for iterating on one kernel")
     only = parser.parse_args(argv).only
+    if only:
+        only = [name for arg in only for name in arg.split(",") if name]
+        unknown = sorted(set(only) - set(choices))
+        if unknown:
+            parser.error(f"--only: unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -7268,6 +7708,13 @@ def main(argv=None):
             quant_serve_phase(TimedEngine(model, ENGINE, device="cuda"), model)
         if "mla" in only:
             mla_phases()
+        if "mla_bwd_kernels" in only:
+            for i, name in enumerate(MLA_BWD_CASES):
+                mla_bwd_case(name, seed=320 + i)
+            mla_bwd_fault_phase()
+        if "mla_train" in only:
+            mla_train_grad_phase()
+            mla_train_phase()
         print(smi(), flush=True)
         return 0
 
@@ -7356,6 +7803,7 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     mla = mla_phases()
+    mlat = mla_train_phases()
 
     train_grad_phase()
     gc.collect()
@@ -7667,6 +8115,7 @@ def main(argv=None):
     kernels += sparse_kernel_entries(sparse, logs)
     kernels += blocksparse_kernel_entries(bsr, logs)
     kernels += mla_kernel_entries(mla, logs)
+    kernels += mla_train_kernel_entries(mlat, logs)
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -175,24 +175,29 @@ class _FlashAttnCore(torch.autograd.Function):
 
 class _FlashAttnQvCore(torch.autograd.Function):
     """out, lse = attention(q, k, v) with MLA's absorbed query qv, in (b,
-    h, s, d): kernel 1's qv forward (`csrc/flash_fwd_qv.cu` on the card).
-    Its backward (dQv on kernels 2-3) is not ported yet and raises."""
+    h, s, d): kernel 1's qv forward, then kernels 3 and 2's qv backward
+    (`csrc/flash_fwd_qv.cu` and `csrc/mla_bwd.cu` on the card), which
+    return dq, dk, dv (with dS^T Qv) and dqv. As in `_FlashAttnCore`, the
+    LSE's cotangent is ignored and no copy of out is kept."""
 
     @staticmethod
     def forward(ctx, q, k, v, qv, softmax_scale, causal, window_size,
                 softcap, extras):
         q, k, v, qv = (rows_dense(x) for x in (q, k, v, qv))
-        out, lse = flash_attention_fwd(
-            q, k, v, qv=qv, softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size, softcap=softcap, **extras)
+        kw = dict(softmax_scale=softmax_scale, causal=causal,
+                  window_size=window_size, softcap=softcap)
+        out, lse = flash_attention_fwd(q, k, v, qv=qv, **kw, **extras)
+        ctx.save_for_backward(q, k, v, qv, lse)
+        ctx.kw = kw
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        raise NotImplementedError(
-            "the backward through qv is not ported yet: ROADMAP queue 1, "
-            "item 10 (MLA training: dQv on kernels 2-3)")
+        q, k, v, qv, lse = ctx.saved_tensors
+        dq, dk, dv, dqv = flash_attention_bwd(q, k, v, lse, rows_dense(dout),
+                                              qv=qv, **ctx.kw)
+        return dq, dk, dv, dqv, None, None, None, None, None
 
 
 def _gathered_probs(s, mask, scale, softcap):
@@ -334,7 +339,7 @@ def flash_attn_func(
     plain torch, as the JAX package runs it in XLA. `qv` (b, sq, h, dv) is
     MLA's absorbed query (v (b, sk, hk, dv) is the latent): the scores
     gain qv . v and the default scale is (d + dv)^-0.5; on the card it runs
-    kernel 1's qv forward (d 64, dv 512), and its backward raises.
+    kernel 1's qv forward and kernels 2-3's qv backward (d 64, dv 512).
 
     `deterministic` and `bias_grad` are taken so that calls written for
     the JAX API run unchanged, and nothing reads them: the backward is

@@ -347,8 +347,11 @@ def check_rows_dense(name: str, t: torch.Tensor) -> None:
 
 def rows_dense(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when `check_rows_dense` accepts it, else a contiguous
-    copy."""
-    return t if rows_readable(t) else t.contiguous()
+    copy with every stride rewritten (`contiguous()` would return a
+    tensor whose only odd stride is on a size-1 dimension, such as the
+    gradients autograd hands a batch of one, as it is)."""
+    return (t if rows_readable(t)
+            else t.clone(memory_format=torch.contiguous_format))
 
 
 # 1-byte KV-cache element types: int8, or fp8 e4m3 (the JAX package's

@@ -27,6 +27,14 @@ ALiBi, segment ids, attention_chunk, sink tokens or dropout the kernels'
 instances of `csrc/flash_bwd_features.cu` run (counted in `launches` and
 `feature_launches`); a learnable sink alone needs none, its LSE carries
 it. The rest raise NotImplementedError.
+
+At MLA's widths (d 64, dv 512, `kernels.mla_attn.check_pair`) both
+wrappers take `qv`, MLA's absorbed query (S = Q K^T + Qv V^T, V the
+latent): the dQ kernel then also returns dQv = dS V and the dK/dV kernel
+adds dS^T Qv to dV. On the card these calls, and the dv-512 backward
+without qv, run `csrc/mla_bwd.cu` (kernels 3 and 2's MLA instances,
+counted in `launches`, with qv also in `qv_launches`); qv with a window, a
+softcap or features raises, as the forward does (`check_qv`).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.kernels import mla_attn
 from flash_attn_tpu_torch.kernels.common import (
     Features,
     make_features,
@@ -47,12 +56,14 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
     FEATURE_ARGTYPES,
     _scale,
     check_kernel_inputs,
+    check_qv,
     check_shapes,
     check_unported,
     feature_args,
     feature_scores,
     feature_tensors,
     head_passes,
+    qv_scale,
     scores,
     stats_ready,
     strides_arg,
@@ -110,13 +121,15 @@ def bwd_walks(sq, sk, h, hk, d, causal=False, window_size=(-1, -1),
 
 
 def _p_dp(q, k, v, do, lse, g, heads, scale, softcap, visible,
-          features=None):
+          features=None, qv=None):
     """P, dP and the softcap's tanh term (or None) of query heads `heads`
     (of kv head g), fp32 (b, n, sq, sk): P recomputed from the scores (with
-    the ALiBi term) and the LSE, 0 where masked and on rows with lse =
-    -inf. With dropout, also P Z / (1 - p) for dV, and dP becomes dP Z /
-    (1 - p), as `_recompute_p_and_ds` does; else that P is P itself."""
-    s, t = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
+    the ALiBi term, and qv . v with qv) and the LSE, 0 where masked and on
+    rows with lse = -inf. With dropout, also P Z / (1 - p) for dV, and dP
+    becomes dP Z / (1 - p), as `_recompute_p_and_ds` does; else that P is P
+    itself."""
+    s, t = scores(q[:, heads], k[:, g:g + 1], scale, softcap,
+                  qv=None if qv is None else qv[:, heads], v=v[:, g:g + 1])
     sq, sk = s.shape[-2:]
     s = feature_scores(s, features, heads, sq, sk)
     lse_g = lse[:, heads, :, None]
@@ -139,25 +152,35 @@ def _ds(p, dp, delta, scale, t):
     return ds if t is None else ds * (1.0 - t * t)
 
 
-def _setup(q, k, softmax_scale, causal, window_size, visible, features):
+def _setup(q, k, v, qv, softmax_scale, causal, window_size, visible,
+           features):
     h, sq, d = q.shape[1:]
     hk, sk = k.shape[1], k.shape[2]
     if visible is None:
         window = normalize_window(window_size, causal)
         visible = (visible_mask(sq, sk, window, q.device) if features is None
                    else features.visible(sq, sk, window, q.device))
-    return h // hk, _scale(d, softmax_scale), visible
+    return h // hk, _bwd_scale(q, v, qv, softmax_scale), visible
+
+
+def _bwd_scale(q, v, qv, softmax_scale):
+    """The softmax scale: d^-0.5 by default, (d + dv)^-0.5 with qv."""
+    d = q.shape[3]
+    return (_scale(d, softmax_scale) if qv is None
+            else qv_scale(d, v.shape[3], softmax_scale))
 
 
 def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
                  window_size=(-1, -1), softcap=0.0, visible=None,
-                 features: Optional[Features] = None):
+                 features: Optional[Features] = None, qv=None):
     """Plain version of the dK/dV kernel: (dk, dv) in k's and v's dtypes,
     each kv head's group of query heads summed, in fp32. `visible`, a
     (sq, sk) bool mask, replaces the causal/window rule; `features` as in
-    `flash_attention_fwd_ref` (dV takes P Z / (1 - p) with dropout)."""
-    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
-                                   visible, features)
+    `flash_attention_fwd_ref` (dV takes P Z / (1 - p) with dropout); with
+    `qv` (b, h, sq, dv) dV also takes dS^T Qv, and the default scale is
+    (d + dv)^-0.5."""
+    group, scale, visible = _setup(q, k, v, qv, softmax_scale, causal,
+                                   window_size, visible, features)
     b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -165,10 +188,13 @@ def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
         dk_g = dv_g = 0.0
         for heads in head_passes(g, group, b, sq, sk, features):
             p, dp, t, p_drop = _p_dp(q, k, v, do, lse, g, heads, scale,
-                                     softcap, visible, features)
+                                     softcap, visible, features, qv)
             ds = _ds(p, dp, delta[:, heads], scale, t)
             dv_g = dv_g + torch.matmul(p_drop.transpose(-1, -2),
                                        do[:, heads].float()).sum(1)
+            if qv is not None:
+                dv_g = dv_g + torch.matmul(ds.transpose(-1, -2),
+                                           qv[:, heads].float()).sum(1)
             dk_g = dk_g + torch.matmul(ds.transpose(-1, -2),
                                        q[:, heads].float()).sum(1)
         dv[:, g] = dv_g.to(v.dtype)
@@ -178,23 +204,28 @@ def _bwd_dkv_ref(q, k, v, do, lse, delta, *, softmax_scale=None, causal=False,
 
 def _bwd_dq_ref(q, k, v, do, lse, *, softmax_scale=None, causal=False,
                 window_size=(-1, -1), softcap=0.0, visible=None,
-                features: Optional[Features] = None):
+                features: Optional[Features] = None, qv=None):
     """Plain version of the dQ kernel: (dq in q's dtype, delta (b, h, sq)
-    fp32 = sum_j P dP, dP times Z / (1 - p) with dropout), in fp32.
-    `visible` and `features` as in `_bwd_dkv_ref`."""
-    group, scale, visible = _setup(q, k, softmax_scale, causal, window_size,
-                                   visible, features)
+    fp32 = sum_j P dP, dP times Z / (1 - p) with dropout), in fp32, and
+    with `qv` a third value, dqv = dS V in qv's dtype. `visible`,
+    `features` and `qv` as in `_bwd_dkv_ref`."""
+    group, scale, visible = _setup(q, k, v, qv, softmax_scale, causal,
+                                   window_size, visible, features)
     b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
     dq = torch.empty_like(q)
+    dqv = None if qv is None else torch.empty_like(qv)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     for g in range(k.shape[1]):
         for heads in head_passes(g, group, b, sq, sk, features):
             p, dp, t, _ = _p_dp(q, k, v, do, lse, g, heads, scale, softcap,
-                                visible, features)
+                                visible, features, qv)
             delta[:, heads] = (p * dp).sum(-1)
             ds = _ds(p, dp, delta[:, heads], scale, t)
             dq[:, heads] = torch.matmul(ds, k[:, g:g + 1].float()).to(q.dtype)
-    return dq, delta
+            if qv is not None:
+                dqv[:, heads] = torch.matmul(
+                    ds, v[:, g:g + 1].float()).to(qv.dtype)
+    return (dq, delta) if qv is None else (dq, delta, dqv)
 
 
 def _check_stats(q, **stats):
@@ -260,18 +291,44 @@ def _launch_bwd(name, owner, args, strides, dims, q, features):
     owner.feature_launches += features is not None
 
 
+def _mla_shaped(q, v, qv) -> bool:
+    """Whether the call has MLA's shape (qv, or a v wider than q), which
+    takes `csrc/mla_bwd.cu` on the card."""
+    return qv is not None or v.shape[3] != q.shape[3]
+
+
+def _mla_scale(q, v, qv, softmax_scale, window_size, softcap, features):
+    """None unless `_mla_shaped`; then its softmax scale. Raises
+    NotImplementedError for qv with a window, a softcap or features, on
+    the CPU as on the card."""
+    if not _mla_shaped(q, v, qv):
+        return None
+    check_qv(features, window_size, softcap)
+    return _bwd_scale(q, v, qv, softmax_scale)
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
                             causal=False, window_size=(-1, -1), softcap=0.0,
-                            features: Optional[Features] = None):
-    """(dk, dv), each (b, hk, sk, d) in k's dtype, GQA groups summed. CUDA
-    tensors launch flash_bwd_dkv, or with features its instance in
-    csrc/flash_bwd_features.cu (counted in
+                            features: Optional[Features] = None, qv=None):
+    """(dk, dv), each (b, hk, sk, d) in k's dtype, GQA groups summed; with
+    `qv`, dv also takes dS^T Qv. CUDA tensors launch flash_bwd_dkv, or
+    with features its instance in csrc/flash_bwd_features.cu (counted in
     `flash_attention_bwd_dkv.launches`, the latter also in
-    `feature_launches`); CPU tensors take `_bwd_dkv_ref`."""
+    `feature_launches`), or at MLA's widths csrc/mla_bwd.cu's (counted in
+    `launches`, with qv also in `qv_launches`); CPU tensors take
+    `_bwd_dkv_ref`."""
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
+    mla = _mla_scale(q, v, qv, softmax_scale, window_size, softcap, features)
     if q.device.type == "cpu":
-        return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw, features=features)
+        return _bwd_dkv_ref(q, k, v, do, lse, delta, **kw, features=features,
+                            qv=qv)
+    if mla is not None:
+        dk, dv = mla_attn.backward_dkv(q, qv, k, v, do, lse, delta, mla,
+                                       causal)
+        flash_attention_bwd_dkv.launches += 1
+        flash_attention_bwd_dkv.qv_launches += qv is not None
+        return dk, dv
     q, k, v, do, stats, dims = _prepare(q, k, v, do,
                                         dict(lse=lse, delta=delta), **kw)
     dk = torch.empty_like(k)
@@ -285,20 +342,30 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, softmax_scale=None,
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.qv_launches = 0
 flash_attention_bwd_dkv.feature_launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, *, softmax_scale=None,
                            causal=False, window_size=(-1, -1), softcap=0.0,
-                           features: Optional[Features] = None):
-    """(dq (b, h, sq, d) in q's dtype, delta (b, h, sq) fp32). CUDA tensors
-    launch flash_bwd_dq, or with features its instance in
-    csrc/flash_bwd_features.cu (counted as in `flash_attention_bwd_dkv`);
-    CPU tensors take `_bwd_dq_ref`."""
+                           features: Optional[Features] = None, qv=None):
+    """(dq (b, h, sq, d) in q's dtype, delta (b, h, sq) fp32), and with
+    `qv` a third value, dqv in qv's dtype. CUDA tensors launch
+    flash_bwd_dq, or with features its instance in
+    csrc/flash_bwd_features.cu, or at MLA's widths csrc/mla_bwd.cu's
+    (counted as in `flash_attention_bwd_dkv`); CPU tensors take
+    `_bwd_dq_ref`."""
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap)
+    mla = _mla_scale(q, v, qv, softmax_scale, window_size, softcap, features)
     if q.device.type == "cpu":
-        return _bwd_dq_ref(q, k, v, do, lse, **kw, features=features)
+        return _bwd_dq_ref(q, k, v, do, lse, **kw, features=features, qv=qv)
+    if mla is not None:
+        dq, delta, dqv = mla_attn.backward_dq(q, qv, k, v, do, lse, mla,
+                                              causal)
+        flash_attention_bwd_dq.launches += 1
+        flash_attention_bwd_dq.qv_launches += qv is not None
+        return (dq, delta) if qv is None else (dq, delta, dqv)
     q, k, v, do, stats, dims = _prepare(q, k, v, do, dict(lse=lse), **kw)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -310,6 +377,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, *, softmax_scale=None,
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.qv_launches = 0
 flash_attention_bwd_dq.feature_launches = 0
 
 _DIMS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -372,17 +440,14 @@ def flash_attention_bwd(
     mask_mod=None,
     aux_tensors=(),
     aux_scalars=(),
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flash-attention backward. Returns (dq, dk, dv); dk/dv come back per
-    kv head (GQA groups summed), each in its input's dtype. Unlike the JAX
+) -> Tuple[torch.Tensor, ...]:
+    """Flash-attention backward. Returns (dq, dk, dv), and with `qv` (dq,
+    dk, dv, dqv) as the JAX function does; dk/dv come back per kv head
+    (GQA groups summed), each in its input's dtype. Unlike the JAX
     function it takes no `out`: delta = sum_j P dP comes from the dQ
     kernel, not from rowsum(dO * O). `lse` is the forward's, which carries
     a learnable sink; the sink's own gradient is the caller's
     (flash_attn_interface)."""
-    if qv is not None:
-        raise NotImplementedError(
-            "the backward through qv is not ported yet: ROADMAP queue 1, "
-            "item 10 (MLA training: dQv on kernels 2-3)")
     check_unported(
         bias=bias, score_mod=score_mod, mask_mod=mask_mod,
         aux_tensors=tuple(aux_tensors or ()),
@@ -396,12 +461,12 @@ def flash_attention_bwd(
                   attention_chunk=attention_chunk,
                   sink_token_length=sink_token_length, dropout_p=dropout_p,
                   dropout_seed=dropout_seed))
-    if q.device.type != "cpu":
+    if q.device.type != "cpu" and not _mla_shaped(q, v, qv):
         # Copied (if at all) once for both kernels.
         q, k, v, do = (tma_ready(x, flash_attention_bwd) for x in (q, k, v, do))
-    dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return dq, dk, dv
+    dq, delta, *dqv = flash_attention_bwd_dq(q, k, v, do, lse, **kw, qv=qv)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw, qv=qv)
+    return (dq, dk, dv, *dqv)
 
 
 flash_attention_bwd.tma_copies = 0

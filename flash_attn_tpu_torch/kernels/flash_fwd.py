@@ -70,11 +70,15 @@ def qv_scale(d: int, dv: int, softmax_scale: Optional[float]) -> float:
     return (d + dv)**-0.5 if softmax_scale is None else float(softmax_scale)
 
 
-def scores(q, k, scale: float, softcap: float):
-    """fp32 scores of q (b, g, sq, d) against k (b, 1, sk, d): s * scale,
-    or tanh(s * scale / softcap) * softcap. Returns (scores, tanh term or
-    None); the backward needs the tanh term for the softcap's chain rule."""
+def scores(q, k, scale: float, softcap: float, qv=None, v=None):
+    """fp32 scores of q (b, g, sq, d) against k (b, 1, sk, d), plus MLA's
+    qv (b, g, sq, dv) against v (b, 1, sk, dv) when qv is given: s *
+    scale, or tanh(s * scale / softcap) * softcap. Returns (scores, tanh
+    term or None); the backward needs the tanh term for the softcap's chain
+    rule."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if qv is not None:
+        s = s + torch.matmul(qv.float(), v.float().transpose(-1, -2))
     if softcap > 0.0:
         t = torch.tanh(s * (scale / softcap))
         return t * softcap, t
@@ -147,15 +151,9 @@ def flash_attention_fwd_ref(
     drop = features is not None and features.dropout_p > 0
     for g in range(hk):
         for heads in head_passes(g, group, b, sq, sk, features):
-            if qv is None:
-                s, _ = scores(q[:, heads], k[:, g:g + 1], scale, softcap)
-            else:
-                raw = (torch.matmul(q[:, heads].float(),
-                                    k[:, g:g + 1].float().transpose(-1, -2))
-                       + torch.matmul(qv[:, heads].float(),
-                                      v[:, g:g + 1].float().transpose(-1, -2)))
-                s = (torch.tanh(raw * (scale / softcap)) * softcap
-                     if softcap > 0.0 else raw * scale)
+            s, _ = scores(q[:, heads], k[:, g:g + 1], scale, softcap,
+                          qv=None if qv is None else qv[:, heads],
+                          v=v[:, g:g + 1])
             s = feature_scores(s, features, heads, sq, sk)
             s = s.masked_fill(~visible, float("-inf"))
             m = s.amax(dim=-1, keepdim=True)

@@ -1,11 +1,13 @@
 """Launchers of MLA's absorbed-qv kernels (csrc/mla_attn.cuh), the qv paths
-of kernels 4 and 5 (`csrc/mla_decode.cu`) and kernel 1's qv forward
-(`csrc/flash_fwd_qv.cu`), at MLA's widths: a 64-wide rope key beside a
-512-wide latent, which is both the second score operand and V:
+of kernels 4 and 5 (`csrc/mla_decode.cu`), kernel 1's qv forward
+(`csrc/flash_fwd_qv.cu`) and kernels 2 and 3's qv backward
+(`csrc/mla_bwd.cu`, kernels of csrc/mla_attn_bwd.cuh), at MLA's widths: a
+64-wide rope key beside a 512-wide latent, which is both the second score
+operand and V:
 
     O = softmax(scale * (Q K^T + Qv C^T)) C.
 
-The wrappers of kernels 1, 4 and 5 (`kernels.flash_fwd`,
+The wrappers of kernels 1-5 (`kernels.flash_fwd`, `kernels.flash_bwd`,
 `kernels.flash_decode_multipage`, `kernels.flash_decode`) call these on CUDA
 tensors and count the launches; on CPU tensors they compute their plain
 versions, which take the qv term at any widths. Nothing here runs when the
@@ -30,7 +32,7 @@ def check_pair(d: int, dv: int, what: str) -> None:
     if (d, dv) != (MLA_D, MLA_DV):
         raise NotImplementedError(
             f"{what}: head dims (d {d}, dv {dv}) on the card: the MLA kernels "
-            f"take ({MLA_D}, {MLA_DV}), ROADMAP queue 2, kernels 1, 4 and 5 "
+            f"take ({MLA_D}, {MLA_DV}), ROADMAP queue 2, kernels 1-5 "
             "(other (d, dv) pairs)")
 
 
@@ -73,6 +75,21 @@ def _fwd_fn():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    from flash_attn_tpu_torch.kernels._build import load_library
+
+    lib = load_library("mla_bwd")
+    for fn in (lib.mla_bwd_dq, lib.mla_bwd_dkv):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    return lib
 
 
 def decode(q, qv, k_view, v_view, cache_seqlens, block_table, num_splits,
@@ -168,3 +185,74 @@ def forward(q, qv, k, v, softmax_scale, causal):
     if rc != 0:
         raise RuntimeError(f"flash_fwd_qv launch failed: CUDA error {rc}")
     return out, lse
+
+
+def _check_bwd(q, qv, k, v, do, **stats):
+    """What the backward kernels take: the forward's shapes, dout like the
+    output, the statistics contiguous fp32 (b, h, sq)."""
+    b, h, sq, d = q.shape
+    hk, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    check_pair(d, dv, "qv backward" if qv is not None else "backward")
+    if (k.shape[0] != b or v.shape[:3] != k.shape[:3]
+            or do.shape != (b, h, sq, dv)
+            or (qv is not None and qv.shape != (b, h, sq, dv))):
+        raise ValueError(f"q {tuple(q.shape)}, qv "
+                         f"{None if qv is None else tuple(qv.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} and dout "
+                         f"{tuple(do.shape)} do not match")
+    if hk == 0 or h % hk != 0:
+        raise ValueError(f"{h} query heads do not group over {hk} kv heads")
+    _check_dtypes(q=q, k=k, v=v, dout=do,
+                  **({} if qv is None else dict(qv=qv)))
+    for name, t in stats.items():
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous fp32 (b, h, sq) on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)}")
+
+
+def _bwd_call(name, q, qv, k, v, do, lse, delta, outs, softmax_scale,
+              causal):
+    b, h, sq, _ = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g1 = outs[1] if outs[1] is not None else outs[0]
+    strides = [t.stride(i) for t in (q, q if qv is None else qv, k, v, do,
+                                     outs[0], g1) for i in range(3)]
+    rc = getattr(_bwd_lib(), name)(
+        q.data_ptr(), None if qv is None else qv.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        outs[0].data_ptr(), None if outs[1] is None else outs[1].data_ptr(),
+        (ctypes.c_longlong * 21)(*strides), b, h, hk, sq, sk,
+        float(softmax_scale), int(bool(causal)),
+        int(q.dtype == torch.float16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def backward_dq(q, qv, k, v, do, lse, softmax_scale, causal):
+    """One call of `csrc/mla_bwd.cu`'s dQ kernel (kernel 3's qv instance):
+    q (b, h, sq, 64), qv (b, h, sq, 512) or None, k (b, hk, sk, 64), v (b,
+    hk, sk, 512), dout (b, h, sq, 512), each read through its strides, and
+    the forward's lse (b, h, sq). Returns (dq like q, delta (b, h, sq) fp32
+    = sum_j P dP, dqv like qv or None)."""
+    _check_bwd(q, qv, k, v, do, lse=lse)
+    dq = torch.empty_like(q)
+    dqv = None if qv is None else torch.empty_like(qv)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _bwd_call("mla_bwd_dq", q, qv, k, v, do, lse, delta, (dq, dqv),
+              softmax_scale, causal)
+    return dq, delta, dqv
+
+
+def backward_dkv(q, qv, k, v, do, lse, delta, softmax_scale, causal):
+    """One call of `csrc/mla_bwd.cu`'s dK/dV kernel (kernel 2's qv
+    instance) on `backward_dq`'s inputs and its delta. Returns (dk like k,
+    dv like v), each kv head's group of query heads summed; with qv, dv
+    holds dS^T Qv beside P^T dO."""
+    _check_bwd(q, qv, k, v, do, lse=lse, delta=delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _bwd_call("mla_bwd_dkv", q, qv, k, v, do, lse, delta, (dk, dv),
+              softmax_scale, causal)
+    return dk, dv

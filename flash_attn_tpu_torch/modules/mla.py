@@ -8,7 +8,9 @@ flash_attn_tpu/modules/mla.py), computed in the weight-absorbed latent space:
 then W_uv un-absorbs the latent output per head. The cache holds one "kv
 head" of (qk_rope_head_dim + kv_lora_rank) values per token, the MLA memory
 saving. Without a cache the forward runs `flash_attn_func(qv=)` (kernel 1's
-qv forward on the card); with one it appends the token's rope key and latent
+qv forward on the card, and in training kernels 3 and 2's qv backward, so
+gradients reach every projection through the absorb and the un-absorb);
+with one it appends the token's rope key and latent
 and runs `flash_attention_decode(qv=)`: kernel 4's qv path over the engine's
 fused rope|latent page pools or split (rope, latent) pools, kernel 5's over
 `generate`'s contiguous (rope, latent) caches. The absorb and the

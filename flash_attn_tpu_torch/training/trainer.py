@@ -92,11 +92,24 @@ class SpeedMonitor:
         }
 
 
+def _mla_matrices(c) -> int:
+    """Weights of one MLA layer: W_q (or W_dq and W_uq), W_dkv, W_uk, W_uv
+    and out_proj."""
+    d = c.resolved_head_dim
+    h, dc, dr = c.n_head, c.kv_lora_rank, c.qk_rope_head_dim
+    dn, dv = c.qk_nope_head_dim or d, c.v_head_dim or d
+    q = (c.n_embd * c.q_lora_rank + c.q_lora_rank * h * (dn + dr)
+         if c.q_lora_rank else c.n_embd * h * (dn + dr))
+    return q + c.n_embd * (dc + dr) + h * dn * dc + h * dc * dv + h * dv * c.n_embd
+
+
 def gpt_flops_per_token(config) -> float:
     """6 N, N the weights a token is multiplied by: every dense layer's
     matrices and the head's (vocab x n_embd, tied or not); no attention
     term, no biases or norms. A gated MLP has three n_embd x n_inner
-    matrices, a plain one two. (The JAX package counts three for both.)"""
+    matrices, a plain one two; an MLA layer counts its own five weights,
+    not MHA's projections. (The JAX package counts three MLP matrices for
+    both and MHA's projections for MLA.)"""
     c = config
     d = c.head_dim if c.head_dim is not None else c.n_embd // c.n_head
     if c.activation_function in GATED_ACTIVATIONS:
@@ -104,15 +117,10 @@ def gpt_flops_per_token(config) -> float:
                                                      128))
     else:
         mlp = 2 * c.n_embd * (c.n_inner or 4 * c.n_embd)
-    n_params = (
-        c.padded_vocab_size * c.n_embd
-        + c.n_layer * (
+    attn = (_mla_matrices(c) if c.attn_type == "mla" else
             c.n_embd * (c.n_head + 2 * (c.n_head_kv or c.n_head)) * d
-            + c.n_head * d * c.n_embd
-            + mlp
-        )
-    )
-    return 6.0 * n_params
+            + c.n_head * d * c.n_embd)
+    return 6.0 * (c.padded_vocab_size * c.n_embd + c.n_layer * (attn + mlp))
 
 
 class EMA:

@@ -11,6 +11,8 @@ itself must match the JAX `_dropout_keep_mask` in bits. The CUDA kernels are
 held against the plain versions on the card by chip_smoke.py's
 attn_features phase."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +60,10 @@ def _close(got, want, what=""):
                                err_msg=what)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
 def _jax_keep(seed, b, h, sq, sk, p):
-    """The JAX kernel's keep mask over the whole (b, h, sq, sk) grid."""
+    """The JAX kernel's keep mask over the whole (b, h, sq, sk) grid,
+    jitted (its hash op by op costs seconds)."""
     seed_ref = jnp.asarray(seed, jnp.int32).reshape(1, 1)
     return jnp.stack([jnp.stack([
         _dropout_keep_mask(seed_ref, bi, hi, 0, 0, (sq, sk), 1.0 - p)
@@ -171,19 +175,22 @@ def test_feature_matches_oracle(name):
     port, oracle, bias, sink = _features(case, sq, sk, rng)
     left = window[0] if window[0] >= 0 else None
 
-    def ref(q, k, v, s):
+    def ref(q, k, v, s=None):
         out, _ = jax_attention_ref(
             q, k, v, attn_bias=None if bias is None else jnp.asarray(bias),
             causal=causal, window_size=(left, None), learnable_sink=s,
             **oracle)
         return out
 
+    @jax.jit
+    def jax_fwd_bwd(args, do):
+        out, vjp = jax.vjp(ref, *args)
+        return out, vjp(do)
+
     args = [jnp.asarray(x) for x in (q, k, v)]
     if sink is not None:
-        out_j, vjp = jax.vjp(ref, *args, jnp.asarray(sink))
-    else:
-        out_j, vjp = jax.vjp(lambda q, k, v: ref(q, k, v, None), *args)
-    grads_j = vjp(jnp.asarray(do))
+        args.append(jnp.asarray(sink))
+    out_j, grads_j = jax_fwd_bwd(args, jnp.asarray(do))
     out, _, grads = _port_run(q, k, v, do, sink, causal, window, port)
     _close(out, out_j, "out")
     for got, want, what in zip(grads, grads_j, ("dq", "dk", "dv", "dsink")):
@@ -258,8 +265,13 @@ def test_gather_kv_indices_matches_jax():
     idx = rng.integers(-4, sk + 4, (B, sq, topk)).astype(np.int32)
 
     def both(jax_fn, port_fn, arrays, cot):
-        out_j, vjp = jax.vjp(jax_fn, *map(jnp.asarray, arrays))
-        grads_j = vjp(jnp.asarray(cot))
+        @jax.jit
+        def jax_fwd_bwd(arrays, cot):
+            out, vjp = jax.vjp(jax_fn, *arrays)
+            return out, vjp(cot)
+
+        out_j, grads_j = jax_fwd_bwd([jnp.asarray(x) for x in arrays],
+                                     jnp.asarray(cot))
         ts = [torch.from_numpy(x).requires_grad_() for x in arrays]
         out = port_fn(*ts)
         grads = torch.autograd.grad(out, ts, torch.from_numpy(cot))
@@ -373,8 +385,8 @@ def test_mha_key_padding_mask_matches_jax():
     kpm = np.ones((B, 48), bool)
     kpm[0, 40:] = False
     kpm[1, 29:] = False
-    want = jax_mha.apply(params, jnp.asarray(x),
-                         key_padding_mask=jnp.asarray(kpm))
+    want = jax.jit(jax_mha.apply)(params, jnp.asarray(x),
+                                  key_padding_mask=jnp.asarray(kpm))
     got = mha(torch.from_numpy(x), key_padding_mask=torch.from_numpy(kpm))
     _close(got.detach().numpy(), want)
 

@@ -134,10 +134,13 @@ def _jax_result(name, grads=False, **kw):
         jax_attn, mask_mod=mod(jax_take), softcap=softcap,
         aux_tensors=tuple(jnp.asarray(a) for a in aux),
         block_sparse_tensors=plan)
+    # Jitted: the eager calls cost about twice as much in interpret mode.
     if grads:
         loss = lambda q_, k_, v_: jnp.sum(call(q_, k_, v_) * do)  # noqa: E731
-        return tuple(np.asarray(g) for g in jax.grad(loss, (0, 1, 2))(q, k, v))
-    out, lse, _ = call(q, k, v, return_attn_probs=True)
+        return tuple(np.asarray(g) for g in
+                     jax.jit(jax.grad(loss, (0, 1, 2)))(q, k, v))
+    out, lse, _ = jax.jit(functools.partial(call, return_attn_probs=True))(
+        q, k, v)
     return np.asarray(out), np.asarray(lse)
 
 

@@ -74,9 +74,11 @@ def _jax_varlen():
         jax_varlen, cu_seqlens_q=jnp.asarray(CU), cu_seqlens_k=jnp.asarray(CU),
         mask_mod=window_mod, block_sparse_tensors=plan,
         seqused_q=jnp.asarray(USED_Q, jnp.int32))
-    out, lse, _ = call(q, k, v, return_attn_probs=True)
+    # Jitted: the eager calls cost about twice as much in interpret mode.
+    out, lse, _ = jax.jit(functools.partial(call, return_attn_probs=True))(
+        q, k, v)
     loss = lambda q_, k_, v_: jnp.sum(call(q_, k_, v_) * do)  # noqa: E731
-    grads = jax.grad(loss, (0, 1, 2))(q, k, v)
+    grads = jax.jit(jax.grad(loss, (0, 1, 2)))(q, k, v)
     return plan, np.asarray(out), np.asarray(lse), tuple(
         np.asarray(g) for g in grads)
 

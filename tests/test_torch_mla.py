@@ -340,9 +340,12 @@ def test_engine_matches_jax_generate(jax_tokens, fused):
 
 
 def test_mla_raises_what_is_not_ported():
-    """1-byte latent pools (ValueError, as both packages), the backward
-    through qv, qv (or a dv != d forward) with a window, and (d, dv) pairs the MLA kernels do not
-    take (on the card) or a dv != d without qv (kernel 5)."""
+    """1-byte latent pools (ValueError, as both packages), qv (or a dv != d
+    forward) with a window, and (d, dv) pairs the MLA kernels do not take
+    (on the card) or a dv != d without qv (kernel 5) raise; the backward
+    through qv, once among them, now gives the gradients of the plain
+    expanded attention (tests/test_torch_mla_train.py holds it to the JAX
+    kernels)."""
     model = GPTLMHeadModel(GPTConfig(**FIELDS, dtype=torch.float32),
                            device="cpu")
     with pytest.raises(ValueError, match="MLA"):
@@ -356,11 +359,16 @@ def test_mla_raises_what_is_not_ported():
             torch.tensor([[0]], dtype=torch.int32), qv=torch.randn(1, 1, 4, DC),
             fused_kv_dim=DR, fused_kv_dim_v=DC)
     qs = torch.randn(1, 5, 4, DR, requires_grad=True)
-    out = flash_attn_func(qs, torch.randn(1, 5, 1, DR),
-                          torch.randn(1, 5, 1, DC),
-                          qv=torch.randn(1, 5, 4, DC), causal=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        out.sum().backward()
+    ks, cs = torch.randn(1, 5, 1, DR), torch.randn(1, 5, 1, DC)
+    qvs = torch.randn(1, 5, 4, DC, requires_grad=True)
+    out = flash_attn_func(qs, ks, cs, qv=qvs, causal=True)
+    grads = torch.autograd.grad(out.sum(), (qs, qvs))
+    s = (torch.einsum("bqhd,bkd->bhqk", qs, ks[:, :, 0])
+         + torch.einsum("bqhe,bke->bhqk", qvs, cs[:, :, 0])) * (DR + DC) ** -0.5
+    s = s.masked_fill(torch.ones(5, 5, dtype=torch.bool).triu(1), float("-inf"))
+    ref = torch.einsum("bhqk,bke->bqhe", s.softmax(-1), cs[:, :, 0])
+    for got, want in zip(grads, torch.autograd.grad(ref.sum(), (qs, qvs))):
+        torch.testing.assert_close(got, want, **TOL)
     with pytest.raises(NotImplementedError, match="queue 2"):
         flash_attn_func(qs.detach(), torch.randn(1, 5, 1, DR),
                         torch.randn(1, 5, 1, DC), qv=torch.randn(1, 5, 4, DC),

@@ -46,11 +46,30 @@ PAGE, MAX_PAGES, NPAGES, MAX_SEQLEN = 8, 4, 9, 64
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+def _draw_params(model, seed):
+    """Params of the JAX model's tree drawn with numpy: kernels and
+    embedding rows at 1/sqrt(fan-in), norm scales 1 + 0.1 N(0, 1). The
+    tree comes from `jax.eval_shape`, which runs no kernel (`model.init`
+    runs the Pallas kernels in interpret mode, seconds of compile)."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        x = rng.standard_normal(leaf.shape).astype(np.float32)
+        kind = path[-1].key
+        if kind == "scale":
+            return 1.0 + 0.1 * x
+        fan_in = leaf.shape[-1] if kind == "embedding" else leaf.shape[0]
+        return x / np.float32(np.sqrt(fan_in))
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 @pytest.fixture(scope="module")
 def models():
     jax_model = JaxGPTLMHeadModel(JaxGPTConfig(**FIELDS, dtype=jnp.float32))
-    params = jax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
-    params = jax.tree.map(np.asarray, params)
+    params = _draw_params(jax_model, 0)
     config = GPTConfig(**FIELDS, dtype=torch.float32)
     model = GPTLMHeadModel(config, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, config))

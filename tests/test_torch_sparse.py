@@ -113,11 +113,14 @@ def _jax_run(inputs, meta, grads, **kw):
         return jax_sparse(q, k, v, *map(jnp.asarray, meta),
                           return_softmax_lse=True, **jkw)
 
+    @jax.jit
+    def fwd_bwd(q, k, v, do):
+        (out, lse), vjp = jax.vjp(fwd, q, k, v)
+        return (out, lse, *vjp((do, jnp.zeros_like(lse))))
+
     if not grads:
-        return [np.asarray(x) for x in fwd(q, k, v)]
-    (out, lse), vjp = jax.vjp(fwd, q, k, v)
-    return [np.asarray(x) for x in
-            (out, lse, *vjp((do, jnp.zeros_like(lse))))]
+        return [np.asarray(x) for x in jax.jit(fwd)(q, k, v)]
+    return [np.asarray(x) for x in fwd_bwd(q, k, v, do)]
 
 
 def _port_run(inputs, meta, grads, **kw):

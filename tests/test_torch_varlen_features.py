@@ -116,8 +116,12 @@ def test_features_match_jax(name):
         return jax_varlen(q, k, v, cu, cu, seqused_k=used_k,
                           return_attn_probs=True, **kw, **jkw)[:2]
 
-    (out_j, lse_j), vjp = jax.vjp(fwd, *map(jnp.asarray, (q, k, v)))
-    grads_j = vjp((jnp.asarray(do), jnp.zeros_like(lse_j)))
+    @jax.jit
+    def fwd_bwd(q, k, v, do):
+        (out, lse), vjp = jax.vjp(fwd, q, k, v)
+        return out, lse, vjp((do, jnp.zeros_like(lse)))
+
+    out_j, lse_j, grads_j = fwd_bwd(*map(jnp.asarray, (q, k, v, do)))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out, lse, _ = flash_attn_varlen_func(
         tq, tk, tv, torch.from_numpy(cu), torch.from_numpy(cu),
